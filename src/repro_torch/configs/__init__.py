@@ -1,0 +1,27 @@
+"""Architecture registry of the port: ``get_config(name)`` /
+``get_smoke_config(name)``. Lists only the archs the port runs."""
+
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import ArchConfig
+
+ARCH_IDS = ("llama3-8b",)
+
+_MODULES = {
+    "llama3-8b": "llama3_8b",
+}
+
+
+def get_config(name: str) -> ArchConfig:
+    mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
+    return mod.CONFIG
+
+
+def get_smoke_config(name: str) -> ArchConfig:
+    mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
+    return mod.smoke_config()
+
+
+__all__ = ["ARCH_IDS", "ArchConfig", "get_config", "get_smoke_config"]
