@@ -2,8 +2,9 @@
 
 It mirrors ``repro``'s layout and names and is held against it on the
 same inputs. It imports neither JAX nor ``repro``. Ported so far: the
-paged-KV serving path of the decoder LM (llama3-8b), with the paged
-decode attention kernel written in CUDA for Hopper
+paged-KV serving path of the decoder LM (llama3-8b), over an unquantized
+or a quantized KV pool (``repro_torch.core.quant``), with the two paged
+decode attention kernels written in CUDA for Hopper
 (``repro_torch.kernels``). Entry points run on CUDA unless the caller
 passes ``device="cpu"``.
 """

@@ -1,3 +1,4 @@
-from repro_torch.checkpoint.bridge import params_from_reference
+from repro_torch.checkpoint.bridge import (kv_pool_from_reference,
+                                           params_from_reference)
 
-__all__ = ["params_from_reference"]
+__all__ = ["kv_pool_from_reference", "params_from_reference"]

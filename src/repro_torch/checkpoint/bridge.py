@@ -1,11 +1,12 @@
-"""Parameters from the reference's checkpoint layout.
+"""Parameters and KV pools from the reference's layouts.
 
 ``params_from_reference`` takes the reference's parameters flattened the
 way ``repro.checkpoint.ckpt`` saves them — '/'-joined key paths such as
 ``layers/block0/attn/wq``, the layer stack on a leading axis of each
 ``layers/...`` leaf — and returns a :class:`DecoderLM` holding the same
-values. Plain numpy in, so it reads a saved ``.npz`` as well as a live
-flattening.
+values. ``kv_pool_from_reference`` takes the reference's paged KV pool
+and returns the port's pool dict, bit for bit. Plain numpy in, so both
+read saved arrays as well as live ones.
 """
 
 from __future__ import annotations
@@ -15,7 +16,9 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from repro_torch._device import resolve_device
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import quant
 from repro_torch.models.transformer import DecoderLM
 
 
@@ -26,6 +29,8 @@ def _to_torch(arr: np.ndarray) -> torch.Tensor:
     arr = np.array(arr)                 # an owned, writable copy
     if arr.dtype.name == "bfloat16":
         return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
+    if arr.dtype == np.uint16:          # fp16-grid codes, held as int16
+        return torch.from_numpy(arr.view(np.int16))
     return torch.from_numpy(arr)
 
 
@@ -68,3 +73,33 @@ def params_from_reference(flat: Mapping[str, np.ndarray], cfg: ArchConfig,
                                  f"{tuple(param.shape)}")
             param.copy_(t)
     return model
+
+
+def kv_pool_from_reference(ref_cache: Mapping, kv_dtype: str,
+                           device: str | torch.device | None = None
+                           ) -> dict[str, torch.Tensor]:
+    """The port's KV pool (``DecoderLM.init_paged_cache`` layout) holding
+    the reference's pool ``{"layers": {"block0": {"k", "v"[, "k_scale",
+    "v_scale"]}}}`` — leaves stacked ``[n_layers, num_blocks, block_size,
+    G, head_dim]`` — bit for bit, on ``device`` (CUDA by default). The
+    fp16 grid's uint16 codes arrive as int16 holding the same bits
+    (``core.quant``). Raises on other sites, leaves or code dtypes."""
+    layers = ref_cache["layers"]
+    if set(layers) != {"block0"}:
+        raise ValueError(f"reference pool sites {sorted(layers)}: the port "
+                         f"pages one attention site per layer (block0)")
+    site = layers["block0"]
+    s = quant.spec(kv_dtype)
+    names = {"k", "v"} if s.name == "fp32" else {"k", "k_scale", "v",
+                                                 "v_scale"}
+    if set(site) != names:
+        raise ValueError(f"reference pool leaves {sorted(site)}, kv_dtype "
+                         f"{s.name!r} has {sorted(names)}")
+    dev = resolve_device(device)
+    pool = {name: _to_torch(site[name]).to(dev) for name in sorted(names)}
+    for name in ("k", "v"):
+        if s.name != "fp32" and pool[name].dtype != quant.code_dtype(s):
+            raise ValueError(f"{name}: {np.asarray(site[name]).dtype} codes,"
+                             f" kv_dtype {s.name!r} stores "
+                             f"{quant.code_dtype(s)}")
+    return pool

@@ -1,0 +1,259 @@
+"""Storage grids of the quantized KV pool: the KV half of
+``repro.core.quant``.
+
+A grid is an ``(n_bits, nm, ne)`` shape (``spec``): ``fp32``, ``fp16``,
+``int8`` (7 magnitude bits, ``ne=0``) and the fp8-style ``fp8_e4m3`` /
+``fp8_e5m2``. The float grids are the reference's, not IEEE's or OCP's: a
+code whose exponent field is 0 decodes to +0 (no subnormals), and the top
+binade is finite (no inf or NaN codes), so ``fp8_e4m3``'s largest value is
+480, not e4m3fn's 448. Hardware fp8 and half conversions do not compute
+these grids; everything here is integer arithmetic on the float32 bit
+pattern.
+
+``round_to_grid`` is the same function as the reference's bit-plane
+round-to-nearest-even (``repro/core/quant.py``: 23 mantissa planes and a
+ripple increment), written as one integer add on the pattern: adding
+``2^(drop-1) - 1`` plus the kept LSB and truncating ``drop`` bits is RNE,
+and a carry out of the mantissa lands in the exponent field exactly as
+the reference's ``exp + carry`` does. The results are bit-equal for every
+float32 input (``tests/test_torch_quant.py``).
+
+Storage: int8 codes for the int grid, uint8 ``sign|exp|mant`` codes for
+the 8-bit float grids. The reference keeps fp16-grid codes in uint16;
+torch has no ``index_put`` for uint16 on the CPU, and the pool is written
+by index puts, so the port keeps the same 16 bits in an **int16** tensor
+(``code_dtype``), and ``decode_float`` reads them back unsigned.
+
+The blockwise and axis-wise halves of the reference module
+(``quantize_blockwise``, ``quantize_axis``, ``quantize_ste``,
+``fake_quant``, ``layer_error``) are not ported yet (ROADMAP.md, port
+queue item 3, with K5).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core import fp
+
+# Scale floor: keeps all-zero vectors well-defined (q = 0, exact).
+SCALE_FLOOR = 1e-20
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantSpec:
+    """One storage grid: ``n_bits`` cells/value, (nm, ne) bit-serial shape."""
+
+    name: str
+    n_bits: int        # cells per stored value (row footprint)
+    n_mant: int        # nm — mantissa bits (int grids: magnitude bits)
+    n_exp: int         # ne — exponent bits; 0 => fixed-point integer grid
+
+    @property
+    def kind(self) -> str:
+        return "int" if self.n_exp == 0 else "float"
+
+    @property
+    def bias(self) -> int:
+        return (1 << (self.n_exp - 1)) - 1
+
+    @property
+    def emax(self) -> int:
+        """Largest unbiased exponent (no inf/nan codes — we saturate)."""
+        return (1 << self.n_exp) - 1 - self.bias
+
+    @property
+    def emin(self) -> int:
+        """Smallest normal unbiased exponent (below it: flush to zero)."""
+        return 1 - self.bias
+
+    @property
+    def qmax(self) -> float:
+        """Largest representable magnitude on the grid."""
+        if self.kind == "int":
+            return float((1 << self.n_mant) - 1)
+        return (2.0 - 2.0 ** (-self.n_mant)) * 2.0 ** self.emax
+
+    @property
+    def inv_qmax(self) -> float:
+        """float32 reciprocal of ``qmax``: scales are ``amax * inv_qmax``,
+        a multiply, as in the reference."""
+        return float(np.float32(1.0) / np.float32(self.qmax))
+
+
+DTYPES = {
+    "fp32": QuantSpec("fp32", 32, 23, 8),
+    "fp16": QuantSpec("fp16", 16, 10, 5),
+    "int8": QuantSpec("int8", 8, 7, 0),
+    "fp8_e4m3": QuantSpec("fp8_e4m3", 8, 3, 4),
+    "fp8_e5m2": QuantSpec("fp8_e5m2", 8, 2, 5),
+}
+_ALIASES = {"fp8": "fp8_e4m3"}
+
+
+def spec(dtype: str | QuantSpec) -> QuantSpec:
+    """Resolve a dtype name (or pass a spec through)."""
+    if isinstance(dtype, QuantSpec):
+        return dtype
+    s = DTYPES.get(_ALIASES.get(dtype, dtype))
+    if s is None:
+        raise ValueError(f"unknown weight dtype {dtype!r}; known: "
+                         f"{sorted(DTYPES) + sorted(_ALIASES)}")
+    return s
+
+
+def dtype_names() -> list[str]:
+    return sorted(DTYPES) + sorted(_ALIASES)
+
+
+def _f32(x) -> torch.Tensor:
+    return torch.as_tensor(x).to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# grid rounding and the packed float codes
+# ---------------------------------------------------------------------------
+
+
+def round_to_grid(x: torch.Tensor, dtype: str | QuantSpec) -> torch.Tensor:
+    """Round float32 values to the dtype's grid (values stay float32).
+
+    Float grids: RNE on the top ``nm`` mantissa bits, exponent clamped to
+    [emin, emax] with flush-to-+0 below (float32 zeros and subnormals
+    included) and saturation to ±qmax above; float32 NaN/Inf pass
+    through unchanged. Int grids: round-to-nearest-even, then clip to
+    ±qmax.
+    """
+    s = spec(dtype)
+    x = _f32(x)
+    if s.name == "fp32":
+        return x
+    if s.kind == "int":
+        return torch.clamp(torch.round(x), -s.qmax, s.qmax)
+
+    u, sign, exp, _ = fp.unpack_f32(x)
+    drop = fp.N_MANT - s.n_mant
+    mag = u.to(torch.int64) & 0x7FFFFFFF
+    lsb = (mag >> drop) & 1
+    mag = ((mag + ((1 << (drop - 1)) - 1) + lsb) >> drop) << drop
+    exp_r = mag >> fp.N_MANT                 # 1.11..1 + ulp -> 10.00..0
+    e_unb = exp_r - fp.BIAS
+    out = fp.pack_f32(sign, exp_r, mag & 0x7FFFFF)
+    # scalars, not a tensor made from one: on CUDA that is a host-to-device
+    # copy, which waits for the stream
+    out = torch.where(e_unb > s.emax,
+                      torch.where(sign == 1, -s.qmax, s.qmax), out)
+    out = torch.where((exp == 0) | (e_unb < s.emin), 0.0, out)
+    return torch.where(exp == 255, x, out)   # NaN/Inf propagate
+
+
+def encode_float(v: torch.Tensor, dtype: str | QuantSpec) -> torch.Tensor:
+    """On-grid float32 values -> packed ``sign|exp|mant`` integer codes
+    (``code_dtype``; fields computed in int32 and narrowed modulo the
+    storage width, as the reference narrows them)."""
+    s = spec(dtype)
+    _, sign, exp, mant = fp.unpack_f32(_f32(v))
+    zero = exp == 0
+    e_t = torch.where(zero, 0, exp - fp.BIAS + s.bias)
+    m_t = torch.where(zero, 0, mant >> (fp.N_MANT - s.n_mant))
+    code = (sign << (s.n_exp + s.n_mant)) | (e_t << s.n_mant) | m_t
+    return code.to(code_dtype(s))
+
+
+def decode_float(code: torch.Tensor, dtype: str | QuantSpec) -> torch.Tensor:
+    """Packed integer codes -> float32 values (exact inverse of
+    ``encode_float``). int16 storage is read as the unsigned 16 bits it
+    holds."""
+    s = spec(dtype)
+    c = code.to(torch.int32)
+    if code.dtype == torch.int16:
+        c = c & 0xFFFF
+    sign = (c >> (s.n_exp + s.n_mant)) & 1
+    e_t = (c >> s.n_mant) & ((1 << s.n_exp) - 1)
+    m_t = c & ((1 << s.n_mant) - 1)
+    out = fp.pack_f32(sign, e_t - s.bias + fp.BIAS,
+                      m_t << (fp.N_MANT - s.n_mant))
+    return torch.where(e_t == 0, 0.0, out)
+
+
+# ---------------------------------------------------------------------------
+# declared error budgets
+# ---------------------------------------------------------------------------
+
+
+def error_bound(x: torch.Tensor, dtype: str | QuantSpec,
+                scale) -> torch.Tensor:
+    """Per-element upper bound on ``|dequant(quant(x)) - x|`` given the
+    scale. Int grids: half a quantization step. Float grids: RNE relative
+    error (``2^-nm``, 2x slack over the tight ``2^-(nm+1)``) plus the FTZ
+    absolute floor (``scale * 2^emin``)."""
+    s = spec(dtype)
+    x = _f32(x)
+    if s.name == "fp32":
+        return torch.zeros_like(x)
+    scale = _f32(scale)
+    if s.kind == "int":
+        return torch.broadcast_to(0.5 * scale, x.shape).to(torch.float32)
+    return x.abs() * 2.0 ** (-s.n_mant) + scale * 2.0 ** s.emin
+
+
+def layer_error_budget(dtype: str | QuantSpec) -> float:
+    """Declared max per-layer error, relative to each vector's absmax."""
+    s = spec(dtype)
+    if s.name == "fp32":
+        return 0.0
+    if s.kind == "int":
+        return 0.5 / s.qmax
+    return 2.0 ** (-s.n_mant) + 2.0 ** s.emin / s.qmax
+
+
+# ---------------------------------------------------------------------------
+# per-vector code/scale split for the KV datapath
+# ---------------------------------------------------------------------------
+
+
+def code_dtype(dtype: str | QuantSpec) -> torch.dtype:
+    """Storage dtype of packed codes for a grid (float32 passthrough for
+    fp32: the "codes" are the values themselves). The fp16 grid's uint16
+    codes are held as int16 (module docstring)."""
+    s = spec(dtype)
+    if s.name == "fp32":
+        return torch.float32
+    if s.kind == "int":
+        return torch.int8
+    return torch.uint8 if s.n_bits <= 8 else torch.int16
+
+
+def quantize_kv(x: torch.Tensor, dtype: str | QuantSpec):
+    """Split ``x ~= codes * scale`` with one absmax scale per vector (the
+    last axis: a (token, kv head) ``head_dim`` slice of the pool).
+
+    Returns ``(codes, scale)``: int8 codes for the int grid (NaN maps to
+    0, as the reference's saturating float-to-int8 conversion maps it),
+    packed codes for the float grids; ``scale`` float32 with a trailing
+    keepdim. fp32 passes through (codes = x, scale = 1)."""
+    s = spec(dtype)
+    x = _f32(x)
+    if s.name == "fp32":
+        return x, torch.ones(x.shape[:-1] + (1,), dtype=torch.float32,
+                             device=x.device)
+    amax = x.abs().amax(dim=-1, keepdim=True)
+    scale = torch.clamp_min(amax * s.inv_qmax, SCALE_FLOOR)
+    v = round_to_grid(x / scale, s)
+    if s.kind == "int":
+        return torch.where(torch.isnan(v), 0.0, v).to(torch.int8), scale
+    return encode_float(v, s), scale
+
+
+def dequantize_kv(codes: torch.Tensor, scale: torch.Tensor,
+                  dtype: str | QuantSpec) -> torch.Tensor:
+    """Inverse of :func:`quantize_kv` (float32 out; fp32 passthrough)."""
+    s = spec(dtype)
+    if s.name == "fp32":
+        return codes.to(torch.float32)
+    v = (codes.to(torch.float32) if s.kind == "int"
+         else decode_float(codes, s))
+    return v * scale

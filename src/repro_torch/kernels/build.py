@@ -63,9 +63,10 @@ def build(name: str) -> pathlib.Path:
     return out
 
 
-def build_all() -> dict[str, pathlib.Path]:
-    """Build every ``csrc/*.cu`` in turn. Returns the library paths."""
-    return {src.stem: build(src.stem) for src in sorted(CSRC.glob("*.cu"))}
+def sources() -> list[str]:
+    """The names of every ``csrc/*.cu``, for a caller that builds them,
+    one ``build`` each (threads may build different sources at once)."""
+    return [src.stem for src in sorted(CSRC.glob("*.cu"))]
 
 
 def load(name: str, argtypes) -> ctypes._CFuncPtr:

@@ -1,18 +1,21 @@
-"""Paged-KV decode attention: the port of the reference's K4 kernel entry.
+"""Paged-KV decode attention: the port of the reference's K4 and K6
+kernel entries.
 
 ``paged_decode_attention_grouped`` replaces the Pallas TPU kernel of the
 same name (``repro/kernels/flash_attention.py:paged_decode_attention_grouped``,
 kernel body ``_paged_decode_kernel``) with a CUDA kernel for Hopper written
 by hand (``csrc/paged_decode_attention.cu``): one launch covers every
 batch slot, KV blocks are read straight out of the shared pool through
-the block table, and the online-softmax state stays in float32. The
-kernel source states its bound and design.
+the block table, and the online-softmax state stays in float32.
+``paged_decode_attention_grouped_q`` does the same over a quantized pool
+(``_paged_decode_kernel_q`` → ``csrc/paged_decode_attention_q.cu``),
+dequantizing each code on load. Each kernel source states its bound and
+design.
 
-On a CUDA tensor the wrapper launches the kernel (or raises); on a CPU
-tensor it runs the plain version, ``ref.paged_decode_attention_ref`` —
-the analogue of the reference's interpret mode. ``launches`` counts the
-kernel launches, so a run can show its decode path went through the
-kernel.
+On a CUDA tensor a wrapper launches its kernel (or raises); on a CPU
+tensor it runs the plain version in ``ref`` — the analogue of the
+reference's interpret mode. ``launches`` counts each kernel's launches,
+so a run can show its decode path went through the kernel.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import ctypes
 
 import torch
 
+from repro_torch.core import quant
 from repro_torch.kernels import build, ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -31,7 +35,9 @@ _MAX_REP = 16           # csrc kMaxRep
 _MAX_HEAD_DIM = 256     # csrc kThreads * kMaxDChunks
 
 
-def _check(q, k_store, v_store, block_table, pos) -> None:
+def _check(q, k_store, v_store, block_table, pos, *,
+           store_dtype: torch.dtype | None = None) -> None:
+    """K4's contract; ``store_dtype`` (default q's) is the pool's."""
     tensors = {"q": q, "k_store": k_store, "v_store": v_store,
                "block_table": block_table, "pos": pos}
     for name, t in tensors.items():
@@ -42,9 +48,10 @@ def _check(q, k_store, v_store, block_table, pos) -> None:
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"q dtype {q.dtype} not supported (float32, "
                         f"bfloat16)")
-    if k_store.dtype != q.dtype or v_store.dtype != q.dtype:
+    store_dtype = q.dtype if store_dtype is None else store_dtype
+    if k_store.dtype != store_dtype or v_store.dtype != store_dtype:
         raise TypeError(f"k/v_store dtypes {k_store.dtype}/{v_store.dtype} "
-                        f"must equal q's {q.dtype}")
+                        f"must be {store_dtype}")
     if block_table.dtype != torch.int32 or pos.dtype != torch.int32:
         raise TypeError("block_table and pos must be int32")
     if q.dim() != 3 or k_store.dim() != 4 or block_table.dim() != 2:
@@ -103,3 +110,82 @@ def paged_decode_attention_grouped(q: torch.Tensor, k_store: torch.Tensor,
 
 
 paged_decode_attention_grouped.launches = 0
+
+
+# csrc paged_decode_attention_q(q, k, k_scale, v, v_scale, table, pos, out,
+# B, H, G, D, bs, W, dtype, codes, n_exp, n_mant, bias, stream)
+_ARGTYPES_Q = ((ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 11
+               + (ctypes.c_void_p,))
+# csrc ``codes``: 0 int8 grid codes, 1 uint8 / 2 16-bit sign|exp|mant codes
+_CODES = {torch.int8: 0, torch.uint8: 1, torch.int16: 2}
+
+
+def _check_q(q, k_store, k_scale, v_store, v_scale, block_table, pos,
+             kv_dtype: str) -> None:
+    s = quant.spec(kv_dtype)
+    if s.name == "fp32":
+        raise ValueError("kv_dtype='fp32' pools hold values, not codes: "
+                         "use paged_decode_attention_grouped")
+    want = quant.code_dtype(s)
+    if k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32:
+        raise TypeError(f"k/v_scale dtypes {k_scale.dtype}/{v_scale.dtype} "
+                        f"must be float32")
+    for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if tuple(t.shape) != tuple(k_store.shape[:3]) + (1,):
+            raise ValueError(f"{name} {tuple(t.shape)} must be [N, bs, G, 1]"
+                             f" for codes {tuple(k_store.shape)}")
+    # the rest of the contract is K4's, with the codes in the values' place
+    _check(q, k_store, v_store, block_table, pos, store_dtype=want)
+
+
+def paged_decode_attention_grouped_q(q: torch.Tensor, k_store: torch.Tensor,
+                                     k_scale: torch.Tensor,
+                                     v_store: torch.Tensor,
+                                     v_scale: torch.Tensor,
+                                     block_table: torch.Tensor,
+                                     pos: torch.Tensor, *,
+                                     kv_dtype: str) -> torch.Tensor:
+    """:func:`paged_decode_attention_grouped` over a quantized pool.
+
+    k/v_store: [N, bs, G, D] packed codes of grid ``kv_dtype``
+    (``quant.code_dtype``: int8, uint8, or int16 holding the fp16 grid's
+    16 bits); k/v_scale: [N, bs, G, 1] float32 per-(token, kv head)
+    scales; the rest as for K4. Dequantizes every code on load as
+    ``quant.dequantize_kv`` does; scores, softmax and the PV product in
+    float32. Returns [B, H, D] in q's dtype.
+    """
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"paged_decode_attention_grouped_q runs on cuda or "
+                         f"cpu tensors, got {q.device}")
+    _check_q(q, k_store, k_scale, v_store, v_scale, block_table, pos,
+             kv_dtype)
+    if q.device.type == "cpu":
+        return ref.paged_decode_attention_q_ref(
+            q, k_store, k_scale, v_store, v_scale, block_table, pos,
+            kv_dtype)
+    s = quant.spec(kv_dtype)
+    b, h, d = q.shape
+    _, bs, g, _ = k_store.shape
+    out = torch.empty_like(q)
+    kernel = build.load("paged_decode_attention_q", _ARGTYPES_Q)
+    with torch.cuda.device(q.device):
+        rc = kernel(
+            q.data_ptr(), k_store.data_ptr(), k_scale.data_ptr(),
+            v_store.data_ptr(), v_scale.data_ptr(), block_table.data_ptr(),
+            pos.data_ptr(), out.data_ptr(), b, h, g, d, bs,
+            block_table.shape[1], _DTYPE_CODE[q.dtype],
+            _CODES[k_store.dtype], s.n_exp, s.n_mant,
+            s.bias if s.kind == "float" else 0,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"paged_decode_attention_q kernel launch failed "
+                           f"(cudaError {rc})")
+    paged_decode_attention_grouped_q.launches += 1
+    return out
+
+
+paged_decode_attention_grouped_q.launches = 0

@@ -13,6 +13,8 @@ import math
 
 import torch
 
+from repro_torch.core import quant
+
 NEG_INF = -1e30
 
 
@@ -33,16 +35,48 @@ def paged_decode_attention_ref(q: torch.Tensor, k_store: torch.Tensor,
     product) and takes the PV product in float32. Query head ``h`` reads
     kv head ``h // (H // G)``.
     """
-    b, h, d = q.shape
-    _, bs, g, _ = k_store.shape
-    w = block_table.shape[1]
     tbl = block_table.long()
-    k = k_store[tbl].reshape(b, w * bs, g, d)
-    v = v_store[tbl].reshape(b, w * bs, g, d)
+    return _attend(q, _gathered(k_store[tbl]), _gathered(v_store[tbl]), pos)
+
+
+def paged_decode_attention_q_ref(q: torch.Tensor, k_store: torch.Tensor,
+                                 k_scale: torch.Tensor,
+                                 v_store: torch.Tensor,
+                                 v_scale: torch.Tensor,
+                                 block_table: torch.Tensor, pos: torch.Tensor,
+                                 kv_dtype: str) -> torch.Tensor:
+    """:func:`paged_decode_attention_ref` over a quantized pool (K6).
+
+    k/v_store: [N, bs, G, D] packed codes (``quant.code_dtype``);
+    k/v_scale: [N, bs, G, 1] float32 per-(token, kv head) scales. Gathers
+    every table entry's codes and scales, dequantizes them with
+    ``quant.dequantize_kv`` to float32 and applies K4's plain math. Since
+    v is float32, the probabilities are not rounded before the PV product
+    — the reference kernel casts them to v's dtype too. Returns [B, H, D]
+    in q's dtype.
+    """
+    tbl = block_table.long()
+    k = quant.dequantize_kv(k_store[tbl], k_scale[tbl], kv_dtype)
+    v = quant.dequantize_kv(v_store[tbl], v_scale[tbl], kv_dtype)
+    return _attend(q, _gathered(k), _gathered(v), pos)
+
+
+def _gathered(blocks: torch.Tensor) -> torch.Tensor:
+    """[B, W, bs, G, D] gathered blocks -> [B, W * bs, G, D] keys."""
+    b, w, bs, g, d = blocks.shape
+    return blocks.reshape(b, w * bs, g, d)
+
+
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            pos: torch.Tensor) -> torch.Tensor:
+    """q [B, H, D] over each slot's keys k/v [B, L, G, D], positions
+    0..pos[b] valid."""
+    b, h, d = q.shape
+    length, g = k.shape[1], k.shape[2]
     qg = q.reshape(b, g, h // g, d)
     scores = torch.einsum("bgrd,blgd->bgrl", qg.float(), k.float())
     scores = scores * (1.0 / math.sqrt(d))
-    valid = (torch.arange(w * bs, device=q.device)[None]
+    valid = (torch.arange(length, device=q.device)[None]
              <= pos.long()[:, None])                       # [B, L]
     scores = scores.masked_fill(~valid[:, None, None, :], NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)

@@ -6,6 +6,17 @@ block_size, G, head_dim]``; an attention site reads and writes its layer's
 slice ``[num_blocks, block_size, G, head_dim]``. Where the reference
 returns an updated copy of the pool (``.at[].set``), the port writes the
 pool in place.
+
+A quantized pool (``kv_dtype`` other than fp32) holds packed codes
+(``core.quant.quantize_kv``) in ``k``/``v`` and one float32 scale per
+(token, kv head) in ``k_scale``/``v_scale`` leaves ``[..., G, 1]``. A new
+token's K/V are quantized on scatter and dequantized to float32 on
+gather. In the reference, that float32 K/V promotes the attention output
+of a bfloat16 model to float32 on the gather decode path and in batch
+prefill, and its layer scan then raises on the changed carry type; only
+the kernel path (K6, output in q's dtype) runs such a model. The port
+raises a ``TypeError`` in the same places rather than compute a function
+the reference does not.
 """
 
 from __future__ import annotations
@@ -16,11 +27,26 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import quant
 from repro_torch.kernels import ref
-from repro_torch.kernels.flash_attention import paged_decode_attention_grouped
+from repro_torch.kernels.flash_attention import (
+    paged_decode_attention_grouped, paged_decode_attention_grouped_q)
 from repro_torch.models import layers
 
 NEG_INF = ref.NEG_INF
+
+
+def _require_f32_for_gather(dtype: torch.dtype, kv_dtype: str,
+                            where: str) -> None:
+    if dtype != torch.float32:
+        raise TypeError(
+            f"{where} over a {kv_dtype} KV pool needs a float32 model, got "
+            f"{dtype}: the dequantized float32 K/V would promote the "
+            f"attention output and the residual to float32, which the "
+            f"reference rejects (its layer scan's carry changes type). A "
+            f"{dtype} model with a quantized pool decodes through the "
+            f"kernel (use_kernel=True / attn_kernel=True) with "
+            f"prefill='replay'")
 
 
 class Attention(nn.Module):
@@ -66,31 +92,66 @@ def _project_qkv(x, attn: Attention, cfg: ArchConfig, positions):
 
 
 def init_paged_kv_cache(n_layers: int, num_blocks: int, block_size: int,
-                        n_kv: int, head_dim: int, dtype,
-                        device) -> dict[str, torch.Tensor]:
+                        n_kv: int, head_dim: int, dtype, device,
+                        kv_dtype: str = "fp32") -> dict[str, torch.Tensor]:
     """The paged KV pool of ``n_layers`` attention sites: position ``p``
     of a slot lives at ``[layer, table[p // block_size], p % block_size]``.
-    Only unquantized storage (the reference's ``kv_dtype="fp32"``, which
-    stores in the model dtype) is ported."""
+
+    ``kv_dtype="fp32"`` stores ``{"k", "v"}`` in the model dtype. Any
+    other grid stores codes (``quant.code_dtype``) and adds float32
+    ``k_scale``/``v_scale`` leaves ``[n_layers, num_blocks, block_size,
+    n_kv, 1]``; the block axis stays 1, so every allocator copy (CoW,
+    swap, prefix export/import) moves codes and scales together."""
     shape = (n_layers, num_blocks, block_size, n_kv, head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    s = quant.spec(kv_dtype)
+    if s.name == "fp32":
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+    codes = quant.code_dtype(s)
+    sshape = shape[:-1] + (1,)
+    return {"k": torch.zeros(shape, dtype=codes, device=device),
+            "k_scale": torch.zeros(sshape, dtype=torch.float32,
+                                   device=device),
+            "v": torch.zeros(shape, dtype=codes, device=device),
+            "v_scale": torch.zeros(sshape, dtype=torch.float32,
+                                   device=device)}
+
+
+def _scatter(store, scale, rows, offs, new, kv_dtype: str) -> None:
+    """Write ``new`` [n, G, hd] at ``store[rows, offs]`` in place,
+    quantized to ``kv_dtype`` (codes into ``store``, scales into
+    ``scale``) unless it is fp32 (the reference's ``.at[].set``)."""
+    if quant.spec(kv_dtype).name == "fp32":
+        store[rows, offs] = new.to(store.dtype)
+        return
+    codes, sc = quant.quantize_kv(new, kv_dtype)
+    store[rows, offs] = codes
+    scale[rows, offs] = sc
 
 
 def paged_decode_attention(x, attn: Attention, cfg: ArchConfig,
                            k_store: torch.Tensor, v_store: torch.Tensor,
                            block_table: torch.Tensor, pos: torch.Tensor, *,
-                           use_kernel: bool = False) -> torch.Tensor:
+                           use_kernel: bool = False, kv_dtype: str = "fp32",
+                           k_scale: torch.Tensor | None = None,
+                           v_scale: torch.Tensor | None = None
+                           ) -> torch.Tensor:
     """x: [B, 1, D]; k/v_store: this site's pool [num_blocks, block_size,
-    G, hd], written in place; block_table: [B, W] int32 (invalid entries
-    clamped to the scratch block); pos: [B] int32 per-slot positions.
-    Returns out [B, 1, D].
+    G, hd], written in place (with k/v_scale [num_blocks, block_size, G,
+    1] for a quantized ``kv_dtype``); block_table: [B, W] int32 (invalid
+    entries clamped to the scratch block); pos: [B] int32 per-slot
+    positions. Returns out [B, 1, D].
 
     The new token's K/V are written into each slot's tail block *before*
     the attention pass. ``use_kernel=True`` runs the pass through the
-    paged decode kernel (one launch for every slot); otherwise through
-    the gather path, the kernel's plain version.
+    paged decode kernel (K4, or K6 over a quantized pool; one launch for
+    every slot); otherwise through the gather path, the kernel's plain
+    version. The gather path over a quantized pool needs a float32 model
+    (module docstring).
     """
+    quantized = quant.spec(kv_dtype).name != "fp32"
+    if quantized and not use_kernel:
+        _require_f32_for_gather(x.dtype, kv_dtype, "the gather decode path")
     b = x.shape[0]
     hd = cfg.resolved_head_dim
     bs = k_store.shape[1]
@@ -99,10 +160,18 @@ def paged_decode_attention(x, attn: Attention, cfg: ArchConfig,
     blk = block_table[rows, (pos // bs).long()].long()      # [B] tail blocks
     off = (pos % bs).long()
     # in place; the reference returns a copy (cache.at[blk, off].set)
-    k_store[blk, off] = k_new[:, 0].to(k_store.dtype)
-    v_store[blk, off] = v_new[:, 0].to(v_store.dtype)
+    _scatter(k_store, k_scale, blk, off, k_new[:, 0], kv_dtype)
+    _scatter(v_store, v_scale, blk, off, v_new[:, 0], kv_dtype)
     q1 = q[:, 0].contiguous()
-    if use_kernel:
+    if quantized and use_kernel:
+        att = paged_decode_attention_grouped_q(
+            q1, k_store, k_scale, v_store, v_scale, block_table, pos,
+            kv_dtype=kv_dtype)
+    elif quantized:
+        att = ref.paged_decode_attention_q_ref(
+            q1, k_store, k_scale, v_store, v_scale, block_table, pos,
+            kv_dtype)
+    elif use_kernel:
         att = paged_decode_attention_grouped(q1, k_store, v_store,
                                              block_table, pos)
     else:
@@ -114,7 +183,10 @@ def paged_decode_attention(x, attn: Attention, cfg: ArchConfig,
 def paged_prefill_attention(x, attn: Attention, cfg: ArchConfig,
                             k_store: torch.Tensor, v_store: torch.Tensor,
                             table_row: torch.Tensor, p0: int,
-                            n_new: int) -> torch.Tensor:
+                            n_new: int, *, kv_dtype: str = "fp32",
+                            k_scale: torch.Tensor | None = None,
+                            v_scale: torch.Tensor | None = None
+                            ) -> torch.Tensor:
     """Whole-prompt attention for one slot over the paged pool.
 
     x: [1, T, D] — T new prompt tokens (padded; entries past ``n_new``
@@ -125,8 +197,14 @@ def paged_prefill_attention(x, attn: Attention, cfg: ArchConfig,
     block 0. Queries attend causally over the cached prefix and the new
     tokens through a gather of the slot's table, as the reference does;
     this is plain PyTorch because the reference's prefill is XLA code,
-    outside any Pallas kernel.
+    outside any Pallas kernel. A quantized ``kv_dtype`` quantizes the new
+    K/V on scatter (codes and scales, as decode does) and attends over the
+    dequantized float32 pool, so it needs a float32 model (module
+    docstring).
     """
+    quantized = quant.spec(kv_dtype).name != "fp32"
+    if quantized:
+        _require_f32_for_gather(x.dtype, kv_dtype, "batch prefill")
     t = x.shape[1]
     hd = cfg.resolved_head_dim
     bs = k_store.shape[1]
@@ -139,10 +217,15 @@ def paged_prefill_attention(x, attn: Attention, cfg: ArchConfig,
     blk = torch.where(new_valid, tbl[torch.clamp(gpos // bs, 0, w - 1)], 0)
     off = torch.where(new_valid, gpos % bs, 0)
     # in place; the reference returns a copy (cache.at[blk, off].set)
-    k_store[blk, off] = k_new[0].to(k_store.dtype)
-    v_store[blk, off] = v_new[0].to(v_store.dtype)
-    k = k_store[tbl].reshape(1, w * bs, g, hd)
-    v = v_store[tbl].reshape(1, w * bs, g, hd)
+    _scatter(k_store, k_scale, blk, off, k_new[0], kv_dtype)
+    _scatter(v_store, v_scale, blk, off, v_new[0], kv_dtype)
+    if quantized:
+        k = quant.dequantize_kv(k_store[tbl], k_scale[tbl], kv_dtype)
+        v = quant.dequantize_kv(v_store[tbl], v_scale[tbl], kv_dtype)
+    else:
+        k, v = k_store[tbl], v_store[tbl]
+    k = k.reshape(1, w * bs, g, hd)
+    v = v.reshape(1, w * bs, g, hd)
     qg = q.reshape(1, t, g, cfg.n_heads // g, hd)             # [1,T,G,R,D]
     scores = (torch.einsum("bqgrd,bkgd->bgrqk", qg, k).float()
               / math.sqrt(hd))
@@ -154,3 +237,27 @@ def paged_prefill_attention(x, attn: Attention, cfg: ArchConfig,
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bgrqk,bkgd->bqgrd", probs, v)
     return out.reshape(1, t, cfg.n_heads * hd) @ attn.wo
+
+
+def paged_kv_dequant_error(store: dict, ref: dict,
+                           kv_dtype: str) -> torch.Tensor:
+    """Measured KV dequantization error of a quantized paged store
+    against its fp32 golden twin: max over entries of
+    ``|dequant(codes, scale) - ref| / per-(token, head) absmax`` —
+    directly comparable to ``quant.layer_error_budget(kv_dtype)``.
+
+    Leaves are the stacked ``[n_layers, num_blocks, block_size, G,
+    head_dim]``; returns one float32 value per layer (zeros for fp32
+    stores). Unwritten entries are zero in both stores and add 0."""
+    s = quant.spec(kv_dtype)
+    errs = []
+    for name in ("k", "v"):
+        refv = ref[name].to(torch.float32)
+        if s.name == "fp32":
+            dq = store[name].to(torch.float32)
+        else:
+            dq = quant.dequantize_kv(store[name], store[name + "_scale"], s)
+        amax = refv.abs().amax(dim=-1, keepdim=True)
+        rel = (dq - refv).abs() / torch.clamp_min(amax, 1e-20)
+        errs.append(rel.amax(dim=tuple(range(1, refv.dim()))))
+    return torch.maximum(errs[0], errs[1])

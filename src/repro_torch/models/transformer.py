@@ -77,37 +77,52 @@ class DecoderLM(nn.Module):
 
     # -- paged KV ------------------------------------------------------------
 
-    def init_paged_cache(self, num_blocks: int,
-                         block_size: int) -> dict[str, torch.Tensor]:
+    def init_paged_cache(self, num_blocks: int, block_size: int,
+                         kv_dtype: str = "fp32") -> dict[str, torch.Tensor]:
         """The KV pool shared by all slots: ``{"k", "v"}``, each
         ``[n_layers, num_blocks, block_size, n_kv, head_dim]`` in the
         model dtype (block axis addressed through per-slot block tables —
-        see ``repro_torch.serve.kv``)."""
+        see ``repro_torch.serve.kv``); a quantized ``kv_dtype`` stores
+        codes and adds ``k_scale``/``v_scale`` leaves
+        (``attention.init_paged_kv_cache``)."""
         cfg = self.cfg
         return attention.init_paged_kv_cache(
             cfg.n_layers, num_blocks, block_size, cfg.n_kv_heads,
-            cfg.resolved_head_dim, self.dtype, self.device)
+            cfg.resolved_head_dim, self.dtype, self.device,
+            kv_dtype=kv_dtype)
+
+    @staticmethod
+    def _site(cache, i: int) -> dict:
+        """Layer ``i``'s slice of every pool leaf, as the attention
+        functions take them (views: writes land in the pool)."""
+        return {"k_store": cache["k"][i], "v_store": cache["v"][i],
+                **{name: cache[name][i] for name in ("k_scale", "v_scale")
+                   if name in cache}}
 
     @torch.no_grad()
     def decode_step_paged(self, cache, token, block_table, pos, *,
-                          kernel: bool = False):
+                          kernel: bool = False, kv_dtype: str = "fp32"):
         """token: [B] int; block_table: [B, W] int32; pos: [B] int32
         per-slot positions (recycled slots restart at 0). Writes each
         slot's new K/V into ``cache`` in place and returns (logits
         [B, V], cache). ``kernel=True`` runs every site's attention
-        through the paged decode kernel, one launch for all slots."""
+        through the paged decode kernel (K4, or K6 over a quantized
+        pool), one launch for all slots; ``kv_dtype`` must be the
+        cache's storage grid."""
         cfg = self.cfg
         x = self.embed(token[:, None])
         for i, blk in enumerate(self.layers):
             x = x + attention.paged_decode_attention(
-                blk.norm1(x), blk.attn, cfg, cache["k"][i], cache["v"][i],
-                block_table, pos, use_kernel=kernel)
+                blk.norm1(x), blk.attn, cfg, block_table=block_table,
+                pos=pos, use_kernel=kernel, kv_dtype=kv_dtype,
+                **self._site(cache, i))
             x = x + blk.mlp(blk.norm2(x))
         logits = self.lm_head(self.final_norm(x))
         return logits[:, 0], cache
 
     @torch.no_grad()
-    def prefill_paged(self, cache, tokens, table_row, p0: int, n_new: int):
+    def prefill_paged(self, cache, tokens, table_row, p0: int, n_new: int,
+                      *, kv_dtype: str = "fp32"):
         """Admit a prompt by writing whole KV blocks in one call.
 
         tokens: [T] — the uncached prompt tokens of one slot, padded to a
@@ -120,7 +135,7 @@ class DecoderLM(nn.Module):
         x = self.embed(tokens[None])                          # [1, T, D]
         for i, blk in enumerate(self.layers):
             x = x + attention.paged_prefill_attention(
-                blk.norm1(x), blk.attn, cfg, cache["k"][i], cache["v"][i],
-                table_row, p0, n_new)
+                blk.norm1(x), blk.attn, cfg, table_row=table_row, p0=p0,
+                n_new=n_new, kv_dtype=kv_dtype, **self._site(cache, i))
             x = x + blk.mlp(blk.norm2(x))
         return cache

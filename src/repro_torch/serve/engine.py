@@ -16,10 +16,17 @@ The engine can be driven whole (``run``) or tick by tick
 (``tick_once``). ``run``'s default tick budget is the total remaining
 work (unreplayed prompt plus ungenerated tokens).
 
+``kv_dtype`` stores the pool on a reduced grid (``int8``, ``fp8_e4m3``,
+``fp8_e5m2``, ``fp16``; ``core.quant``): codes plus one float32 scale
+per (token, kv head), quantized on write and dequantized on read — by
+K6 on the kernel path. A bfloat16 model with a quantized pool runs only
+with ``attn_kernel=True`` and ``prefill="replay"``, as in the reference
+(``models.attention``).
+
 Not ported yet — each raises ``NotImplementedError`` naming its item of
 the port queue in ``ROADMAP.md``: the contiguous lanes (``paged=False``),
-the PIM backend and its partitions, weight/activation/KV quantization,
-``kv_dequant_errors`` and ``drift_report``.
+the PIM backend and its partitions, weight/activation quantization and
+``drift_report``.
 """
 
 from __future__ import annotations
@@ -36,11 +43,12 @@ import torch
 from repro_torch import obs
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import quant
+from repro_torch.models import attention
 from repro_torch.models.transformer import DecoderLM
-from repro_torch.serve.kv import KVCacheOOM, PagedKVCache
+from repro_torch.serve.kv import KVCacheOOM, PagedKVCache, kv_token_bytes
 
 _PIM = "ROADMAP.md, port queue item 3: the mapper and the PIM backend"
-_QUANT_KV = "ROADMAP.md, port queue item 2: quantized KV serving"
 _CONTIGUOUS = ("ROADMAP.md, port queue item 6: contiguous lanes, router, "
                "workload")
 
@@ -107,6 +115,10 @@ class ServeEngine:
         token is unchanged. ``attn_kernel=True`` runs every decode site's
         attention through the paged decode kernel (on CUDA, the
         hand-written kernel: one launch per layer per tick for all slots).
+        ``kv_dtype`` (paged only) stores the pool on a reduced grid; the
+        decode kernel is then K6. A bfloat16 model with a quantized pool
+        needs ``attn_kernel=True`` and ``prefill="replay"``: the gather
+        paths raise ``TypeError`` on it, as the reference does.
 
         ``sample`` maps the logits ``[B, V]`` to token ids ``[B]`` (greedy
         argmax by default).
@@ -118,13 +130,16 @@ class ServeEngine:
         admits into any free slot. ``preempt=True`` swaps the youngest,
         lowest-priority slot out to host memory when a tick cannot
         allocate a block."""
+        self.kv_dtype = quant.spec(kv_dtype).name
+        if self.kv_dtype != "fp32" and not paged:
+            raise ValueError(
+                "kv_dtype only applies to paged=True (the contiguous "
+                "lanes have no block pool to quantize)")
         unported = []
         if backend == "pim" or partitions > 1:
             unported.append(f"backend='pim' / partitions ({_PIM})")
         if weight_dtype != "fp32" or act_dtype != "fp32":
             unported.append(f"weight_dtype / act_dtype ({_PIM})")
-        if kv_dtype != "fp32":
-            unported.append(f"kv_dtype={kv_dtype!r} ({_QUANT_KV})")
         if not paged:
             unported.append(f"paged=False, the contiguous lanes "
                             f"({_CONTIGUOUS})")
@@ -171,14 +186,21 @@ class ServeEngine:
         if kv_blocks is None:
             kv_blocks = 1 + batch * self.max_blocks
         self.kv = PagedKVCache(kv_blocks, kv_block_size, batch, max_len,
-                               device=self.device)
-        self.cache = self.model.init_paged_cache(kv_blocks, kv_block_size)
+                               kv_dtype=self.kv_dtype, device=self.device)
+        self.cache = self.model.init_paged_cache(
+            kv_blocks, kv_block_size, kv_dtype=self.kv_dtype)
 
         # per-token KV footprint (bytes, all attention sites) for the
-        # bytes-moved accounting
-        self._tok_bytes = (cfg.n_layers * 2 * cfg.n_kv_heads
-                           * cfg.resolved_head_dim
-                           * self.model.dtype.itemsize)
+        # bytes-moved accounting: the model dtype's values, or codes plus
+        # per-(token, head) scales
+        if self.kv_dtype == "fp32":
+            self._tok_bytes = (cfg.n_layers * 2 * cfg.n_kv_heads
+                               * cfg.resolved_head_dim
+                               * self.model.dtype.itemsize)
+        else:
+            self._tok_bytes = kv_token_bytes(
+                cfg.n_kv_heads, cfg.resolved_head_dim, cfg.n_layers,
+                self.kv_dtype)
         self.kv_bytes_read = 0
         self.kv_bytes_written = 0
         self.prefix_skipped_tokens = 0
@@ -204,7 +226,8 @@ class ServeEngine:
         logits, self.cache = self.model.decode_step_paged(
             self.cache, torch.from_numpy(tokens).to(self.device),
             self.kv.device_table(), torch.from_numpy(self._pos).to(
-                self.device), kernel=self.attn_kernel)
+                self.device), kernel=self.attn_kernel,
+            kv_dtype=self.kv_dtype)
         return logits
 
     def submit(self, req: Request) -> None:
@@ -400,7 +423,7 @@ class ServeEngine:
         toks[:n_new] = req.prompt[p0:p0 + n_new]
         self.cache = self.model.prefill_paged(
             self.cache, torch.from_numpy(toks).to(self.device),
-            self.kv.device_table()[s], p0, n_new)
+            self.kv.device_table()[s], p0, n_new, kv_dtype=self.kv_dtype)
         for pos in range(p0 + bs - 1, p0 + n_new, bs):
             self.kv.note_filled(s, pos)         # register full prompt blocks
         self._pos[s] = p0 + n_new
@@ -520,9 +543,23 @@ class ServeEngine:
         return self.completed
 
     def kv_dequant_errors(self, ref) -> np.ndarray:
-        """Not ported yet: it measures a quantized pool's error."""
-        raise NotImplementedError(f"kv_dequant_errors is not ported yet "
-                                  f"({_QUANT_KV})")
+        """Measured per-layer KV dequantization error against a golden
+        fp32 twin: this engine's codes and scales dequantized and
+        compared with ``ref``'s pool entry by entry, relative to the
+        golden per-(token, head) absmax — comparable to
+        ``quant.layer_error_budget(self.kv_dtype)``. ``ref`` is a
+        ``ServeEngine`` (or its pool dict) that ran the same requests with
+        ``kv_dtype="fp32"`` and the same ``kv_blocks`` (the allocator is
+        deterministic, so the block trajectories match). Each error is
+        recorded into the ``serve.kv_dequant_rel_error`` histogram;
+        returns them as a float32 array ``[n_layers]``."""
+        ref_cache = ref.cache if isinstance(ref, ServeEngine) else ref
+        out = attention.paged_kv_dequant_error(
+            self.cache, ref_cache, self.kv_dtype).to("cpu").numpy()
+        h = obs.metrics().histogram("serve.kv_dequant_rel_error")
+        for v in out:
+            h.observe(float(v))
+        return out
 
     def drift_report(self, tracer=None):
         """Not ported yet: it joins spans against the PIM schedule."""

@@ -43,8 +43,10 @@ The allocator is host-side metadata only; the device storage — a dict
 ``{"k", "v"}`` pool ``[n_layers, num_blocks, block_size, G, head_dim]`` —
 is passed to the methods that touch it. Where the reference returns an
 updated copy of the storage, the port writes it in place and returns the
-same object, so calls read as they do in the reference. Only unquantized
-pools (``kv_dtype="fp32"``) are ported. ``device_table()`` materializes
+same object, so calls read as they do in the reference. A quantized pool
+(``kv_dtype`` other than fp32) adds ``k_scale``/``v_scale`` leaves with
+the same block axis, so every copy here moves codes and scales together,
+bit for bit. ``device_table()`` materializes
 the clamped ``[slots, max_blocks]`` int32 table the paged attention kernel
 reads through.
 """
@@ -61,15 +63,9 @@ import torch
 
 from repro_torch import obs
 from repro_torch._device import resolve_device
+from repro_torch.core import quant
 
 SCRATCH_BLOCK = 0
-
-
-def _require_unquantized(kv_dtype: str) -> None:
-    if kv_dtype != "fp32":
-        raise NotImplementedError(
-            f"kv_dtype={kv_dtype!r}: quantized KV pools are not ported yet "
-            f"(ROADMAP.md, port queue item 2: quantized KV serving)")
 
 
 def _host_copy(bid: int):
@@ -88,16 +84,41 @@ def _tree_map(fn, tree, *rest):
 
 
 def kv_token_bits(n_kv: int, head_dim: int, kv_dtype: str = "fp32") -> int:
-    """Bits one token's K+V entries occupy at one attention site."""
-    _require_unquantized(kv_dtype)
-    return 2 * n_kv * head_dim * 32
+    """Bits one token's K+V entries occupy at one attention site.
+
+    Quantized pools store ``head_dim`` packed codes plus one float32
+    absmax scale per (token, kv head) vector, for K and for V — the scale
+    rides alongside the codes in the same physical block, so it is
+    charged here too."""
+    s = quant.spec(kv_dtype)
+    if s.name == "fp32":
+        return 2 * n_kv * head_dim * 32
+    return 2 * n_kv * (head_dim * s.n_bits + 32)
 
 
 def kv_token_bytes(n_kv: int, head_dim: int, sites: int,
                    kv_dtype: str = "fp32") -> int:
-    """Pool bytes one token occupies across all attention sites."""
-    _require_unquantized(kv_dtype)
-    return sites * 2 * n_kv * head_dim * 4
+    """Pool bytes one token occupies across all attention sites (codes
+    padded to whole storage elements: 1-byte codes cost 1 byte, 16-bit
+    codes 2 — as the device tensors hold them). fp32 pools count 4 bytes
+    per value, as the reference does, whatever the model dtype."""
+    s = quant.spec(kv_dtype)
+    if s.name == "fp32":
+        per_site = 2 * n_kv * head_dim * 4
+    else:
+        code_bytes = 1 if s.n_bits <= 8 else 2
+        per_site = 2 * n_kv * (head_dim * code_bytes + 4)
+    return sites * per_site
+
+
+def blocks_for_bytes(pool_bytes: int, block_size: int, n_kv: int,
+                     head_dim: int, sites: int,
+                     kv_dtype: str = "fp32") -> int:
+    """Physical blocks (incl. the pinned scratch block) an equal-bytes
+    pool holds at ``kv_dtype`` — the capacity side of the quantized-KV
+    trade."""
+    per_block = block_size * kv_token_bytes(n_kv, head_dim, sites, kv_dtype)
+    return max(2, pool_bytes // per_block)
 
 
 class KVCacheOOM(RuntimeError):
@@ -145,8 +166,9 @@ class PagedKVCache:
                              f"scratch block), got {num_blocks}")
         if block_size < 1 or slots < 1 or max_len < 1:
             raise ValueError("block_size, slots and max_len must be >= 1")
-        _require_unquantized(kv_dtype)
-        self.kv_dtype = kv_dtype
+        # the allocator is dtype-blind (every copy maps over all leaves);
+        # the grid is recorded so sizing and the engine agree
+        self.kv_dtype = quant.spec(kv_dtype).name
         self.device = resolve_device(device)
         self.num_blocks = num_blocks
         self.block_size = block_size

@@ -223,15 +223,12 @@ def test_random_operation_sequences_match_reference(seed):
         pair.check()
 
 
-@pytest.mark.parametrize("kv_dtype", ["int8", "fp8_e4m3"])
-def test_quantized_pools_raise_not_ported(kv_dtype):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        kv.PagedKVCache(4, 4, 1, 16, kv_dtype=kv_dtype, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        kv.kv_token_bytes(8, 128, 32, kv_dtype)
-
-
 def test_token_sizes_match_reference():
     assert kv.kv_token_bits(8, 128) == ref_kv.kv_token_bits(8, 128)
     assert (kv.kv_token_bytes(8, 128, 32)
             == ref_kv.kv_token_bytes(8, 128, 32))
+    for kv_dtype in ("fp32", "fp16", "int8", "fp8_e4m3", "fp8_e5m2", "fp8"):
+        assert (kv.kv_token_bits(8, 128, kv_dtype)
+                == ref_kv.kv_token_bits(8, 128, kv_dtype))
+        assert (kv.kv_token_bytes(8, 128, 32, kv_dtype)
+                == ref_kv.kv_token_bytes(8, 128, 32, kv_dtype))

@@ -119,3 +119,53 @@ def test_bridge_carries_bfloat16_leaves_bit_exactly():
     got = model.layers[1].attn.wq.view(torch.int16).numpy()
     want = flat["layers/block0/attn/wq"][1].view(np.int16)
     assert np.array_equal(got, want)
+
+
+def test_quantized_entry_points_default_to_cuda_and_raise_without_it(
+        monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_smoke_config("llama3-8b")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PagedKVCache(4, 4, 1, 16, kv_dtype="int8")
+    model = DecoderLM(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServeEngine(cfg, model, kv_dtype="int8", paged=True)
+    # kv_dtype raises as the reference does, before any device is chosen
+    with pytest.raises(ValueError, match="paged"):
+        ServeEngine(cfg, model, kv_dtype="int8", device="cpu")
+    with pytest.raises(ValueError, match="unknown"):
+        ServeEngine(cfg, model, kv_dtype="int7", paged=True, device="cpu")
+
+
+def _k6_bad_inputs():
+    """(case, kv_dtype, arguments) the K6 wrapper must refuse."""
+    q = torch.zeros(2, 4, 16)
+    codes = torch.zeros(5, 4, 2, 16, dtype=torch.uint8)
+    scale = torch.ones(5, 4, 2, 1)
+    table = torch.zeros(2, 3, dtype=torch.int32)
+    pos = torch.zeros(2, dtype=torch.int32)
+    ok = (q, codes, scale, codes, scale, table, pos)
+    yield "meta device", "fp8_e4m3", tuple(
+        a.to("meta") for a in ok)
+    yield "int8 codes for fp8", "fp8_e4m3", (
+        q, codes.to(torch.int8), scale, codes.to(torch.int8), scale, table,
+        pos)
+    yield "uint8 codes for fp16", "fp16", ok        # int16 holds them
+    yield "float64 scales", "fp8_e4m3", (
+        q, codes, scale.double(), codes, scale.double(), table, pos)
+    yield "scale shape", "fp8_e4m3", (
+        q, codes, scale[..., 0], codes, scale[..., 0], table, pos)
+    yield "fp32 pool", "fp32", ok
+    yield "head dim", "fp8_e4m3", (
+        q[..., :8].contiguous(), codes, scale, codes, scale, table, pos)
+
+
+@pytest.mark.parametrize("case", [c for c, _, _ in _k6_bad_inputs()])
+def test_k6_wrapper_rejects_what_the_kernel_does_not_take(case):
+    from repro_torch.kernels.flash_attention import (
+        paged_decode_attention_grouped_q)
+    _, kv_dtype, args = next(c for c in _k6_bad_inputs() if c[0] == case)
+    before = paged_decode_attention_grouped_q.launches
+    with pytest.raises((TypeError, ValueError)):
+        paged_decode_attention_grouped_q(*args, kv_dtype=kv_dtype)
+    assert paged_decode_attention_grouped_q.launches == before

@@ -119,7 +119,7 @@ def test_kernel_and_gather_paths_agree(models):
 
 @pytest.mark.parametrize("option,value", [
     ("backend", "pim"), ("partitions", 2), ("weight_dtype", "int8"),
-    ("act_dtype", "fp8_e4m3"), ("kv_dtype", "int8"), ("paged", False)])
+    ("act_dtype", "fp8_e4m3"), ("paged", False)])
 def test_unported_options_raise_naming_the_roadmap(models, option, value):
     _, _, tcfg, model = models
     opts = dict(paged=True, device="cpu")
@@ -131,7 +131,5 @@ def test_unported_options_raise_naming_the_roadmap(models, option, value):
 def test_unported_methods_raise(models):
     _, _, tcfg, model = models
     eng = ServeEngine(tcfg, model, paged=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.kv_dequant_errors(eng)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         eng.drift_report()
