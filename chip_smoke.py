@@ -6,7 +6,7 @@
 Phases, each printing one JSON line:
 
 1. ``build``     — compile every CUDA kernel of the port with nvcc, one
-   process per source, all started together.
+   process per source, all started together (four sources).
 2. ``kernels``   — hold each kernel against its plain PyTorch version on
    the card at the shapes of the serve phases (K4; K6 for each KV grid,
    with bf16 and f32 q), each (slot, head) row to its own scale, with a
@@ -28,6 +28,21 @@ Phases, each printing one JSON line:
 6. ``serve_kvq`` — the same model serves 16 requests over an fp8_e4m3 KV
    pool (kernel path, replayed prompts); K6 must run once per layer per
    tick, K4 never. ``profile_kvq`` profiles a second load on it.
+7. ``pim_lenet``   — the paper's LeNet-5 through the mapper: the compiled
+   program (K1 and K3) and the per-block executor (K2 and K3) at batch 256
+   and 4096 over digit images, with seeded random parameters and non-zero
+   biases, bit-equal to each other and within 1e-4 of the plain
+   ``lenet_apply`` (TF32 off); launches per call, ms per call, images/s,
+   peak memory, and a profile of the program's device time by kernel
+   group against wall time. The shapes of the batch-256 launches are
+   logged for the next phase.
+8. ``kernels_pim`` — K1, K2 and K3 at the shapes ``pim_lenet`` launched
+   them at batch 256 (K1 at each placed node's grouped shape, K2 at each
+   placed block's, K3 at each add's and one grouped wave of the adds), on
+   seeded random data, each held against its plain version (TF32 off; K1
+   and K2 per output row to its own max|out|, with a control that
+   dropping the last K tile fails that limit; K3 bit for bit), K1 equal
+   to K2 bit for bit, and timed beside its bound and a library call.
 
 Then the card's name and power limit, one line with every kernel's
 numbers, and as the last line ``{"ok": true, "device": {...}}``. Any
@@ -38,6 +53,7 @@ of JAX or of the reference package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import pathlib
@@ -724,6 +740,377 @@ def phase_serve_kvq(model, seed: int) -> dict:
     return {"launches": launches, "engine": eng}
 
 
+# ---------------------------------------------------------------------------
+# 7. pim_lenet: the paper's LeNet-5 through the mapper
+# ---------------------------------------------------------------------------
+
+
+K1 = {"name": "pim_matmul_grouped", "route": "cuda",
+      "source": "src/repro_torch/kernels/csrc/pim_matmul.cu",
+      "replaces": "src/repro/kernels/pim_mac.py:319"}
+K2 = {"name": "pim_matmul", "route": "cuda",
+      "source": "src/repro_torch/kernels/csrc/pim_matmul.cu",
+      "replaces": "src/repro/kernels/pim_mac.py:230"}
+K3 = {"name": "pim_mac", "route": "cuda",
+      "source": "src/repro_torch/kernels/csrc/pim_mac.cu",
+      "replaces": "src/repro/kernels/pim_mac.py:124"}
+# the batches pim_lenet serves; kernels_pim runs the first one's launches
+PIM_BATCHES = (256, 4096)
+# K1/K2 against the plain blocked product, per output row as a fraction of
+# the row's max|out|: the two sum each product in another order
+PIM_MM_TOL = 1e-5
+PIM_TOL = dict(rtol=1e-4, atol=1e-4)    # the mapper's verify tolerance
+
+
+
+def wall_ms(fn, iters: int = 20, warmup: int = 2) -> float:
+    """Mean wall time of one ``fn()`` call that ends synchronized."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def profile_pim(fn, calls: int = 5) -> dict:
+    """Where one compiled LeNet call's time goes: ``calls`` calls under
+    ``torch.profiler`` after a warm call, device time by kernel group —
+    K1, K3, the copies, fills and concatenations of padding, im2col and
+    layout, and the rest — against the host's wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    groups = {"k1": 0.0, "k3": 0.0, "copy_fill_cat": 0.0, "other": 0.0}
+    n_kernels = 0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = e.key.lower()
+        n_kernels += e.count
+        key = ("k1" if "pim_matmul_kernel" in name else
+               "k3" if "pim_mac_kernel" in name else
+               "copy_fill_cat" if any(k in name for k in (
+                   "copy", "fill", "cat", "memset", "memcpy")) else "other")
+        groups[key] += e.self_device_time_total
+    device_s = sum(groups.values()) / 1e6
+    return {"calls": calls, "wall_ms_per_call": wall_s / calls * 1e3,
+            "device_ms_per_call": device_s / calls * 1e3,
+            "device_busy_share_under_profiler": device_s / wall_s,
+            "kernels_per_call": n_kernels / calls,
+            "device_ms_per_call_by_group": {
+                k: v / calls / 1e3 for k, v in groups.items()}}
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Log the argument shapes of every K1, K2 and K3 launch the mapper's
+    lowering makes while open. The lowering's wrappers are wrapped, not
+    replaced: they launch and count as always."""
+    from repro_torch.mapper import lowering
+    log = {"k1": [], "k2": [], "k3": []}
+    orig = {name: getattr(lowering, name)
+            for name in ("pim_matmul_grouped", "pim_matmul", "pim_mac")}
+
+    def k1(a, b, **kw):
+        log["k1"].append((b.shape[0], kw.get("col_groups", 1), a.shape[1],
+                          a.shape[2], b.shape[2]))
+        return orig["pim_matmul_grouped"](a, b, **kw)
+
+    def k2(a, b, **kw):
+        log["k2"].append((a.shape[0], a.shape[1], b.shape[1]))
+        return orig["pim_matmul"](a, b, **kw)
+
+    def k3(a, b, acc):
+        log["k3"].append(a.numel())
+        return orig["pim_mac"](a, b, acc)
+
+    for name, fn in zip(orig, (k1, k2, k3)):
+        setattr(lowering, name, fn)
+    try:
+        yield log
+    finally:
+        for name, fn in orig.items():
+            setattr(lowering, name, fn)
+
+
+def launch_shapes(prog, prog_log, ex_log) -> dict:
+    """The logged launches of one compiled call (K1, K3) and one executor
+    run (K2), each named by the node (and block) its plan step lowers: K1
+    (G, col_groups, M, K, N) per placed node, K2 (M, K, N) per placed
+    block, K3 the element count of each add."""
+    placed = [st.node for st in prog.ctx.steps if st.kind == "placed"]
+    nodes = [nd for nd in placed if nd.kind != "eltwise"]
+    blocks = [f"{nd.name}@{blk.row0},{blk.col0}" for nd in nodes
+              for blk in prog.schedule.placement.iter_blocks(nd.idx, 0)]
+    adds = [nd.name for nd in placed if nd.kind == "eltwise"]
+    want = (len(nodes), len(blocks), len(adds), prog_log["k3"])
+    got = (len(prog_log["k1"]), len(ex_log["k2"]), len(prog_log["k3"]),
+           ex_log["k3"])
+    if got != want:
+        raise AssertionError(f"pim_lenet: logged launches {got[:3]} do not "
+                             f"follow the plan's {want[:3]} (or the "
+                             f"executor's adds differ in size)")
+    return {"k1": [(nd.name, *sh) for nd, sh in zip(nodes, prog_log["k1"])],
+            "k2": [(b, *sh) for b, sh in zip(blocks, ex_log["k2"])],
+            "k3": list(zip(adds, prog_log["k3"]))}
+
+
+def phase_pim_lenet(seed: int) -> dict:
+    """``compile_lenet("serve")`` and ``ScheduleExecutor`` on the card at
+    each of ``PIM_BATCHES``, over digit images, with seeded random
+    parameters (non-zero biases, so the adds lowered to K3 carry values).
+    The first batch is the main path: every count set to 0 just before
+    one program call and one executor run, read just after, with the
+    shapes of their launches logged for ``kernels_pim``."""
+    import torch
+    from repro_torch import mapper
+    from repro_torch.data import make_digits
+    from repro_torch.kernels.pim_mac import (pim_mac, pim_matmul,
+                                             pim_matmul_grouped)
+    from repro_torch.mapper.executor import full_float32, max_deviation
+    from repro_torch.models import lenet
+    kernels = (pim_matmul_grouped, pim_matmul, pim_mac)
+    params = lenet.init_lenet(seed, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 30)
+    for leaves in params.values():
+        leaves["b"] = torch.randn(leaves["b"].shape, generator=gen,
+                                  device=DEVICE)
+    launches = shapes = None
+    for batch in PIM_BATCHES:
+        imgs, _ = make_digits(batch, seed=seed + batch)
+        x = torch.from_numpy(imgs).to(DEVICE)
+        prog = mapper.compile_lenet("serve", batch=batch)
+        ex = mapper.ScheduleExecutor(prog.schedule)
+        for k in kernels:
+            k.launches = 0
+        with recording_launches() as prog_log:
+            out = prog(params, x)
+        prog_counts = tuple(k.launches for k in kernels)
+        with recording_launches() as ex_log:
+            oracle = ex.run(params, x)
+        torch.cuda.synchronize()
+        counts = tuple(k.launches for k in kernels)
+        ex_counts = tuple(c - p for c, p in zip(counts, prog_counts))
+        if launches is None:
+            launches = dict(zip(("k1", "k2", "k3"), counts))
+            shapes = launch_shapes(prog, prog_log, ex_log)
+        if prog_counts != (5, 0, 5) or ex_counts != (0, 7, 5):
+            raise AssertionError(f"pim_lenet {batch}: launches (K1, K2, K3)"
+                                 f" {prog_counts} compiled, {ex_counts} "
+                                 f"per-block; want (5, 0, 5), (0, 7, 5)")
+        if (prog.matmul_launches, prog.kernel_launches,
+                prog.placed_blocks) != (5, 10, 7):
+            raise AssertionError(f"pim_lenet {batch}: program counters")
+        if out.shape != (batch, 10) or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"pim_lenet {batch}: logits "
+                                 f"{tuple(out.shape)} not finite")
+        if not torch.equal(out, oracle):
+            raise AssertionError(f"pim_lenet {batch}: compiled program and "
+                                 f"executor differ")
+        with torch.no_grad(), full_float32():
+            plain = lenet.lenet_apply(params, x)
+
+            def plain_call():
+                return lenet.lenet_apply(params, x)
+
+            err = max_deviation(out, plain, **PIM_TOL)
+            torch.cuda.reset_peak_memory_stats()
+            prog(params, x)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            prog_ms = wall_ms(lambda: prog(params, x))
+            ex_ms = wall_ms(lambda: ex.run(params, x), iters=5)
+            plain_ms = wall_ms(plain_call)
+            prof = profile_pim(lambda: prog(params, x))
+        emit({"phase": "pim_lenet", "batch": batch,
+              "config": "lenet5 (paper, 21655 params) serve, float32",
+              "launches_per_call": {"compiled": dict(zip(
+                  ("k1", "k2", "k3"), prog_counts)), "per_block": dict(zip(
+                      ("k1", "k2", "k3"), ex_counts))},
+              "placed_blocks": prog.placed_blocks,
+              "compiled_equals_executor": True,
+              "max_abs_err_vs_plain": err,
+              "ms_per_call": prog_ms, "images_per_s": batch / prog_ms * 1e3,
+              "executor_ms_per_call": ex_ms, "plain_ms_per_call": plain_ms,
+              "max_memory_allocated_gb": peak / 1e9,
+              "modeled_pim_latency_s": prog.schedule.report.latency_s,
+              "profile": prof})
+        del out, oracle, plain, x
+        torch.cuda.empty_cache()
+    return {"launches": launches, "shapes": shapes}
+
+
+# ---------------------------------------------------------------------------
+# 8. kernels_pim: K1, K2, K3 at the shapes pim_lenet launched at batch 256
+# ---------------------------------------------------------------------------
+
+def pim_bound(nbytes: int, flops: int) -> tuple[float, float]:
+    """(byte time, operation time) in ms: bytes over HBM rate, float32
+    operations over the float32 peak."""
+    return (nbytes / HBM_BYTES_PER_S * 1e3,
+            flops / PEAK_FLOPS["float32"] * 1e3)
+
+
+def row_ratio(out, want, tol) -> float:
+    """Max over output rows of the error against ``tol`` x the row's
+    max|want|."""
+    err = (out - want).abs().amax(-1)
+    return float((err / (tol * want.abs().amax(-1)).clamp_min(1e-30)).max())
+
+
+def hold_matmul(label, kernel, plain, dropped) -> dict:
+    """Hold ``kernel()`` against ``plain()`` per output row; the control
+    ``dropped()`` (the plain product without its last K tile) must exceed
+    the limit."""
+    import torch
+    out, want = kernel(), plain()
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"{label}: non-finite output")
+    ratio = row_ratio(out, want, PIM_MM_TOL)
+    if not ratio <= 1:
+        raise AssertionError(f"{label}: error {ratio} x the limit "
+                             f"{PIM_MM_TOL} x max|out| of a row")
+    control = row_ratio(dropped(), want, PIM_MM_TOL)
+    if not control > 1:
+        raise AssertionError(f"{label}: dropping the last K tile gives only "
+                             f"{control} x the limit")
+    return {"max_err": float((out - want).abs().max()),
+            "max_err_over_limit": ratio, "control_over_limit": control,
+            "out": out}
+
+
+def phase_kernels_pim(seed: int, shapes: dict) -> dict:
+    """K1, K2 and K3 at the ``shapes`` of pim_lenet's main path at batch
+    256 (``launch_shapes``), on seeded random data, against
+    their plain versions on the card, and timed: kernel, plain version,
+    bound (each operand read once and the output written once; 2 MK N
+    float32 operations for a product, 2 per MAC element) and the library
+    call — ``torch.bmm`` on the same padded stacks (shared-A slabs
+    repeated beforehand, untimed) for K1, ``torch.mm`` for K2, both with
+    TF32 off, and ``torch.addcmul`` for K3 (time only: it may round
+    once)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.pim_mac import (pim_mac, pim_mac_grouped,
+                                             pim_matmul, pim_matmul_grouped)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 20)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=DEVICE)
+
+    def timing(kernel, plain, library, nbytes, flops) -> dict:
+        t_bytes, t_ops = pim_bound(nbytes, flops)
+        return {"ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain),
+                "library_ms": cuda_ms(library),
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bytes_ms": t_bytes, "ops_ms": t_ops}
+
+    k1 = []
+    for name, g, cg, m, k, n in shapes["k1"]:
+        a, b = randn(g // cg, m, k), randn(g, k, n)
+        r = hold_matmul(
+            f"K1 {name}",
+            lambda: pim_matmul_grouped(a, b, col_groups=cg),
+            lambda: ref.pim_matmul_grouped_ref(a, b, col_groups=cg),
+            lambda: ref.pim_matmul_grouped_ref(a[..., :k - 128],
+                                               b[:, :k - 128],
+                                               col_groups=cg))
+        out = r.pop("out")
+        for i in range(g):              # K1 == K2 on the same blocks
+            if not torch.equal(out[i], pim_matmul(a[i // cg], b[i])):
+                raise AssertionError(f"K1 {name}: group {i} differs from K2")
+        a_rep = a.repeat_interleave(cg, 0)
+        k1.append({"node": name, "G": g, "col_groups": cg, "M": m, "K": k,
+                   "N": n, **r, "k1_equals_k2": True,
+                   **timing(lambda: pim_matmul_grouped(a, b, col_groups=cg),
+                            lambda: ref.pim_matmul_grouped_ref(
+                                a, b, col_groups=cg),
+                            lambda: torch.bmm(a_rep, b),
+                            4 * (a.numel() + b.numel() + g * m * n),
+                            2 * g * m * k * n)})
+        del a, b, a_rep, out
+    k2 = []
+    for name, m, k, n in shapes["k2"]:
+        a, b = randn(m, k), randn(k, n)
+        r = hold_matmul(f"K2 {name}", lambda: pim_matmul(a, b),
+                        lambda: ref.pim_matmul_ref(a, b),
+                        lambda: ref.pim_matmul_ref(a[:, :k - 128],
+                                                   b[:k - 128]))
+        r.pop("out")
+        k2.append({"block": name, "M": m, "K": k, "N": n, **r,
+                   **timing(lambda: pim_matmul(a, b),
+                            lambda: ref.pim_matmul_ref(a, b),
+                            lambda: torch.mm(a, b),
+                            4 * (a.numel() + b.numel() + m * n),
+                            2 * m * k * n)})
+        del a, b
+    k3 = []
+    waves = []
+    for name, n in shapes["k3"] + [("wave", None)]:
+        if n is None:                   # the five adds as one K3 launch
+            flat = [torch.cat([t[i] for t in waves]) for i in range(3)]
+            got = pim_mac_grouped(waves)
+            if not all(torch.equal(x, pim_mac(*t))
+                       for x, t in zip(got, waves)):
+                raise AssertionError("K3 wave: differs from per-add K3")
+            a, b, acc = flat
+            n = a.numel()
+        else:
+            a, b, acc = randn(n), randn(n), randn(n)
+            waves.append((a, b, acc))
+        out, want = pim_mac(a, b, acc), ref.pim_mac_ref(a, b, acc)
+        if not torch.equal(out, want):
+            raise AssertionError(f"K3 {name}: not bit-equal to the plain "
+                                 f"version")
+        fused = int((torch.addcmul(acc, a, b) != out).sum())
+        k3.append({"node": name, "n": n,
+                   "max_err": float((out - want).abs().max()),
+                   "bit_equal": True,
+                   "addcmul_elements_differing": fused,
+                   **timing(lambda: pim_mac(a, b, acc),
+                            lambda: ref.pim_mac_ref(a, b, acc),
+                            lambda: torch.addcmul(acc, a, b),
+                            16 * n, 2 * n)})
+    del waves
+    torch.cuda.empty_cache()
+    emit({"phase": "kernels_pim", "batch": PIM_BATCHES[0], "tol": PIM_MM_TOL,
+          "results": [{**K1, "shapes": k1}, {**K2, "shapes": k2},
+                      {**K3, "shapes": k3}]})
+    return {"k1": k1, "k2": k2, "k3": [r for r in k3 if r["node"] != "wave"]}
+
+
+def sum_entry(ids, launches, rows) -> dict:
+    """One kernels-line entry over the shapes of one batch-256 forward:
+    times and bounds summed (each shape's bound the larger of its two
+    times), the largest error."""
+    t_bytes = sum(r["bytes_ms"] for r in rows)
+    t_ops = sum(r["ops_ms"] for r in rows)
+    return {**ids, "launches": launches,
+            "max_abs_err": max(r["max_err"] for r in rows),
+            "ms": sum(r["ms"] for r in rows),
+            "plain_ms": sum(r["plain_ms"] for r in rows),
+            "bound_ms": sum(r["bound_ms"] for r in rows),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": sum(r["library_ms"] for r in rows)}
+
+
+
 def gpu_name_and_power_limit() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -745,6 +1132,9 @@ def main() -> int:
     phase_build()
     k4 = phase_kernels(args.seed)
     k6 = phase_kernels_q(args.seed)
+    lenet_run = phase_pim_lenet(args.seed)
+    pim = phase_kernels_pim(args.seed, lenet_run["shapes"])
+    pim_launches = lenet_run["launches"]
     phase_parity(args.seed)
     serve = phase_serve(args.seed)
     phase_profile(serve["engine"], args.seed)
@@ -763,7 +1153,10 @@ def main() -> int:
 
     emit({"kernels": [
         entry(K4, serve["launches"], k4["bfloat16"]),
-        entry(K6, kvq["launches"], k6[(SERVE_KV_DTYPE, "bfloat16")])]})
+        entry(K6, kvq["launches"], k6[(SERVE_KV_DTYPE, "bfloat16")]),
+        sum_entry(K1, pim_launches["k1"], pim["k1"]),
+        sum_entry(K2, pim_launches["k2"], pim["k2"]),
+        sum_entry(K3, pim_launches["k3"], pim["k3"])]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -5,8 +5,10 @@ way ``repro.checkpoint.ckpt`` saves them — '/'-joined key paths such as
 ``layers/block0/attn/wq``, the layer stack on a leading axis of each
 ``layers/...`` leaf — and returns a :class:`DecoderLM` holding the same
 values. ``kv_pool_from_reference`` takes the reference's paged KV pool
-and returns the port's pool dict, bit for bit. Plain numpy in, so both
-read saved arrays as well as live ones.
+and returns the port's pool dict, bit for bit. ``lenet_params_from_reference``
+takes the reference's LeNet parameter dict and returns the port's, whose
+layout is the same. Plain numpy in, so all three read saved arrays as well
+as live ones.
 """
 
 from __future__ import annotations
@@ -18,7 +20,9 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.lenet5 import CONFIG as LENET5, LeNetConfig
 from repro_torch.core import quant
+from repro_torch.models import lenet
 from repro_torch.models.transformer import DecoderLM
 
 
@@ -103,3 +107,33 @@ def kv_pool_from_reference(ref_cache: Mapping, kv_dtype: str,
                              f" kv_dtype {s.name!r} stores "
                              f"{quant.code_dtype(s)}")
     return pool
+
+
+def lenet_params_from_reference(params: Mapping[str, Mapping[str, np.ndarray]],
+                                cfg: LeNetConfig = LENET5,
+                                device: str | torch.device | None = None
+                                ) -> dict:
+    """The port's LeNet parameters (``models.lenet.init_lenet``'s layout:
+    HWIO conv weights, ``(fin, fout)`` fc weights) holding the reference's
+    ``{"conv1": {"w", "b"}, ..., "fc3": {"w", "b"}}`` bit for bit, on
+    ``device`` (CUDA by default). Raises on a missing or extra layer or
+    leaf, or a shape or dtype that does not match ``cfg``."""
+    want = lenet.init_lenet(0, cfg, device="meta")
+    if set(params) != set(want):
+        raise ValueError(f"reference LeNet layers {sorted(params)}, the "
+                         f"port has {sorted(want)}")
+    dev = resolve_device(device)
+    out: dict = {}
+    for layer, leaves in want.items():
+        if set(params[layer]) != set(leaves):
+            raise ValueError(f"{layer}: leaves {sorted(params[layer])}, want"
+                             f" {sorted(leaves)}")
+        out[layer] = {}
+        for name, like in leaves.items():
+            t = _to_torch(params[layer][name])
+            if t.shape != like.shape or t.dtype != like.dtype:
+                raise ValueError(f"{layer}/{name}: {t.dtype} "
+                                 f"{tuple(t.shape)}, port expects "
+                                 f"{like.dtype} {tuple(like.shape)}")
+            out[layer][name] = t.to(dev)
+    return out

@@ -1,11 +1,14 @@
 """Architecture registry of the port: ``get_config(name)`` /
-``get_smoke_config(name)``. Lists only the archs the port runs."""
+``get_smoke_config(name)``. Lists only the archs the port runs. The
+paper's LeNet-5 (``lenet5.CONFIG``) is exported beside it, as in the
+reference."""
 
 from __future__ import annotations
 
 import importlib
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.lenet5 import CONFIG as LENET5, LeNetConfig
 
 ARCH_IDS = ("llama3-8b",)
 
@@ -24,4 +27,5 @@ def get_smoke_config(name: str) -> ArchConfig:
     return mod.smoke_config()
 
 
-__all__ = ["ARCH_IDS", "ArchConfig", "get_config", "get_smoke_config"]
+__all__ = ["ARCH_IDS", "ArchConfig", "LENET5", "LeNetConfig", "get_config",
+           "get_smoke_config"]

@@ -69,12 +69,13 @@ def sources() -> list[str]:
     return [src.stem for src in sorted(CSRC.glob("*.cu"))]
 
 
-def load(name: str, argtypes) -> ctypes._CFuncPtr:
-    """The C entry point ``name`` of ``csrc/<name>.cu`` (built first if
-    needed), with ``argtypes`` declared and a ``cudaError_t`` result."""
+def load(name: str, argtypes, source: str | None = None) -> ctypes._CFuncPtr:
+    """The C entry point ``name`` of ``csrc/<source>.cu`` (``source``
+    defaults to ``name``; built first if needed), with ``argtypes``
+    declared and a ``cudaError_t`` result."""
     fn = _FUNCS.get(name)
     if fn is None:
-        fn = getattr(ctypes.CDLL(str(build(name))), name)
+        fn = getattr(ctypes.CDLL(str(build(source or name))), name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
         _FUNCS[name] = fn

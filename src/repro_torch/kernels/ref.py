@@ -1,4 +1,6 @@
-"""Plain PyTorch versions of the port's kernels (the correctness contract).
+"""Plain PyTorch versions of the port's kernels (the correctness contract):
+K4 and K6 (paged decode attention), K1, K2 and K3 (the PIM matmul and
+MAC).
 
 Each CUDA kernel of the port is held against its plain version here: the
 CPU tests compare these with the reference's Pallas kernels, and
@@ -82,3 +84,34 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bgrl,blgd->bgrd", probs.float(), v.float())
     return out.reshape(b, h, d).to(q.dtype)
+
+
+def pim_mac_ref(a: torch.Tensor, b: torch.Tensor,
+                acc: torch.Tensor) -> torch.Tensor:
+    """Elementwise float32 MAC ``acc + a*b`` (K3): two eager ops, so two
+    roundings — the product, then the sum — as the paper's MAC unit and
+    the CUDA kernel compute it."""
+    return acc + a * b
+
+
+def pim_matmul_ref(a: torch.Tensor, b: torch.Tensor, *,
+                   bk: int = 128) -> torch.Tensor:
+    """Blocked float32 ``a @ b`` (K2, one placed block): a zero float32
+    accumulator plus one ``torch.matmul`` per ``bk``-deep K tile, in
+    ascending order, as the Pallas kernel accumulates its scratch tile."""
+    acc = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32,
+                      device=a.device)
+    for k0 in range(0, a.shape[1], bk):
+        acc += torch.matmul(a[:, k0:k0 + bk], b[k0:k0 + bk])
+    return acc
+
+
+def pim_matmul_grouped_ref(a: torch.Tensor, b: torch.Tensor, *,
+                           col_groups: int = 1,
+                           bk: int = 128) -> torch.Tensor:
+    """``C[g] = A[g // col_groups] @ B[g]`` (K1): every group through
+    :func:`pim_matmul_ref`, so the grouped product equals the per-block
+    one bit for bit on the CPU too. (A CPU ``bmm`` may sum in another
+    order than ``mm``.)"""
+    return torch.stack([pim_matmul_ref(a[g // col_groups], b[g], bk=bk)
+                        for g in range(b.shape[0])])

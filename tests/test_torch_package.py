@@ -32,7 +32,9 @@ FORBIDDEN = re.compile(r"^\s*(import jax|from jax|import repro\.|"
 def test_import_leaves_jax_and_reference_out():
     code = ("import sys, repro_torch, repro_torch.serve, repro_torch.models,"
             " repro_torch.kernels, repro_torch.checkpoint, repro_torch.obs,"
-            " repro_torch.configs, repro_torch.kernels.build\n"
+            " repro_torch.configs, repro_torch.kernels.build,"
+            " repro_torch.mapper, repro_torch.core, repro_torch.data,"
+            " repro_torch.models.lenet, repro_torch.kernels.ops\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]\n"
