@@ -43,6 +43,31 @@ Phases, each printing one JSON line:
    and K2 per output row to its own max|out|, with a control that
    dropping the last K tile fails that limit; K3 bit for bit), K1 equal
    to K2 bit for bit, and timed beside its bound and a library call.
+9. ``pim_train`` — the paper's LeNet-5 trained through the mapper:
+   ``Trainer(backend="pim")`` (the whole AdamW step compiled once) and
+   ``backend="jit"`` (the plain eager step) from the same seeded
+   parameters, TF32 off, batch 64: the first 10 losses agree within
+   rtol 1e-4, atol 1e-5, the loss at step 300 is below step 0's, one
+   compiled step equals the per-block executor bit for bit; launches per
+   step, ms per step, images/s, peak memory, ``train.step_wall_s``. Then
+   20 steps at batch 4096 with a profile of the compiled step. The
+   batch-64 step's launches are logged, and ``kernels_pim`` (``"path":
+   "pim_train"``) holds and times K1, K2 and K3 at their shapes as in 8.
+10. ``pim_grad`` — gradients of ``lenet_loss`` at batch 256 through the
+   mapper against ``torch.func.grad`` of the plain loss (rtol = atol =
+   1e-4): autograd through a compiled ``lenet_loss`` program (its
+   backward's K1 and K3 launches are exactly the cotangents autograd
+   asked for, no native product is differentiated), and the compiled
+   program of ``grad(lenet_loss)`` (its backward products are K1
+   launches, as in the train step); the typical |grad| per leaf, and
+   controls: each backward K1 and K3 launch dropped must fail the check,
+   and the readings of each scaled by 1.01.
+11. ``kernels_pim`` (``"path": "pim_grad_backward"``) — the VJP of each K1
+   node (dA with and without a shared A, dB) and K3 node of ``pim_grad``'s
+   autograd graph at its shapes: the cotangents equal the launches they
+   make, which are those of the main path's backward, held against the
+   plain formula as in 8, and timed. K2's VJP, which no path runs, is
+   held at the executor train step's shapes.
 
 Then the card's name and power limit, one line with every kernel's
 numbers, and as the last line ``{"ok": true, "device": {...}}``. Any
@@ -53,8 +78,10 @@ of JAX or of the reference package.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
+import importlib
 import json
 import pathlib
 import subprocess
@@ -776,11 +803,41 @@ def wall_ms(fn, iters: int = 20, warmup: int = 2) -> float:
     return (time.perf_counter() - t0) / iters * 1e3
 
 
-def profile_pim(fn, calls: int = 5) -> dict:
-    """Where one compiled LeNet call's time goes: ``calls`` calls under
-    ``torch.profiler`` after a warm call, device time by kernel group —
-    K1, K3, the copies, fills and concatenations of padding, im2col and
-    layout, and the rest — against the host's wall time."""
+def pim_kernels():
+    from repro_torch.kernels.pim_mac import (pim_mac, pim_matmul,
+                                             pim_matmul_grouped)
+    return pim_matmul_grouped, pim_matmul, pim_mac
+
+
+def reset_counts() -> None:
+    for k in pim_kernels():
+        k.launches = 0
+
+
+def read_counts() -> dict:
+    return dict(zip(("k1", "k2", "k3"), (k.launches for k in pim_kernels())))
+
+
+def profile_groups(name: str) -> str:
+    """Kernel group of a profiled device kernel: K1, K3, native
+    convolutions (cuDNN), copies/fills/concatenations, or the rest."""
+    name = name.lower()
+    if "pim_matmul_kernel" in name:
+        return "k1"
+    if "pim_mac_kernel" in name:
+        return "k3"
+    if any(k in name for k in ("conv", "cudnn", "wgrad", "dgrad", "fprop",
+                               "implicit_gemm", "xmma")):
+        return "native_conv"
+    if any(k in name for k in ("copy", "fill", "cat", "memset", "memcpy")):
+        return "copy_fill_cat"
+    return "other"
+
+
+def profile_device(fn, calls: int) -> dict:
+    """``calls`` calls of ``fn`` under ``torch.profiler`` after a warm
+    call: device time by ``profile_groups`` against the host's wall
+    time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -792,18 +849,14 @@ def profile_pim(fn, calls: int = 5) -> dict:
             fn()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-    groups = {"k1": 0.0, "k3": 0.0, "copy_fill_cat": 0.0, "other": 0.0}
+    groups = dict.fromkeys(("k1", "k3", "native_conv", "copy_fill_cat",
+                            "other"), 0.0)
     n_kernels = 0
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        name = e.key.lower()
         n_kernels += e.count
-        key = ("k1" if "pim_matmul_kernel" in name else
-               "k3" if "pim_mac_kernel" in name else
-               "copy_fill_cat" if any(k in name for k in (
-                   "copy", "fill", "cat", "memset", "memcpy")) else "other")
-        groups[key] += e.self_device_time_total
+        groups[profile_groups(e.key)] += e.self_device_time_total
     device_s = sum(groups.values()) / 1e6
     return {"calls": calls, "wall_ms_per_call": wall_s / calls * 1e3,
             "device_ms_per_call": device_s / calls * 1e3,
@@ -813,20 +866,36 @@ def profile_pim(fn, calls: int = 5) -> dict:
                 k: v / calls / 1e3 for k, v in groups.items()}}
 
 
+def faulty(fn, fault, index: int):
+    """``fn`` with the ``fault`` (a function of its output) applied to the
+    output of its ``index``-th call from now; ``index`` None: no fault."""
+    calls = [0]
+
+    def call(*args, **kw):
+        out = fn(*args, **kw)
+        calls[0] += 1
+        return out if calls[0] - 1 != index else fault(out)
+    return call
+
+
 @contextlib.contextmanager
-def recording_launches():
+def recording_launches(fault=None, index=None):
     """Log the argument shapes of every K1, K2 and K3 launch the mapper's
     lowering makes while open. The lowering's wrappers are wrapped, not
-    replaced: they launch and count as always."""
+    replaced: they launch and count as always. With a ``fault``, the
+    output of the ``index``-th K1 launch goes through it (``faulty``): a
+    control that a check must catch."""
     from repro_torch.mapper import lowering
     log = {"k1": [], "k2": [], "k3": []}
     orig = {name: getattr(lowering, name)
-            for name in ("pim_matmul_grouped", "pim_matmul", "pim_mac")}
+            for name in ("pim_matmul_grouped", "pim_matmul", "pim_mac",
+                         "pim_mac_grouped")}
+    k1_call = faulty(orig["pim_matmul_grouped"], fault, index)
 
     def k1(a, b, **kw):
         log["k1"].append((b.shape[0], kw.get("col_groups", 1), a.shape[1],
                           a.shape[2], b.shape[2]))
-        return orig["pim_matmul_grouped"](a, b, **kw)
+        return k1_call(a, b, **kw)
 
     def k2(a, b, **kw):
         log["k2"].append((a.shape[0], a.shape[1], b.shape[1]))
@@ -836,7 +905,11 @@ def recording_launches():
         log["k3"].append(a.numel())
         return orig["pim_mac"](a, b, acc)
 
-    for name, fn in zip(orig, (k1, k2, k3)):
+    def k3_wave(triples):             # one K3 launch over the whole wave
+        log["k3"].append(sum(a.numel() for a, _, _ in triples))
+        return orig["pim_mac_grouped"](triples)
+
+    for name, fn in zip(orig, (k1, k2, k3, k3_wave)):
         setattr(lowering, name, fn)
     try:
         yield log
@@ -845,11 +918,49 @@ def recording_launches():
             setattr(lowering, name, fn)
 
 
+@contextlib.contextmanager
+def recording_helpers(fault=None, key=None, index=None):
+    """Log every single launch made through the kernel module's helpers
+    ``_matmul_grouped`` (K1: G, col_groups, M, K, N), ``_matmul`` (K2: M,
+    K, N) and ``_mac`` (K3: elements) while open: the autograd Functions'
+    backward passes launch through them. With a ``fault``, the output of
+    the ``index``-th launch of kernel ``key`` goes through it
+    (``faulty``)."""
+    mod = importlib.import_module("repro_torch.kernels.pim_mac")
+    log = {"k1": [], "k2": [], "k3": []}
+    names = {"k1": "_matmul_grouped", "k2": "_matmul", "k3": "_mac"}
+    orig = {k: getattr(mod, n) for k, n in names.items()}
+    calls = {k: faulty(fn, fault, index if k == key else None)
+             for k, fn in orig.items()}
+
+    def k1(a, b, bm, bn, bk, cg):
+        log["k1"].append((b.shape[0], cg, a.shape[1], a.shape[2],
+                          b.shape[2]))
+        return calls["k1"](a, b, bm, bn, bk, cg)
+
+    def k2(a, b, bm, bn, bk):
+        log["k2"].append((a.shape[0], a.shape[1], b.shape[1]))
+        return calls["k2"](a, b, bm, bn, bk)
+
+    def k3(a, b, acc):
+        log["k3"].append(a.numel())
+        return calls["k3"](a, b, acc)
+
+    for k, fn in zip(names, (k1, k2, k3)):
+        setattr(mod, names[k], fn)
+    try:
+        yield log
+    finally:
+        for k, fn in orig.items():
+            setattr(mod, names[k], fn)
+
+
 def launch_shapes(prog, prog_log, ex_log) -> dict:
     """The logged launches of one compiled call (K1, K3) and one executor
     run (K2), each named by the node (and block) its plan step lowers: K1
     (G, col_groups, M, K, N) per placed node, K2 (M, K, N) per placed
-    block, K3 the element count of each add."""
+    block, K3 the element count of each add; each row one launch (a
+    count of 1, as ``phase_kernels_pim`` takes them)."""
     placed = [st.node for st in prog.ctx.steps if st.kind == "placed"]
     nodes = [nd for nd in placed if nd.kind != "eltwise"]
     blocks = [f"{nd.name}@{blk.row0},{blk.col0}" for nd in nodes
@@ -862,9 +973,10 @@ def launch_shapes(prog, prog_log, ex_log) -> dict:
         raise AssertionError(f"pim_lenet: logged launches {got[:3]} do not "
                              f"follow the plan's {want[:3]} (or the "
                              f"executor's adds differ in size)")
-    return {"k1": [(nd.name, *sh) for nd, sh in zip(nodes, prog_log["k1"])],
-            "k2": [(b, *sh) for b, sh in zip(blocks, ex_log["k2"])],
-            "k3": list(zip(adds, prog_log["k3"]))}
+    return {"k1": [(nd.name, *sh, 1)
+                   for nd, sh in zip(nodes, prog_log["k1"])],
+            "k2": [(b, *sh, 1) for b, sh in zip(blocks, ex_log["k2"])],
+            "k3": [(add, n, 1) for add, n in zip(adds, prog_log["k3"])]}
 
 
 def phase_pim_lenet(seed: int) -> dict:
@@ -877,11 +989,8 @@ def phase_pim_lenet(seed: int) -> dict:
     import torch
     from repro_torch import mapper
     from repro_torch.data import make_digits
-    from repro_torch.kernels.pim_mac import (pim_mac, pim_matmul,
-                                             pim_matmul_grouped)
     from repro_torch.mapper.executor import full_float32, max_deviation
     from repro_torch.models import lenet
-    kernels = (pim_matmul_grouped, pim_matmul, pim_mac)
     params = lenet.init_lenet(seed, device=DEVICE)
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 30)
     for leaves in params.values():
@@ -893,15 +1002,14 @@ def phase_pim_lenet(seed: int) -> dict:
         x = torch.from_numpy(imgs).to(DEVICE)
         prog = mapper.compile_lenet("serve", batch=batch)
         ex = mapper.ScheduleExecutor(prog.schedule)
-        for k in kernels:
-            k.launches = 0
+        reset_counts()
         with recording_launches() as prog_log:
             out = prog(params, x)
-        prog_counts = tuple(k.launches for k in kernels)
+        prog_counts = tuple(read_counts().values())
         with recording_launches() as ex_log:
             oracle = ex.run(params, x)
         torch.cuda.synchronize()
-        counts = tuple(k.launches for k in kernels)
+        counts = tuple(read_counts().values())
         ex_counts = tuple(c - p for c, p in zip(counts, prog_counts))
         if launches is None:
             launches = dict(zip(("k1", "k2", "k3"), counts))
@@ -933,7 +1041,7 @@ def phase_pim_lenet(seed: int) -> dict:
             prog_ms = wall_ms(lambda: prog(params, x))
             ex_ms = wall_ms(lambda: ex.run(params, x), iters=5)
             plain_ms = wall_ms(plain_call)
-            prof = profile_pim(lambda: prog(params, x))
+            prof = profile_device(lambda: prog(params, x), calls=5)
         emit({"phase": "pim_lenet", "batch": batch,
               "config": "lenet5 (paper, 21655 params) serve, float32",
               "launches_per_call": {"compiled": dict(zip(
@@ -953,7 +1061,7 @@ def phase_pim_lenet(seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# 8. kernels_pim: K1, K2, K3 at the shapes pim_lenet launched at batch 256
+# 8. kernels_pim: K1, K2, K3 at the shapes of a main path's launches
 # ---------------------------------------------------------------------------
 
 def pim_bound(nbytes: int, flops: int) -> tuple[float, float]:
@@ -963,6 +1071,17 @@ def pim_bound(nbytes: int, flops: int) -> tuple[float, float]:
             flops / PEAK_FLOPS["float32"] * 1e3)
 
 
+def pim_timing(kernel, plain, library, nbytes: int, flops: int) -> dict:
+    """Kernel, plain version and library call timed, beside the bound of
+    ``nbytes`` moved and ``flops`` float32 operations."""
+    t_bytes, t_ops = pim_bound(nbytes, flops)
+    return {"ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain),
+            "library_ms": cuda_ms(library),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_ms": t_bytes, "ops_ms": t_ops}
+
+
 def row_ratio(out, want, tol) -> float:
     """Max over output rows of the error against ``tol`` x the row's
     max|want|."""
@@ -970,38 +1089,56 @@ def row_ratio(out, want, tol) -> float:
     return float((err / (tol * want.abs().amax(-1)).clamp_min(1e-30)).max())
 
 
-def hold_matmul(label, kernel, plain, dropped) -> dict:
-    """Hold ``kernel()`` against ``plain()`` per output row; the control
-    ``dropped()`` (the plain product without its last K tile) must exceed
-    the limit."""
+def mm_limit(k: int) -> float:
+    """The per-row limit of a K-deep product: ``PIM_MM_TOL`` up to K = 256
+    (every serve shape), then growing as sqrt(K), as the rounding of a
+    K-term float32 sum does — ``pim_grad``'s dB contracts over M, up to
+    147,456 terms at batch 256."""
+    return PIM_MM_TOL * max(1.0, (k / 256) ** 0.5)
+
+
+def hold_matmul(label, kernel, plain, dropped, tol=PIM_MM_TOL) -> dict:
+    """Hold ``kernel()`` against ``plain()`` per output row, to ``tol`` x
+    the row's max|out|; the control ``dropped()`` (the plain product
+    without its last K tile) must exceed the limit."""
     import torch
     out, want = kernel(), plain()
     torch.cuda.synchronize()
     if not bool(torch.isfinite(out).all()):
         raise AssertionError(f"{label}: non-finite output")
-    ratio = row_ratio(out, want, PIM_MM_TOL)
+    ratio = row_ratio(out, want, tol)
     if not ratio <= 1:
         raise AssertionError(f"{label}: error {ratio} x the limit "
-                             f"{PIM_MM_TOL} x max|out| of a row")
-    control = row_ratio(dropped(), want, PIM_MM_TOL)
+                             f"{tol} x max|out| of a row")
+    control = row_ratio(dropped(), want, tol)
     if not control > 1:
         raise AssertionError(f"{label}: dropping the last K tile gives only "
                              f"{control} x the limit")
-    return {"max_err": float((out - want).abs().max()),
+    return {"max_err": float((out - want).abs().max()), "tol": tol,
             "max_err_over_limit": ratio, "control_over_limit": control,
             "out": out}
 
 
-def phase_kernels_pim(seed: int, shapes: dict) -> dict:
-    """K1, K2 and K3 at the ``shapes`` of pim_lenet's main path at batch
-    256 (``launch_shapes``), on seeded random data, against
-    their plain versions on the card, and timed: kernel, plain version,
-    bound (each operand read once and the output written once; 2 MK N
-    float32 operations for a product, 2 per MAC element) and the library
-    call — ``torch.bmm`` on the same padded stacks (shared-A slabs
-    repeated beforehand, untimed) for K1, ``torch.mm`` for K2, both with
-    TF32 off, and ``torch.addcmul`` for K3 (time only: it may round
-    once)."""
+def counted(rows) -> list:
+    """Each distinct launch shape (a tuple, or K3's element count) once,
+    with its number of launches last."""
+    return [(*(row if isinstance(row, tuple) else (row,)), n)
+            for row, n in collections.Counter(rows).items()]
+
+
+def phase_kernels_pim(seed: int, shapes: dict, path: str, batch: int,
+                      wave: bool = False) -> dict:
+    """K1, K2 and K3 at the ``shapes`` of one of ``path``'s main-path runs,
+    each distinct shape once with its number of launches (``counted``), on
+    seeded random data, against their plain versions on the card, and
+    timed: kernel, plain version, bound (each operand read once and the
+    output written once; 2 MK N float32 operations for a product, 2 per
+    MAC element) and the library call — ``torch.bmm`` on the same padded
+    stacks (shared-A slabs repeated beforehand, untimed) for K1,
+    ``torch.mm`` for K2, both with TF32 off, and ``torch.addcmul`` for K3
+    (time only: it may round once). K1 and K2 are held per output row to
+    ``mm_limit`` of their contraction; K3 bit for bit. With ``wave`` the
+    K3 launches (one per add) are also made as one grouped wave."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.pim_mac import (pim_mac, pim_mac_grouped,
@@ -1013,102 +1150,722 @@ def phase_kernels_pim(seed: int, shapes: dict) -> dict:
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=DEVICE)
 
-    def timing(kernel, plain, library, nbytes, flops) -> dict:
-        t_bytes, t_ops = pim_bound(nbytes, flops)
-        return {"ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain),
-                "library_ms": cuda_ms(library),
-                "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "bytes_ms": t_bytes, "ops_ms": t_ops}
-
     k1 = []
-    for name, g, cg, m, k, n in shapes["k1"]:
+    for name, g, cg, m, k, n, count in shapes["k1"]:
         a, b = randn(g // cg, m, k), randn(g, k, n)
         r = hold_matmul(
-            f"K1 {name}",
+            f"K1 {path} {name}",
             lambda: pim_matmul_grouped(a, b, col_groups=cg),
             lambda: ref.pim_matmul_grouped_ref(a, b, col_groups=cg),
             lambda: ref.pim_matmul_grouped_ref(a[..., :k - 128],
                                                b[:, :k - 128],
-                                               col_groups=cg))
+                                               col_groups=cg),
+            mm_limit(k))
         out = r.pop("out")
         for i in range(g):              # K1 == K2 on the same blocks
             if not torch.equal(out[i], pim_matmul(a[i // cg], b[i])):
-                raise AssertionError(f"K1 {name}: group {i} differs from K2")
+                raise AssertionError(f"K1 {path} {name}: group {i} differs "
+                                     f"from K2")
         a_rep = a.repeat_interleave(cg, 0)
         k1.append({"node": name, "G": g, "col_groups": cg, "M": m, "K": k,
-                   "N": n, **r, "k1_equals_k2": True,
-                   **timing(lambda: pim_matmul_grouped(a, b, col_groups=cg),
-                            lambda: ref.pim_matmul_grouped_ref(
-                                a, b, col_groups=cg),
-                            lambda: torch.bmm(a_rep, b),
-                            4 * (a.numel() + b.numel() + g * m * n),
-                            2 * g * m * k * n)})
+                   "N": n, "count": count, **r, "k1_equals_k2": True,
+                   **pim_timing(
+                       lambda: pim_matmul_grouped(a, b, col_groups=cg),
+                       lambda: ref.pim_matmul_grouped_ref(a, b,
+                                                          col_groups=cg),
+                       lambda: torch.bmm(a_rep, b),
+                       4 * (a.numel() + b.numel() + g * m * n),
+                       2 * g * m * k * n)})
         del a, b, a_rep, out
     k2 = []
-    for name, m, k, n in shapes["k2"]:
+    for name, m, k, n, count in shapes["k2"]:
         a, b = randn(m, k), randn(k, n)
-        r = hold_matmul(f"K2 {name}", lambda: pim_matmul(a, b),
+        r = hold_matmul(f"K2 {path} {name}", lambda: pim_matmul(a, b),
                         lambda: ref.pim_matmul_ref(a, b),
                         lambda: ref.pim_matmul_ref(a[:, :k - 128],
-                                                   b[:k - 128]))
+                                                   b[:k - 128]),
+                        mm_limit(k))
         r.pop("out")
-        k2.append({"block": name, "M": m, "K": k, "N": n, **r,
-                   **timing(lambda: pim_matmul(a, b),
-                            lambda: ref.pim_matmul_ref(a, b),
-                            lambda: torch.mm(a, b),
-                            4 * (a.numel() + b.numel() + m * n),
-                            2 * m * k * n)})
+        k2.append({"block": name, "M": m, "K": k, "N": n, "count": count,
+                   **r,
+                   **pim_timing(
+                       lambda: pim_matmul(a, b),
+                       lambda: ref.pim_matmul_ref(a, b),
+                       lambda: torch.mm(a, b),
+                       4 * (a.numel() + b.numel() + m * n),
+                       2 * m * k * n)})
         del a, b
     k3 = []
     waves = []
-    for name, n in shapes["k3"] + [("wave", None)]:
-        if n is None:                   # the five adds as one K3 launch
+    for name, n, count in shapes["k3"] + ([("wave", None, 0)] if wave
+                                          else []):
+        if n is None:                   # the adds as one K3 launch
             flat = [torch.cat([t[i] for t in waves]) for i in range(3)]
             got = pim_mac_grouped(waves)
             if not all(torch.equal(x, pim_mac(*t))
                        for x, t in zip(got, waves)):
-                raise AssertionError("K3 wave: differs from per-add K3")
+                raise AssertionError(f"K3 {path} wave: differs from per-add "
+                                     f"K3")
             a, b, acc = flat
             n = a.numel()
         else:
             a, b, acc = randn(n), randn(n), randn(n)
-            waves.append((a, b, acc))
+            if wave:
+                waves.append((a, b, acc))
         out, want = pim_mac(a, b, acc), ref.pim_mac_ref(a, b, acc)
         if not torch.equal(out, want):
-            raise AssertionError(f"K3 {name}: not bit-equal to the plain "
-                                 f"version")
+            raise AssertionError(f"K3 {path} {name}: not bit-equal to the "
+                                 f"plain version")
         fused = int((torch.addcmul(acc, a, b) != out).sum())
-        k3.append({"node": name, "n": n,
+        k3.append({"node": name, "n": n, "count": count,
                    "max_err": float((out - want).abs().max()),
                    "bit_equal": True,
                    "addcmul_elements_differing": fused,
-                   **timing(lambda: pim_mac(a, b, acc),
-                            lambda: ref.pim_mac_ref(a, b, acc),
-                            lambda: torch.addcmul(acc, a, b),
-                            16 * n, 2 * n)})
+                   **pim_timing(
+                       lambda: pim_mac(a, b, acc),
+                       lambda: ref.pim_mac_ref(a, b, acc),
+                       lambda: torch.addcmul(acc, a, b),
+                       16 * n, 2 * n)})
     del waves
     torch.cuda.empty_cache()
-    emit({"phase": "kernels_pim", "batch": PIM_BATCHES[0], "tol": PIM_MM_TOL,
+    emit({"phase": "kernels_pim", "path": path, "batch": batch,
+          "tol": "mm_limit(K)",
           "results": [{**K1, "shapes": k1}, {**K2, "shapes": k2},
                       {**K3, "shapes": k3}]})
-    return {"k1": k1, "k2": k2, "k3": [r for r in k3 if r["node"] != "wave"]}
+    return {"k1": k1, "k2": k2, "k3": [r for r in k3 if r["count"]]}
 
 
-def sum_entry(ids, launches, rows) -> dict:
-    """One kernels-line entry over the shapes of one batch-256 forward:
-    times and bounds summed (each shape's bound the larger of its two
-    times), the largest error."""
-    t_bytes = sum(r["bytes_ms"] for r in rows)
-    t_ops = sum(r["ops_ms"] for r in rows)
-    return {**ids, "launches": launches,
-            "max_abs_err": max(r["max_err"] for r in rows),
-            "ms": sum(r["ms"] for r in rows),
-            "plain_ms": sum(r["plain_ms"] for r in rows),
-            "bound_ms": sum(r["bound_ms"] for r in rows),
+# ---------------------------------------------------------------------------
+# 9. pim_train: LeNet-5 training through the mapper, Trainer(backend="pim")
+# ---------------------------------------------------------------------------
+
+# batch 64 is the reference example's (examples/train_lenet.py); at 4096
+# the card, not the host, should set the pace
+TRAIN_BATCHES = (64, 4096)
+TRAIN_STEPS = 301          # the batch-64 pim run: loss at step 300 < step 0
+TRAIN_PARITY_STEPS = 10    # pim against the plain step, loss by loss
+TRAIN_BIG_STEPS = 20       # the batch-4096 run
+TRAIN_LR = 2e-3            # AdamW, as the reference's example and test
+LOSS_TOL = dict(rtol=1e-4, atol=1e-5)   # the reference's pim-vs-jit test
+PIM_GRAD_BATCH = 256
+PIM_GRAD_TOL = dict(rtol=1e-4, atol=1e-4)  # the reference's _tree_close
+
+
+def adamw_train_step(opt):
+    """The reference example's step: loss and grads of ``lenet_loss``,
+    then one AdamW update."""
+    import torch
+    from repro_torch.models import lenet
+
+    def train_step(params, opt_state, batch):
+        imgs, labels = batch
+        grads, loss = torch.func.grad_and_value(lenet.lenet_loss)(
+            params, imgs, labels)
+        params, opt_state = opt.update(grads, opt_state, params)
+        return params, opt_state, loss
+    return train_step
+
+
+def make_trainer(backend, params0, batches, steps, ckpt_dir):
+    """A ``Trainer`` on the card from copies of ``params0``, AdamW at
+    ``TRAIN_LR``; ``batches`` holds each step's batch, made beforehand on
+    the card (``DigitsDataset(seed=0)``), so a step's time is the step's
+    own. One checkpoint, at the end."""
+    import torch
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train import Trainer, TrainerConfig
+    opt = make_optimizer("adamw", lr=TRAIN_LR)
+
+    def init_state():
+        p = {k: {j: v.clone() for j, v in layer.items()}
+             for k, layer in params0.items()}
+        return p, opt.init(p)
+
+    tc = TrainerConfig(total_steps=steps, ckpt_every=steps + 1,
+                       ckpt_dir=str(ckpt_dir), async_ckpt=False)
+    return Trainer(tc, train_step=adamw_train_step(opt),
+                   init_state=init_state, batch_fn=batches.__getitem__,
+                   backend=backend, device=DEVICE)
+
+
+def digit_batches(batch: int, steps: int) -> list:
+    import torch
+    from repro_torch.data import DigitsDataset
+    ds = DigitsDataset(batch_size=batch, seed=0)
+    return [tuple(torch.from_numpy(x).to(DEVICE) for x in ds.batch(s))
+            for s in range(steps)]
+
+
+def step_wall_s() -> dict:
+    """``train.step_wall_s`` of the run since the registry's reset, and
+    the mean of its steps after the first (which pays the first launches
+    and cuDNN's set-up; ``train.first_step_wall_s``)."""
+    from repro_torch import obs
+    snap = obs.metrics().snapshot()
+    h = snap["histograms"]["train.step_wall_s"]
+    first = snap["gauges"]["train.first_step_wall_s"]
+    return {**{k: h[k] for k in ("count", "mean", "p50", "p95", "max")},
+            "first_s": first,
+            "steady_mean": (h["sum"] - first) / (h["count"] - 1)}
+
+
+def leaves_differing(a, b) -> dict:
+    """The leaves of two pytrees that are not bit-equal, with their
+    largest difference."""
+    from repro_torch._tree import leaves_with_path
+    la, lb = dict(leaves_with_path(a)), dict(leaves_with_path(b))
+    if la.keys() != lb.keys():
+        return {"structure": f"{sorted(la)} != {sorted(lb)}"}
+    return {p: float((la[p].double() - lb[p].double()).abs().max())
+            for p in la if not la[p].equal(lb[p])}
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms: the native backward convolutions
+    may otherwise sum in an order that changes from run to run, and no
+    two runs could be held bit for bit."""
+    import torch
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved
+
+
+def phase_pim_train(seed: int) -> dict:
+    """``Trainer(backend="pim")`` and ``Trainer(backend="jit")`` (the plain
+    eager step) on the card from the same seeded parameters, TF32 off.
+    The batch-64 pim run is the main path: every count set to 0 just
+    before its 301 steps and read just after. Then one compiled step
+    against the per-block executor, bit for bit, with the shapes of both
+    logged for ``kernels_pim``; then 20 steps at batch 4096 with a
+    profile of the compiled step."""
+    import tempfile
+
+    import torch
+    from repro_torch import mapper, obs
+    from repro_torch.mapper.executor import full_float32
+    from repro_torch.models import lenet
+    from repro_torch.optim import make_optimizer
+    params0 = lenet.init_lenet(seed, device=DEVICE)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp, full_float32():
+        tmp = pathlib.Path(tmp)
+        batch = TRAIN_BATCHES[0]
+        batches = digit_batches(batch, TRAIN_STEPS)
+        t0 = time.perf_counter()
+        pim = make_trainer("pim", params0, batches, TRAIN_STEPS, tmp / "p")
+        build_s = time.perf_counter() - t0
+        prog = pim.pim_program
+        obs.metrics().reset()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        res = pim.run()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        wall = step_wall_s()
+        per_step = {k: v / TRAIN_STEPS for k, v in counts.items()}
+        if (counts["k2"] or counts["k1"] != 11 * TRAIN_STEPS
+                or counts["k3"] % TRAIN_STEPS or not counts["k3"]):
+            raise AssertionError(f"pim_train: launches {counts} over "
+                                 f"{TRAIN_STEPS} steps; want 11 K1 and a "
+                                 f"fixed number of K3 per step, no K2")
+        losses = res["losses"]
+        if not all(np.isfinite(losses)):
+            raise AssertionError("pim_train: non-finite loss")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"pim_train: loss {losses[-1]} at step "
+                                 f"{TRAIN_STEPS - 1} not below {losses[0]}")
+        jit = make_trainer("jit", params0, batches, TRAIN_PARITY_STEPS,
+                           tmp / "j")
+        obs.metrics().reset()
+        jit_losses = jit.run()["losses"]
+        jit_wall = step_wall_s()
+        np.testing.assert_allclose(losses[:TRAIN_PARITY_STEPS], jit_losses,
+                                   **LOSS_TOL)
+        ex = mapper.ScheduleExecutor(prog.schedule, device=DEVICE)
+        state = (pim.params, pim.opt_state, batches[0])
+        with deterministic_cudnn():
+            with recording_launches() as prog_log:
+                got = prog(*state)
+            c0 = read_counts()
+            with recording_launches() as ex_log:
+                want = ex.run(*state)
+            torch.cuda.synchronize()
+            c1 = read_counts()
+            again = prog(*state)
+        ex_counts = {k: c1[k] - c0[k] for k in c1}
+        diff = leaves_differing(got, want)
+        if diff or leaves_differing(got, again):
+            raise AssertionError(f"pim_train: compiled step and executor "
+                                 f"differ: {diff}; program run twice: "
+                                 f"{leaves_differing(got, again)}")
+        if (ex_counts["k1"] or ex_counts["k2"] != len(ex_log["k2"])
+                or len(prog_log["k3"]) != per_step["k3"]):
+            raise AssertionError(f"pim_train: executor launches "
+                                 f"{ex_counts}, logged {len(ex_log['k2'])}")
+        emit({"phase": "pim_train", "batch": batch,
+              "config": "lenet5 (paper, 21655 params) AdamW lr 2e-3, "
+                        "float32, DigitsDataset(seed=0)",
+              "steps": TRAIN_STEPS, "build_s": build_s,
+              "losses_first": losses[:TRAIN_PARITY_STEPS],
+              "loss_last": losses[-1],
+              "plain_losses_first": jit_losses,
+              "max_loss_dev_vs_plain": float(np.max(np.abs(
+                  np.subtract(losses[:TRAIN_PARITY_STEPS], jit_losses)))),
+              "launches_per_step": per_step,
+              "executor_launches_per_step": ex_counts,
+              "compiled_equals_executor": True,
+              "nodes": len(prog.schedule.graph.nodes),
+              "placed_blocks": prog.placed_blocks,
+              "ms_per_step": wall["steady_mean"] * 1e3,
+              "images_per_s": batch / wall["steady_mean"],
+              "plain_ms_per_step": jit_wall["steady_mean"] * 1e3,
+              "train.step_wall_s": wall,
+              "plain_train.step_wall_s": jit_wall,
+              "max_memory_allocated_gb": peak / 1e9,
+              "modeled_pim_latency_s": prog.schedule.report.latency_s})
+        out["launches"] = counts
+        out["executor_launches"] = ex_counts
+        out["shapes"] = {"k1": prog_log["k1"], "k2": ex_log["k2"],
+                         "k3": prog_log["k3"]}
+        del pim, jit, got, want, again, state, batches, ex
+        torch.cuda.empty_cache()
+
+        batch = TRAIN_BATCHES[1]
+        batches = digit_batches(batch, TRAIN_BIG_STEPS)
+        big = make_trainer("pim", params0, batches, TRAIN_BIG_STEPS,
+                           tmp / "b")
+        torch.cuda.reset_peak_memory_stats()
+        obs.metrics().reset()
+        losses = big.run()["losses"]
+        wall = step_wall_s()
+        ms = wall["steady_mean"] * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        if not all(np.isfinite(losses)):
+            raise AssertionError("pim_train 4096: non-finite loss")
+        prog = big.pim_program
+        state = (big.params, big.opt_state, batches[0])
+        plain = adamw_train_step(make_optimizer("adamw", lr=TRAIN_LR))
+        plain_ms = wall_ms(lambda: plain(*state), iters=5)
+        prog_ms = wall_ms(lambda: prog(*state), iters=5)
+        prof = profile_device(lambda: prog(*state), calls=3)
+        emit({"phase": "pim_train", "batch": batch,
+              "steps": TRAIN_BIG_STEPS, "losses": losses,
+              "ms_per_step": ms, "images_per_s": batch / ms * 1e3,
+              "train.step_wall_s": wall,
+              "program_ms_per_call": prog_ms,
+              "plain_ms_per_step": plain_ms,
+              "max_memory_allocated_gb": peak / 1e9,
+              "placed_blocks": prog.placed_blocks,
+              "profile": prof})
+        del big, batches, state
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 10. pim_grad: autograd through a compiled lenet_loss program
+# ---------------------------------------------------------------------------
+
+
+def backward_nodes(loss) -> dict:
+    """The kernel nodes of ``loss``'s autograd graph, each by its saved
+    operands and the cotangents autograd will ask of it: K1 (A's shape,
+    B's shape, tiles, (dA, dB) wanted), K3 (elements, (da, db, dacc)
+    wanted). Fails if a native matrix product or convolution is in the
+    graph."""
+    nodes = {"k1": [], "k3": []}
+    seen, stack = set(), [loss.grad_fn]
+    while stack:
+        fn = stack.pop()
+        if fn is None or fn in seen:
+            continue
+        seen.add(fn)
+        name = type(fn).__name__
+        if name in ("MmBackward0", "BmmBackward0", "ConvolutionBackward0",
+                    "AddmmBackward0"):
+            raise AssertionError(f"pim_grad: native {name} in the graph")
+        wanted = tuple(f is not None for f, _ in fn.next_functions)
+        if name == "_MatmulGroupedBackward":
+            a, b = fn.saved_tensors
+            nodes["k1"].append((tuple(a.shape), tuple(b.shape), fn.tiles,
+                                wanted[:2]))
+        elif name == "_MacBackward":
+            nodes["k3"].append((fn.saved_tensors[0].numel(), wanted))
+        stack.extend(f for f, _ in fn.next_functions)
+    return nodes
+
+
+def asked(nodes) -> dict:
+    """The backward launches ``nodes`` ask of K1 and K3: one per operand
+    that wants a cotangent (K3's accumulator takes the cotangent as it
+    is)."""
+    return {"k1": sum(sum(w) for *_, w in nodes["k1"]),
+            "k3": sum(sum(w[:2]) for _, w in nodes["k3"])}
+
+
+def close_ratio(got, want, rtol: float, atol: float) -> float:
+    """Max over the leaves' elements of |got - want| / (atol + rtol x
+    |want|): above 1 fails ``max_deviation`` at the same rtol and atol."""
+    from torch.utils import _pytree as pytree
+    return max(float(((g - w).abs() / (atol + rtol * w.abs())).max())
+               for g, w in zip(pytree.tree_leaves(got),
+                               pytree.tree_leaves(want), strict=True)
+               if g.numel())
+
+
+def grad_magnitudes(grads, rtol: float, atol: float) -> dict:
+    """Per leaf: max and median |grad|, and the smallest error in the
+    leaf's scale that the rtol/atol check catches (rtol + atol /
+    max|grad|)."""
+    from repro_torch._tree import leaves_with_path
+    out = {}
+    for path, v in leaves_with_path(grads):
+        top = float(v.abs().max())
+        out[path] = {"max_abs": top, "median_abs": float(v.abs().median()),
+                     "catches_scale_error_above": rtol + atol / top}
+    return out
+
+
+def grad_controls(run, launches: dict, plain) -> dict:
+    """``run(fault, key, index)`` gives gradients with ``fault`` applied
+    to the output of launch ``index`` of kernel ``key``. Each launch in
+    ``launches`` is dropped (zeroed) and, apart, scaled by 1.01, one at a
+    time; every dropped launch must fail the gradient check against
+    ``plain``, and the scaled ones' readings (error over the limit) say
+    how fine an error the check sees."""
+    import torch
+    out = {}
+    for key, n in launches.items():
+        dropped = [close_ratio(run(torch.zeros_like, key, i), plain,
+                               **PIM_GRAD_TOL) for i in range(n)]
+        scaled = [close_ratio(run(lambda t: t * 1.01, key, i), plain,
+                              **PIM_GRAD_TOL) for i in range(n)]
+        if not all(r > 1 for r in dropped):
+            raise AssertionError(f"pim_grad: a dropped {key} launch passes "
+                                 f"the gradient check: {dropped}")
+        out[key] = {"dropped_over_limit": dropped,
+                    "scaled_1pct_over_limit": scaled}
+    return out
+
+
+def phase_pim_grad(seed: int) -> dict:
+    """Gradients of ``lenet_loss`` at batch 256 through the mapper, against
+    ``torch.func.grad`` of the plain loss (TF32 off), rtol = atol = 1e-4,
+    two ways. ``autograd``: autograd through
+    ``compile_schedule(build_schedule(lenet_loss))`` — the main path,
+    counts set to 0 just before the program's call and its backward,
+    read after each; the backward's K1 and K3 launches must be every
+    cotangent autograd asked for, and their shapes are logged for the
+    backward kernel checks. ``grad_graph``: the compiled program of
+    ``torch.func.grad(lenet_loss)`` itself, whose backward products are K1
+    launches of the graph, as in the train step. For each, the typical
+    |grad| per leaf beside the limit, and controls: each K1 and K3 launch
+    of the backward dropped, then scaled by 1.01."""
+    import torch
+    from repro_torch import mapper
+    from repro_torch.data import make_digits
+    from repro_torch.mapper.executor import full_float32, max_deviation
+    from repro_torch.models import lenet
+    batch = PIM_GRAD_BATCH
+    params = lenet.init_lenet(seed, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 40)
+    for leaves in params.values():
+        leaves["b"] = torch.randn(leaves["b"].shape, generator=gen,
+                                  device=DEVICE)
+    imgs, labels = make_digits(batch, seed=seed + 41)
+    x = torch.from_numpy(imgs).to(DEVICE)
+    y = torch.from_numpy(labels).to(DEVICE)
+    abstract = (mapper.abstract_like(params),
+                *mapper.abstract_like((x, y)))
+    prog = mapper.compile_schedule(
+        mapper.build_schedule(lenet.lenet_loss, *abstract),
+        use_cache=False, device=DEVICE)
+    tree = {k: {j: v.clone().requires_grad_(True) for j, v in layer.items()}
+            for k, layer in params.items()}
+    leaves = [v for layer in tree.values() for v in layer.values()]
+
+    def as_tree(grads):
+        it = iter(grads)
+        return {k: {j: next(it) for j in layer} for k, layer in tree.items()}
+
+    with full_float32():
+        reset_counts()
+        loss = prog(tree, x, y)
+        torch.cuda.synchronize()
+        forward = read_counts()
+        nodes = backward_nodes(loss)
+        want = asked(nodes)
+        reset_counts()
+        with recording_helpers() as launched:
+            grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        backward = read_counts()
+        if (backward["k1"], backward["k3"]) != (want["k1"], want["k3"]) \
+                or not backward["k1"] or not backward["k3"]:
+            raise AssertionError(f"pim_grad: backward launches {backward}, "
+                                 f"autograd asked for {want}")
+        plain = torch.func.grad(lenet.lenet_loss)(params, x, y)
+        err = max_deviation(as_tree(grads), plain, **PIM_GRAD_TOL)
+
+        def autograd_run(fault, key, index):
+            loss = prog(tree, x, y)
+            with recording_helpers(fault, key, index):
+                return as_tree(torch.autograd.grad(loss, leaves))
+
+        controls = grad_controls(autograd_run, want, plain)
+
+        def step():
+            return torch.autograd.grad(prog(tree, x, y), leaves)
+
+        ms = wall_ms(step, iters=10)
+        plain_ms = wall_ms(lambda: torch.func.grad(lenet.lenet_loss)(
+            params, x, y), iters=10)
+
+        gprog = mapper.compile_schedule(
+            mapper.build_schedule(torch.func.grad(lenet.lenet_loss),
+                                  *abstract),
+            use_cache=False, device=DEVICE)
+        reset_counts()
+        with recording_launches() as glog:
+            ggrads = gprog(params, x, y)
+        torch.cuda.synchronize()
+        gcounts = read_counts()
+        if gcounts["k2"] or gcounts["k1"] != 11 or not gcounts["k3"]:
+            raise AssertionError(f"pim_grad: grad graph launches {gcounts}; "
+                                 f"want 11 K1, some K3, no K2")
+        gerr = max_deviation(ggrads, plain, **PIM_GRAD_TOL)
+
+        def graph_run(fault, key, index):
+            with recording_launches(fault, index):
+                return gprog(params, x, y)
+
+        gcontrols = grad_controls(graph_run, {"k1": len(glog["k1"])}, plain)
+        gms = wall_ms(lambda: gprog(params, x, y), iters=10)
+    emit({"phase": "pim_grad", "batch": batch, "tol": PIM_GRAD_TOL,
+          "grad_magnitudes": grad_magnitudes(plain, **PIM_GRAD_TOL),
+          "autograd": {"launches_forward": forward,
+                       "launches_backward": backward,
+                       "cotangents_asked": want,
+                       "max_abs_err_vs_plain": err, "controls": controls,
+                       "ms_forward_backward": ms},
+          "grad_graph": {"launches": gcounts, "max_abs_err_vs_plain": gerr,
+                         "controls": gcontrols, "ms": gms},
+          "plain_ms": plain_ms})
+    return {"forward": forward, "backward": backward, "nodes": nodes,
+            "launched": launched}
+
+
+# ---------------------------------------------------------------------------
+# 11. kernels_pim, backward: the VJPs of K1 and K3 at pim_grad's shapes
+# ---------------------------------------------------------------------------
+
+
+def phase_kernels_pim_backward(seed: int, grad_run: dict,
+                               k2_shapes: list) -> dict:
+    """The backward of each K1 and K3 node of ``pim_grad``'s autograd
+    graph (``backward_nodes``), each distinct node once with its count:
+    random operands of the node's shapes, the cotangents it was asked for
+    through its autograd Function, whose launches, over every node, must
+    be those the main path's backward made. Each launch is held against
+    the plain formula on the plain kernels (K1 each output row to
+    ``mm_limit`` of its contraction, with the dropped-K-tile control; K3
+    bit for bit) and timed with its bound and a library call (``bmm``
+    with TF32 off; ``mul``). K2's VJP, which no path differentiates (the
+    per-block executor runs without grad), is held at the shapes of one
+    executor train step (``k2_shapes``), untimed."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.pim_mac import (pim_mac, pim_matmul,
+                                             pim_matmul_grouped)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 50)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=DEVICE)
+
+    def segsum(x, cg):
+        return x.reshape(x.shape[0] // cg, cg, *x.shape[1:]).sum(1)
+
+    def cotangents(fn, operands, wanted, g):
+        """``fn``'s cotangents for the operands ``wanted``, and the
+        launches they made."""
+        leaves = [t.clone().requires_grad_(w)
+                  for t, w in zip(operands, wanted)]
+        out = fn(*leaves)
+        with recording_helpers() as log:
+            got = torch.autograd.grad(out, [t for t in leaves
+                                            if t.requires_grad], g)
+        it = iter(got)
+        return [next(it) if w else None for w in wanted], log
+
+    made = collections.Counter()
+    k1 = []
+    for a_shape, b_shape, (bm, bn, bk, cg), wanted, count in counted(
+            grad_run["nodes"]["k1"]):
+        a, b = randn(*a_shape), randn(*b_shape)
+        g_, k, n = b_shape
+        m = a_shape[1]
+        g = randn(g_, m, n)
+        (da, db), log = cotangents(
+            lambda p, q: pim_matmul_grouped(p, q, bm=bm, bn=bn, bk=bk,
+                                            col_groups=cg),
+            (a, b), wanted, g)
+        for sh in log["k1"]:
+            made["k1", sh] += count
+        lead = {"G": g_, "col_groups": cg, "M": m, "K": k, "N": n,
+                "count": count}
+        if da is not None:             # dA = K1(g, Bᵀ), summed over groups
+            bt = b.transpose(1, 2).contiguous()
+            r = hold_matmul(
+                f"K1 dA {lead}",
+                lambda: segsum(pim_matmul_grouped(g, bt), cg),
+                lambda: segsum(ref.pim_matmul_grouped_ref(g, bt), cg),
+                lambda: segsum(ref.pim_matmul_grouped_ref(
+                    g[..., :n - 128], bt[:, :n - 128]), cg),
+                mm_limit(n))
+            if not torch.equal(r.pop("out"), da):
+                raise AssertionError(f"K1 dA {lead}: autograd differs from "
+                                     f"the launch")
+            k1.append({"cotangent": "dA", "shared_a": cg > 1, **lead, **r,
+                       **pim_timing(
+                           lambda: pim_matmul_grouped(g, bt),
+                           lambda: ref.pim_matmul_grouped_ref(g, bt),
+                           lambda: torch.bmm(g, bt),
+                           4 * (g.numel() + bt.numel() + g_ * m * k),
+                           2 * g_ * m * k * n)})
+            del bt
+        if db is not None:             # dB = K1(Aᵀ, g, col_groups)
+            at = a.transpose(1, 2).contiguous()
+            r = hold_matmul(
+                f"K1 dB {lead}",
+                lambda: pim_matmul_grouped(at, g, col_groups=cg),
+                lambda: ref.pim_matmul_grouped_ref(at, g, col_groups=cg),
+                lambda: ref.pim_matmul_grouped_ref(at[..., :m - 128],
+                                                   g[:, :m - 128],
+                                                   col_groups=cg),
+                mm_limit(m))
+            if not torch.equal(r.pop("out"), db):
+                raise AssertionError(f"K1 dB {lead}: autograd differs from "
+                                     f"the launch")
+            at_rep = at.repeat_interleave(cg, 0)
+            k1.append({"cotangent": "dB", "shared_a": cg > 1, **lead, **r,
+                       **pim_timing(
+                           lambda: pim_matmul_grouped(at, g, col_groups=cg),
+                           lambda: ref.pim_matmul_grouped_ref(
+                               at, g, col_groups=cg),
+                           lambda: torch.bmm(at_rep, g),
+                           4 * (at.numel() + g.numel() + g_ * k * n),
+                           2 * g_ * m * k * n)})
+            del at, at_rep
+        del a, b, g, da, db
+    k3 = []
+    for n, wanted, count in counted(grad_run["nodes"]["k3"]):
+        a, b, acc, g = randn(n), randn(n), randn(n), randn(n)
+        zero = torch.zeros_like(g)
+        (da, db, dacc), log = cotangents(pim_mac, (a, b, acc), wanted, g)
+        for sh in log["k3"]:
+            made["k3", sh] += count
+        if dacc is not None and not torch.equal(dacc, g):
+            raise AssertionError(f"K3 dacc {n}: not the cotangent")
+        for name, other, got in (("da", b, da), ("db", a, db)):
+            if got is None:
+                continue
+            out = pim_mac(g, other, zero)
+            if not (torch.equal(out, got)
+                    and torch.equal(out, ref.pim_mac_ref(g, other, zero))):
+                raise AssertionError(f"K3 {name} {n}: not bit-equal to the "
+                                     f"plain version")
+            # the function is g * other: 12 n bytes, n operations; the
+            # zero accumulator the VJP reads is overhead against that
+            k3.append({"cotangent": name, "n": n, "count": count,
+                       "max_err": 0.0, "bit_equal": True,
+                       **pim_timing(
+                           lambda: pim_mac(g, other, zero),
+                           lambda: ref.pim_mac_ref(g, other, zero),
+                           lambda: torch.mul(g, other),
+                           12 * n, n)})
+    path = collections.Counter(
+        {(key, sh): c for key in ("k1", "k3") for sh, c in
+         collections.Counter(grad_run["launched"][key]).items()})
+    if made != path:
+        raise AssertionError(f"kernels_pim backward: the held nodes launch "
+                             f"{sorted(made.items())}, pim_grad's backward "
+                             f"{sorted(path.items())}")
+    k2 = []
+    for m, k, n, count in counted(k2_shapes):
+        a, b, g = randn(m, k), randn(k, n), randn(m, n)
+        (da, db), _ = cotangents(pim_matmul, (a, b), (True, True), g)
+        lead = {"M": m, "K": k, "N": n, "count": count}
+        for name, lhs, rhs, want, c in (("dA", g, b.T.contiguous(), da, n),
+                                        ("dB", a.T.contiguous(), g, db, m)):
+            r = hold_matmul(f"K2 {name} {lead}",
+                            lambda: pim_matmul(lhs, rhs),
+                            lambda: ref.pim_matmul_ref(lhs, rhs),
+                            lambda: ref.pim_matmul_ref(lhs[:, :c - 128],
+                                                       rhs[:c - 128]),
+                            mm_limit(c))
+            if not torch.equal(r.pop("out"), want):
+                raise AssertionError(f"K2 {name} {lead}: autograd differs "
+                                     f"from the launch")
+            k2.append({"cotangent": name, **lead, **r})
+        del a, b, g
+    torch.cuda.empty_cache()
+    emit({"phase": "kernels_pim", "path": "pim_grad_backward",
+          "batch": PIM_GRAD_BATCH, "tol": "mm_limit(contraction)",
+          "results": [{**K1, "shapes": k1}, {**K3, "shapes": k3},
+                      {**K2, "path": None, "shapes_of": "pim_train executor",
+                       "shapes": k2}]})
+    return {"k1": k1, "k3": k3}
+
+
+def sums(rows) -> dict:
+    """Times and bounds of one run's launches: each distinct shape's
+    numbers times its count, summed (each shape's bound the larger of its
+    two times); the largest error."""
+    def total(key):
+        return sum(r[key] * r["count"] for r in rows)
+
+    t_bytes, t_ops = total("bytes_ms"), total("ops_ms")
+    return {"max_abs_err": max(r["max_err"] for r in rows),
+            "ms": total("ms"), "plain_ms": total("plain_ms"),
+            "bound_ms": total("bound_ms"),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": sum(r["library_ms"] for r in rows)}
+            "library_ms": total("library_ms")}
 
+
+def pim_entry(ids, key, by_path, rows) -> dict:
+    """A PIM kernel's kernels-line entry: its launches summed over the
+    main paths (forward and backward; ``launches_by_path`` splits them),
+    the times of one batch-256 serve forward (``pim_lenet``) and, under
+    ``pim_train`` and ``backward``, those of one batch-64 train step (K2:
+    one executor step) and of ``pim_grad``'s backward (None for K2, whose
+    VJP no path runs)."""
+    launches = {path: counts[key] for path, counts in by_path.items()
+                if path != "pim_grad_backward"}
+    backward = rows["pim_grad_backward"].get(key)
+    return {**ids, "launches": sum(launches.values()),
+            **sums(rows["pim_lenet"][key]),
+            "launches_by_path": {**launches, "pim_grad_backward":
+                                 by_path["pim_grad_backward"][key]},
+            "pim_train": sums(rows["pim_train"][key]),
+            "backward": sums(backward) if backward else None}
+
+
+def with_counts(shapes: dict) -> dict:
+    """Logged launch shapes as ``phase_kernels_pim`` rows: each distinct
+    shape once, named by itself, with its count."""
+    return {key: [("x".join(map(str, row[:-1])), *row)
+                  for row in counted(rows)]
+            for key, rows in shapes.items()}
 
 
 def gpu_name_and_power_limit() -> str:
@@ -1133,8 +1890,23 @@ def main() -> int:
     k4 = phase_kernels(args.seed)
     k6 = phase_kernels_q(args.seed)
     lenet_run = phase_pim_lenet(args.seed)
-    pim = phase_kernels_pim(args.seed, lenet_run["shapes"])
-    pim_launches = lenet_run["launches"]
+    rows = {"pim_lenet": phase_kernels_pim(
+        args.seed, lenet_run["shapes"], "pim_lenet", PIM_BATCHES[0],
+        wave=True)}
+    train = phase_pim_train(args.seed)
+    rows["pim_train"] = phase_kernels_pim(
+        args.seed, with_counts(train["shapes"]), "pim_train",
+        TRAIN_BATCHES[0])
+    grad = phase_pim_grad(args.seed)
+    rows["pim_grad_backward"] = phase_kernels_pim_backward(
+        args.seed, grad, train["shapes"]["k2"])
+    by_path = {"pim_lenet": lenet_run["launches"],
+               "pim_train": {k: train["launches"][k]
+                             + train["executor_launches"][k]
+                             for k in ("k1", "k2", "k3")},
+               "pim_grad": {k: grad["forward"][k] + grad["backward"][k]
+                            for k in ("k1", "k2", "k3")},
+               "pim_grad_backward": grad["backward"]}
     phase_parity(args.seed)
     serve = phase_serve(args.seed)
     phase_profile(serve["engine"], args.seed)
@@ -1154,9 +1926,8 @@ def main() -> int:
     emit({"kernels": [
         entry(K4, serve["launches"], k4["bfloat16"]),
         entry(K6, kvq["launches"], k6[(SERVE_KV_DTYPE, "bfloat16")]),
-        sum_entry(K1, pim_launches["k1"], pim["k1"]),
-        sum_entry(K2, pim_launches["k2"], pim["k2"]),
-        sum_entry(K3, pim_launches["k3"], pim["k3"])]})
+        *(pim_entry(ids, key, by_path, rows)
+          for ids, key in ((K1, "k1"), (K2, "k2"), (K3, "k3")))]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

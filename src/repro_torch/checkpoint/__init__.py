@@ -1,6 +1,9 @@
 from repro_torch.checkpoint.bridge import (kv_pool_from_reference,
                                            lenet_params_from_reference,
                                            params_from_reference)
+from repro_torch.checkpoint.ckpt import (CheckpointManager, latest_step,
+                                         load_checkpoint, save_checkpoint)
 
-__all__ = ["kv_pool_from_reference", "lenet_params_from_reference",
-           "params_from_reference"]
+__all__ = ["CheckpointManager", "kv_pool_from_reference", "latest_step",
+           "lenet_params_from_reference", "load_checkpoint",
+           "params_from_reference", "save_checkpoint"]

@@ -15,6 +15,25 @@ forms.
 An aten graph is flat: ``make_fx`` inlines calls and unrolls Python
 loops, so every node runs once (the reference's scan multiplicity is
 always 1 here).
+
+A backward pass is captured from ``torch.func.grad_and_value`` (the
+reference's ``jax.value_and_grad``). Where torch's autograd formulas fuse
+what JAX's transpose rules spell as separate primitives, :func:`capture`
+respells them (:data:`DECOMPOSITIONS`) so the graph holds the reference's
+costed nodes in its order:
+
+* ``tanh_backward(g, y)`` -> ``t = g * (1 - y)``, ``t * y`` and the
+  cotangent sum :func:`add_any` (unpriced, as JAX's ``add_any``); the
+  residual ``1 - y`` moves to right after its ``tanh``, where JAX's
+  linearization evaluates it (:func:`_hoist_residuals`);
+* ``convolution_backward`` -> one ``convolution_backward`` per requested
+  cotangent, the weight's first and the input's second, as the reference's
+  two transposed convolutions; each is priced as the convolution JAX
+  emits (:func:`conv_dims`);
+* ``mm(t(a), b)``, autograd's weight cotangent ``xᵀg``, is priced and
+  oriented as the reference's ``dot_general`` contracting dim 0 of both
+  operands: ``(bᵀa)ᵀ`` with ``a`` the stationary operand
+  (:func:`mm_transposed`).
 """
 
 from __future__ import annotations
@@ -33,9 +52,16 @@ from repro_torch.core import cost as cost_mod
 
 aten = torch.ops.aten
 
-# ops priced as pure adds / pure muls (elementwise), by aten op name
+# ops priced as pure adds / pure muls (elementwise), by op name
 ADD_OPS = {"add", "sub"}
 MUL_OPS = {"mul", "div"}
+
+# elementwise aten overloads -> the reference primitive they price as;
+# ``rsub`` is ``1 - y`` (JAX's ``sub 1.0 y``)
+ELTWISE_OPS: dict[Any, str] = {
+    **{getattr(aten, op).Tensor: op for op in ADD_OPS | MUL_OPS},
+    aten.rsub.Scalar: "sub",
+}
 
 # Lowering-rule registry: aten overload -> mapper node kind. The single
 # source of truth for "which ops are PIM-lowerable", shared by the op
@@ -45,7 +71,8 @@ NODE_KINDS: dict[Any, str] = {
     aten.mm.default: "matmul",
     aten.bmm.default: "matmul",
     aten.convolution.default: "conv",
-    **{getattr(aten, op).Tensor: "eltwise" for op in ADD_OPS | MUL_OPS},
+    aten.convolution_backward.default: "conv",
+    **{op: "eltwise" for op in ELTWISE_OPS},
 }
 
 # matrix products the reference prices (as dot_general) that the port
@@ -61,8 +88,23 @@ def node_kind(target) -> str | None:
 
 
 def op_name(target) -> str:
-    """The aten op's name without overload: ``aten.add.Tensor`` -> add."""
-    return target.overloadpacket.__name__
+    """The name a node of ``target`` carries: the reference primitive an
+    elementwise op prices as (``aten.rsub.Scalar`` -> sub), else the aten
+    op's name without overload (``aten.mm.default`` -> mm)."""
+    return ELTWISE_OPS.get(target) or getattr(target, "overloadpacket",
+                                              target).__name__
+
+
+@torch.library.custom_op("repro_torch::add_any", mutates_args=())
+def add_any(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The cotangent sum: ``a + b``, JAX's ``add_any``. A primitive of its
+    own so that, as in the reference, it is not priced."""
+    return a + b
+
+
+@add_any.register_fake
+def _add_any_fake(a, b):
+    return a + b
 
 
 @dataclasses.dataclass
@@ -85,19 +127,72 @@ def numel(shape) -> int:
     return math.prod(shape)
 
 
+def _is_transpose(node) -> bool:
+    """Whether fx ``node`` swaps the two dims of a 2-D tensor."""
+    if not isinstance(node, torch.fx.Node) or len(shape_of(node)) != 2:
+        return False
+    if node.target is aten.t.default:
+        return True
+    if node.target is aten.transpose.int:
+        return sorted(d % 2 for d in node.args[1:3]) == [0, 1]
+    return (node.target is aten.permute.default
+            and list(node.args[1]) in ([1, 0], [-1, -2]))
+
+
+def mm_transposed(node) -> bool:
+    """``mm(t(a), b)``: the product contracts the rows of ``a`` and ``b``
+    — autograd's weight cotangent ``xᵀg``. The reference's transpose rule
+    emits it as ``dot_general(g, x)`` contracting dim 0 of both, then a
+    transpose: the product ``gᵀx`` with ``x`` stationary. The mapper
+    prices and places it so; the aten node's value is that product's
+    transpose."""
+    return node.target is aten.mm.default and _is_transpose(node.args[0])
+
+
 def mm_dims(node) -> tuple[int, int, int, int]:
-    """(batch, m, n, contract) sizes of one ``mm`` / ``bmm`` node."""
+    """(batch, m, n, contract) sizes of one ``mm`` / ``bmm`` node, in the
+    reference's orientation (see :func:`mm_transposed`)."""
     lhs, rhs = shape_of(node.args[0]), shape_of(node.args[1])
     if node.target is aten.bmm.default:
         return lhs[0], lhs[1], rhs[2], lhs[2]
+    if mm_transposed(node):
+        return 1, rhs[1], lhs[0], lhs[1]
     return 1, lhs[0], rhs[1], lhs[1]
+
+
+def conv_backward_half(node) -> str:
+    """Which cotangent a ``convolution_backward`` node computes: ``"input"``
+    or ``"weight"`` (:func:`capture` splits the op, one per cotangent)."""
+    mask = list(node.args[10])
+    if mask == [True, False, False]:
+        return "input"
+    if mask == [False, True, False]:
+        return "weight"
+    raise NotImplementedError(
+        f"convolution_backward with output_mask {mask}: the mapper prices "
+        f"one cotangent per node (trace through estimator.capture)")
 
 
 def conv_dims(node) -> tuple[int, int, int]:
     """(out_elems, fan_in, cout) of one ``convolution`` node.
 
     fan-in per output element = prod(kernel spatial) * in_channels per
-    group (the weight is ``[cout, cin / groups, *spatial]``)."""
+    group (the weight is ``[cout, cin / groups, *spatial]``). A
+    ``convolution_backward`` node is priced as the convolution the
+    reference's transpose rule emits for its cotangent: the weight's
+    convolves the input with the output cotangent as kernel (fan-in =
+    batch x output spatial, cout = the weight's out channels), the
+    input's convolves the padded cotangent with the flipped kernel
+    (fan-in = kernel spatial x out channels, cout = in channels)."""
+    if node.target is aten.convolution_backward.default:
+        if node.args[7] or node.args[9] != 1:
+            raise NotImplementedError(
+                "the backward of a transposed or grouped convolution is "
+                "not priced yet")
+        g, w = shape_of(node.args[0]), shape_of(node.args[2])
+        if conv_backward_half(node) == "weight":
+            return numel(w), numel(g) // g[1], w[0]
+        return numel(shape_of(node.args[1])), numel(w) // w[1], w[1]
     w = shape_of(node.args[1])
     return numel(shape_of(node)), numel(w[1:]), w[0]
 
@@ -130,7 +225,7 @@ def _count_stream(items) -> OpCounts:
             total.macs += scale * out_elems * fan_in
         elif kind == "eltwise":
             n_el = scale * numel(shape_of(node))
-            if op_name(node.target) in ADD_OPS:
+            if ELTWISE_OPS[node.target] in ADD_OPS:
                 total.adds += n_el
             else:
                 total.muls += n_el
@@ -149,10 +244,58 @@ class Capture:
     out_spec: Any
 
 
+def _tanh_backward(g, y):
+    """JAX's tanh VJP: ``t = g * (1 - y)``, then ``t + t * y``."""
+    t = g * (1 - y)
+    return add_any(t, t * y)
+
+
+def _convolution_backward(grad, inp, weight, bias_sizes, stride, padding,
+                          dilation, transposed, output_padding, groups,
+                          output_mask):
+    """One ``convolution_backward`` per requested cotangent, the weight's
+    first (the reference's order); the bias's is the plain sum."""
+    mask = list(output_mask)
+    if sum(mask[:2]) < 2 and not mask[2]:
+        return NotImplemented           # one cotangent: the op itself
+    conf = (bias_sizes, stride, padding, dilation, transposed,
+            output_padding, groups)
+    grad_w = grad_x = grad_b = None
+    if mask[1]:
+        grad_w = aten.convolution_backward.default(
+            grad, inp, weight, *conf, [False, True, False])[1]
+    if mask[0]:
+        grad_x = aten.convolution_backward.default(
+            grad, inp, weight, *conf, [True, False, False])[0]
+    if mask[2]:
+        grad_b = grad.sum([0, *range(2, grad.dim())])
+    return grad_x, grad_w, grad_b
+
+
+# torch's fused backward formulas respelled as the reference's primitives
+DECOMPOSITIONS = {
+    aten.tanh_backward.default: _tanh_backward,
+    aten.convolution_backward.default: _convolution_backward,
+}
+
+
+def _hoist_residuals(gm: torch.fx.GraphModule) -> None:
+    """Move each ``1 - y`` of a respelled ``tanh_backward`` to right after
+    its ``tanh``: JAX's linearization evaluates that residual in the
+    forward pass, so the reference's graph holds it there."""
+    for node in list(gm.graph.nodes):
+        y = node.args[0] if node.target is aten.rsub.Scalar else None
+        if isinstance(y, torch.fx.Node) and y.target is aten.tanh.default:
+            y.append(node)
+    gm.recompile()
+
+
 def capture(fn: Callable, *args, **kwargs) -> Capture:
     """Trace ``fn(*args, **kwargs)`` to an aten graph with
     ``make_fx(tracing_mode="fake")``: shapes and dtypes only (meta-device
-    arguments welcome — nothing is allocated or computed)."""
+    arguments welcome — nothing is allocated or computed). Backward
+    formulas are respelled as the reference's primitives
+    (:data:`DECOMPOSITIONS`)."""
     flat, in_spec = pytree.tree_flatten((args, kwargs))
     if not all(isinstance(x, torch.Tensor) for x in flat):
         raise TypeError("every argument leaf must be a tensor")
@@ -164,7 +307,9 @@ def capture(fn: Callable, *args, **kwargs) -> Capture:
         out_spec[:] = [spec]
         return outs
 
-    gm = make_fx(flat_fn, tracing_mode="fake")(*flat)
+    gm = make_fx(flat_fn, tracing_mode="fake",
+                 decomposition_table=DECOMPOSITIONS)(*flat)
+    _hoist_residuals(gm)
     return Capture(gm=gm, in_spec=in_spec, out_spec=out_spec[0])
 
 

@@ -1,5 +1,5 @@
 """Data of the port: the procedural digits (``pipeline``)."""
 
-from repro_torch.data.pipeline import make_digits
+from repro_torch.data.pipeline import DigitsDataset, make_digits
 
-__all__ = ["make_digits"]
+__all__ = ["DigitsDataset", "make_digits"]

@@ -4,10 +4,13 @@ images as the reference for the same seed.
 
 MNIST is not available offline: ``make_digits`` renders a procedural
 10-class digit-like dataset (5x7 glyph stamps + jitter + noise, 28x28x1).
-``DigitsDataset`` and the synthetic token stream are not ported.
+``DigitsDataset`` serves its deterministic per-step batches. The
+synthetic token stream is not ported.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 
@@ -50,3 +53,17 @@ def make_digits(n: int, *, seed: int = 0,
         imgs[i, :, :, 0] = np.clip(canvas, 0.0, 1.0)
     return imgs, labels
 
+
+@dataclasses.dataclass
+class DigitsDataset:
+    """Procedural digits with deterministic per-step batches (numpy)."""
+
+    batch_size: int
+    seed: int = 0
+
+    def batch(self, step: int) -> tuple[np.ndarray, np.ndarray]:
+        return make_digits(self.batch_size,
+                           seed=self.seed * 1_000_003 + step)
+
+    def eval_set(self, n: int = 2_000) -> tuple[np.ndarray, np.ndarray]:
+        return make_digits(n, seed=self.seed * 7_777_777 + 123456)

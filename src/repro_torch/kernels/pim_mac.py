@@ -13,12 +13,19 @@ does. Each kernel source states its bound and design.
 
 On a CUDA tensor a wrapper launches its kernel (or raises); on a CPU
 tensor it runs the plain version in ``ref`` — the analogue of the
-reference's interpret mode. ``launches`` counts each kernel's launches.
+reference's interpret mode. ``launches`` counts each kernel's launches,
+forward and backward.
 
-The reference's kernels carry custom VJPs; the port has no
-``torch.autograd.Function`` for them yet (ROADMAP.md, queue item 3.1), so
-a wrapper given an input that requires grad raises rather than return a
-result cut off from the graph.
+Differentiable, as the reference's custom VJPs: given an input that
+requires grad, a wrapper runs its kernel inside a
+``torch.autograd.Function`` whose backward launches the same kernel with
+the reference's formulas — K1: ``dA = K1(g, Bᵀ)`` (segment-summed over
+the column groups of a shared A) and ``dB = K1(Aᵀ, g, col_groups)``; K2:
+``dA = K2(g, Bᵀ)``, ``dB = K2(Aᵀ, g)``; K3: ``da = K3(g, b, 0)``,
+``db = K3(g, a, 0)``, ``dacc = g``. A cotangent nobody asked for
+(``ctx.needs_input_grad``) launches nothing. The transposed operands are
+made contiguous before the launch, as the reference's ``swapaxes``
+materializes them.
 """
 
 from __future__ import annotations
@@ -42,16 +49,13 @@ TILE_MN = 128       # csrc kBM, kBN: M and N are multiples of this
 TILE_K = 8          # csrc kBK: K is a multiple of this
 
 
-def _no_grad(name: str, *tensors: torch.Tensor) -> None:
-    if any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{name} has no backward in the port yet (ROADMAP.md, queue "
-            f"item 3.1); pass tensors that do not require grad")
+def _wants_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in tensors)
 
 
 def _common(name: str, *tensors: torch.Tensor) -> str:
     """Checks every wrapper makes; returns the device type."""
-    _no_grad(name, *tensors)
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev:
@@ -86,7 +90,19 @@ def _raise_on(rc: int, name: str) -> None:
 def pim_matmul(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
                bn: int = 128, bk: int = 128) -> torch.Tensor:
     """float32 ``C = A @ B`` over (bm, bn, bk) tiles: A [M, K], B [K, N],
-    M, N, K multiples of bm, bn, bk. The per-block oracle's product."""
+    M, N, K multiples of bm, bn, bk. The per-block oracle's product.
+    Differentiable (module docstring)."""
+    if _wants_grad(a, b):
+        return _Matmul.apply(a, b, bm, bn, bk)
+    return _matmul(a, b, bm, bn, bk)
+
+
+pim_matmul.launches = 0
+
+
+def _matmul(a: torch.Tensor, b: torch.Tensor, bm: int, bn: int,
+            bk: int) -> torch.Tensor:
+    """One K2 launch (its plain version on the CPU)."""
     dev = _common("pim_matmul", a, b)
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"pim_matmul: shapes {tuple(a.shape)} @ "
@@ -105,7 +121,27 @@ def pim_matmul(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
     return out
 
 
-pim_matmul.launches = 0
+class _Matmul(torch.autograd.Function):
+    """K2 with the reference's VJP: g is (m, n), so the cotangents' tiles
+    are (bm, bk, bn) for dA and (bk, bn, bm) for dB."""
+
+    @staticmethod
+    def forward(ctx, a, b, bm, bn, bk):
+        ctx.save_for_backward(a, b)
+        ctx.tiles = (bm, bn, bk)
+        return _matmul(a, b, bm, bn, bk)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        bm, bn, bk = ctx.tiles
+        g = g.contiguous()
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = _matmul(g, b.T.contiguous(), bm, bk, bn)
+        if ctx.needs_input_grad[1]:
+            db = _matmul(a.T.contiguous(), g, bk, bn, bm)
+        return da, db, None, None, None
 
 
 def pim_matmul_grouped(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
@@ -116,7 +152,18 @@ def pim_matmul_grouped(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
     N], C [G, M, N]. ``col_groups`` is the shared-A mode: a placed node's
     column blocks all consume one activation slab, never copied. Each
     group's result equals :func:`pim_matmul` on the same operands bit for
-    bit."""
+    bit. Differentiable (module docstring)."""
+    if _wants_grad(a, b):
+        return _MatmulGrouped.apply(a, b, bm, bn, bk, col_groups)
+    return _matmul_grouped(a, b, bm, bn, bk, col_groups)
+
+
+pim_matmul_grouped.launches = 0
+
+
+def _matmul_grouped(a: torch.Tensor, b: torch.Tensor, bm: int, bn: int,
+                    bk: int, col_groups: int) -> torch.Tensor:
+    """One K1 launch (its plain version on the CPU)."""
     dev = _common("pim_matmul_grouped", a, b)
     if (a.dim() != 3 or b.dim() != 3 or col_groups < 1
             or b.shape[0] != a.shape[0] * col_groups
@@ -140,13 +187,49 @@ def pim_matmul_grouped(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
     return out
 
 
-pim_matmul_grouped.launches = 0
+class _MatmulGrouped(torch.autograd.Function):
+    """K1 with the reference's VJP: one grouped launch per cotangent; dA
+    of a shared A is segment-summed over its column groups."""
+
+    @staticmethod
+    def forward(ctx, a, b, bm, bn, bk, col_groups):
+        ctx.save_for_backward(a, b)
+        ctx.tiles = (bm, bn, bk, col_groups)
+        return _matmul_grouped(a, b, bm, bn, bk, col_groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        bm, bn, bk, col_groups = ctx.tiles
+        g = g.contiguous()
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = _matmul_grouped(g, b.transpose(1, 2).contiguous(), bm, bk,
+                                 bn, 1)
+            if col_groups > 1:
+                da = da.reshape(a.shape[0], col_groups,
+                                *da.shape[1:]).sum(1)
+        if ctx.needs_input_grad[1]:
+            db = _matmul_grouped(a.transpose(1, 2).contiguous(), g, bk, bn,
+                                 bm, col_groups)
+        return da, db, None, None, None, None
 
 
 def pim_mac(a: torch.Tensor, b: torch.Tensor,
             acc: torch.Tensor) -> torch.Tensor:
     """Elementwise float32 ``acc + a*b``, rounded twice (the product, then
-    the sum); operands of one shape."""
+    the sum); operands of one shape. Differentiable (module docstring)."""
+    if _wants_grad(a, b, acc):
+        return _Mac.apply(a, b, acc)
+    return _mac(a, b, acc)
+
+
+pim_mac.launches = 0
+
+
+def _mac(a: torch.Tensor, b: torch.Tensor,
+         acc: torch.Tensor) -> torch.Tensor:
+    """One K3 launch (its plain version on the CPU)."""
     dev = _common("pim_mac", a, b, acc)
     if not a.shape == b.shape == acc.shape:
         raise ValueError(f"pim_mac: shapes {tuple(a.shape)}, "
@@ -166,7 +249,24 @@ def pim_mac(a: torch.Tensor, b: torch.Tensor,
     return out
 
 
-pim_mac.launches = 0
+class _Mac(torch.autograd.Function):
+    """K3 with the reference's VJP: da and db are MACs into zero, dacc
+    passes through."""
+
+    @staticmethod
+    def forward(ctx, a, b, acc):
+        ctx.save_for_backward(a, b)
+        return _mac(a, b, acc)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.contiguous()
+        need_a, need_b, need_acc = ctx.needs_input_grad
+        zero = torch.zeros_like(g) if need_a or need_b else None
+        da = _mac(g, b, zero) if need_a else None
+        db = _mac(g, a, zero) if need_b else None
+        return da, db, g if need_acc else None
 
 
 def pim_mac_grouped(triples) -> list[torch.Tensor]:
@@ -176,6 +276,9 @@ def pim_mac_grouped(triples) -> list[torch.Tensor]:
     (ragged) shapes; each contributes ``acc + a*b``. Operands are flattened
     and concatenated so the whole wave rides a single :func:`pim_mac`
     launch; returns the per-triple outputs in order, reshaped back.
+    Differentiable: the concatenation and the split are torch ops and the
+    MAC carries the VJP, so the wave's backward is one K3 launch per
+    cotangent.
     """
     triples = list(triples)
     if not triples:

@@ -15,10 +15,12 @@ hierarchy of the paper's SOT-MRAM PIM arrays:
 The aggregate estimator (``repro_torch.core.estimator``) remains the ideal
 zero-stall bound; ``Schedule.reconcile()`` proves each schedule against it.
 
-Ported so far: the serve (forward) path of the paper's LeNet
-(``map_lenet`` / ``compile_lenet``). Not yet (ROADMAP.md, queue item 3):
-training, pipeline partitions, scan expansion, quantized weight and
-activation grids, paged-KV placement, and ``map_arch`` / ``compile_arch``.
+Ported so far: the paper's LeNet, its forward pass and its training step
+(``map_lenet`` / ``compile_lenet``, ``kind="serve"`` or ``"train"``, and
+any step ``build_schedule`` is given, such as the trainer's AdamW step);
+a compiled program is differentiable. Not yet (ROADMAP.md, queue item 3):
+pipeline partitions, scan expansion, quantized weight and activation
+grids, paged-KV placement, and ``map_arch`` / ``compile_arch``.
 """
 
 from repro_torch.mapper.api import (abstract_like, compile_arch,

@@ -8,7 +8,7 @@ allocated) and compiles it into a placed, cost-rolled static schedule;
 the port's PIM kernels.
 
 Not ported yet, and raising ``NotImplementedError`` with their ROADMAP
-item: ``kind="train"``, ``partitions``, ``expand_scans=True``,
+item: ``partitions``, ``expand_scans=True``,
 ``weight_dtype`` / ``act_dtype`` other than ``"fp32"``, and
 ``map_arch`` / ``compile_arch``.
 """
@@ -19,6 +19,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from repro_torch._device import resolve_device
+from repro_torch._tree import tree_map
 from repro_torch.configs.lenet5 import CONFIG
 from repro_torch.mapper import compile as compile_mod
 from repro_torch.mapper import placement as placement_mod
@@ -35,7 +36,7 @@ def abstract_like(tree):
         lambda x: torch.empty(x.shape, dtype=x.dtype, device="meta"), tree)
 
 
-def map_lenet(kind: str = "serve", *, batch: int = 4,
+def map_lenet(kind: str = "serve", *, batch: int = 4, lr: float = 0.05,
               hierarchy: PIMHierarchy | None = None,
               policy: placement_mod.PlacementPolicy | None = None,
               tech: str = "proposed",
@@ -43,24 +44,32 @@ def map_lenet(kind: str = "serve", *, batch: int = 4,
               act_dtype: str = "fp32",
               partitions: int | None = None,
               expand_scans: bool = False) -> schedule_mod.Schedule:
-    """Map the paper's LeNet: ``serve`` = forward pass at ``batch``."""
-    if kind == "train":
-        raise NotImplementedError(
-            "kind='train' is not ported yet (ROADMAP.md, queue item 3.1: "
-            "the LeNet training slice)")
-    if kind != "serve":
+    """Map the paper's LeNet at ``batch``: ``serve`` = the forward pass,
+    ``train`` = one SGD step at ``lr`` on the cross-entropy loss,
+    ``train_step(params, images, labels) -> (new_params, loss)``."""
+    if kind not in ("train", "serve"):
         raise ValueError(f"kind must be 'train' or 'serve', got {kind!r}")
     params = lenet.init_lenet(0, CONFIG, device="meta")
     images = torch.empty((batch, CONFIG.in_hw, CONFIG.in_hw, 1),
                          dtype=torch.float32, device="meta")
-    return schedule_mod.build_schedule(
-        lenet.lenet_apply, params, images,
-        hierarchy=hierarchy, policy=policy, tech=tech,
-        weight_dtype=weight_dtype, act_dtype=act_dtype,
-        partitions=partitions, expand_scans=expand_scans)
+    common = dict(hierarchy=hierarchy, policy=policy, tech=tech,
+                  weight_dtype=weight_dtype, act_dtype=act_dtype,
+                  partitions=partitions, expand_scans=expand_scans)
+    if kind == "serve":
+        return schedule_mod.build_schedule(lenet.lenet_apply, params, images,
+                                           **common)
+    labels = torch.empty((batch,), dtype=torch.int32, device="meta")
+
+    def train_step(params, images, labels):
+        grads, loss = torch.func.grad_and_value(lenet.lenet_loss)(
+            params, images, labels)
+        return tree_map(lambda p, g: p - lr * g, params, grads), loss
+
+    return schedule_mod.build_schedule(train_step, params, images, labels,
+                                       **common)
 
 
-def compile_lenet(kind: str = "serve", *, batch: int = 4,
+def compile_lenet(kind: str = "serve", *, batch: int = 4, lr: float = 0.05,
                   hierarchy: PIMHierarchy | None = None,
                   policy: placement_mod.PlacementPolicy | None = None,
                   tech: str = "proposed", weight_dtype: str = "fp32",
@@ -69,9 +78,10 @@ def compile_lenet(kind: str = "serve", *, batch: int = 4,
                   device: str | torch.device | None = None
                   ) -> compile_mod.CompiledProgram:
     """Map the paper's LeNet and compile it to a program that runs on
-    ``device`` (CUDA by default): ``prog(params, images)`` -> logits."""
+    ``device`` (CUDA by default): ``prog(params, images)`` -> logits, or
+    for ``train`` ``prog(params, images, labels)`` -> (params, loss)."""
     dev = resolve_device(device)
-    sched = map_lenet(kind, batch=batch, hierarchy=hierarchy,
+    sched = map_lenet(kind, batch=batch, lr=lr, hierarchy=hierarchy,
                       policy=policy, tech=tech, weight_dtype=weight_dtype,
                       act_dtype=act_dtype, partitions=partitions)
     return compile_mod.compile_schedule(sched, device=dev)

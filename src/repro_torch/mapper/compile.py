@@ -31,9 +31,14 @@ grouped and fused over ``lowering.TILE``, so those parts are constant.
 The executor remains the oracle: ``CompiledProgram.verify`` checks the
 program against both the executor and the plain function.
 
+Differentiable, as the reference's ``jax.grad(prog.fn)``: when an argument
+requires grad, the call records autograd's graph, and the placed
+products' and MACs' cotangents come from the kernels' own backward passes
+(``repro_torch.kernels.pim_mac``); the native ops differentiate as torch
+ops. Otherwise the call runs under ``torch.no_grad()``.
+
 Not ported yet: partitioned programs (``compile_partitioned``,
-``StageProgram``, ``PartitionedProgram``; ROADMAP.md, queue item 3.3) and
-differentiation through a program (queue item 3.1).
+``StageProgram``, ``PartitionedProgram``; ROADMAP.md, queue item 3.3).
 """
 
 from __future__ import annotations
@@ -70,7 +75,8 @@ class CompiledProgram:
         flat = flatten_args(self.schedule, self.device, args, kwargs)
         self.ctx.reset_counters()
         tr = obs.tracer()
-        with torch.no_grad():
+        grad = torch.is_grad_enabled() and any(x.requires_grad for x in flat)
+        with torch.set_grad_enabled(grad):
             if not tr.enabled:
                 outs = eval_placed(self.ctx, flat)
             else:

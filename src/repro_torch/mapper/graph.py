@@ -8,17 +8,27 @@ carrying the same MAC/add/mul count the estimator would have charged.
 
 Node kinds:
   * ``MatmulNode``  — ``mm`` / ``bmm``; the rhs operand is treated as the
-    stationary weight (x @ W convention).
+    stationary weight (x @ W convention). Backward-pass matmuls get their
+    own stationary operand, as in the reference; autograd's weight
+    cotangent ``mm(t(x), g)`` is placed as the reference's ``gᵀx`` with
+    ``x`` stationary (``transposed``; ``estimator.mm_transposed``).
   * ``ConvNode``    — ``convolution``; stationary weight is the
     (fan_in, cout) filter matrix (spatially replicated units share it).
     Its ``out_shape`` is channels-last, ``(N, *spatial, C_out)``: the
     layout of the models' public NHWC interface and of the reference's
-    node, where the aten op itself returns channels-first.
+    node, where the aten op itself returns channels-first. A
+    ``convolution_backward`` node is the convolution of one cotangent
+    (``half``): the input's, channels-last, or the weight's, in the
+    public HWIO layout ``(*kernel spatial, C_in, C_out)``.
   * ``EltwiseNode`` — add/sub/mul/div, priced per element; executed in the
     shared peripheral FP units, so no weight placement.
 
 Dependency edges are recovered by dataflow closure over *all* ops (a
-tanh between two matmuls still links them). A flat aten graph has no
+tanh between two matmuls still links them), except what an op reads only
+for its shape: the ``*_like`` and ``new_*`` factories, and of a
+convolution's cotangents the input of the input's and the weight of the
+weight's — each reads the output cotangent and the other operand, as the
+reference's transposed convolutions do. A flat aten graph has no
 sub-graph boundaries, so every edge is precise.
 
 Scan expansion (``expand_graph``, ``plan_scan_expansion``) is not ported:
@@ -67,6 +77,8 @@ class MatmulNode(OpNode):
     m: int = 0
     k: int = 0
     n: int = 0
+    transposed: bool = False  # the aten node's value is the product's
+                              # transpose (estimator.mm_transposed)
 
     @property
     def weight_shape(self) -> tuple[int, int]:
@@ -79,6 +91,7 @@ class MatmulNode(OpNode):
 class ConvNode(OpNode):
     fan_in: int = 0
     cout: int = 0
+    half: str = ""            # convolution_backward: "input" | "weight"
 
     @property
     def weight_shape(self) -> tuple[int, int]:
@@ -118,8 +131,44 @@ class OpGraph:
         return [nd for nd in self.nodes if nd.kind in ("matmul", "conv")]
 
 
+aten = torch.ops.aten
+
+# ops that read their tensor arguments for shape and dtype only
+SHAPE_ONLY = {aten.ones_like.default, aten.zeros_like.default,
+              aten.empty_like.default, aten.full_like.default,
+              aten.new_zeros.default, aten.new_ones.default,
+              aten.new_empty.default, aten.new_full.default}
+
+
 def _channels_last(shape: tuple[int, ...]) -> tuple[int, ...]:
     return (shape[0], *shape[2:], shape[1])
+
+
+def _conv_out_shape(fx: torch.fx.Node, half: str) -> tuple[int, ...]:
+    """A conv node's value in the public layout: NHWC activations (the
+    forward's output and the input cotangent), HWIO weights."""
+    if half == "weight":
+        w = estimator.shape_of(fx.args[2])        # OIHW
+        return (*w[2:], w[1], w[0])
+    if half == "input":
+        return _channels_last(estimator.shape_of(fx.args[1]))
+    return _channels_last(estimator.shape_of(fx))
+
+
+def _data_inputs(fx: torch.fx.Node) -> list[torch.fx.Node]:
+    """The fx nodes whose values ``fx`` computes from (see the module
+    docstring for what is read for its shape only)."""
+    if fx.target in SHAPE_ONLY:
+        return []
+    args = fx.args
+    if fx.target is aten.convolution_backward.default:
+        # (grad, input, weight, ...): the weight cotangent reads the
+        # input, the input cotangent the weight
+        weight = estimator.conv_backward_half(fx) == "weight"
+        args = (args[0], args[1] if weight else args[2])
+    ins: list[torch.fx.Node] = []
+    torch.fx.node.map_arg((args, fx.kwargs), ins.append)
+    return ins
 
 
 def build_graph_from_capture(cap: estimator.Capture,
@@ -127,39 +176,47 @@ def build_graph_from_capture(cap: estimator.Capture,
     nodes: list[OpNode] = []
     origin: dict[torch.fx.Node, frozenset[int]] = {}  # -> producing nodes
     for fx, scale in estimator.iter_nodes(cap.gm):
-        ins: list[torch.fx.Node] = []
-        torch.fx.node.map_arg((fx.args, fx.kwargs), ins.append)
-        src = frozenset().union(*[origin.get(v, frozenset()) for v in ins])
-        node: OpNode | None = None
-        idx = len(nodes)
-        out_shape = estimator.shape_of(fx)
-        out_elems = estimator.numel(out_shape)
+        src = frozenset().union(*[origin.get(v, frozenset())
+                                  for v in _data_inputs(fx)])
         kind = estimator.node_kind(fx.target)
+        if kind is None:
+            origin[fx] = src
+            continue
+        idx = len(nodes)
         name = estimator.op_name(fx.target)
+        if kind == "conv":
+            half = (estimator.conv_backward_half(fx)
+                    if fx.target is aten.convolution_backward.default
+                    else "")
+            out_shape = _conv_out_shape(fx, half)
+        elif kind == "matmul" and estimator.mm_transposed(fx):
+            out_shape = estimator.shape_of(fx)[::-1]
+        else:
+            out_shape = estimator.shape_of(fx)
+        out_elems = estimator.numel(out_shape)
         common = dict(idx=idx, kind=kind, repeat=scale, deps=sorted(src),
-                      out_elems=out_elems, fx_node=fx.name)
+                      out_elems=out_elems, out_shape=out_shape,
+                      fx_node=fx.name)
+        node: OpNode
         if kind == "matmul":
             b, m, n, k = estimator.mm_dims(fx)
-            node = MatmulNode(name=f"{name}.{idx}", out_shape=out_shape,
+            node = MatmulNode(name=f"{name}.{idx}",
                               macs=scale * b * m * n * k, batch=b, m=m, k=k,
-                              n=n, **common)
+                              n=n, transposed=estimator.mm_transposed(fx),
+                              **common)
         elif kind == "conv":
             _, fan_in, cout = estimator.conv_dims(fx)
             node = ConvNode(name=f"conv.{idx}",
-                            out_shape=_channels_last(out_shape),
                             macs=scale * out_elems * fan_in, fan_in=fan_in,
-                            cout=cout, **common)
-        elif kind == "eltwise":
+                            cout=cout, half=half, **common)
+        else:
             is_add = name in estimator.ADD_OPS
-            node = EltwiseNode(name=f"{name}.{idx}", out_shape=out_shape,
+            node = EltwiseNode(name=f"{name}.{idx}",
                                adds=scale * out_elems if is_add else 0,
                                muls=0 if is_add else scale * out_elems,
                                op=name, **common)
-        if node is not None:
-            nodes.append(node)
-            origin[fx] = frozenset({node.idx})
-        else:
-            origin[fx] = src
+        nodes.append(node)
+        origin[fx] = frozenset({node.idx})
     return OpGraph(nodes=nodes, gm=cap.gm, in_spec=cap.in_spec,
                    out_spec=cap.out_spec, fn=fn)
 

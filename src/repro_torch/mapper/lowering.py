@@ -44,9 +44,15 @@ placed node.
 Rules decline — and the node runs its own aten op, numerically exact,
 just not routed through the PIM kernels — for: batched matmuls (``bmm``),
 non-float matmuls, convolutions with a bias, groups, dilation,
-transposition or other than 2-D, ``div`` (a*(1/b) would diverge from
-division at the overflow edge), eltwise ops that are not float32 or whose
-``alpha`` is not 1. Weight grids other than fp32 (K5) are not ported yet.
+transposition or other than 2-D, the two cotangents of a convolution
+(``convolution_backward``: the reference's lowering declines their
+dimension numbers and falls back to the primitive too), ``div``
+(a*(1/b) would diverge from division at the overflow edge), eltwise ops
+that are not float32 or whose ``alpha`` is not 1. Weight grids other than
+fp32 (K5) are not ported yet.
+
+A weight cotangent ``mm(t(x), g)`` (``MatmulNode.transposed``) runs as
+the reference's ``gᵀx`` through ``x``'s placed blocks, then transposes.
 """
 
 from __future__ import annotations
@@ -258,13 +264,24 @@ def _dot_ok(fx: torch.fx.Node) -> bool:
             and _traced(fx).dtype.is_floating_point)
 
 
+def _dot_operands(node, lhs, rhs):
+    """(a2, b2) of the placed product ``a2 @ b2``: ``(lhs, rhs)``, or for
+    a transposed node ``mm(t(x), g)`` the reference's ``(gᵀ, x)``."""
+    return (rhs.T, lhs.T) if node.transposed else (lhs, rhs)
+
+
+def _dot_result(node, out: torch.Tensor, fx) -> torch.Tensor:
+    return _conform(out.T if node.transposed else out, fx)
+
+
 def lower_dot(ctx: LoweringContext, fx, node, args, kwargs):
-    out = blocked_matmul(ctx, node.idx, args[0], args[1])
-    return _conform(out, fx)
+    out = blocked_matmul(ctx, node.idx, *_dot_operands(node, *args))
+    return _dot_result(node, out, fx)
 
 
 def _conv_ok(fx: torch.fx.Node) -> bool:
-    if len(fx.args) != 9 or fx.kwargs:
+    if (fx.target is not aten.convolution.default or len(fx.args) != 9
+            or fx.kwargs):
         return False
     _, w, bias, stride, padding, dilation, transposed, _, groups = fx.args
     return (_traced(fx).dtype.is_floating_point and bias is None
@@ -313,6 +330,8 @@ def _eltwise_operands(fx, node, args):
         return torch.broadcast_to(x, val.shape).contiguous()
 
     a, b = full(args[0]), full(args[1])
+    if fx.target is aten.rsub.Scalar:      # rsub(y, s) = s - y
+        a, b = b, a
     one = torch.ones_like(a)
     if node.op == "add":       # b + a*1
         return a, one, b
@@ -355,27 +374,28 @@ def _dot_key(ctx: LoweringContext, fx, node):
     """Shape/dtype/block-grid signature deciding matmul fusability."""
     np_ = ctx.schedule.placement.node_placements[node.idx]
     return (tuple(_traced(fx.args[0]).shape), tuple(_traced(fx.args[1]).shape),
-            _traced(fx).dtype, np_.row_blocks, np_.col_blocks)
+            _traced(fx).dtype, node.transposed, np_.row_blocks,
+            np_.col_blocks)
 
 
 def _fuse_matmuls(ctx: LoweringContext, group, read) -> list:
     """One grouped launch for same-shape placed matmuls (the lead and its
     planned peers); returns each member's output."""
-    stacked = [_grouped_operands(ctx, nd.idx, read(fx.args[0]),
-                                 read(fx.args[1])) for fx, nd in group]
+    stacked = [_grouped_operands(ctx, nd.idx, *_dot_operands(
+        nd, read(fx.args[0]), read(fx.args[1]))) for fx, nd in group]
     g_per = stacked[0][1].shape[0]
     cols = stacked[0][2][1]          # shared C (same block grid by key)
     out_all = _launch_grouped(ctx, torch.cat([s[0] for s in stacked]),
                               torch.cat([s[1] for s in stacked]), cols)
-    return [_conform(_grouped_reduce(out_all[i * g_per:(i + 1) * g_per],
-                                     meta), fx)
-            for i, ((fx, _), (_, _, meta)) in enumerate(zip(group, stacked))]
+    return [_dot_result(nd, _grouped_reduce(
+                out_all[i * g_per:(i + 1) * g_per], meta), fx)
+            for i, ((fx, nd), (_, _, meta)) in enumerate(zip(group, stacked))]
 
 
 def _fuse_eltwise(ctx: LoweringContext, group, read) -> list:
     """One ragged ``pim_mac_grouped`` launch for a ready eltwise wave."""
     outs = pim_mac_grouped([
-        _eltwise_operands(fx, nd, [read(a) for a in fx.args])
+        _eltwise_operands(fx, nd, torch.fx.node.map_arg(fx.args, read))
         for fx, nd in group])
     ctx.eltwise_calls += len(group)
     ctx.eltwise_launches += 1

@@ -6,14 +6,17 @@ The public layout is the reference's: NHWC images, HWIO conv weights,
 reference's parameters cross over unchanged
 (``repro_torch.checkpoint.lenet_params_from_reference``).
 
-``lenet_apply`` is written so that its aten graph holds the reference
-jaxpr's costed nodes in the same order, which the mapper reads
-(``repro_torch.mapper.graph``): each convolution is called without a
-bias and its bias added as its own ``add``; fc layers are ``x @ w + b``
-(``F.linear`` would fuse the two into one ``addmm``); and the 2x2 average
-pool is a reshape-sum followed by ``/ 4.0``, so that its ``div`` node
-appears as in the reference's ``_avg_pool2``. The layout changes between
-NHWC and PyTorch's NCHW convolution are views the mapper does not cost.
+``lenet_apply`` and ``lenet_loss`` are written so that their aten graphs
+hold the reference jaxpr's costed nodes in the same order, which the
+mapper reads (``repro_torch.mapper.graph``): each convolution is called
+without a bias and its bias added as its own ``add``; fc layers are
+``x @ w + b`` (``F.linear`` would fuse the two into one ``addmm``); the
+2x2 average pool is a reshape-sum followed by ``/ 4.0``, so that its
+``div`` node appears as in the reference's ``_avg_pool2``; and the loss's
+mean is a sum and a ``div``. The layout changes between NHWC and
+PyTorch's NCHW convolution are views the mapper does not cost. Their
+backward pass, captured from ``torch.func.grad``, is respelled as the
+reference's by ``repro_torch.core.estimator.capture``.
 """
 
 from __future__ import annotations
@@ -81,6 +84,17 @@ def lenet_apply(params: dict, images: torch.Tensor) -> torch.Tensor:
     x = torch.tanh(x @ params["fc1"]["w"] + params["fc1"]["b"])
     x = torch.tanh(x @ params["fc2"]["w"] + params["fc2"]["b"])
     return x @ params["fc3"]["w"] + params["fc3"]["b"]
+
+
+def lenet_loss(params: dict, images: torch.Tensor,
+               labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy of the logits against integer ``labels`` [B]:
+    log-softmax, the label's entry (the reference's ``take_along_axis``)
+    and the mean as a sum and a division, as ``jnp.mean`` computes it —
+    the reference's ``div`` node."""
+    logp = torch.log_softmax(lenet_apply(params, images), dim=-1)
+    picked = torch.gather(logp, 1, labels[:, None].long())
+    return -(picked.sum() / picked.numel())
 
 
 def n_params(params: dict) -> int:

@@ -18,16 +18,22 @@ inputs on both sides.
   ``acc`` cancels the product it is many ulps of the *result*. So K3 is
   held to 1 ulp of max(|a*b|, |out|), and the port's plain K3 is held bit
   for bit to numpy's two-rounding float32 ``acc + a*b``.
+* The backward passes (the wrappers' ``torch.autograd.Function``s) against
+  the reference's custom VJPs under ``jax.grad`` in interpret mode, on the
+  same cotangent: K1 and K2 each output row to 1e-5 of that row's largest
+  value, K3 to the same 1 ulp; and against torch autograd of the unfused
+  float32 expression. A cotangent nobody asks for runs nothing.
 """
 
 import importlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels.pim_mac import (pim_mac, pim_mac_grouped, pim_matmul,
                                          pim_matmul_grouped)
 
@@ -134,30 +140,149 @@ def test_plain_k3_grouped_wave_matches_pallas_and_per_triple(wave):
         assert torch.equal(g, one)
 
 
+def _rows_close(got: torch.Tensor, want, rel: float = 1e-5) -> None:
+    """Each row (last dim) of ``got`` within ``rel`` of that row's largest
+    |value| in ``want``."""
+    want = torch.from_numpy(np.array(want))
+    err = (got - want).abs().amax(-1)
+    scale = want.abs().amax(-1).clamp_min(1e-30)
+    assert bool((err <= rel * scale).all()), float((err / scale).max())
+
+
+def _grads(fn, args, cotangent):
+    """torch autograd of ``fn(*args)`` against ``cotangent``, every
+    argument requiring grad."""
+    leaves = [torch.from_numpy(x).requires_grad_(True) for x in args]
+    fn(*leaves).backward(torch.from_numpy(cotangent))
+    return [x.grad for x in leaves]
+
+
+def _ref_grads(fn, args, cotangent):
+    """The reference's custom VJP under ``jax.grad``, on the same
+    cotangent."""
+    return jax.grad(lambda *xs: jnp.sum(fn(*xs) * cotangent),
+                    argnums=tuple(range(len(args))))(
+        *(jnp.asarray(x) for x in args))
+
+
+@pytest.mark.parametrize("case", [(2, 1, 128, 256, 128),
+                                  (4, 2, 256, 128, 128)], ids=str)
+def test_k1_backward_matches_reference_vjp(case):
+    g, cg, m, k, n = case
+    rng = np.random.default_rng(200 + sum(case))
+    a, b = _normal(rng, g // cg, m, k), _normal(rng, g, k, n)
+    cot = _normal(rng, g, m, n)
+    got = _grads(lambda x, y: pim_matmul_grouped(x, y, col_groups=cg),
+                 (a, b), cot)
+    want = _ref_grads(lambda x, y: pallas.pim_matmul_grouped(
+        x, y, col_groups=cg, interpret=True), (a, b), cot)
+    for gg, w in zip(got, want, strict=True):
+        assert gg.shape == w.shape
+        _rows_close(gg, w)
+
+
+def test_k2_backward_matches_reference_vjp():
+    rng = np.random.default_rng(7)
+    a, b, cot = _normal(rng, 256, 128), _normal(rng, 128, 384), \
+        _normal(rng, 256, 384)
+    got = _grads(pim_matmul, (a, b), cot)
+    want = _ref_grads(lambda x, y: pallas.pim_matmul(x, y, interpret=True),
+                      (a, b), cot)
+    for gg, w in zip(got, want, strict=True):
+        _rows_close(gg, w)
+
+
+def test_k3_backward_matches_reference_vjp_to_one_ulp():
+    rng = np.random.default_rng(8)
+    a, b, acc, cot = (_normal(rng, 3, 1031) for _ in range(4))
+    got = _grads(pim_mac, (a, b, acc), cot)
+    want = _ref_grads(lambda x, y, z: pallas.pim_mac(x, y, z,
+                                                     interpret=True),
+                      (a, b, acc), cot)
+    for gg, w, other in zip(got, want, (b, a, np.ones_like(a))):
+        _within_one_ulp(gg.numpy(), np.asarray(w), cot, other)
+    assert torch.equal(got[2], torch.from_numpy(cot))     # dacc = g
+
+
+@pytest.mark.parametrize("wave", WAVES, ids=str)
+def test_k3_grouped_wave_backward_matches_reference_vjp(wave):
+    rng = np.random.default_rng(300 + sum(len(s) for s in wave))
+    triples = [tuple(_normal(rng, *s) for _ in range(3)) for s in wave]
+    cots = [_normal(rng, *s) for s in wave]
+    flat = [x for t in triples for x in t]
+
+    def port(*xs):
+        outs = pim_mac_grouped([xs[i:i + 3] for i in range(0, len(xs), 3)])
+        return sum((o * torch.from_numpy(c)).sum()
+                   for o, c in zip(outs, cots))
+
+    leaves = [torch.from_numpy(x).requires_grad_(True) for x in flat]
+    port(*leaves).backward()
+    want = jax.grad(lambda *xs: sum(
+        jnp.sum(o * c) for o, c in zip(pallas.pim_mac_grouped(
+            [xs[i:i + 3] for i in range(0, len(xs), 3)], interpret=True),
+            cots)), argnums=tuple(range(len(flat))))(
+        *(jnp.asarray(x) for x in flat))
+    for i, (leaf, w) in enumerate(zip(leaves, want, strict=True)):
+        a, b, _ = triples[i // 3]
+        other = (b, a, np.ones_like(a))[i % 3]
+        _within_one_ulp(leaf.grad.numpy(), np.asarray(w), cots[i // 3],
+                        other)
+
+
 def _wrapper_calls():
-    a3, b3 = torch.zeros(2, 128, 128), torch.zeros(2, 128, 128)
-    a2, b2 = torch.zeros(128, 128), torch.zeros(128, 128)
-    x = torch.zeros(4, 5)
+    rng = np.random.default_rng(9)
+    a3, b3 = _normal(rng, 2, 128, 256), _normal(rng, 4, 256, 128)
+    a2, b2 = _normal(rng, 128, 256), _normal(rng, 256, 128)
+    x = [_normal(rng, 4, 5) for _ in range(3)]
+    mm = lambda p, q: torch.matmul(p, q)                     # noqa: E731
     return {
-        "pim_matmul_grouped": (pim_matmul_grouped, (a3, b3)),
-        "pim_matmul": (pim_matmul, (a2, b2)),
-        "pim_mac": (pim_mac, (x, x, x)),
+        "pim_matmul_grouped": (
+            lambda p, q: pim_matmul_grouped(p, q, col_groups=2),
+            lambda p, q: mm(p.repeat_interleave(2, 0), q), (a3, b3),
+            "pim_matmul_grouped_ref"),
+        "pim_matmul": (pim_matmul, mm, (a2, b2), "pim_matmul_ref"),
+        "pim_mac": (pim_mac, lambda p, q, r: r + p * q, tuple(x),
+                    "pim_mac_ref"),
     }
 
 
 @pytest.mark.parametrize("name", sorted(_wrapper_calls()))
-def test_wrapper_refuses_inputs_that_require_grad(name):
-    fn, args = _wrapper_calls()[name]
+def test_wrapper_gradients_match_unfused_autograd(name, monkeypatch):
+    """Each wrapper's gradients equal torch autograd of the unfused
+    float32 expression (full float32 on the CPU), each row to 1e-5 of its
+    largest value (K3 bit for bit); a cotangent nobody asks for runs
+    nothing."""
+    fn, plain, args, ref_name = _wrapper_calls()[name]
+    calls = []
+    real = getattr(ref, ref_name)
+    monkeypatch.setattr(ref, ref_name,
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    out_shape = fn(*(torch.from_numpy(x) for x in args)).shape
+    cot = _normal(np.random.default_rng(10), *out_shape)
+    calls.clear()
+    got = _grads(fn, args, cot)
+    want = _grads(plain, args, cot)
+    for gg, w in zip(got, want, strict=True):
+        if name == "pim_mac":
+            assert torch.equal(gg, w)
+        else:
+            _rows_close(gg, w.numpy())
+    # the forward's launch and one per cotangent (K3's dacc is g itself)
+    assert len(calls) == 3
     for i in range(len(args)):
-        bad = list(args)
-        bad[i] = bad[i].clone().requires_grad_(True)
-        with pytest.raises(NotImplementedError, match="backward"):
-            fn(*bad)
-    fn(*args)                                 # the same call without grad
-    with pytest.raises(NotImplementedError, match="backward"):
-        pim_mac_grouped([tuple(torch.zeros(3, requires_grad=i == 0)
-                               for i in range(3)),
-                         (torch.zeros(2), torch.zeros(2), torch.zeros(2))])
+        calls.clear()
+        leaves = [torch.from_numpy(x).requires_grad_(j == i)
+                  for j, x in enumerate(args)]
+        fn(*leaves).backward(torch.from_numpy(cot))
+        assert len(calls) == 1 + (0 if (name == "pim_mac" and i == 2)
+                                  else 1)
+        assert all((x.grad is None) == (j != i)
+                   for j, x in enumerate(leaves))
+    calls.clear()
+    with torch.no_grad():                 # no graph: the plain launch only
+        out = fn(*(torch.from_numpy(x).requires_grad_(True) for x in args))
+    assert len(calls) == 1 and out.grad_fn is None
 
 
 def test_wrappers_reject_what_the_contract_does_not_take():

@@ -143,8 +143,6 @@ def test_second_compile_hits_the_program_cache():
 
 def test_unported_options_raise_not_implemented():
     cases = [
-        lambda: mapper.map_lenet("train"),
-        lambda: mapper.compile_lenet("train", device="cpu"),
         lambda: mapper.map_lenet("serve", partitions=2),
         lambda: mapper.map_lenet("serve", expand_scans=True),
         lambda: mapper.map_lenet("serve", weight_dtype="int8"),
