@@ -6,7 +6,8 @@
 Phases, each printing one JSON line:
 
 1. ``build``     — compile every CUDA kernel of the port with nvcc, one
-   process per source, all started together (four sources).
+   process per source, all started together (four sources; K1, K2 and K5
+   share one).
 2. ``kernels``   — hold each kernel against its plain PyTorch version on
    the card at the shapes of the serve phases (K4; K6 for each KV grid,
    with bf16 and f32 q), each (slot, head) row to its own scale, with a
@@ -68,6 +69,28 @@ Phases, each printing one JSON line:
    make, which are those of the main path's backward, held against the
    plain formula as in 8, and timed. K2's VJP, which no path runs, is
    held at the executor train step's shapes.
+12. ``pim_lenet_q`` — phase 7 with the weights on each quantized grid
+   (int8, fp8_e4m3, fp8_e5m2, fp16 at batch 256, int8 at 4096): 5 K5 and
+   5 K3 launches per call, no K1; the compiled program bit-equal to the
+   per-block executor, and within 1e-4 of the plain ``lenet_apply`` over
+   the weights each grid stores (``fake_quant`` per output column, TF32
+   off); ms per call, images/s, and the K5 launch shapes.
+13. ``kernels_pim`` (``"path": "pim_lenet_q"`` and ``"pim_train_q"``) — K5
+   at those launches' shapes over int8-grid weights, against its plain
+   version (as K1 in 8) and against K1 on ``q * s`` bit for bit; timed
+   with its bound and the library call (``q * s`` then ``bmm``).
+14. ``pim_train_q`` — ``Trainer(backend="pim", weight_dtype="int8")``,
+   AdamW, batch 64, 301 steps: 11 K5 per step and no K1 or K2; the first
+   5 losses within 2% of ``pim_train``'s fp32 run from the same
+   parameters and batches, whose ms per step it is set beside; the last
+   below the first; one compiled step bit-equal to the executor and
+   within 1e-4 of the plain step over fake-quantized stationary operands
+   (``run_fake_quant_plain``).
+15. ``pim_grad_q`` — phase 10's autograd check through a compiled int8
+   ``lenet_loss``, the path of K5's VJP and the straight-through
+   quantizer: the backward's K1 and K3 launches are the cotangents asked,
+   the gradients within 1e-4 of plain autograd at the dequantized
+   weights, and every backward launch dropped fails that check.
 
 Then the card's name and power limit, one line with every kernel's
 numbers, and as the last line ``{"ok": true, "device": {...}}``. Any
@@ -781,8 +804,12 @@ K2 = {"name": "pim_matmul", "route": "cuda",
 K3 = {"name": "pim_mac", "route": "cuda",
       "source": "src/repro_torch/kernels/csrc/pim_mac.cu",
       "replaces": "src/repro/kernels/pim_mac.py:124"}
-# the batches pim_lenet serves; kernels_pim runs the first one's launches
-PIM_BATCHES = (256, 4096)
+K5 = {"name": "pim_matmul_grouped_q", "route": "cuda",
+      "source": "src/repro_torch/kernels/csrc/pim_matmul.cu",
+      "replaces": "src/repro/kernels/pim_mac.py:433"}
+# the (weight grid, batch) cases pim_lenet serves; kernels_pim runs the
+# first one's launches
+PIM_SERVE = (("fp32", 256), ("fp32", 4096))
 # K1/K2 against the plain blocked product, per output row as a fraction of
 # the row's max|out|: the two sum each product in another order
 PIM_MM_TOL = 1e-5
@@ -803,10 +830,14 @@ def wall_ms(fn, iters: int = 20, warmup: int = 2) -> float:
     return (time.perf_counter() - t0) / iters * 1e3
 
 
+PIM_KEYS = ("k1", "k2", "k3", "k5")
+
+
 def pim_kernels():
     from repro_torch.kernels.pim_mac import (pim_mac, pim_matmul,
-                                             pim_matmul_grouped)
-    return pim_matmul_grouped, pim_matmul, pim_mac
+                                             pim_matmul_grouped,
+                                             pim_matmul_grouped_q)
+    return pim_matmul_grouped, pim_matmul, pim_mac, pim_matmul_grouped_q
 
 
 def reset_counts() -> None:
@@ -815,13 +846,16 @@ def reset_counts() -> None:
 
 
 def read_counts() -> dict:
-    return dict(zip(("k1", "k2", "k3"), (k.launches for k in pim_kernels())))
+    return dict(zip(PIM_KEYS, (k.launches for k in pim_kernels())))
 
 
 def profile_groups(name: str) -> str:
-    """Kernel group of a profiled device kernel: K1, K3, native
-    convolutions (cuDNN), copies/fills/concatenations, or the rest."""
+    """Kernel group of a profiled device kernel: K5 (the dequantizing
+    instantiation of K1's body), K1, K3, native convolutions (cuDNN),
+    copies/fills/concatenations, or the rest."""
     name = name.lower()
+    if "pim_matmul_kernel<true>" in name:
+        return "k5"
     if "pim_matmul_kernel" in name:
         return "k1"
     if "pim_mac_kernel" in name:
@@ -849,8 +883,8 @@ def profile_device(fn, calls: int) -> dict:
             fn()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-    groups = dict.fromkeys(("k1", "k3", "native_conv", "copy_fill_cat",
-                            "other"), 0.0)
+    groups = dict.fromkeys(("k1", "k5", "k3", "native_conv",
+                            "copy_fill_cat", "other"), 0.0)
     n_kernels = 0
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -880,22 +914,27 @@ def faulty(fn, fault, index: int):
 
 @contextlib.contextmanager
 def recording_launches(fault=None, index=None):
-    """Log the argument shapes of every K1, K2 and K3 launch the mapper's
-    lowering makes while open. The lowering's wrappers are wrapped, not
-    replaced: they launch and count as always. With a ``fault``, the
-    output of the ``index``-th K1 launch goes through it (``faulty``): a
-    control that a check must catch."""
+    """Log the argument shapes of every K1, K2, K3 and K5 launch the
+    mapper's lowering makes while open. The lowering's wrappers are
+    wrapped, not replaced: they launch and count as always. With a
+    ``fault``, the output of the ``index``-th K1 launch goes through it
+    (``faulty``): a control that a check must catch."""
     from repro_torch.mapper import lowering
-    log = {"k1": [], "k2": [], "k3": []}
+    log = {"k1": [], "k2": [], "k3": [], "k5": []}
     orig = {name: getattr(lowering, name)
             for name in ("pim_matmul_grouped", "pim_matmul", "pim_mac",
-                         "pim_mac_grouped")}
+                         "pim_mac_grouped", "pim_matmul_grouped_q")}
     k1_call = faulty(orig["pim_matmul_grouped"], fault, index)
 
     def k1(a, b, **kw):
         log["k1"].append((b.shape[0], kw.get("col_groups", 1), a.shape[1],
                           a.shape[2], b.shape[2]))
         return k1_call(a, b, **kw)
+
+    def k5(a, q, s, **kw):
+        log["k5"].append((q.shape[0], kw.get("col_groups", 1), a.shape[1],
+                          a.shape[2], q.shape[2]))
+        return orig["pim_matmul_grouped_q"](a, q, s, **kw)
 
     def k2(a, b, **kw):
         log["k2"].append((a.shape[0], a.shape[1], b.shape[1]))
@@ -909,7 +948,7 @@ def recording_launches(fault=None, index=None):
         log["k3"].append(sum(a.numel() for a, _, _ in triples))
         return orig["pim_mac_grouped"](triples)
 
-    for name, fn in zip(orig, (k1, k2, k3, k3_wave)):
+    for name, fn in zip(orig, (k1, k2, k3, k3_wave, k5)):
         setattr(lowering, name, fn)
     try:
         yield log
@@ -922,13 +961,15 @@ def recording_launches(fault=None, index=None):
 def recording_helpers(fault=None, key=None, index=None):
     """Log every single launch made through the kernel module's helpers
     ``_matmul_grouped`` (K1: G, col_groups, M, K, N), ``_matmul`` (K2: M,
-    K, N) and ``_mac`` (K3: elements) while open: the autograd Functions'
+    K, N), ``_mac`` (K3: elements) and ``_matmul_grouped_q`` (K5, as K1)
+    while open: the autograd Functions'
     backward passes launch through them. With a ``fault``, the output of
     the ``index``-th launch of kernel ``key`` goes through it
     (``faulty``)."""
     mod = importlib.import_module("repro_torch.kernels.pim_mac")
-    log = {"k1": [], "k2": [], "k3": []}
-    names = {"k1": "_matmul_grouped", "k2": "_matmul", "k3": "_mac"}
+    log = {"k1": [], "k2": [], "k3": [], "k5": []}
+    names = {"k1": "_matmul_grouped", "k2": "_matmul", "k3": "_mac",
+             "k5": "_matmul_grouped_q"}
     orig = {k: getattr(mod, n) for k, n in names.items()}
     calls = {k: faulty(fn, fault, index if k == key else None)
              for k, fn in orig.items()}
@@ -946,7 +987,12 @@ def recording_helpers(fault=None, key=None, index=None):
         log["k3"].append(a.numel())
         return calls["k3"](a, b, acc)
 
-    for k, fn in zip(names, (k1, k2, k3)):
+    def k5(a, q, s, bm, bn, bk, cg):
+        log["k5"].append((q.shape[0], cg, a.shape[1], a.shape[2],
+                          q.shape[2]))
+        return calls["k5"](a, q, s, bm, bn, bk, cg)
+
+    for k, fn in zip(names, (k1, k2, k3, k5)):
         setattr(mod, names[k], fn)
     try:
         yield log
@@ -955,107 +1001,144 @@ def recording_helpers(fault=None, key=None, index=None):
             setattr(mod, names[k], fn)
 
 
-def launch_shapes(prog, prog_log, ex_log) -> dict:
-    """The logged launches of one compiled call (K1, K3) and one executor
-    run (K2), each named by the node (and block) its plan step lowers: K1
-    (G, col_groups, M, K, N) per placed node, K2 (M, K, N) per placed
-    block, K3 the element count of each add; each row one launch (a
-    count of 1, as ``phase_kernels_pim`` takes them)."""
+def launch_shapes(prog, prog_log, ex_log, mm: str) -> dict:
+    """The logged launches of one compiled call (``mm``: K1, or K5 on a
+    quantized grid; K3) and one executor run (K2), each named by the node
+    (and block) its plan step lowers: ``mm`` (G, col_groups, M, K, N) per
+    placed node, K2 (M, K, N) per placed block, K3 the element count of
+    each add; each row one launch (a count of 1, as ``phase_kernels_pim``
+    takes them)."""
     placed = [st.node for st in prog.ctx.steps if st.kind == "placed"]
     nodes = [nd for nd in placed if nd.kind != "eltwise"]
     blocks = [f"{nd.name}@{blk.row0},{blk.col0}" for nd in nodes
               for blk in prog.schedule.placement.iter_blocks(nd.idx, 0)]
     adds = [nd.name for nd in placed if nd.kind == "eltwise"]
     want = (len(nodes), len(blocks), len(adds), prog_log["k3"])
-    got = (len(prog_log["k1"]), len(ex_log["k2"]), len(prog_log["k3"]),
+    got = (len(prog_log[mm]), len(ex_log["k2"]), len(prog_log["k3"]),
            ex_log["k3"])
     if got != want:
         raise AssertionError(f"pim_lenet: logged launches {got[:3]} do not "
                              f"follow the plan's {want[:3]} (or the "
                              f"executor's adds differ in size)")
-    return {"k1": [(nd.name, *sh, 1)
-                   for nd, sh in zip(nodes, prog_log["k1"])],
+    return {mm: [(nd.name, *sh, 1)
+                 for nd, sh in zip(nodes, prog_log[mm])],
             "k2": [(b, *sh, 1) for b, sh in zip(blocks, ex_log["k2"])],
             "k3": [(add, n, 1) for add, n in zip(adds, prog_log["k3"])]}
 
 
-def phase_pim_lenet(seed: int) -> dict:
-    """``compile_lenet("serve")`` and ``ScheduleExecutor`` on the card at
-    each of ``PIM_BATCHES``, over digit images, with seeded random
-    parameters (non-zero biases, so the adds lowered to K3 carry values).
-    The first batch is the main path: every count set to 0 just before
-    one program call and one executor run, read just after, with the
-    shapes of their launches logged for ``kernels_pim``."""
+def seeded_params(seed: int, bias_seed: int):
+    """LeNet-5 parameters from ``seed`` with seeded non-zero biases (the
+    adds the mapper lowers to K3 then carry values)."""
+    import torch
+    from repro_torch.models import lenet
+    params = lenet.init_lenet(seed, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(bias_seed)
+    for leaves in params.values():
+        leaves["b"] = torch.randn(leaves["b"].shape, generator=gen,
+                                  device=DEVICE)
+    return params
+
+
+def fake_quant_params(params, dtype: str) -> dict:
+    """Each weight as the placed block stores it, dequantized: the
+    port's ``fake_quant`` per output column of its (k, n) view — every
+    node of the LeNet-5 serve and loss graphs is one block on a sub-fp32
+    grid, so a column's scale is the block column's. On fp32, the
+    parameters themselves."""
+    from repro_torch.core import quant
+    if dtype == "fp32":
+        return params
+    return {layer: {"w": quant.fake_quant(
+        v["w"].reshape(-1, v["w"].shape[-1]), dtype).reshape(v["w"].shape),
+        "b": v["b"]} for layer, v in params.items()}
+
+
+def phase_pim_lenet(seed: int, cases) -> dict:
+    """``compile_lenet("serve", weight_dtype=grid)`` and
+    ``ScheduleExecutor`` on the card for each (grid, batch) of ``cases``,
+    over digit images, with seeded random parameters (non-zero biases, so
+    the adds lowered to K3 carry values). Per call: 5 placed products (K1
+    on fp32, K5 on a quantized grid) and 5 K3; the executor one K2 per
+    placed block (7 on fp32, 5 on a quantized grid) and 5 K3; logits
+    bit-equal to the executor's and within 1e-4 of plain ``lenet_apply``
+    over ``fake_quant_params`` (TF32 off). The first case is the main
+    path: every count set to 0 just before one program call and one
+    executor run, read just after, with the shapes of their launches
+    logged for ``kernels_pim``. Emitted as ``pim_lenet`` (fp32) or
+    ``pim_lenet_q``."""
     import torch
     from repro_torch import mapper
     from repro_torch.data import make_digits
     from repro_torch.mapper.executor import full_float32, max_deviation
     from repro_torch.models import lenet
-    params = lenet.init_lenet(seed, device=DEVICE)
-    gen = torch.Generator(device=DEVICE).manual_seed(seed + 30)
-    for leaves in params.values():
-        leaves["b"] = torch.randn(leaves["b"].shape, generator=gen,
-                                  device=DEVICE)
+    params = seeded_params(seed, seed + 30)
     launches = shapes = None
-    for batch in PIM_BATCHES:
+    for dtype, batch in cases:
+        phase = "pim_lenet" if dtype == "fp32" else "pim_lenet_q"
+        mm = "k1" if dtype == "fp32" else "k5"
+        blocks = 7 if dtype == "fp32" else 5
         imgs, _ = make_digits(batch, seed=seed + batch)
         x = torch.from_numpy(imgs).to(DEVICE)
-        prog = mapper.compile_lenet("serve", batch=batch)
+        prog = mapper.compile_lenet("serve", batch=batch, weight_dtype=dtype)
         ex = mapper.ScheduleExecutor(prog.schedule)
         reset_counts()
         with recording_launches() as prog_log:
             out = prog(params, x)
-        prog_counts = tuple(read_counts().values())
+        prog_counts = read_counts()
         with recording_launches() as ex_log:
             oracle = ex.run(params, x)
         torch.cuda.synchronize()
-        counts = tuple(read_counts().values())
-        ex_counts = tuple(c - p for c, p in zip(counts, prog_counts))
+        counts = read_counts()
+        ex_counts = {k: counts[k] - prog_counts[k] for k in counts}
         if launches is None:
-            launches = dict(zip(("k1", "k2", "k3"), counts))
-            shapes = launch_shapes(prog, prog_log, ex_log)
-        if prog_counts != (5, 0, 5) or ex_counts != (0, 7, 5):
-            raise AssertionError(f"pim_lenet {batch}: launches (K1, K2, K3)"
-                                 f" {prog_counts} compiled, {ex_counts} "
-                                 f"per-block; want (5, 0, 5), (0, 7, 5)")
+            launches = counts
+            shapes = launch_shapes(prog, prog_log, ex_log, mm)
+        want = ({"k1": 0, "k2": 0, "k3": 5, "k5": 0, mm: 5},
+                {"k1": 0, "k2": blocks, "k3": 5, "k5": 0})
+        if (prog_counts, ex_counts) != want:
+            raise AssertionError(f"{phase} {dtype} {batch}: launches "
+                                 f"{prog_counts} compiled, {ex_counts} "
+                                 f"per-block; want {want}")
         if (prog.matmul_launches, prog.kernel_launches,
-                prog.placed_blocks) != (5, 10, 7):
-            raise AssertionError(f"pim_lenet {batch}: program counters")
+                prog.placed_blocks) != (5, 10, blocks):
+            raise AssertionError(f"{phase} {dtype} {batch}: program "
+                                 f"counters")
         if out.shape != (batch, 10) or not bool(torch.isfinite(out).all()):
-            raise AssertionError(f"pim_lenet {batch}: logits "
+            raise AssertionError(f"{phase} {dtype} {batch}: logits "
                                  f"{tuple(out.shape)} not finite")
         if not torch.equal(out, oracle):
-            raise AssertionError(f"pim_lenet {batch}: compiled program and "
-                                 f"executor differ")
+            raise AssertionError(f"{phase} {dtype} {batch}: compiled "
+                                 f"program and executor differ")
+        stored = fake_quant_params(params, dtype)
         with torch.no_grad(), full_float32():
-            plain = lenet.lenet_apply(params, x)
-
-            def plain_call():
-                return lenet.lenet_apply(params, x)
-
-            err = max_deviation(out, plain, **PIM_TOL)
+            err = max_deviation(out, lenet.lenet_apply(stored, x), **PIM_TOL)
+            fp32_dev = float((out - lenet.lenet_apply(params, x)).abs().max())
             torch.cuda.reset_peak_memory_stats()
             prog(params, x)
             torch.cuda.synchronize()
             peak = torch.cuda.max_memory_allocated()
             prog_ms = wall_ms(lambda: prog(params, x))
             ex_ms = wall_ms(lambda: ex.run(params, x), iters=5)
-            plain_ms = wall_ms(plain_call)
+            plain_ms = wall_ms(lambda: lenet.lenet_apply(stored, x))
             prof = profile_device(lambda: prog(params, x), calls=5)
-        emit({"phase": "pim_lenet", "batch": batch,
-              "config": "lenet5 (paper, 21655 params) serve, float32",
-              "launches_per_call": {"compiled": dict(zip(
-                  ("k1", "k2", "k3"), prog_counts)), "per_block": dict(zip(
-                      ("k1", "k2", "k3"), ex_counts))},
+        emit({"phase": phase, "weight_dtype": dtype, "batch": batch,
+              "config": "lenet5 (paper, 21655 params) serve, weights on "
+                        f"the {dtype} grid, float32 accumulation",
+              "launches_per_call": {"compiled": prog_counts,
+                                    "per_block": ex_counts},
               "placed_blocks": prog.placed_blocks,
+              "subarrays": prog.schedule.placement.n_subarrays,
               "compiled_equals_executor": True,
+              "plain": "lenet_apply over the stored (fake_quant) weights",
               "max_abs_err_vs_plain": err,
+              "max_abs_dev_vs_fp32_plain": fp32_dev,
               "ms_per_call": prog_ms, "images_per_s": batch / prog_ms * 1e3,
               "executor_ms_per_call": ex_ms, "plain_ms_per_call": plain_ms,
               "max_memory_allocated_gb": peak / 1e9,
               "modeled_pim_latency_s": prog.schedule.report.latency_s,
+              f"{mm}_launch_shapes": prog_log[mm],
               "profile": prof})
-        del out, oracle, plain, x
+        del out, oracle, x
         torch.cuda.empty_cache()
     return {"launches": launches, "shapes": shapes}
 
@@ -1266,12 +1349,12 @@ def adamw_train_step(opt):
     return train_step
 
 
-def make_trainer(backend, params0, batches, steps, ckpt_dir):
+def make_trainer(backend, params0, batches, steps, ckpt_dir, **kw):
     """A ``Trainer`` on the card from copies of ``params0``, AdamW at
     ``TRAIN_LR``; ``batches`` holds each step's batch, made beforehand on
     the card (``DigitsDataset(seed=0)``), so a step's time is the step's
-    own. One checkpoint, at the end."""
-    import torch
+    own. One checkpoint, at the end. ``kw`` goes to the ``Trainer``
+    (``weight_dtype``)."""
     from repro_torch.optim import make_optimizer
     from repro_torch.train import Trainer, TrainerConfig
     opt = make_optimizer("adamw", lr=TRAIN_LR)
@@ -1285,7 +1368,7 @@ def make_trainer(backend, params0, batches, steps, ckpt_dir):
                        ckpt_dir=str(ckpt_dir), async_ckpt=False)
     return Trainer(tc, train_step=adamw_train_step(opt),
                    init_state=init_state, batch_fn=batches.__getitem__,
-                   backend=backend, device=DEVICE)
+                   backend=backend, device=DEVICE, **kw)
 
 
 def digit_batches(batch: int, steps: int) -> list:
@@ -1343,8 +1426,8 @@ def phase_pim_train(seed: int) -> dict:
     The batch-64 pim run is the main path: every count set to 0 just
     before its 301 steps and read just after. Then one compiled step
     against the per-block executor, bit for bit, with the shapes of both
-    logged for ``kernels_pim``; then 20 steps at batch 4096 with a
-    profile of the compiled step."""
+    logged for ``kernels_pim``, and a profile of the compiled step; then
+    20 steps at batch 4096 with a profile of the compiled step."""
     import tempfile
 
     import torch
@@ -1371,7 +1454,7 @@ def phase_pim_train(seed: int) -> dict:
         peak = torch.cuda.max_memory_allocated()
         wall = step_wall_s()
         per_step = {k: v / TRAIN_STEPS for k, v in counts.items()}
-        if (counts["k2"] or counts["k1"] != 11 * TRAIN_STEPS
+        if (counts["k2"] or counts["k5"] or counts["k1"] != 11 * TRAIN_STEPS
                 or counts["k3"] % TRAIN_STEPS or not counts["k3"]):
             raise AssertionError(f"pim_train: launches {counts} over "
                                  f"{TRAIN_STEPS} steps; want 11 K1 and a "
@@ -1410,6 +1493,7 @@ def phase_pim_train(seed: int) -> dict:
                 or len(prog_log["k3"]) != per_step["k3"]):
             raise AssertionError(f"pim_train: executor launches "
                                  f"{ex_counts}, logged {len(ex_log['k2'])}")
+        prof = profile_device(lambda: prog(*state), calls=3)
         emit({"phase": "pim_train", "batch": batch,
               "config": "lenet5 (paper, 21655 params) AdamW lr 2e-3, "
                         "float32, DigitsDataset(seed=0)",
@@ -1430,9 +1514,12 @@ def phase_pim_train(seed: int) -> dict:
               "train.step_wall_s": wall,
               "plain_train.step_wall_s": jit_wall,
               "max_memory_allocated_gb": peak / 1e9,
-              "modeled_pim_latency_s": prog.schedule.report.latency_s})
+              "modeled_pim_latency_s": prog.schedule.report.latency_s,
+              "profile": prof})
         out["launches"] = counts
         out["executor_launches"] = ex_counts
+        out["losses"] = losses
+        out["ms_per_step"] = wall["steady_mean"] * 1e3
         out["shapes"] = {"k1": prog_log["k1"], "k2": ex_log["k2"],
                          "k3": prog_log["k3"]}
         del pim, jit, got, want, again, state, batches, ex
@@ -1478,10 +1565,10 @@ def phase_pim_train(seed: int) -> dict:
 def backward_nodes(loss) -> dict:
     """The kernel nodes of ``loss``'s autograd graph, each by its saved
     operands and the cotangents autograd will ask of it: K1 (A's shape,
-    B's shape, tiles, (dA, dB) wanted), K3 (elements, (da, db, dacc)
-    wanted). Fails if a native matrix product or convolution is in the
-    graph."""
-    nodes = {"k1": [], "k3": []}
+    B's shape, tiles, (dA, dB) wanted), K5 (A's shape, Q's shape, tiles,
+    (dA, dq, ds) wanted), K3 (elements, (da, db, dacc) wanted). Fails
+    if a native matrix product or convolution is in the graph."""
+    nodes = {"k1": [], "k3": [], "k5": []}
     seen, stack = set(), [loss.grad_fn]
     while stack:
         fn = stack.pop()
@@ -1497,6 +1584,10 @@ def backward_nodes(loss) -> dict:
             a, b = fn.saved_tensors
             nodes["k1"].append((tuple(a.shape), tuple(b.shape), fn.tiles,
                                 wanted[:2]))
+        elif name == "_MatmulGroupedQBackward":
+            a, q, _ = fn.saved_tensors
+            nodes["k5"].append((tuple(a.shape), tuple(q.shape), fn.tiles,
+                                wanted[:3]))
         elif name == "_MacBackward":
             nodes["k3"].append((fn.saved_tensors[0].numel(), wanted))
         stack.extend(f for f, _ in fn.next_functions)
@@ -1506,8 +1597,8 @@ def backward_nodes(loss) -> dict:
 def asked(nodes) -> dict:
     """The backward launches ``nodes`` ask of K1 and K3: one per operand
     that wants a cotangent (K3's accumulator takes the cotangent as it
-    is)."""
-    return {"k1": sum(sum(w) for *_, w in nodes["k1"]),
+    is; K5's dA and dq are K1 launches, its ds none)."""
+    return {"k1": sum(sum(w[:2]) for *_, w in nodes["k1"] + nodes["k5"]),
             "k3": sum(sum(w[:2]) for _, w in nodes["k3"])}
 
 
@@ -1556,37 +1647,41 @@ def grad_controls(run, launches: dict, plain) -> dict:
     return out
 
 
-def phase_pim_grad(seed: int) -> dict:
-    """Gradients of ``lenet_loss`` at batch 256 through the mapper, against
-    ``torch.func.grad`` of the plain loss (TF32 off), rtol = atol = 1e-4,
-    two ways. ``autograd``: autograd through
+def phase_pim_grad(seed: int, weight_dtype: str = "fp32") -> dict:
+    """Gradients of ``lenet_loss`` at batch 256 through the mapper with the
+    weights on ``weight_dtype``'s grid, against ``torch.func.grad`` of the
+    plain loss taken at ``fake_quant_params`` (TF32 off; with the
+    straight-through quantizer the weight gradient is Aᵀg at the stored
+    point), rtol = atol = 1e-4. ``autograd``: autograd through
     ``compile_schedule(build_schedule(lenet_loss))`` — the main path,
     counts set to 0 just before the program's call and its backward,
-    read after each; the backward's K1 and K3 launches must be every
-    cotangent autograd asked for, and their shapes are logged for the
-    backward kernel checks. ``grad_graph``: the compiled program of
-    ``torch.func.grad(lenet_loss)`` itself, whose backward products are K1
-    launches of the graph, as in the train step. For each, the typical
-    |grad| per leaf beside the limit, and controls: each K1 and K3 launch
-    of the backward dropped, then scaled by 1.01."""
+    read after each. The forward is 5 placed products (K1, or K5 on a
+    quantized grid, the path of K5's VJP and the straight-through
+    quantizer) and 5 K3; the backward's K1 and K3 launches must be every
+    cotangent autograd asked for (K5's dA and dq are K1 launches), and
+    their shapes are logged for the backward kernel checks. On fp32 also
+    ``grad_graph``: the compiled program of ``torch.func.grad(lenet_loss)``
+    itself, whose backward products are K1 launches of the graph, as in
+    the train step. For each, the typical |grad| per leaf beside the
+    limit, and controls: each K1 and K3 launch of the backward dropped,
+    then scaled by 1.01. Emitted as ``pim_grad`` or ``pim_grad_q``."""
     import torch
     from repro_torch import mapper
     from repro_torch.data import make_digits
     from repro_torch.mapper.executor import full_float32, max_deviation
     from repro_torch.models import lenet
+    phase = "pim_grad" if weight_dtype == "fp32" else "pim_grad_q"
+    mm = "k1" if weight_dtype == "fp32" else "k5"
     batch = PIM_GRAD_BATCH
-    params = lenet.init_lenet(seed, device=DEVICE)
-    gen = torch.Generator(device=DEVICE).manual_seed(seed + 40)
-    for leaves in params.values():
-        leaves["b"] = torch.randn(leaves["b"].shape, generator=gen,
-                                  device=DEVICE)
+    params = seeded_params(seed, seed + 40)
     imgs, labels = make_digits(batch, seed=seed + 41)
     x = torch.from_numpy(imgs).to(DEVICE)
     y = torch.from_numpy(labels).to(DEVICE)
     abstract = (mapper.abstract_like(params),
                 *mapper.abstract_like((x, y)))
     prog = mapper.compile_schedule(
-        mapper.build_schedule(lenet.lenet_loss, *abstract),
+        mapper.build_schedule(lenet.lenet_loss, *abstract,
+                              weight_dtype=weight_dtype),
         use_cache=False, device=DEVICE)
     tree = {k: {j: v.clone().requires_grad_(True) for j, v in layer.items()}
             for k, layer in params.items()}
@@ -1601,6 +1696,8 @@ def phase_pim_grad(seed: int) -> dict:
         loss = prog(tree, x, y)
         torch.cuda.synchronize()
         forward = read_counts()
+        if forward != {"k1": 0, "k2": 0, "k3": 5, "k5": 0, mm: 5}:
+            raise AssertionError(f"{phase}: forward launches {forward}")
         nodes = backward_nodes(loss)
         want = asked(nodes)
         reset_counts()
@@ -1608,11 +1705,13 @@ def phase_pim_grad(seed: int) -> dict:
             grads = torch.autograd.grad(loss, leaves)
         torch.cuda.synchronize()
         backward = read_counts()
-        if (backward["k1"], backward["k3"]) != (want["k1"], want["k3"]) \
-                or not backward["k1"] or not backward["k3"]:
-            raise AssertionError(f"pim_grad: backward launches {backward}, "
+        if ((backward["k1"], backward["k3"]) != (want["k1"], want["k3"])
+                or backward["k2"] or backward["k5"] or not backward["k1"]
+                or not backward["k3"]):
+            raise AssertionError(f"{phase}: backward launches {backward}, "
                                  f"autograd asked for {want}")
-        plain = torch.func.grad(lenet.lenet_loss)(params, x, y)
+        stored = fake_quant_params(params, weight_dtype)
+        plain = torch.func.grad(lenet.lenet_loss)(stored, x, y)
         err = max_deviation(as_tree(grads), plain, **PIM_GRAD_TOL)
 
         def autograd_run(fault, key, index):
@@ -1627,40 +1726,51 @@ def phase_pim_grad(seed: int) -> dict:
 
         ms = wall_ms(step, iters=10)
         plain_ms = wall_ms(lambda: torch.func.grad(lenet.lenet_loss)(
-            params, x, y), iters=10)
-
-        gprog = mapper.compile_schedule(
-            mapper.build_schedule(torch.func.grad(lenet.lenet_loss),
-                                  *abstract),
-            use_cache=False, device=DEVICE)
-        reset_counts()
-        with recording_launches() as glog:
-            ggrads = gprog(params, x, y)
-        torch.cuda.synchronize()
-        gcounts = read_counts()
-        if gcounts["k2"] or gcounts["k1"] != 11 or not gcounts["k3"]:
-            raise AssertionError(f"pim_grad: grad graph launches {gcounts}; "
-                                 f"want 11 K1, some K3, no K2")
-        gerr = max_deviation(ggrads, plain, **PIM_GRAD_TOL)
-
-        def graph_run(fault, key, index):
-            with recording_launches(fault, index):
-                return gprog(params, x, y)
-
-        gcontrols = grad_controls(graph_run, {"k1": len(glog["k1"])}, plain)
-        gms = wall_ms(lambda: gprog(params, x, y), iters=10)
-    emit({"phase": "pim_grad", "batch": batch, "tol": PIM_GRAD_TOL,
+            stored, x, y), iters=10)
+        graph = (grad_graph_check(abstract, params, x, y, plain)
+                 if weight_dtype == "fp32" else None)
+    emit({"phase": phase, "batch": batch, "weight_dtype": weight_dtype,
+          "tol": PIM_GRAD_TOL,
           "grad_magnitudes": grad_magnitudes(plain, **PIM_GRAD_TOL),
           "autograd": {"launches_forward": forward,
                        "launches_backward": backward,
-                       "cotangents_asked": want,
+                       "cotangents_asked": want, f"{mm}_nodes": nodes[mm],
                        "max_abs_err_vs_plain": err, "controls": controls,
                        "ms_forward_backward": ms},
-          "grad_graph": {"launches": gcounts, "max_abs_err_vs_plain": gerr,
-                         "controls": gcontrols, "ms": gms},
-          "plain_ms": plain_ms})
+          "grad_graph": graph, "plain_ms": plain_ms})
     return {"forward": forward, "backward": backward, "nodes": nodes,
             "launched": launched}
+
+
+def grad_graph_check(abstract, params, x, y, plain) -> dict:
+    """The compiled program of ``torch.func.grad(lenet_loss)`` (fp32): 11
+    K1 launches, some K3, no K2; its gradients against ``plain``, with
+    each K1 launch dropped and scaled as in ``grad_controls``."""
+    import torch
+    from repro_torch import mapper
+    from repro_torch.mapper.executor import max_deviation
+    from repro_torch.models import lenet
+    gprog = mapper.compile_schedule(
+        mapper.build_schedule(torch.func.grad(lenet.lenet_loss), *abstract),
+        use_cache=False, device=DEVICE)
+    reset_counts()
+    with recording_launches() as glog:
+        ggrads = gprog(params, x, y)
+    torch.cuda.synchronize()
+    gcounts = read_counts()
+    if gcounts["k2"] or gcounts["k1"] != 11 or not gcounts["k3"]:
+        raise AssertionError(f"pim_grad: grad graph launches {gcounts}; "
+                             f"want 11 K1, some K3, no K2")
+    gerr = max_deviation(ggrads, plain, **PIM_GRAD_TOL)
+
+    def graph_run(fault, key, index):
+        with recording_launches(fault, index):
+            return gprog(params, x, y)
+
+    gcontrols = grad_controls(graph_run, {"k1": len(glog["k1"])}, plain)
+    gms = wall_ms(lambda: gprog(params, x, y), iters=10)
+    return {"launches": gcounts, "max_abs_err_vs_plain": gerr,
+            "controls": gcontrols, "ms": gms}
 
 
 # ---------------------------------------------------------------------------
@@ -1827,6 +1937,185 @@ def phase_kernels_pim_backward(seed: int, grad_run: dict,
     return {"k1": k1, "k3": k3}
 
 
+# ---------------------------------------------------------------------------
+# 12. pim_lenet_q: LeNet-5 served on quantized weight grids (K5), by
+# phase_pim_lenet over Q_SERVE
+# ---------------------------------------------------------------------------
+
+# (weight grid, batch) of pim_lenet_q; the first is the main path, whose
+# launch shapes kernels_pim holds K5 at
+Q_SERVE = (("int8", 256), ("fp8_e4m3", 256), ("fp8_e5m2", 256),
+           ("fp16", 256), ("int8", 4096))
+Q_TRAIN_DTYPE = "int8"
+Q_PARITY_STEPS = 5         # int8 against fp32, loss by loss
+Q_LOSS_RTOL = 0.02         # the reference's test_trainer_int8_losses_...
+
+
+# ---------------------------------------------------------------------------
+# 13. kernels_pim, K5: at the shapes of a quantized path's launches
+# ---------------------------------------------------------------------------
+
+
+def phase_kernels_pim_q(seed: int, shapes: list, path: str,
+                        batch: int) -> list:
+    """K5 at the ``shapes`` (``(name, G, col_groups, M, K, N, count)``) of
+    one of ``path``'s runs, on seeded random activations and weights
+    quantized to the int8 grid (``quantize_axis``, as the lowering
+    quantizes them), against its plain version per output row to
+    ``mm_limit`` (with the dropped-K-tile control) and against K1 on
+    ``q * s`` bit for bit; timed beside its bound (each operand read once
+    — Q as float32 — the output written once; 2 MKN operations per group
+    and the KN dequantizing multiplies) and the library call: ``q * s``
+    then ``torch.bmm`` (TF32 off)."""
+    import torch
+    from repro_torch.core import quant
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.pim_mac import (pim_matmul_grouped,
+                                             pim_matmul_grouped_q)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 60)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=DEVICE)
+
+    rows = []
+    for name, g, cg, m, k, n, count in shapes:
+        a = randn(g // cg, m, k)
+        q, s = quant.quantize_axis(randn(g, k, n), Q_TRAIN_DTYPE, 1)
+        r = hold_matmul(
+            f"K5 {path} {name}",
+            lambda: pim_matmul_grouped_q(a, q, s, col_groups=cg),
+            lambda: ref.pim_matmul_grouped_q_ref(a, q, s, col_groups=cg),
+            lambda: ref.pim_matmul_grouped_q_ref(a[..., :k - 128],
+                                                 q[:, :k - 128], s,
+                                                 col_groups=cg),
+            mm_limit(k))
+        if not torch.equal(r.pop("out"),
+                           pim_matmul_grouped(a, q * s, col_groups=cg)):
+            raise AssertionError(f"K5 {path} {name}: differs from K1 on "
+                                 f"q * s")
+        a_rep = a.repeat_interleave(cg, 0)
+        rows.append({"node": name, "G": g, "col_groups": cg, "M": m,
+                     "K": k, "N": n, "count": count, **r,
+                     "k5_equals_k1_on_q_times_s": True,
+                     **pim_timing(
+                         lambda: pim_matmul_grouped_q(a, q, s,
+                                                      col_groups=cg),
+                         lambda: ref.pim_matmul_grouped_q_ref(
+                             a, q, s, col_groups=cg),
+                         lambda: torch.bmm(a_rep, q * s),
+                         4 * (a.numel() + q.numel() + s.numel()
+                              + g * m * n),
+                         2 * g * m * k * n + g * k * n)})
+        del a, q, s, a_rep
+    torch.cuda.empty_cache()
+    emit({"phase": "kernels_pim", "path": path, "batch": batch,
+          "weight_dtype": Q_TRAIN_DTYPE, "tol": "mm_limit(K)",
+          "results": [{**K5, "shapes": rows}]})
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# 14. pim_train_q: LeNet-5 trained on the int8 weight grid
+# ---------------------------------------------------------------------------
+
+
+def phase_pim_train_q(seed: int, fp32: dict) -> dict:
+    """``Trainer(backend="pim", weight_dtype="int8")`` on the card, AdamW
+    at ``TRAIN_LR``, batch 64, ``TRAIN_STEPS`` steps from ``pim_train``'s
+    seeded parameters and batches — the main path, every count set to 0
+    just before and read just after: 11 K5 and a fixed number of K3 per
+    step, no K1 or K2. Its first 5 losses within 2% relative of the fp32
+    pim trainer's (``fp32``: ``pim_train``'s run of as many steps, whose
+    ms per step it is timed beside), and its loss at the last step below
+    its first. Then one compiled step against the per-block executor, bit
+    for bit (deterministic cuDNN), and against
+    ``run_fake_quant_plain`` — the step with native ops over each placed
+    product's stationary operand fake-quantized, which shares nothing
+    with the lowering — at rtol = atol = 1e-4, with the step's K5 launch
+    shapes logged and a profile of the compiled step."""
+    import tempfile
+
+    import torch
+    from repro_torch import mapper, obs
+    from repro_torch.mapper.executor import (full_float32, max_deviation,
+                                             run_fake_quant_plain)
+    from repro_torch.models import lenet
+    params0 = lenet.init_lenet(seed, device=DEVICE)
+    batch, steps = TRAIN_BATCHES[0], TRAIN_STEPS
+    with tempfile.TemporaryDirectory() as tmp, full_float32():
+        batches = digit_batches(batch, steps)
+        t0 = time.perf_counter()
+        q = make_trainer("pim", params0, batches, steps, tmp,
+                         weight_dtype=Q_TRAIN_DTYPE)
+        build_s = time.perf_counter() - t0
+        prog = q.pim_program
+        obs.metrics().reset()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        losses = q.run()["losses"]
+        torch.cuda.synchronize()
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        wall = step_wall_s()
+        if (counts["k1"] or counts["k2"] or counts["k5"] != 11 * steps
+                or counts["k3"] % steps or not counts["k3"]):
+            raise AssertionError(f"pim_train_q: launches {counts} over "
+                                 f"{steps} steps; want 11 K5 and a fixed "
+                                 f"number of K3 per step, no K1 or K2")
+        if not all(np.isfinite(losses)):
+            raise AssertionError("pim_train_q: non-finite loss")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"pim_train_q: loss {losses[-1]} at step "
+                                 f"{steps - 1} not below {losses[0]}")
+        fp32_losses = fp32["losses"][:Q_PARITY_STEPS]
+        rel = [abs(a - b) / max(abs(b), 1e-6)
+               for a, b in zip(losses, fp32_losses)]
+        if not max(rel) < Q_LOSS_RTOL:
+            raise AssertionError(f"pim_train_q: int8 losses "
+                                 f"{losses[:Q_PARITY_STEPS]} off fp32's "
+                                 f"{fp32_losses} by {rel}")
+        ex = mapper.ScheduleExecutor(prog.schedule, device=DEVICE)
+        state = (q.params, q.opt_state, batches[0])
+        with deterministic_cudnn():
+            with recording_launches() as prog_log:
+                got = prog(*state)
+            want = ex.run(*state)
+        diff = leaves_differing(got, want)
+        if diff:
+            raise AssertionError(f"pim_train_q: compiled step and executor "
+                                 f"differ: {diff}")
+        err = max_deviation(got, run_fake_quant_plain(prog.schedule, *state),
+                            **PIM_TOL)
+        prof = profile_device(lambda: prog(*state), calls=3)
+        emit({"phase": "pim_train_q", "batch": batch,
+              "weight_dtype": Q_TRAIN_DTYPE,
+              "config": "lenet5 (paper, 21655 params) AdamW lr 2e-3, int8 "
+                        "weight grid, DigitsDataset(seed=0)",
+              "steps": steps, "build_s": build_s,
+              "losses_first": losses[:Q_PARITY_STEPS],
+              "loss_last": losses[-1], "fp32_losses_first": fp32_losses,
+              "max_rel_loss_dev_vs_fp32": max(rel),
+              "launches_per_step": {k: v / steps for k, v in counts.items()},
+              "compiled_equals_executor": True,
+              "max_abs_err_vs_fake_quant_plain_step": err,
+              "placed_blocks": prog.placed_blocks,
+              "replicas": sum(p.replicas for p in
+                              prog.schedule.placement.node_placements
+                              .values()),
+              "subarrays": prog.schedule.placement.n_subarrays,
+              "ms_per_step": wall["steady_mean"] * 1e3,
+              "images_per_s": batch / wall["steady_mean"],
+              "fp32_pim_ms_per_step": fp32["ms_per_step"],
+              "train.step_wall_s": wall,
+              "max_memory_allocated_gb": peak / 1e9,
+              "modeled_pim_latency_s": prog.schedule.report.latency_s,
+              "k5_launch_shapes": prog_log["k5"], "profile": prof})
+        del q, got, want, state, batches, ex
+        torch.cuda.empty_cache()
+    return {"launches": counts, "shapes": {"k5": prog_log["k5"]}}
+
+
 def sums(rows) -> dict:
     """Times and bounds of one run's launches: each distinct shape's
     numbers times its count, summed (each shape's bound the larger of its
@@ -1889,9 +2178,9 @@ def main() -> int:
     phase_build()
     k4 = phase_kernels(args.seed)
     k6 = phase_kernels_q(args.seed)
-    lenet_run = phase_pim_lenet(args.seed)
+    lenet_run = phase_pim_lenet(args.seed, PIM_SERVE)
     rows = {"pim_lenet": phase_kernels_pim(
-        args.seed, lenet_run["shapes"], "pim_lenet", PIM_BATCHES[0],
+        args.seed, lenet_run["shapes"], "pim_lenet", PIM_SERVE[0][1],
         wave=True)}
     train = phase_pim_train(args.seed)
     rows["pim_train"] = phase_kernels_pim(
@@ -1900,12 +2189,24 @@ def main() -> int:
     grad = phase_pim_grad(args.seed)
     rows["pim_grad_backward"] = phase_kernels_pim_backward(
         args.seed, grad, train["shapes"]["k2"])
+    lenet_q = phase_pim_lenet(args.seed, Q_SERVE)
+    rows["pim_lenet_q"] = phase_kernels_pim_q(
+        args.seed, lenet_q["shapes"]["k5"], "pim_lenet_q", Q_SERVE[0][1])
+    train_q = phase_pim_train_q(args.seed, train)
+    rows["pim_train_q"] = phase_kernels_pim_q(
+        args.seed, with_counts(train_q["shapes"])["k5"], "pim_train_q",
+        TRAIN_BATCHES[0])
+    grad_q = phase_pim_grad(args.seed, Q_TRAIN_DTYPE)
     by_path = {"pim_lenet": lenet_run["launches"],
                "pim_train": {k: train["launches"][k]
                              + train["executor_launches"][k]
-                             for k in ("k1", "k2", "k3")},
+                             for k in PIM_KEYS},
                "pim_grad": {k: grad["forward"][k] + grad["backward"][k]
-                            for k in ("k1", "k2", "k3")},
+                            for k in PIM_KEYS},
+               "pim_lenet_q": lenet_q["launches"],
+               "pim_train_q": train_q["launches"],
+               "pim_grad_q": {k: grad_q["forward"][k] + grad_q["backward"][k]
+                              for k in PIM_KEYS},
                "pim_grad_backward": grad["backward"]}
     phase_parity(args.seed)
     serve = phase_serve(args.seed)
@@ -1923,11 +2224,16 @@ def main() -> int:
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r["library_ms"]}
 
+    k5_launches = {path: by_path[path]["k5"]
+                   for path in ("pim_lenet_q", "pim_train_q", "pim_grad_q")}
     emit({"kernels": [
         entry(K4, serve["launches"], k4["bfloat16"]),
         entry(K6, kvq["launches"], k6[(SERVE_KV_DTYPE, "bfloat16")]),
         *(pim_entry(ids, key, by_path, rows)
-          for ids, key in ((K1, "k1"), (K2, "k2"), (K3, "k3")))]})
+          for ids, key in ((K1, "k1"), (K2, "k2"), (K3, "k3"))),
+        {**K5, "launches": sum(k5_launches.values()),
+         **sums(rows["pim_lenet_q"]), "launches_by_path": k5_launches,
+         "pim_train": sums(rows["pim_train_q"])}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -24,10 +24,13 @@ torch has no ``index_put`` for uint16 on the CPU, and the pool is written
 by index puts, so the port keeps the same 16 bits in an **int16** tensor
 (``code_dtype``), and ``decode_float`` reads them back unsigned.
 
-The blockwise and axis-wise halves of the reference module
-(``quantize_blockwise``, ``quantize_axis``, ``quantize_ste``,
-``fake_quant``, ``layer_error``) are not ported yet (ROADMAP.md, port
-queue item 3, with K5).
+The weight half — ``quantize_axis``, the straight-through
+``quantize_ste``, ``fake_quant``, ``layer_error`` and the blockwise 1-D
+pack ``quantize_blockwise`` / ``dequantize_blockwise`` — does the
+reference's arithmetic in its order: the scale is ``max(absmax *
+inv_qmax, SCALE_FLOOR)`` (a multiply by the float32 reciprocal) and the
+values ``round_to_grid(w / scale)`` with a correctly rounded division,
+so codes and scales are bit-equal to the reference's on equal inputs.
 """
 
 from __future__ import annotations
@@ -179,6 +182,107 @@ def decode_float(code: torch.Tensor, dtype: str | QuantSpec) -> torch.Tensor:
     return torch.where(e_t == 0, 0.0, out)
 
 
+def _codes(v: torch.Tensor, s: QuantSpec) -> torch.Tensor:
+    """On-grid values -> storage codes: int8 for the int grid (NaN maps
+    to 0, as the reference's saturating float-to-int8 conversion maps
+    it), packed ``sign|exp|mant`` codes for the float grids."""
+    if s.kind == "int":
+        return torch.where(torch.isnan(v), 0.0, v).to(torch.int8)
+    return encode_float(v, s)
+
+
+# ---------------------------------------------------------------------------
+# blockwise 1-D pack/unpack (absmax block scales)
+# ---------------------------------------------------------------------------
+
+BLOCK = 256
+
+
+def quantize_blockwise(x: torch.Tensor, dtype: str | QuantSpec = "int8",
+                       block: int = BLOCK):
+    """-> (codes [nblocks, block], scale float32 [nblocks, 1]).
+
+    ``x`` is flattened and zero-padded to a block multiple; each block's
+    scale is ``max(absmax * inv_qmax, SCALE_FLOOR)``. Int grids return
+    int8 codes, float grids packed codes (``decode_float``)."""
+    s = spec(dtype)
+    flat = _f32(x).reshape(-1)
+    pad = (-flat.numel()) % block
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    blocks = flat.reshape(-1, block)
+    scale = torch.clamp_min(
+        blocks.abs().amax(dim=1, keepdim=True) * s.inv_qmax, SCALE_FLOOR)
+    return _codes(round_to_grid(blocks / scale, s), s), scale
+
+
+def dequantize_blockwise(q: torch.Tensor, scale: torch.Tensor,
+                         like: torch.Tensor,
+                         dtype: str | QuantSpec = "int8") -> torch.Tensor:
+    """Inverse of :func:`quantize_blockwise`, cut and reshaped to
+    ``like``."""
+    s = spec(dtype)
+    v = q.to(torch.float32) if s.kind == "int" else decode_float(q, s)
+    return (v * scale).reshape(-1)[:like.numel()].reshape(like.shape)
+
+
+# ---------------------------------------------------------------------------
+# axis-wise fake-quant for the weight-stationary datapath
+# ---------------------------------------------------------------------------
+
+
+def quantize_axis(w: torch.Tensor, dtype: str | QuantSpec, axis: int = -2):
+    """Split ``w ~= q * scale`` with absmax scales reduced over ``axis``.
+
+    For a (K, N) weight block, ``axis=-2`` gives one scale per output
+    column — the scale rides the block's peripheral register while the
+    ``q`` values sit in the array at ``n_bits`` cells each. Returns
+    ``(q, scale)`` with ``q`` the on-grid values in float32 and ``scale``
+    keeping the reduced axis."""
+    s = spec(dtype)
+    w = _f32(w)
+    amax = w.abs().amax(dim=axis, keepdim=True)
+    scale = torch.clamp_min(amax * s.inv_qmax, SCALE_FLOOR)
+    return round_to_grid(w / scale, s), scale
+
+
+class _QuantizeSTE(torch.autograd.Function):
+    """``quantize_axis`` with the straight-through VJP ``dw = dq /
+    scale``; the scale is a placement constant (no cotangent)."""
+
+    @staticmethod
+    def forward(ctx, w, dtype, axis):
+        q, scale = quantize_axis(w, dtype, axis)
+        ctx.save_for_backward(scale)
+        ctx.mark_non_differentiable(scale)
+        return q, scale
+
+    @staticmethod
+    def backward(ctx, dq, _dscale):
+        (scale,) = ctx.saved_tensors
+        return dq / scale, None, None
+
+
+def quantize_ste(w: torch.Tensor, dtype: str | QuantSpec, axis: int = -2):
+    """:func:`quantize_axis` with a straight-through gradient: ``dw = dq
+    / scale``. Composed with a kernel whose weight cotangent is ``dq =
+    (aᵀg) * scale``, the weight gradient is ``aᵀg`` — float32 gradient
+    flow, so training under quantized storage keeps full-precision
+    updates."""
+    if torch.is_grad_enabled() and w.requires_grad:
+        return _QuantizeSTE.apply(w, dtype, axis)
+    return quantize_axis(w, dtype, axis)
+
+
+def fake_quant(w: torch.Tensor, dtype: str | QuantSpec,
+               axis: int = -2) -> torch.Tensor:
+    """Golden float32 reference: what the array stores, dequantized."""
+    if spec(dtype).name == "fp32":
+        return _f32(w)
+    q, scale = quantize_axis(w, dtype, axis)
+    return q * scale
+
+
 # ---------------------------------------------------------------------------
 # declared error budgets
 # ---------------------------------------------------------------------------
@@ -208,6 +312,21 @@ def layer_error_budget(dtype: str | QuantSpec) -> float:
     if s.kind == "int":
         return 0.5 / s.qmax
     return 2.0 ** (-s.n_mant) + 2.0 ** s.emin / s.qmax
+
+
+def layer_error(w: torch.Tensor, dtype: str | QuantSpec,
+                axis: int = -2) -> torch.Tensor:
+    """Measured per-layer error: max over vectors of ``max|fake_quant -
+    w| / vector absmax`` — comparable to :func:`layer_error_budget`
+    (a 0-dim float32 tensor, 0 for fp32)."""
+    s = spec(dtype)
+    w = _f32(w)
+    if s.name == "fp32":
+        return w.new_zeros(())
+    q, scale = quantize_axis(w, s, axis)
+    err = (q * scale - w).abs()
+    amax = w.abs().amax(dim=axis, keepdim=True)
+    return (err / torch.clamp_min(amax, s.qmax * SCALE_FLOOR)).max()
 
 
 # ---------------------------------------------------------------------------
@@ -240,12 +359,8 @@ def quantize_kv(x: torch.Tensor, dtype: str | QuantSpec):
     if s.name == "fp32":
         return x, torch.ones(x.shape[:-1] + (1,), dtype=torch.float32,
                              device=x.device)
-    amax = x.abs().amax(dim=-1, keepdim=True)
-    scale = torch.clamp_min(amax * s.inv_qmax, SCALE_FLOOR)
-    v = round_to_grid(x / scale, s)
-    if s.kind == "int":
-        return torch.where(torch.isnan(v), 0.0, v).to(torch.int8), scale
-    return encode_float(v, s), scale
+    v, scale = quantize_axis(x, s, -1)
+    return _codes(v, s), scale
 
 
 def dequantize_kv(codes: torch.Tensor, scale: torch.Tensor,

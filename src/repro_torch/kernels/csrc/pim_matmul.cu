@@ -1,5 +1,5 @@
 // Blocked float32 matrix product of placed PIM weight blocks, for Hopper
-// (sm_90a): K1 and K2 in one kernel body.
+// (sm_90a): K1, K2 and K5 in one kernel body.
 //
 // Replaces: repro/kernels/pim_mac.py:_matmul_grouped_kernel (the Pallas
 // TPU kernel behind pim_matmul_grouped, K1) and :_matmul_kernel (behind
@@ -33,6 +33,19 @@
 // output stores are float4s on consecutive addresses. The operands are the
 // mapper's padded blocks: M and N are multiples of 128 and K of 8, so no
 // tile has a ragged edge.
+//
+// K5 replaces repro/kernels/pim_mac.py:_matmul_grouped_q_kernel (behind
+// pim_matmul_grouped_q): C[g] = A[g / col_groups] @ (Q[g] * S[g]), with Q
+// the placed block's on-grid weight values (float32, as the TPU kernel
+// reads them) and S [G, 1, N] one scale per (group, output column). It is
+// the same body with another B-tile loader (the kDequant instantiation):
+// each thread loads its column's four scales once, and multiplies each
+// staged q by its scale with __fmul_rn as it writes shared memory. So the
+// product chain sees exactly the float32 values q * s that an elementwise
+// multiply forms, and K5(a, q, s) == K1(a, q * s) bit for bit by
+// construction (the reference's grouped == per-block claim on quantized
+// grids). Its bound is K1's: operations (the scale read is N floats per
+// group). An fp8/int8 tensor-core variant would change the numerics.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -44,9 +57,18 @@ constexpr int kBN = 128;
 constexpr int kBK = 8;
 constexpr int kThreads = 256;     // 16 x 16 threads, 8 x 8 outputs each
 
+// The B-tile loader of K5: the staged values times their columns' scales,
+// each product rounded once (no contraction into the product chain).
+__device__ __forceinline__ float4 dequantize(float4 q, float4 s) {
+  return make_float4(__fmul_rn(q.x, s.x), __fmul_rn(q.y, s.y),
+                     __fmul_rn(q.z, s.z), __fmul_rn(q.w, s.w));
+}
+
+template <bool kDequant>
 __global__ void __launch_bounds__(kThreads)
 pim_matmul_kernel(const float* __restrict__ A,   // [G / col_groups, M, K]
-                  const float* __restrict__ B,   // [G, K, N]
+                  const float* __restrict__ B,   // [G, K, N] (K5: Q)
+                  const float* __restrict__ S,   // K5: [G, 1, N]; else null
                   float* __restrict__ C,         // [G, M, N]
                   int M, int K, int N, int col_groups) {
   __shared__ __align__(16) float a_s[2][kBK][kBM];   // transposed: [k][m]
@@ -68,6 +90,10 @@ pim_matmul_kernel(const float* __restrict__ A,   // [G / col_groups, M, K]
   const int b_col = (tid & 31) * 4;
   const float* a_ptr = a + static_cast<size_t>(m0 + a_row) * K + a_col;
   const float* b_ptr = b + static_cast<size_t>(b_row) * N + n0 + b_col;
+  float4 sv = make_float4(1.0f, 1.0f, 1.0f, 1.0f);
+  if constexpr (kDequant)       // this thread's four columns' scales
+    sv = *reinterpret_cast<const float4*>(S + static_cast<size_t>(g) * N +
+                                          n0 + b_col);
   // compute mapping
   const int tx = tid & 15;
   const int ty = tid >> 4;
@@ -84,7 +110,8 @@ pim_matmul_kernel(const float* __restrict__ A,   // [G / col_groups, M, K]
   a_s[0][a_col + 1][a_row] = ra.y;
   a_s[0][a_col + 2][a_row] = ra.z;
   a_s[0][a_col + 3][a_row] = ra.w;
-  *reinterpret_cast<float4*>(&b_s[0][b_row][b_col]) = rb;
+  *reinterpret_cast<float4*>(&b_s[0][b_row][b_col]) =
+      kDequant ? dequantize(rb, sv) : rb;
   __syncthreads();
 
   const int n_k = K / kBK;
@@ -116,7 +143,9 @@ pim_matmul_kernel(const float* __restrict__ A,   // [G / col_groups, M, K]
       a_s[nxt][a_col + 1][a_row] = ra.y;
       a_s[nxt][a_col + 2][a_row] = ra.z;
       a_s[nxt][a_col + 3][a_row] = ra.w;
-      *reinterpret_cast<float4*>(&b_s[nxt][b_row][b_col]) = rb;
+      // K5 dequantizes here, once the compute above has hidden the load
+      *reinterpret_cast<float4*>(&b_s[nxt][b_row][b_col]) =
+          kDequant ? dequantize(rb, sv) : rb;
     }
     __syncthreads();
   }
@@ -136,6 +165,23 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
+template <bool kDequant>
+int launch(const void* a, const void* b, const void* s, void* c, int G,
+           int col_groups, int M, int K, int N, void* stream) {
+  if (G < 1 || G > 65535 || col_groups < 1 || G % col_groups != 0 ||
+      M < kBM || M % kBM != 0 || N < kBN || N % kBN != 0 || N / kBN > 65535 ||
+      K < kBK || K % kBK != 0 || !aligned16(a) || !aligned16(b) ||
+      !aligned16(c) || (kDequant && !aligned16(s)))
+    return (int)cudaErrorInvalidValue;
+  dim3 grid(M / kBM, N / kBN, G);
+  pim_matmul_kernel<kDequant>
+      <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float*>(a), static_cast<const float*>(b),
+          static_cast<const float*>(s), static_cast<float*>(c), M, K, N,
+          col_groups);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // K1: C[g] = A[g / col_groups] @ B[g], g < G. A [G / col_groups, M, K], B
@@ -143,20 +189,21 @@ bool aligned16(const void* p) {
 extern "C" int pim_matmul_grouped(const void* a, const void* b, void* c,
                                   int G, int col_groups, int M, int K, int N,
                                   void* stream) {
-  if (G < 1 || G > 65535 || col_groups < 1 || G % col_groups != 0 ||
-      M < kBM || M % kBM != 0 || N < kBN || N % kBN != 0 || N / kBN > 65535 ||
-      K < kBK || K % kBK != 0 || !aligned16(a) || !aligned16(b) ||
-      !aligned16(c))
-    return (int)cudaErrorInvalidValue;
-  dim3 grid(M / kBM, N / kBN, G);
-  pim_matmul_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(a), static_cast<const float*>(b),
-      static_cast<float*>(c), M, K, N, col_groups);
-  return (int)cudaGetLastError();
+  return launch<false>(a, b, nullptr, c, G, col_groups, M, K, N, stream);
 }
 
 // K2: C = A @ B, A [M, K], B [K, N], C [M, N]: K1 with one group.
 extern "C" int pim_matmul(const void* a, const void* b, void* c, int M, int K,
                           int N, void* stream) {
   return pim_matmul_grouped(a, b, c, 1, 1, M, K, N, stream);
+}
+
+// K5: C[g] = A[g / col_groups] @ (Q[g] * S[g]). A [G / col_groups, M, K], Q
+// [G, K, N] on-grid values, S [G, 1, N] scales, C [G, M, N], all contiguous
+// float32 on the current device.
+extern "C" int pim_matmul_grouped_q(const void* a, const void* q,
+                                    const void* s, void* c, int G,
+                                    int col_groups, int M, int K, int N,
+                                    void* stream) {
+  return launch<true>(a, q, s, c, G, col_groups, M, K, N, stream);
 }

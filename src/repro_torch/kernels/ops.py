@@ -1,5 +1,6 @@
 """Public entries for the PIM kernels: the port of
-``repro/kernels/ops.py``'s ``mac`` and ``matmul``.
+``repro/kernels/ops.py``'s ``mac`` and ``matmul``, and ``matmul_grouped_q``
+(K5, which the reference exports from ``repro.kernels`` only).
 
 The reference's entries pick interpret mode off the TPU; the port's
 wrappers pick by device themselves (CUDA tensors go to the kernels, CPU
@@ -8,9 +9,12 @@ reference's ``attention`` entry (K7) is not ported yet (ROADMAP.md, queue
 item 4).
 """
 
-from repro_torch.kernels.pim_mac import pim_mac, pim_matmul
+from repro_torch.kernels.pim_mac import (pim_mac, pim_matmul,
+                                         pim_matmul_grouped_q)
 
 mac = pim_mac           # elementwise PIM MAC: acc + a*b (paper Fig. 5 unit)
 matmul = pim_matmul     # blocked float32 matmul over (bm, bn, bk) tiles
+# grouped matmul over quantized stored weights, dequantized on load
+matmul_grouped_q = pim_matmul_grouped_q
 
-__all__ = ["mac", "matmul"]
+__all__ = ["mac", "matmul", "matmul_grouped_q"]

@@ -1,11 +1,15 @@
-"""PIM MAC and blocked matmul: the port of the reference's K1, K2 and K3
-kernel entries (``repro/kernels/pim_mac.py``).
+"""PIM MAC and blocked matmul: the port of the reference's K1, K2, K3 and
+K5 kernel entries (``repro/kernels/pim_mac.py``).
 
 ``pim_matmul_grouped`` (K1) and ``pim_matmul`` (K2) replace the Pallas TPU
 kernels ``_matmul_grouped_kernel`` and ``_matmul_kernel`` with one CUDA
 kernel body for Hopper written by hand (``csrc/pim_matmul.cu``): K2 is K1
 launched with one group, so a grouped launch equals the per-block launches
-on the same padded blocks bit for bit. ``pim_mac`` (K3) replaces
+on the same padded blocks bit for bit. ``pim_matmul_grouped_q`` (K5)
+replaces ``_matmul_grouped_q_kernel`` with the same body and a B-tile
+loader that dequantizes the stored on-grid values by their column's scale
+as it stages them, so K5(a, q, s) equals K1(a, q * s) bit for bit.
+``pim_mac`` (K3) replaces
 ``_mac_kernel`` with ``csrc/pim_mac.cu``: ``acc + a*b`` with two
 roundings. ``pim_mac_grouped`` has no kernel of its own: it concatenates
 a ragged wave of triples into one K3 launch, as the reference's wrapper
@@ -21,9 +25,11 @@ requires grad, a wrapper runs its kernel inside a
 ``torch.autograd.Function`` whose backward launches the same kernel with
 the reference's formulas — K1: ``dA = K1(g, Bᵀ)`` (segment-summed over
 the column groups of a shared A) and ``dB = K1(Aᵀ, g, col_groups)``; K2:
-``dA = K2(g, Bᵀ)``, ``dB = K2(Aᵀ, g)``; K3: ``da = K3(g, b, 0)``,
-``db = K3(g, a, 0)``, ``dacc = g``. A cotangent nobody asked for
-(``ctx.needs_input_grad``) launches nothing. The transposed operands are
+``dA = K2(g, Bᵀ)``, ``dB = K2(Aᵀ, g)``; K5: ``dA = K1(g, (q·s)ᵀ)``
+(``q·s`` formed once; segment-summed as K1's), ``dq = K1(Aᵀ, g,
+col_groups) · s`` and ``ds = 0`` (scales are placement constants); K3:
+``da = K3(g, b, 0)``, ``db = K3(g, a, 0)``, ``dacc = g``. A cotangent
+nobody asked for (``ctx.needs_input_grad``) launches nothing. The transposed operands are
 made contiguous before the launch, as the reference's ``swapaxes``
 materializes them.
 """
@@ -38,6 +44,9 @@ from repro_torch.kernels import build, ref
 
 # csrc pim_matmul_grouped(a, b, c, G, col_groups, M, K, N, stream)
 _MM_GROUPED_ARGTYPES = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 5 + (
+    ctypes.c_void_p,)
+# csrc pim_matmul_grouped_q(a, q, s, c, G, col_groups, M, K, N, stream)
+_MM_GROUPED_Q_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 5 + (
     ctypes.c_void_p,)
 # csrc pim_matmul(a, b, c, M, K, N, stream)
 _MM_ARGTYPES = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 3 + (
@@ -213,6 +222,86 @@ class _MatmulGrouped(torch.autograd.Function):
             db = _matmul_grouped(a.transpose(1, 2).contiguous(), g, bk, bn,
                                  bm, col_groups)
         return da, db, None, None, None, None
+
+
+def pim_matmul_grouped_q(a: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
+                         *, bm: int = 128, bn: int = 128, bk: int = 128,
+                         col_groups: int = 1) -> torch.Tensor:
+    """:func:`pim_matmul_grouped` over quantized stored weights: float32
+    ``C[g] = A[g // col_groups] @ (Q[g] * S[g])`` in ONE launch. ``Q`` [G,
+    K, N] holds each placed block's on-grid weight values (float32, from
+    ``core.quant.quantize_axis``), ``S`` [G, 1, N] the per-(group, output
+    column) scale, applied on load. Equals :func:`pim_matmul_grouped` on
+    ``q * s`` bit for bit. Differentiable (module docstring)."""
+    if _wants_grad(a, q, s):
+        return _MatmulGroupedQ.apply(a, q, s, bm, bn, bk, col_groups)
+    return _matmul_grouped_q(a, q, s, bm, bn, bk, col_groups)
+
+
+pim_matmul_grouped_q.launches = 0
+
+
+def _matmul_grouped_q(a: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
+                      bm: int, bn: int, bk: int,
+                      col_groups: int) -> torch.Tensor:
+    """One K5 launch (its plain version on the CPU)."""
+    dev = _common("pim_matmul_grouped_q", a, q, s)
+    if (a.dim() != 3 or q.dim() != 3 or col_groups < 1
+            or q.shape[0] != a.shape[0] * col_groups
+            or a.shape[2] != q.shape[1]
+            or tuple(s.shape) != (q.shape[0], 1, q.shape[2])):
+        raise ValueError(f"pim_matmul_grouped_q: shapes {tuple(a.shape)} @ "
+                         f"{tuple(q.shape)} * {tuple(s.shape)} with "
+                         f"col_groups={col_groups}")
+    g, k, n = q.shape
+    m = a.shape[1]
+    _check_tiles("pim_matmul_grouped_q", m, k, n, bm, bn, bk, dev)
+    if dev == "cpu":
+        return ref.pim_matmul_grouped_q_ref(a, q, s, col_groups=col_groups,
+                                            bk=bk)
+    out = torch.empty((g, m, n), dtype=torch.float32, device=a.device)
+    kernel = build.load("pim_matmul_grouped_q", _MM_GROUPED_Q_ARGTYPES,
+                        source="pim_matmul")
+    with torch.cuda.device(a.device):
+        rc = kernel(a.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(),
+                    g, col_groups, m, k, n,
+                    torch.cuda.current_stream(a.device).cuda_stream)
+    _raise_on(rc, "pim_matmul_grouped_q")
+    pim_matmul_grouped_q.launches += 1
+    return out
+
+
+class _MatmulGroupedQ(torch.autograd.Function):
+    """K5 with the reference's VJP: float32 cotangents against the
+    dequantized weights — dA = K1(g, (q·s)ᵀ), segment-summed over a
+    shared A's column groups, and dq = K1(Aᵀ, g, col_groups) · s, which
+    ``quantize_ste``'s ``dw = dq / s`` turns into exactly ``Aᵀg``; ds =
+    0."""
+
+    @staticmethod
+    def forward(ctx, a, q, s, bm, bn, bk, col_groups):
+        ctx.save_for_backward(a, q, s)
+        ctx.tiles = (bm, bn, bk, col_groups)
+        return _matmul_grouped_q(a, q, s, bm, bn, bk, col_groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, q, s = ctx.saved_tensors
+        bm, bn, bk, col_groups = ctx.tiles
+        g = g.contiguous()
+        da = dq = ds = None
+        if ctx.needs_input_grad[0]:
+            bt = (q * s).transpose(1, 2).contiguous()
+            da = _matmul_grouped(g, bt, bm, bk, bn, 1)
+            if col_groups > 1:
+                da = da.reshape(a.shape[0], col_groups,
+                                *da.shape[1:]).sum(1)
+        if ctx.needs_input_grad[1]:
+            dq = _matmul_grouped(a.transpose(1, 2).contiguous(), g, bk, bn,
+                                 bm, col_groups) * s
+        if ctx.needs_input_grad[2]:
+            ds = torch.zeros_like(s)
+        return da, dq, ds, None, None, None, None
 
 
 def pim_mac(a: torch.Tensor, b: torch.Tensor,

@@ -1,6 +1,6 @@
 """Plain PyTorch versions of the port's kernels (the correctness contract):
 K4 and K6 (paged decode attention), K1, K2 and K3 (the PIM matmul and
-MAC).
+MAC) and K5 (the PIM matmul over quantized stored weights).
 
 Each CUDA kernel of the port is held against its plain version here: the
 CPU tests compare these with the reference's Pallas kernels, and
@@ -115,3 +115,13 @@ def pim_matmul_grouped_ref(a: torch.Tensor, b: torch.Tensor, *,
     order than ``mm``.)"""
     return torch.stack([pim_matmul_ref(a[g // col_groups], b[g], bk=bk)
                         for g in range(b.shape[0])])
+
+
+def pim_matmul_grouped_q_ref(a: torch.Tensor, q: torch.Tensor,
+                             s: torch.Tensor, *, col_groups: int = 1,
+                             bk: int = 128) -> torch.Tensor:
+    """``C[g] = A[g // col_groups] @ (Q[g] * S[g])`` (K5): the stored
+    on-grid values dequantized by their per-(group, column) scale, then
+    :func:`pim_matmul_grouped_ref` — K5 equals K1 on ``q * s`` bit for
+    bit."""
+    return pim_matmul_grouped_ref(a, q * s, col_groups=col_groups, bk=bk)

@@ -10,17 +10,19 @@ hierarchy of the paper's SOT-MRAM PIM arrays:
     curve --(schedule)--> cost-rolled static schedule
     --(executor | compile)--> numerical execution with the port's PIM
     kernels: the per-block walk (the oracle, K2 and K3) or a compiled
-    program with one grouped launch per placed node (K1 and K3).
+    program with one grouped launch per placed node (K1 and K3; K5 over
+    a quantized weight grid).
 
 The aggregate estimator (``repro_torch.core.estimator``) remains the ideal
 zero-stall bound; ``Schedule.reconcile()`` proves each schedule against it.
 
 Ported so far: the paper's LeNet, its forward pass and its training step
 (``map_lenet`` / ``compile_lenet``, ``kind="serve"`` or ``"train"``, and
-any step ``build_schedule`` is given, such as the trainer's AdamW step);
-a compiled program is differentiable. Not yet (ROADMAP.md, queue item 3):
-pipeline partitions, scan expansion, quantized weight and activation
-grids, paged-KV placement, and ``map_arch`` / ``compile_arch``.
+any step ``build_schedule`` is given, such as the trainer's AdamW step),
+on the fp32 grid or a quantized weight grid (``weight_dtype``, with
+``act_dtype`` and ``ideal_provision``); a compiled program is
+differentiable. Not yet (ROADMAP.md, queue item 3): pipeline partitions,
+scan expansion, paged-KV placement, and ``map_arch`` / ``compile_arch``.
 """
 
 from repro_torch.mapper.api import (abstract_like, compile_arch,

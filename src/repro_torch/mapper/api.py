@@ -7,10 +7,15 @@ allocated) and compiles it into a placed, cost-rolled static schedule;
 ``CompiledProgram`` running the forward pass *through the placement* on
 the port's PIM kernels.
 
+``weight_dtype`` stores the placed weights on a reduced-precision grid
+(``"int8"`` / ``"fp8_e4m3"`` / ``"fp8_e5m2"`` / ``"fp16"``; K5 in the
+compiled program), ``act_dtype`` prices activation transfers at a grid's
+width, and ``ideal_provision`` picks the ideal bound's footprint (see
+``build_schedule``).
+
 Not ported yet, and raising ``NotImplementedError`` with their ROADMAP
-item: ``partitions``, ``expand_scans=True``,
-``weight_dtype`` / ``act_dtype`` other than ``"fp32"``, and
-``map_arch`` / ``compile_arch``.
+item: ``partitions``, ``expand_scans=True``, and ``map_arch`` /
+``compile_arch``.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ def map_lenet(kind: str = "serve", *, batch: int = 4, lr: float = 0.05,
               tech: str = "proposed",
               weight_dtype: str = "fp32",
               act_dtype: str = "fp32",
+              ideal_provision: str = "fp32",
               partitions: int | None = None,
               expand_scans: bool = False) -> schedule_mod.Schedule:
     """Map the paper's LeNet at ``batch``: ``serve`` = the forward pass,
@@ -54,7 +60,8 @@ def map_lenet(kind: str = "serve", *, batch: int = 4, lr: float = 0.05,
                          dtype=torch.float32, device="meta")
     common = dict(hierarchy=hierarchy, policy=policy, tech=tech,
                   weight_dtype=weight_dtype, act_dtype=act_dtype,
-                  partitions=partitions, expand_scans=expand_scans)
+                  ideal_provision=ideal_provision, partitions=partitions,
+                  expand_scans=expand_scans)
     if kind == "serve":
         return schedule_mod.build_schedule(lenet.lenet_apply, params, images,
                                            **common)
@@ -73,7 +80,7 @@ def compile_lenet(kind: str = "serve", *, batch: int = 4, lr: float = 0.05,
                   hierarchy: PIMHierarchy | None = None,
                   policy: placement_mod.PlacementPolicy | None = None,
                   tech: str = "proposed", weight_dtype: str = "fp32",
-                  act_dtype: str = "fp32",
+                  act_dtype: str = "fp32", ideal_provision: str = "fp32",
                   partitions: int | None = None,
                   device: str | torch.device | None = None
                   ) -> compile_mod.CompiledProgram:
@@ -83,7 +90,8 @@ def compile_lenet(kind: str = "serve", *, batch: int = 4, lr: float = 0.05,
     dev = resolve_device(device)
     sched = map_lenet(kind, batch=batch, lr=lr, hierarchy=hierarchy,
                       policy=policy, tech=tech, weight_dtype=weight_dtype,
-                      act_dtype=act_dtype, partitions=partitions)
+                      act_dtype=act_dtype, ideal_provision=ideal_provision,
+                      partitions=partitions)
     return compile_mod.compile_schedule(sched, device=dev)
 
 

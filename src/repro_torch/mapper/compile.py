@@ -16,7 +16,9 @@ launches and the native ops.
 Programs execute **grouped**: each placed node's whole block grid rides
 one ``pim_matmul_grouped`` (K1) launch (independent same-shape placed
 nodes are additionally coalesced), so a call launches about one kernel
-per placed node instead of one per block.
+per placed node instead of one per block. Over a sub-fp32 weight grid
+(``weight_dtype``) that launch is ``pim_matmul_grouped_q`` (K5) on the
+stationary operand's codes and scales.
 ``placed_blocks`` counts block-level work and ``kernel_launches`` the
 launches, both **of the last call** (the reference counts per trace,
 which is the same number); the executor stays the per-block oracle and
@@ -147,9 +149,9 @@ def _program_key(schedule: Schedule, device: torch.device) -> tuple:
                   if fx.op == "placeholder")
     fn = schedule.graph.fn
     fn_key: Any = fn if fn is not None else id(schedule.graph.gm)
-    # placement.signature() folds in the hierarchy fingerprint (tech +
-    # tile/chip geometry), so same-grid placements on different machines
-    # get distinct keys
+    # placement.signature() folds in the hierarchy fingerprint (tech,
+    # the subarray's weight grid, tile/chip geometry), so placements on
+    # different machines or weight grids get distinct keys
     return (fn_key, avals, schedule.placement.signature(),
             schedule.act_bits, str(device))
 

@@ -14,9 +14,17 @@ This per-block walk is the **verification mode** — and the *per-block
 oracle* the compiled program (``repro_torch.mapper.compile``) must match
 bit for bit: the compiler replays the identical rule table grouped,
 stacking each node's blocks into one ``pim_matmul_grouped`` (K1) launch.
+Over a sub-fp32 weight grid each block is quantized as the compiler
+quantizes it (K2 then runs on the dequantized block, K5's program on the
+codes and scales), and the executor records each block's quantization
+error into the ``pim.quant_layer_rel_error`` histogram.
 
 The counters (``placed_blocks``, ``kernel_launches``, ...) add up over the
 executor's runs, as the reference's do.
+
+``run_fake_quant_plain`` is the quantized schedule's plain oracle: the
+same aten graph with native ops only, each placed product reading its
+stationary operand through ``core.quant.fake_quant`` per placed row block.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ from torch.utils import _pytree as pytree
 
 from repro_torch import obs
 from repro_torch._device import resolve_device
+from repro_torch.core import quant
 from repro_torch.mapper.lowering import LoweringContext, eval_placed
 from repro_torch.mapper.schedule import Schedule
 
@@ -141,6 +150,60 @@ class ScheduleExecutor:
         with torch.no_grad(), full_float32():
             want = fn(*args, **kwargs)
         return max_deviation(got, want, rtol, atol)
+
+
+def run_fake_quant_plain(schedule: Schedule, *args, **kwargs):
+    """The schedule's aten graph run with native ops on the arguments'
+    device (float32, TF32 off), each placed product — ``aten.mm`` or a
+    forward ``aten.convolution`` with a placement — over its stationary
+    operand (the node's weight, of shape ``node.weight_shape``) replaced by
+    ``quant.fake_quant`` of it per (placed row block, column) on the
+    schedule's weight grid. No kernel, padding, stacking or fusion of the
+    lowering takes part: an oracle for the quantized program, to float32
+    tolerance."""
+    flat, spec = pytree.tree_flatten((args, kwargs))
+    if spec != schedule.graph.in_spec:
+        raise TypeError(f"argument structure {spec} != traced structure "
+                        f"{schedule.graph.in_spec}")
+    grid = schedule.hierarchy.subarray.weight_dtype
+    placed = {nd.fx_node: nd for nd in schedule.graph.nodes
+              if nd.idx in schedule.placement.node_placements}
+    aten = torch.ops.aten
+
+    def stored(w, node):              # w: the (k, n) stationary operand
+        rows = schedule.hierarchy.subarray.weight_rows
+        assert tuple(w.shape) == tuple(node.weight_shape), node.name
+        return torch.cat([quant.fake_quant(w[r:r + rows], grid)
+                          for r in range(0, w.shape[0], rows)])
+
+    def call(fx, node, args, kwargs):
+        if node is not None and fx.target is aten.mm.default:
+            lhs, rhs = args
+            if node.transposed:       # mm(t(x), g): x stationary
+                return stored(lhs.T, node).T @ rhs
+            return lhs @ stored(rhs, node)
+        if node is not None and fx.target is aten.convolution.default:
+            w = args[1]
+            cout, cin, kh, kw = w.shape
+            view = stored(w.permute(2, 3, 1, 0).reshape(-1, cout), node)
+            w = view.reshape(kh, kw, cin, cout).permute(3, 2, 0, 1)
+            return fx.target(args[0], w, *args[2:])
+        return fx.target(*args, **kwargs)
+
+    env: dict = {}
+    leaves = iter(flat)
+    with torch.no_grad(), full_float32():
+        for fx in schedule.graph.gm.graph.nodes:
+            if fx.op == "placeholder":
+                env[fx] = next(leaves)
+            elif fx.op == "output":
+                outs = [env[v] for v in fx.args[0]]
+                return pytree.tree_unflatten(outs, schedule.graph.out_spec)
+            else:
+                args = torch.fx.node.map_arg(fx.args, env.__getitem__)
+                kw = torch.fx.node.map_arg(fx.kwargs, env.__getitem__)
+                env[fx] = call(fx, placed.get(fx.name), args, kw)
+    raise AssertionError("the graph has no output node")
 
 
 def run_schedule(schedule: Schedule, *args,

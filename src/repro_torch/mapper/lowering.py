@@ -21,6 +21,18 @@ an explicit ascending left-fold — the same association order as the
 oracle's chain of block adds. Every operand is zero-padded to multiples
 of ``TILE``, the kernels' tile edge.
 
+When the schedule's subarray grid stores sub-fp32 weights
+(``weight_dtype`` of ``int8`` / ``fp8_e4m3`` / ``fp8_e5m2`` / ``fp16``),
+the stationary operand of every placed product — the node's weight, of
+shape ``node.weight_shape`` (for a transposed node the reference's
+stationary ``x``) — is quantized per output column of each placed block
+(``core.quant.quantize_ste``) and the grouped launch dequantizes on load
+(``pim_matmul_grouped_q``, K5, scales as a per-(group, column) operand).
+The per-block oracle applies the same quantizer to each padded block and
+runs K2 on ``q * s``; zero padding never moves a column's absmax, so the
+scales are the same and the two modes stay bit-identical. Accumulation
+stays float32 and gradients flow straight through.
+
 Grouped, the walk also coalesces *independent* placed nodes: same-shape
 placed matmuls whose operands are all already computed ride one grouped
 launch, and whole waves of ready
@@ -48,8 +60,7 @@ transposition or other than 2-D, the two cotangents of a convolution
 (``convolution_backward``: the reference's lowering declines their
 dimension numbers and falls back to the primitive too), ``div``
 (a*(1/b) would diverge from division at the overflow edge), eltwise ops
-that are not float32 or whose ``alpha`` is not 1. Weight grids other than
-fp32 (K5) are not ported yet.
+that are not float32 or whose ``alpha`` is not 1.
 
 A weight cotangent ``mm(t(x), g)`` (``MatmulNode.transposed``) runs as
 the reference's ``gᵀx`` through ``x``'s placed blocks, then transposes.
@@ -64,9 +75,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import obs
-from repro_torch.core import estimator
+from repro_torch.core import estimator, quant
 from repro_torch.kernels.pim_mac import (pim_mac, pim_mac_grouped, pim_matmul,
-                                         pim_matmul_grouped)
+                                         pim_matmul_grouped,
+                                         pim_matmul_grouped_q)
 from repro_torch.mapper.graph import OpNode
 
 aten = torch.ops.aten
@@ -114,6 +126,11 @@ class LoweringContext:
     blocks into one grouped launch and coalesces independent same-shape
     placed nodes (the compiler's mode).
 
+    ``weight_dtype`` is the stored-weight grid: the schedule's subarray
+    grid. The per-block mode (the executor's) records each quantized
+    block's error into the ``pim.quant_layer_rel_error`` histogram; that
+    reads a float back from the device, so the grouped replay does not.
+
     Counters: ``placed_blocks`` / ``eltwise_calls`` count kernel-routed
     *work* (block matmuls resp. eltwise nodes); ``matmul_launches`` /
     ``eltwise_launches`` count actual kernel launches per kind, with
@@ -122,6 +139,7 @@ class LoweringContext:
 
     schedule: Any                 # repro_torch.mapper.schedule.Schedule
     grouped: bool = True          # grouped + fused (False = per-block)
+    weight_dtype: str = dataclasses.field(init=False)
     placed_blocks: int = 0
     eltwise_calls: int = 0
     matmul_launches: int = 0
@@ -130,6 +148,7 @@ class LoweringContext:
     def __post_init__(self):
         self.node_by_fx = {nd.fx_node: nd
                            for nd in self.schedule.graph.nodes}
+        self.weight_dtype = self.schedule.hierarchy.subarray.weight_dtype
         self.steps = plan(self)
 
     @property
@@ -196,11 +215,27 @@ def _grouped_reduce(out_g: torch.Tensor, meta) -> torch.Tensor:
     return col.transpose(0, 1).reshape(m, C * w)[:, :n]
 
 
+def _observe_quant_error(ctx: LoweringContext, w, q, s) -> None:
+    """Record a quantized block's error (max over columns of |q·s - w|
+    relative to the column's absmax) into the obs histogram."""
+    qmax = quant.spec(ctx.weight_dtype).qmax
+    rel = float(((q * s - w).abs() / (s * qmax)).max())
+    obs.metrics().histogram("pim.quant_layer_rel_error").observe(rel)
+
+
 def _launch_grouped(ctx: LoweringContext, a_g, b_g,
                     col_groups: int) -> torch.Tensor:
-    """One grouped launch over stacked block operands."""
-    out_g = pim_matmul_grouped(a_g, b_g, bm=TILE, bn=TILE, bk=TILE,
-                               col_groups=col_groups)
+    """One grouped launch over stacked block operands, quantizing the
+    stationary side first when the weight grid is sub-fp32: scales per
+    (group, output column), ``quantize_ste`` keeping float32 gradient
+    flow, and K5 dequantizing on load."""
+    if ctx.weight_dtype != "fp32":
+        q, s = quant.quantize_ste(b_g, ctx.weight_dtype, 1)
+        out_g = pim_matmul_grouped_q(a_g, q, s, bm=TILE, bn=TILE, bk=TILE,
+                                     col_groups=col_groups)
+    else:
+        out_g = pim_matmul_grouped(a_g, b_g, bm=TILE, bn=TILE, bk=TILE,
+                                   col_groups=col_groups)
     ctx.placed_blocks += b_g.shape[0]
     ctx.matmul_launches += 1
     return out_g
@@ -215,7 +250,9 @@ def blocked_matmul(ctx: LoweringContext, node_idx: int, a2: torch.Tensor,
     blocks + a single segment-sum per output column-block. Otherwise the
     per-block oracle — one ``pim_matmul`` launch
     per placed block, partial products added into the output in block
-    order.
+    order. Sub-fp32 weight grids quantize the stationary ``b2`` per
+    placed block column in both modes (same scales, bit-identical
+    results).
     """
     if ctx.grouped:
         a_g, b_g, meta = _grouped_operands(ctx, node_idx, a2, b2)
@@ -230,6 +267,10 @@ def blocked_matmul(ctx: LoweringContext, node_idx: int, a2: torch.Tensor,
         cols = slice(blk.col0, blk.col0 + blk.n_cols)
         pa = _pad_to(a2[:, rows].to(torch.float32), TILE)
         pb = _pad_to(b2[rows, cols].to(torch.float32), TILE)
+        if ctx.weight_dtype != "fp32":
+            qb, sb = quant.quantize_ste(pb, ctx.weight_dtype, 0)
+            _observe_quant_error(ctx, pb, qb, sb)
+            pb = qb * sb              # the block's stored grid, dequantized
         part = pim_matmul(pa, pb, bm=TILE, bn=TILE, bk=TILE)
         out[:, cols] += part[:m, :blk.n_cols]
         ctx.placed_blocks += 1

@@ -14,6 +14,11 @@ order. Refinements over naive one-block-per-subarray:
   * **replication** — small *hot* nodes (high MACs per provisioned lane)
     are replicated ``r`` times; replicas serve interleaved activation rows,
     multiplying throughput at the cost of ``r`` x area;
+  * **quantized replicas** — with a sub-32-bit weight grid a value takes
+    fewer cells, so the same weights need fewer subarrays; the subarrays
+    freed against the fp32 placement of the same graph are spent on extra
+    replicas of the hottest nodes (``PlacementPolicy.spend_saved_area``),
+    so density becomes throughput at equal area;
   * **topology-aware packing** — packing hands out *allocation* indices;
     a locality-preserving curve over each chip's tile mesh
     (``repro_torch.mapper.hardware.tile_curve``) maps them to physical
@@ -29,9 +34,8 @@ demand. Eltwise nodes run in the shared peripheral FP units and take no
 placement.
 
 Not ported yet: pipeline partitions (``partition``, ``GraphPartition``,
-the policy's ``align_partitions``), paged-KV placement (``place_kv``) and
-sub-32-bit weight grids with their extra replicas (``spend_saved_area``);
-see ROADMAP.md, queue item 3.
+the policy's ``align_partitions``) and paged-KV placement (``place_kv``);
+see ROADMAP.md, queue items 3.3 and 3.5.
 """
 
 from __future__ import annotations
@@ -54,6 +58,10 @@ class PlacementPolicy:
     max_replicas: int = 8
     share_subarrays: bool = True      # co-locate whole small nodes
     topology: str = "affinity"        # "affinity" (curve search) | "flat"
+    # quantized datapath: grant extra replicas of the hottest nodes from
+    # the subarrays a sub-32-bit weight grid frees at fp32-equivalent area
+    # (a switch kept for parity with the reference's policy)
+    spend_saved_area: bool = True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -231,6 +239,50 @@ def _replicas_for(node: OpNode, blocks: int, lanes_per_sub: int,
     return max(1, min(policy.max_replicas, want))
 
 
+def _fp32_area_budget(graph: OpGraph, hierarchy: PIMHierarchy,
+                      policy: PlacementPolicy) -> int:
+    """Subarrays the same graph would occupy under fp32 weight storage —
+    the *equal-area* envelope a quantized placement may spend."""
+    ref_sub = dataclasses.replace(hierarchy.subarray, n_bits=32,
+                                  weight_dtype="fp32")
+    ref_h = dataclasses.replace(hierarchy, subarray=ref_sub)
+    # flat topology: the curve search doesn't change n_subarrays
+    ref_policy = dataclasses.replace(policy, topology="flat")
+    return place(graph, ref_h, ref_policy).n_subarrays
+
+
+def _grant_extra_replicas(graph: OpGraph, hierarchy: PIMHierarchy,
+                          policy: PlacementPolicy,
+                          grids: dict[int, list]) -> None:
+    """Spend the subarrays a sub-32-bit grid frees (vs the fp32 placement
+    of the same graph) on extra replicas of the hottest placed nodes.
+
+    Heat = MACs per provisioned lane; each grant buys one full block-grid
+    copy, greedily for the currently hottest node that still fits the
+    remaining budget, until the fp32-equivalent area is spent or every
+    node hits ``policy.max_replicas``. Mutates ``grids`` in place."""
+    sub = hierarchy.subarray
+    budget = _fp32_area_budget(graph, hierarchy, policy)
+    nodes = {nd.idx: nd for nd in graph.matmul_like()}
+    used = sum(rb * cb * rep for rb, cb, rep in grids.values())
+    while True:
+        extra = budget - used
+        if extra <= 0:
+            break
+        best, best_heat = None, 0.0
+        for idx, (rb, cb, rep) in grids.items():
+            blocks = rb * cb
+            if blocks > extra or rep >= policy.max_replicas:
+                continue
+            heat = nodes[idx].macs / (rep * blocks * sub.mac_lanes)
+            if heat > best_heat:
+                best, best_heat = idx, heat
+        if best is None or best_heat <= 0.0:
+            break
+        grids[best][2] += 1
+        used += grids[best][0] * grids[best][1]
+
+
 def place(graph: OpGraph, hierarchy: PIMHierarchy,
           policy: PlacementPolicy | None = None) -> Placement:
     """Greedy weight-stationary packing in topological node order.
@@ -238,18 +290,32 @@ def place(graph: OpGraph, hierarchy: PIMHierarchy,
     With ``policy.topology == "affinity"`` the packer evaluates the
     hierarchy's candidate tile curves against the graph's
     producer->consumer edges and keeps the one with the fewest total mesh
-    hops (ties go to flat row-major). Sub-32-bit weight grids are not
-    ported yet and raise.
+    hops (ties go to flat row-major).
+
+    With a sub-32-bit weight grid (``subarray.n_bits < 32``) and
+    ``policy.spend_saved_area``, a pre-pass compares against the fp32
+    placement of the same graph and grants the freed subarrays as extra
+    replicas of the hottest nodes (by MACs per provisioned lane), so
+    density converts to throughput at equal area.
     """
     policy = policy or PlacementPolicy()
     if policy.topology not in ("affinity", "flat"):
         raise ValueError(f"topology must be 'affinity' or 'flat', "
                          f"got {policy.topology!r}")
     sub = hierarchy.subarray
-    if sub.n_bits < 32:
-        raise NotImplementedError(
-            f"{sub.weight_dtype!r} weight grids are not ported yet "
-            f"(ROADMAP.md, queue item 3.4, with K5)")
+
+    # pass 1: block grids + base replica counts for every placed node
+    grids: dict[int, list] = {}       # idx -> [row_blocks, col_blocks, reps]
+    for node in graph.matmul_like():
+        k, n = node.weight_shape
+        row_blocks = max(1, math.ceil(k / sub.weight_rows))
+        col_blocks = max(1, math.ceil(n / sub.weight_cols))
+        grids[node.idx] = [row_blocks, col_blocks,
+                           _replicas_for(node, row_blocks * col_blocks,
+                                         sub.mac_lanes, policy)]
+    # pass 2 (quantized grids only): replication from the area dividend
+    if policy.spend_saved_area and sub.n_bits < 32 and grids:
+        _grant_extra_replicas(graph, hierarchy, policy, grids)
 
     placements: dict[int, NodePlacement] = {}
     next_free = 0                     # next unallocated subarray (alloc idx)
@@ -258,10 +324,8 @@ def place(graph: OpGraph, hierarchy: PIMHierarchy,
 
     for node in graph.matmul_like():
         k, n = node.weight_shape
-        row_blocks = max(1, math.ceil(k / sub.weight_rows))
-        col_blocks = max(1, math.ceil(n / sub.weight_cols))
+        row_blocks, col_blocks, replicas = grids[node.idx]
         blocks = row_blocks * col_blocks
-        replicas = _replicas_for(node, blocks, sub.mac_lanes, policy)
         # the shelf hands out whole row-bands (a co-located node gets all
         # weight_cols columns of its k rows), so co-located grids can
         # never physically overlap.

@@ -20,6 +20,13 @@ set's compute, so stage latency is ``max(compute, transfer)`` and the
 uncovered remainder is reported as stall time. Eltwise stages run in the
 shared peripheral FP units at the estimator's ``max(T_add, T_mul)`` cycle.
 
+A schedule built with ``weight_dtype`` other than fp32 runs on a
+subarray whose MACs take the grid's shorter bit-serial schedule and whose
+placement spends the freed area on replicas; ``act_dtype`` prices every
+inter-subarray transfer at the grid's width (``Schedule.act_bits``).
+``ideal_provision`` picks the weight footprint the ideal bound
+provisions lanes from (``_provision_bits``).
+
 The arithmetic is the reference's, in the same order, so reports are its
 numbers to the bit. Not ported yet: the microbatch pipeline timeline
 (``Schedule.pipeline``, ``PartitionCost``, ``PipelineTimeline``) and paged
@@ -99,7 +106,9 @@ class Schedule:
     hierarchy: PIMHierarchy
     stages: list[StageCost]
     report: ScheduleReport
-    act_bits: int = 32              # activation transfer width
+    ideal_provision: str = "fp32"   # lane-provisioning basis of the ideal
+    act_bits: int = 32              # activation transfer width (ACT_BITS
+                                    # resolved per schedule via act_dtype)
 
     def reconcile(self) -> dict:
         """Check the ScheduleReport against ``pim_estimate`` on the same fn:
@@ -111,7 +120,8 @@ class Schedule:
         fails this check."""
         counts = estimator.count_ops_graph(self.graph.gm)
         ideal = _ideal_report(counts, self.hierarchy.tech,
-                              self.graph.weight_bits(ACT_BITS),
+                              _provision_bits(self.graph, self.hierarchy,
+                                              self.ideal_provision),
                               self.hierarchy.subarray)
         rep = self.report
         return {
@@ -126,16 +136,39 @@ class Schedule:
         }
 
 
-# Activation stream width between subarrays; also the fp32-equivalent
-# weight footprint the ideal provisions lanes from (the reference's
-# ``ideal_provision="fp32"``, its only setting for fp32 grids).
+# Default activation stream width between subarrays. A schedule built
+# with ``act_dtype`` other than fp32 resolves its own ``Schedule.act_bits``
+# from the quant grid and prices every inter-subarray transfer at that
+# width; this constant stays the fp32 default and the fp32-equivalent
+# *area* basis used by ``_provision_bits``.
 ACT_BITS = 32
+
+
+def _provision_bits(graph: graph_mod.OpGraph, hierarchy: PIMHierarchy,
+                    ideal_provision: str) -> int:
+    """Weight-bit footprint the ideal report provisions lanes from.
+
+    ``"fp32"`` (default): the fp32-equivalent footprint
+    (``graph.weight_bits(32)``) — lane provisioning models *area*, and
+    the quantized datapath's claim is more throughput at equal area, not
+    a shrunken chip. ``"quantized"``: the stored-dtype footprint
+    (``graph.weight_bits(subarray.n_bits)``) — fewer subarrays for the
+    same weights, so the ideal bound tightens toward the denser
+    placement."""
+    if ideal_provision not in ("fp32", "quantized"):
+        raise ValueError(f"ideal_provision must be 'fp32' or 'quantized', "
+                         f"got {ideal_provision!r}")
+    bits = (hierarchy.subarray.n_bits if ideal_provision == "quantized"
+            else ACT_BITS)
+    return graph.weight_bits(bits)
 
 
 def _ideal_report(counts, tech: str, weight_bits: int, subarray=None):
     """pim_estimate with its own default lane provisioning (one 1024-lane
     subarray group per 2^20 weight bits) — the single source of that rule.
-    ``subarray`` (when given) supplies the per-MAC cost."""
+    ``weight_bits`` is the provisioning footprint chosen by
+    ``_provision_bits``; ``subarray`` (when given) supplies the
+    reduced-width per-MAC cost."""
     mac_kw = {}
     if subarray is not None:
         mac_kw = dict(t_mac_s=subarray.t_mac_s, e_mac_j=subarray.e_mac_j)
@@ -149,8 +182,7 @@ def _chip_lanes(ideal) -> int:
     return ideal.n_subarrays * acc_mod.SUBARRAY_COLS
 
 
-def _not_ported(partitions, expand_scans: bool, weight_dtype: str,
-                act_dtype: str) -> None:
+def _not_ported(partitions, expand_scans: bool) -> None:
     if partitions:
         raise NotImplementedError(
             "pipeline partitions are not ported yet (ROADMAP.md, queue "
@@ -159,26 +191,23 @@ def _not_ported(partitions, expand_scans: bool, weight_dtype: str,
         raise NotImplementedError(
             "scan expansion is not ported yet (ROADMAP.md, queue item "
             "3.2, with the decoder LM through the mapper)")
-    for name, value in (("weight_dtype", weight_dtype),
-                        ("act_dtype", act_dtype)):
-        if quant.spec(value).name != "fp32":
-            raise NotImplementedError(
-                f"{name}={value!r} is not ported yet (ROADMAP.md, queue "
-                f"item 3.4, with K5)")
 
 
 def build_schedule_from_graph(
         graph: graph_mod.OpGraph,
         hierarchy: PIMHierarchy | None = None,
         policy: placement_mod.PlacementPolicy | None = None,
-        tech: str = "proposed") -> Schedule:
+        tech: str = "proposed",
+        ideal_provision: str = "fp32",
+        act_dtype: str = "fp32") -> Schedule:
     hierarchy = hierarchy or default_hierarchy(tech)
-    act_bits = ACT_BITS
+    act_bits = quant.spec(act_dtype).n_bits
     place = placement_mod.place(graph, hierarchy, policy)
     sub = hierarchy.subarray
     counts = graph.totals()
     ideal = _ideal_report(counts, hierarchy.tech,
-                          graph.weight_bits(ACT_BITS), sub)
+                          _provision_bits(graph, hierarchy, ideal_provision),
+                          sub)
     chip_lanes = _chip_lanes(ideal)
     t_elem = max(sub.t_add_s, sub.t_mul_s)
 
@@ -233,7 +262,8 @@ def build_schedule_from_graph(
         parallel_lanes=chip_lanes,
     )
     return Schedule(graph=graph, placement=place, hierarchy=hierarchy,
-                    stages=stages, report=report, act_bits=act_bits)
+                    stages=stages, report=report,
+                    ideal_provision=ideal_provision, act_bits=act_bits)
 
 
 def build_schedule(fn: Callable, *args,
@@ -243,20 +273,40 @@ def build_schedule(fn: Callable, *args,
                    weight_dtype: str = "fp32",
                    act_dtype: str = "fp32",
                    partitions: int | None = None,
-                   expand_scans: bool = False, **kwargs) -> Schedule:
+                   expand_scans: bool = False,
+                   ideal_provision: str = "fp32", **kwargs) -> Schedule:
     """Compile ``fn(*args, **kwargs)`` into a placed, cost-rolled static
     schedule (args may be meta tensors; nothing is allocated).
 
-    Not ported yet, and raising ``NotImplementedError``: ``partitions``,
-    ``expand_scans=True``, and ``weight_dtype`` / ``act_dtype`` other
-    than ``"fp32"``."""
-    _not_ported(partitions, expand_scans, weight_dtype, act_dtype)
+    ``weight_dtype`` selects the stored-weight precision (``"fp32"`` /
+    ``"fp16"`` / ``"int8"`` / ``"fp8_e4m3"`` / ``"fp8_e5m2"``): weights
+    occupy fewer cells per row, MACs run a shorter bit-serial schedule,
+    and the placer spends the freed area on extra replicas of the
+    hottest nodes (lane provisioning stays at the fp32-equivalent area).
+    ``act_dtype`` prices inter-subarray *activation* transfers at the
+    grid's width (``Schedule.act_bits``; numerics untouched).
+    ``ideal_provision`` picks the footprint the *ideal* bound provisions
+    lanes from: ``"fp32"`` (default) or ``"quantized"`` (the stored
+    dtype's denser footprint); ``latency >= ideal`` holds at either.
+
+    Not ported yet, and raising ``NotImplementedError``: ``partitions``
+    and ``expand_scans=True``."""
+    _not_ported(partitions, expand_scans)
     if hierarchy is None:
         hierarchy = default_hierarchy(tech, weight_dtype)
+    elif (weight_dtype != "fp32"
+          and hierarchy.subarray.weight_dtype != weight_dtype):
+        raise ValueError(
+            f"weight_dtype={weight_dtype!r} conflicts with the supplied "
+            f"hierarchy's subarray ({hierarchy.subarray.weight_dtype!r}); "
+            f"build the hierarchy with default_hierarchy(tech, "
+            f"weight_dtype) instead")
     with obs.span("build:schedule", lane="compile"):
         g = graph_mod.build_graph(fn, *args, **kwargs)
         sched = build_schedule_from_graph(g, hierarchy=hierarchy,
-                                          policy=policy, tech=tech)
+                                          policy=policy, tech=tech,
+                                          ideal_provision=ideal_provision,
+                                          act_dtype=act_dtype)
     m = obs.metrics()
     m.counter("mapper.schedules_built").inc()
     m.gauge("mapper.last_modeled_latency_s").set(sched.report.latency_s)

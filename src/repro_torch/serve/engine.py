@@ -49,6 +49,8 @@ from repro_torch.models.transformer import DecoderLM
 from repro_torch.serve.kv import KVCacheOOM, PagedKVCache, kv_token_bytes
 
 _PIM = "ROADMAP.md, port queue item 3: the mapper and the PIM backend"
+_PIM_SERVE = ("ROADMAP.md, port queue item 3.5: ServeEngine(backend='pim'), "
+              "whose placed weights the quantized grids would store")
 _CONTIGUOUS = ("ROADMAP.md, port queue item 6: contiguous lanes, router, "
                "workload")
 
@@ -139,7 +141,7 @@ class ServeEngine:
         if backend == "pim" or partitions > 1:
             unported.append(f"backend='pim' / partitions ({_PIM})")
         if weight_dtype != "fp32" or act_dtype != "fp32":
-            unported.append(f"weight_dtype / act_dtype ({_PIM})")
+            unported.append(f"weight_dtype / act_dtype ({_PIM_SERVE})")
         if not paged:
             unported.append(f"paged=False, the contiguous lanes "
                             f"({_CONTIGUOUS})")

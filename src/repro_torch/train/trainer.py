@@ -65,10 +65,17 @@ class Trainer:
         kernels (``repro_torch.mapper.compile``). The placed schedule is
         ``self.pim_program.schedule``.
 
+        ``weight_dtype`` (pim backend only) stores placed weights on a
+        reduced-precision grid (``int8`` / ``fp8_e4m3`` / ``fp8_e5m2`` /
+        ``fp16``): denser placement, more throughput replicas, and
+        dequantize-on-load products (K5) with float32 accumulation and
+        straight-through gradients (``core.quant.quantize_ste``).
+        ``act_dtype`` (pim backend only) prices inter-stage activation
+        transfers on the modeled NoC at the grid's width; compute stays
+        float32.
+
         Not ported yet: ``microbatches`` / ``partitions`` > 1 (the
-        partitioned pipeline plan; ROADMAP.md, queue item 3.3) and
-        ``weight_dtype`` / ``act_dtype`` other than ``"fp32"`` (item
-        3.4)."""
+        partitioned pipeline plan; ROADMAP.md, queue item 3.3)."""
         if microbatches < 1 or partitions < 1:
             raise ValueError("microbatches and partitions must be >= 1")
         if backend not in ("jit", "pim"):
@@ -82,15 +89,14 @@ class Trainer:
             raise NotImplementedError(
                 "microbatches/partitions > 1 are not ported yet (ROADMAP.md, "
                 "queue item 3.3: partition and pipeline)")
-        for name, dt in (("weight_dtype", weight_dtype),
-                         ("act_dtype", act_dtype)):
-            if dt == "fp32":
-                continue
-            if backend != "pim":
-                raise ValueError(f"{name} only applies to backend='pim'")
-            raise NotImplementedError(
-                f"{name}={dt!r} is not ported yet (ROADMAP.md, queue item "
-                f"3.4: K5 and the quantized weight and activation grids)")
+        if backend != "pim" and weight_dtype != "fp32":
+            raise ValueError(
+                "weight_dtype only applies to backend='pim' (the jit "
+                "backend has no placed weight grid to quantize)")
+        if backend != "pim" and act_dtype != "fp32":
+            raise ValueError(
+                "act_dtype only applies to backend='pim' (the jit "
+                "backend has no modeled NoC to narrow transfers on)")
         self.cfg = cfg
         self.batch_fn = batch_fn
         self.backend = backend
@@ -109,7 +115,8 @@ class Trainer:
             abstract = mapper.abstract_like
             sched = mapper.build_schedule(
                 train_step, abstract(params), abstract(opt_state),
-                abstract(self._batch(0)), tech=pim_tech)
+                abstract(self._batch(0)), tech=pim_tech,
+                weight_dtype=weight_dtype, act_dtype=act_dtype)
             # use_cache=False: the program cache keys on fn identity, and
             # this per-instance train_step would never hit but would be
             # pinned forever

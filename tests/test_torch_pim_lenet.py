@@ -145,8 +145,6 @@ def test_unported_options_raise_not_implemented():
     cases = [
         lambda: mapper.map_lenet("serve", partitions=2),
         lambda: mapper.map_lenet("serve", expand_scans=True),
-        lambda: mapper.map_lenet("serve", weight_dtype="int8"),
-        lambda: mapper.map_lenet("serve", act_dtype="fp16"),
         lambda: mapper.map_arch("llama3-8b"),
         lambda: mapper.compile_arch("llama3-8b"),
     ]
