@@ -6,7 +6,7 @@
 Phases, each printing one JSON line:
 
 1. ``build``     — compile every CUDA kernel of the port with nvcc, one
-   process per source, all started together (four sources; K1, K2 and K5
+   process per source, all started together (six sources; K1, K2 and K5
    share one).
 2. ``kernels``   — hold each kernel against its plain PyTorch version on
    the card at the shapes of the serve phases (K4; K6 for each KV grid,
@@ -62,13 +62,17 @@ Phases, each printing one JSON line:
    program of ``grad(lenet_loss)`` (its backward products are K1
    launches, as in the train step); the typical |grad| per leaf, and
    controls: each backward K1 and K3 launch dropped must fail the check,
-   and the readings of each scaled by 1.01.
+   and the readings of each scaled by 1.01. Then autograd through the
+   per-block executor of the same schedule (7 K2 and 5 K3 forward; its
+   backward's K2 launches, K2's VJP, and K3 launches are the cotangents
+   asked): its gradients within 1e-4 of the compiled program's and of
+   plain autograd.
 11. ``kernels_pim`` (``"path": "pim_grad_backward"``) — the VJP of each K1
    node (dA with and without a shared A, dB) and K3 node of ``pim_grad``'s
    autograd graph at its shapes: the cotangents equal the launches they
    make, which are those of the main path's backward, held against the
-   plain formula as in 8, and timed. K2's VJP, which no path runs, is
-   held at the executor train step's shapes.
+   plain formula as in 8, and timed; K2's VJP the same way at the K2
+   nodes of ``pim_grad``'s executor backward, whose launches it equals.
 12. ``pim_lenet_q`` — phase 7 with the weights on each quantized grid
    (int8, fp8_e4m3, fp8_e5m2, fp16 at batch 256, int8 at 4096): 5 K5 and
    5 K3 launches per call, no K1; the compiled program bit-equal to the
@@ -91,6 +95,29 @@ Phases, each printing one JSON line:
    quantizer: the backward's K1 and K3 launches are the cotangents asked,
    the gradients within 1e-4 of plain autograd at the dequantized
    weights, and every backward launch dropped fails that check.
+16. ``kernels_attn`` — K7 through ``ops.attention``, its only entry, at the
+   reference's test shapes ((B, S, H, G, D) (1,128,4,2,64), (2,128,8,8,32),
+   (1,64,6,3,16), chunks of 64) and llama3-8b's heads (H 32, G 8, D 128,
+   B 1, S 2048 and 8192), float32 and bfloat16: each call one launch, held
+   against ``flash_attention_ref`` (TF32 off) per (batch, query, head)
+   row at rtol = atol = 2e-5 (f32) or 2e-2 (bf16), atol x the row's
+   max|out|, with a control that
+   dropping the last query tile's diagonal KV tile fails that limit in
+   that tile; at llama3-8b's heads timed
+   against the plain version and ``scaled_dot_product_attention``
+   (causal, GQA), beside the causal-flops bound.
+17. ``pim_fp`` — K8 over 2^20 random float32 bit patterns of every
+   exponent, the reference's edge table, and normal pairs whose product
+   is subnormal or within three ulps of 2^-126: one launch, equal bit for
+   bit (NaN as NaN) to its plain version and to the port's bit-plane
+   ``core.fp.fp32_mul_pim`` on the card, and to ``torch.mul`` of the DAZ'd
+   inputs wherever the exact product is normal (below 2^-126 IEEE may
+   round up to 2^-126 where the procedure flushes); ``fp32_add_pim`` equal
+   to IEEE
+   addition where the sum is normal or zero, ``pim_dot`` to a sequential
+   float32 sum; K8 timed at 2^24 elements against its plain version and
+   ``torch.mul`` beside its byte bound and its SASS integer instructions
+   per element.
 
 Then the card's name and power limit, one line with every kernel's
 numbers, and as the last line ``{"ok": true, "device": {...}}``. Any
@@ -1565,10 +1592,11 @@ def phase_pim_train(seed: int) -> dict:
 def backward_nodes(loss) -> dict:
     """The kernel nodes of ``loss``'s autograd graph, each by its saved
     operands and the cotangents autograd will ask of it: K1 (A's shape,
-    B's shape, tiles, (dA, dB) wanted), K5 (A's shape, Q's shape, tiles,
-    (dA, dq, ds) wanted), K3 (elements, (da, db, dacc) wanted). Fails
-    if a native matrix product or convolution is in the graph."""
-    nodes = {"k1": [], "k3": [], "k5": []}
+    B's shape, tiles, (dA, dB) wanted), K2 (as K1), K5 (A's shape, Q's
+    shape, tiles, (dA, dq, ds) wanted), K3 (elements, (da, db, dacc)
+    wanted). Fails if a native matrix product or convolution is in the
+    graph."""
+    nodes = {"k1": [], "k2": [], "k3": [], "k5": []}
     seen, stack = set(), [loss.grad_fn]
     while stack:
         fn = stack.pop()
@@ -1580,10 +1608,11 @@ def backward_nodes(loss) -> dict:
                     "AddmmBackward0"):
             raise AssertionError(f"pim_grad: native {name} in the graph")
         wanted = tuple(f is not None for f, _ in fn.next_functions)
-        if name == "_MatmulGroupedBackward":
+        if name in ("_MatmulGroupedBackward", "_MatmulBackward"):
             a, b = fn.saved_tensors
-            nodes["k1"].append((tuple(a.shape), tuple(b.shape), fn.tiles,
-                                wanted[:2]))
+            key = "k1" if name == "_MatmulGroupedBackward" else "k2"
+            nodes[key].append((tuple(a.shape), tuple(b.shape), fn.tiles,
+                               wanted[:2]))
         elif name == "_MatmulGroupedQBackward":
             a, q, _ = fn.saved_tensors
             nodes["k5"].append((tuple(a.shape), tuple(q.shape), fn.tiles,
@@ -1595,10 +1624,11 @@ def backward_nodes(loss) -> dict:
 
 
 def asked(nodes) -> dict:
-    """The backward launches ``nodes`` ask of K1 and K3: one per operand
-    that wants a cotangent (K3's accumulator takes the cotangent as it
-    is; K5's dA and dq are K1 launches, its ds none)."""
+    """The backward launches ``nodes`` ask of K1, K2 and K3: one per
+    operand that wants a cotangent (K3's accumulator takes the cotangent
+    as it is; K5's dA and dq are K1 launches, its ds none)."""
     return {"k1": sum(sum(w[:2]) for *_, w in nodes["k1"] + nodes["k5"]),
+            "k2": sum(sum(w) for *_, w in nodes["k2"]),
             "k3": sum(sum(w[:2]) for _, w in nodes["k3"])}
 
 
@@ -1719,7 +1749,8 @@ def phase_pim_grad(seed: int, weight_dtype: str = "fp32") -> dict:
             with recording_helpers(fault, key, index):
                 return as_tree(torch.autograd.grad(loss, leaves))
 
-        controls = grad_controls(autograd_run, want, plain)
+        controls = grad_controls(
+            autograd_run, {k: want[k] for k in ("k1", "k3")}, plain)
 
         def step():
             return torch.autograd.grad(prog(tree, x, y), leaves)
@@ -1729,6 +1760,9 @@ def phase_pim_grad(seed: int, weight_dtype: str = "fp32") -> dict:
             stored, x, y), iters=10)
         graph = (grad_graph_check(abstract, params, x, y, plain)
                  if weight_dtype == "fp32" else None)
+        executor = (executor_grad_check(prog.schedule, tree, leaves, as_tree,
+                                        x, y, grads, plain)
+                    if weight_dtype == "fp32" else None)
     emit({"phase": phase, "batch": batch, "weight_dtype": weight_dtype,
           "tol": PIM_GRAD_TOL,
           "grad_magnitudes": grad_magnitudes(plain, **PIM_GRAD_TOL),
@@ -1737,9 +1771,55 @@ def phase_pim_grad(seed: int, weight_dtype: str = "fp32") -> dict:
                        "cotangents_asked": want, f"{mm}_nodes": nodes[mm],
                        "max_abs_err_vs_plain": err, "controls": controls,
                        "ms_forward_backward": ms},
-          "grad_graph": graph, "plain_ms": plain_ms})
+          "grad_graph": graph,
+          "executor": executor and {k: v for k, v in executor.items()
+                                    if k not in ("nodes", "launched")},
+          "plain_ms": plain_ms})
     return {"forward": forward, "backward": backward, "nodes": nodes,
-            "launched": launched}
+            "launched": launched, "executor": executor}
+
+
+def executor_grad_check(schedule, tree, leaves, as_tree, x, y, prog_grads,
+                        plain) -> dict:
+    """Autograd through the per-block executor (``ScheduleExecutor.run``)
+    of the same ``lenet_loss`` schedule: counts set to 0 just before its
+    forward and its backward, read after each. The forward is 7 K2 (one
+    per placed block) and 5 K3; the backward's K2 launches (K2's VJP
+    ``_Matmul``) and K3 launches must be every cotangent autograd asked
+    of them, with no K1 or K5. Its gradients agree with the compiled
+    program's and with plain autograd's (``plain``) within rtol = atol =
+    1e-4."""
+    import torch
+    from repro_torch import mapper
+    from repro_torch.mapper.executor import max_deviation
+    ex = mapper.ScheduleExecutor(schedule, device=DEVICE)
+    reset_counts()
+    loss = ex.run(tree, x, y)
+    torch.cuda.synchronize()
+    forward = read_counts()
+    if forward != {"k1": 0, "k2": 7, "k3": 5, "k5": 0}:
+        raise AssertionError(f"pim_grad executor: forward launches "
+                             f"{forward}")
+    nodes = backward_nodes(loss)
+    want = asked(nodes)
+    reset_counts()
+    with recording_helpers() as launched:
+        grads = as_tree(torch.autograd.grad(loss, leaves))
+    torch.cuda.synchronize()
+    backward = read_counts()
+    if ((backward["k2"], backward["k3"]) != (want["k2"], want["k3"])
+            or backward["k1"] or backward["k5"] or not backward["k2"]):
+        raise AssertionError(f"pim_grad executor: backward launches "
+                             f"{backward}, autograd asked for {want}")
+    err_plain = max_deviation(grads, plain, **PIM_GRAD_TOL)
+    err_prog = max_deviation(grads, as_tree(prog_grads), **PIM_GRAD_TOL)
+    ms = wall_ms(lambda: torch.autograd.grad(ex.run(tree, x, y), leaves),
+                 iters=5)
+    return {"launches_forward": forward, "launches_backward": backward,
+            "cotangents_asked": want, "k2_nodes": nodes["k2"],
+            "max_abs_err_vs_plain": err_plain,
+            "max_abs_dev_vs_compiled": err_prog,
+            "ms_forward_backward": ms, "nodes": nodes, "launched": launched}
 
 
 def grad_graph_check(abstract, params, x, y, plain) -> dict:
@@ -1778,8 +1858,7 @@ def grad_graph_check(abstract, params, x, y, plain) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def phase_kernels_pim_backward(seed: int, grad_run: dict,
-                               k2_shapes: list) -> dict:
+def phase_kernels_pim_backward(seed: int, grad_run: dict) -> dict:
     """The backward of each K1 and K3 node of ``pim_grad``'s autograd
     graph (``backward_nodes``), each distinct node once with its count:
     random operands of the node's shapes, the cotangents it was asked for
@@ -1788,9 +1867,10 @@ def phase_kernels_pim_backward(seed: int, grad_run: dict,
     the plain formula on the plain kernels (K1 each output row to
     ``mm_limit`` of its contraction, with the dropped-K-tile control; K3
     bit for bit) and timed with its bound and a library call (``bmm``
-    with TF32 off; ``mul``). K2's VJP, which no path differentiates (the
-    per-block executor runs without grad), is held at the shapes of one
-    executor train step (``k2_shapes``), untimed."""
+    with TF32 off; ``mul``). K2's VJP is held and timed the same way
+    (``mm``) at each K2 node of the executor's autograd graph in
+    ``pim_grad``; its launches must be those of the executor's
+    backward."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.pim_mac import (pim_mac, pim_matmul,
@@ -1911,30 +1991,49 @@ def phase_kernels_pim_backward(seed: int, grad_run: dict,
                              f"{sorted(made.items())}, pim_grad's backward "
                              f"{sorted(path.items())}")
     k2 = []
-    for m, k, n, count in counted(k2_shapes):
-        a, b, g = randn(m, k), randn(k, n), randn(m, n)
-        (da, db), _ = cotangents(pim_matmul, (a, b), (True, True), g)
+    made_k2 = collections.Counter()
+    for a_shape, b_shape, (bm, bn, bk), wanted, count in counted(
+            grad_run["executor"]["nodes"]["k2"]):
+        a, b = randn(*a_shape), randn(*b_shape)
+        (m, k), n = a_shape, b_shape[1]
+        g = randn(m, n)
+        (da, db), log = cotangents(
+            lambda p, q: pim_matmul(p, q, bm=bm, bn=bn, bk=bk), (a, b),
+            wanted, g)
+        for sh in log["k2"]:
+            made_k2[sh] += count
         lead = {"M": m, "K": k, "N": n, "count": count}
-        for name, lhs, rhs, want, c in (("dA", g, b.T.contiguous(), da, n),
-                                        ("dB", a.T.contiguous(), g, db, m)):
+        for name, lhs, rhs, got, c in (("dA", g, b.T.contiguous(), da, n),
+                                       ("dB", a.T.contiguous(), g, db, m)):
+            if got is None:
+                continue
             r = hold_matmul(f"K2 {name} {lead}",
                             lambda: pim_matmul(lhs, rhs),
                             lambda: ref.pim_matmul_ref(lhs, rhs),
                             lambda: ref.pim_matmul_ref(lhs[:, :c - 128],
                                                        rhs[:c - 128]),
                             mm_limit(c))
-            if not torch.equal(r.pop("out"), want):
+            if not torch.equal(r.pop("out"), got):
                 raise AssertionError(f"K2 {name} {lead}: autograd differs "
                                      f"from the launch")
-            k2.append({"cotangent": name, **lead, **r})
-        del a, b, g
+            k2.append({"cotangent": name, **lead, **r, **pim_timing(
+                lambda: pim_matmul(lhs, rhs),
+                lambda: ref.pim_matmul_ref(lhs, rhs),
+                lambda: torch.mm(lhs, rhs),
+                4 * (lhs.numel() + rhs.numel() + lhs.shape[0] * rhs.shape[1]),
+                2 * lhs.shape[0] * c * rhs.shape[1])})
+        del a, b, g, da, db
+    if made_k2 != collections.Counter(grad_run["executor"]["launched"]["k2"]):
+        raise AssertionError(f"kernels_pim backward: the held K2 nodes "
+                             f"launch {sorted(made_k2.items())}, the "
+                             f"executor's backward "
+                             f"{grad_run['executor']['launched']['k2']}")
     torch.cuda.empty_cache()
     emit({"phase": "kernels_pim", "path": "pim_grad_backward",
           "batch": PIM_GRAD_BATCH, "tol": "mm_limit(contraction)",
           "results": [{**K1, "shapes": k1}, {**K3, "shapes": k3},
-                      {**K2, "path": None, "shapes_of": "pim_train executor",
-                       "shapes": k2}]})
-    return {"k1": k1, "k3": k3}
+                      {**K2, "path": "pim_grad executor", "shapes": k2}]})
+    return {"k1": k1, "k2": k2, "k3": k3}
 
 
 # ---------------------------------------------------------------------------
@@ -2116,6 +2215,377 @@ def phase_pim_train_q(seed: int, fp32: dict) -> dict:
     return {"launches": counts, "shapes": {"k5": prog_log["k5"]}}
 
 
+# ---------------------------------------------------------------------------
+# 16. kernels_attn: causal GQA flash attention (K7) through ops.attention
+# ---------------------------------------------------------------------------
+
+K7 = {"name": "flash_attention", "route": "cuda",
+      "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+      "replaces": "src/repro/kernels/flash_attention.py:101"}
+# (B, S, H, G, D) of the reference's sweep (tests/test_kernels.py), chunks
+# of 64; then llama3-8b's heads at S 2048 and 8192, the default chunks
+ATTN_TEST_SHAPES = ((1, 128, 4, 2, 64), (2, 128, 8, 8, 32), (1, 64, 6, 3, 16))
+ATTN_LLAMA_SHAPES = tuple((1, s, 32, 8, 128) for s in (2048, 8192))
+# the reference's tolerances (rtol = atol), atol here x max|out| of each
+# (batch, query, head) row
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+ATTN_TILE = 64      # csrc kBQ = kBK: the kernel's query and key tiles
+
+
+def attn_over_limit(out, want, tol):
+    """The reference's check, ``assert_allclose(rtol=tol, atol=tol)``,
+    with atol scaled to each row's own size: the largest |out - want| /
+    (tol (max|want| of the row + |want|)) of each (batch, query, head) row
+    of [B, S, H, D], so [B, S, H]. Late queries average thousands of keys
+    and their outputs are ~100x smaller than the first query's, so a
+    fixed atol, or one scaled to a whole head, could not see their
+    errors. The rtol term stays, as in the reference: its bf16 oracle
+    rounds the scores to bf16, which alone moves it off an oracle with
+    float32 scores by about tol x max|want| of a row
+    (``phase_kernels_attn`` reads both against that oracle)."""
+    want = want.float()
+    scale = want.abs().amax(-1, keepdim=True) + want.abs()
+    return ((out.float() - want).abs()
+            / (tol * scale).clamp_min(1e-30)).amax(-1)
+
+
+def last_tile_without_diagonal(s: int, device):
+    """The control's mask [S, S]: causal, except that the rows of the last
+    ``ATTN_TILE``-row query tile do not read that tile's own (diagonal)
+    keys — the fault of a kernel that skips the last query tile's last KV
+    tile. Those rows are the latest, so their outputs are the smallest
+    and their limits the tightest."""
+    import torch
+    pos = torch.arange(s, device=device)
+    keep = pos[None] <= pos[:, None]
+    last = (s - 1) // ATTN_TILE * ATTN_TILE
+    keep[last:, last:] = False
+    return keep, last
+
+
+def attn_bound(q, k) -> tuple[float, str]:
+    """Least time for one call: the causal flops 4 B H D S (S + 1) / 2 at
+    the peak rate of q's type, against q, k, v and the output moved once
+    over HBM rate."""
+    b, s, h, d = q.shape
+    flops = 4 * b * h * d * s * (s + 1) // 2
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    t_ops = flops / PEAK_FLOPS[str(q.dtype).split(".")[1]] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def phase_kernels_attn(seed: int) -> dict:
+    """K7 through its public entry ``ops.attention`` — the reference's only
+    way to its kernel (no model calls it) — at the reference's test shapes
+    (chunks of 64) and llama3-8b's heads (S 2048 and 8192), float32 and
+    bfloat16, on seeded random q, k, v. The main path is one
+    ``ops.attention`` call per case, the launch count set to 0 just before
+    each and read after it. Each output is held against
+    ``flash_attention_ref`` on the card (TF32 off), every (batch, query,
+    head) row to the reference's rtol = atol = ``ATTN_TOL`` with atol x
+    the row's own max|out| (``attn_over_limit``), as K4 holds its rows;
+    the control — the plain version with the last query tile's diagonal
+    KV tile dropped (``last_tile_without_diagonal``) — must exceed that
+    limit in some row of that tile. At llama3-8b's heads the kernel, the
+    plain version and ``F.scaled_dot_product_attention(is_causal=True,
+    enable_gqa=True)`` (held to the same limit) are timed beside the
+    bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.mapper.executor import full_float32
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 60)
+    cases = [(name, shape, chunk) for name in ("float32", "bfloat16")
+             for shapes, chunk in ((ATTN_TEST_SHAPES, 64),
+                                   (ATTN_LLAMA_SHAPES, 256))
+             for shape in shapes]
+    results, launches = [], 0
+    with torch.no_grad(), full_float32():
+        for name, (b, s, h, g, d), chunk in cases:
+            dtype, tol = getattr(torch, name), ATTN_TOL[name]
+            q, k, v = (torch.randn(shape, generator=gen, device=DEVICE)
+                       .to(dtype) for shape in ((b, s, h, d), (b, s, g, d),
+                                                (b, s, g, d)))
+            label = f"K7 {name} {(b, s, h, g, d)}"
+            flash_attention.launches = 0
+            out = ops.attention(q, k, v, q_chunk=chunk, kv_chunk=chunk)
+            torch.cuda.synchronize()
+            if flash_attention.launches != 1:
+                raise AssertionError(f"{label}: ops.attention made "
+                                     f"{flash_attention.launches} K7 "
+                                     f"launches, want 1")
+            launches += flash_attention.launches
+            if not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"{label}: non-finite output")
+            want = ref.flash_attention_ref(q, k, v)
+            ratio = float(attn_over_limit(out, want, tol).max())
+            if not ratio <= 1:
+                raise AssertionError(f"{label}: error {ratio} x the limit "
+                                     f"of a row")
+            keep, last = last_tile_without_diagonal(s, DEVICE)
+            dropped = ref._masked_attention(q, k, v, keep)
+            control = attn_over_limit(dropped[:, last:], want[:, last:],
+                                      tol)
+            del dropped
+            if not float(control.max()) > 1:
+                raise AssertionError(
+                    f"{label}: dropping the last query tile's diagonal KV "
+                    f"tile gives only {float(control.max())} x the limit")
+            r = {"dtype": name, "shape": dict(zip("BSHGD", (b, s, h, g, d))),
+                 "chunk": chunk, "tol": tol,
+                 "max_err": float((out.float() - want.float()).abs().max()),
+                 "max_err_over_limit": ratio,
+                 "last_tile_max_err_over_limit": float(attn_over_limit(
+                     out[:, last:], want[:, last:], tol).max()),
+                 # the row limit without the rtol term, for comparison
+                 "max_err_over_tol_row_max": float(
+                     over_limit(out, want, tol).max()),
+                 "control_max_over_limit": float(control.max()),
+                 "control_rows_over_limit": float((control > 1).float()
+                                                  .mean())}
+            del control
+            if name == "bfloat16":
+                causal = torch.ones((s, s), dtype=torch.bool,
+                                    device=DEVICE).tril()
+                f32_scores = ref._masked_attention(
+                    q.float(), k.float(), v.float(), causal).to(dtype)
+                r.update(oracle_vs_f32_scores_over_tol_row_max=float(
+                             over_limit(want, f32_scores, tol).max()),
+                         kernel_vs_f32_scores_over_tol_row_max=float(
+                             over_limit(out, f32_scores, tol).max()))
+                del f32_scores
+            if (b, s, h, g, d) in ATTN_LLAMA_SHAPES:
+                qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+                def library():
+                    return F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True, enable_gqa=True)
+
+                lib_ratio = float(attn_over_limit(
+                    library().transpose(1, 2), want, tol).max())
+                if not lib_ratio <= 1:
+                    raise AssertionError(f"SDPA yardstick {label}: error "
+                                         f"{lib_ratio} x the limit")
+                iters = 20 if s <= 2048 else 5
+                bound_ms, bound_by = attn_bound(q, k)
+                r.update(
+                    ms=cuda_ms(lambda: flash_attention(q, k, v),
+                               iters=iters, warmup=1),
+                    plain_ms=cuda_ms(lambda: ref.flash_attention_ref(
+                        q, k, v), iters=iters, warmup=1),
+                    library_ms=cuda_ms(library, iters=iters, warmup=1),
+                    library_max_err_over_limit=lib_ratio,
+                    bound_ms=bound_ms, bound_by=bound_by)
+            results.append(r)
+            del q, k, v, out, want
+            torch.cuda.empty_cache()
+    emit({"phase": "kernels_attn", **K7, "path": "ops.attention",
+          "launches": launches, "results": results})
+    return {"launches": launches, "results": results}
+
+
+# ---------------------------------------------------------------------------
+# 17. pim_fp: the bit-serial multiply (K8) and the bit-plane procedures
+# ---------------------------------------------------------------------------
+
+K8 = {"name": "pim_fp32_mul", "route": "cuda",
+      "source": "src/repro_torch/kernels/csrc/pim_fp.cu",
+      "replaces": "src/repro/kernels/pim_fp.py:104"}
+PIM_FP_PAIRS = 1 << 20       # random float32 bit patterns, every exponent
+PIM_FP_EDGE_PAIRS = 1 << 12  # each: subnormal products, around 2^-126
+PIM_FP_ADD_LANES = 1 << 16   # fp32_add_pim against IEEE addition
+PIM_FP_DOT = 64              # pim_dot against a sequential float32 sum
+PIM_FP_TIME_N = 1 << 24      # K8 timed against torch.mul
+# integer opcodes of the SASS (``sass_instructions``)
+SASS_INT_OPS = ("IADD", "IMAD", "LOP", "SHF", "SHL", "SHR", "ISETP", "SEL",
+                "LEA", "IMNMX", "BFE", "BFI", "PRMT", "FLO", "POPC", "IABS",
+                "VIADD", "VIMNMX", "IMUL")
+
+
+def pim_fp_inputs(seed: int):
+    """float32 pairs (numpy): random bit patterns over every exponent
+    (zeros, subnormals, inf and NaN included), the reference's edge table
+    (``tests/test_kernels.py``), normal pairs whose exact product is
+    subnormal, and normal pairs within three ulps of a product of 2^-126
+    (either side of the flush)."""
+    rng = np.random.default_rng(seed + 70)
+
+    def bits(n):
+        return rng.integers(0, 2 ** 32, n, dtype=np.uint64).astype(
+            np.uint32).view(np.float32)
+
+    def normals(n):
+        return (rng.uniform(1, 2, n) * 2.0 ** rng.integers(-100, -27, n)
+                ).astype(np.float32)
+
+    n = PIM_FP_EDGE_PAIRS
+    sub_a = normals(n)
+    sub_b = (2.0 ** rng.uniform(-150, -126, n) / sub_a).astype(np.float32)
+    near_a = normals(n)
+    near_b = ((2.0 ** -126 / near_a.astype(np.float64)).astype(np.float32)
+              .view(np.uint32).astype(np.int64) + rng.integers(-3, 4, n)
+              ).astype(np.uint32).view(np.float32)
+    edge_a = np.array([1e30, 1e30, 1e-30, 1.0, -0.0, np.inf, 1.5, 3.0,
+                       1 + 2 ** -23], np.float32)
+    edge_b = np.array([1e30, -1e30, 1e-30, 0.0, 2.0, 2.0, 1.5, 1 + 2 ** -23,
+                       1 + 2 ** -23], np.float32)
+    a = np.concatenate([bits(PIM_FP_PAIRS), edge_a, sub_a, near_a])
+    b = np.concatenate([bits(PIM_FP_PAIRS), edge_b, sub_b, near_b])
+    return a, b
+
+
+def bits_differ(got, want) -> int:
+    """Lanes whose float32 bits differ, a NaN matching any NaN."""
+    import torch
+    same = (got.view(torch.int32) == want.view(torch.int32)) | (
+        got.isnan() & want.isnan())
+    return int((~same).sum())
+
+
+def max_abs_diff(got, want) -> float:
+    """max |got - want| over the lanes where neither is NaN (equal infs
+    differ by 0, unequal ones by inf)."""
+    import torch
+    both = ~(got.isnan() | want.isnan())
+    diff = torch.where(got[both] == want[both], 0.0,
+                       (got[both] - want[both]).abs())
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+def sass_instructions(kernel: str, source: str) -> dict:
+    """All and integer instructions of ``kernel`` in the built ``source``
+    library's SASS (``cuobjdump -sass``, beside nvcc)."""
+    from repro_torch.kernels import build
+    cuobjdump = pathlib.Path(build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(build.build(source))],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    ops, inside = [], False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+        elif inside and "*/" in line:
+            words = line.split("*/", 1)[1].split()
+            if words and words[0].startswith("@"):   # predicated
+                words = words[1:]
+            if words and words[0][0].isalpha():
+                ops.append(words[0])
+    if not ops:
+        raise AssertionError(f"no SASS found for {kernel} in {source}")
+    return {"instructions": len(ops),
+            "int_instructions": sum(op.startswith(SASS_INT_OPS)
+                                    for op in ops)}
+
+
+def phase_pim_fp(seed: int) -> dict:
+    """K8 and the paper's bit-level FP procedures on the card. The main
+    path is one ``pim_fp32_mul`` call over ``pim_fp_inputs`` (the launch
+    count set to 0 just before, read after); its result equals, bit for
+    bit with NaN as NaN, the plain version ``pim_fp32_mul_ref`` and the
+    port's bit-plane ``core.fp.fp32_mul_pim``, both run on the card, and
+    ``torch.mul`` of the inputs with subnormals read as signed zeros
+    wherever that product is normal (its exact value at least 2^-126 in
+    magnitude). ``fp32_add_pim`` on normal-range
+    pairs equals IEEE addition wherever the sum is normal or zero, and
+    ``pim_dot`` a sequential float32 sum of products (as
+    ``tests/test_fp_bitexact.py`` holds them). Then K8 is timed at
+    ``PIM_FP_TIME_N`` elements against its plain version and
+    ``torch.mul``, beside its byte bound and a static estimate of its
+    integer instructions per element: the kernel's integer SASS
+    instructions over the five sites where it inlines the per-element
+    procedure (four in its float4 loop, one in its scalar tail), its loop,
+    address and special-value code included."""
+    import torch
+    from repro_torch.core import fp
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.pim_fp import pim_fp32_mul
+    a_np, b_np = pim_fp_inputs(seed)
+    a, b = (torch.from_numpy(x).to(DEVICE) for x in (a_np, b_np))
+    pim_fp32_mul.launches = 0
+    out = pim_fp32_mul(a, b)
+    torch.cuda.synchronize()
+    launches = pim_fp32_mul.launches
+    if launches != 1:
+        raise AssertionError(f"pim_fp: {launches} K8 launches, want 1")
+    t0 = time.perf_counter()
+    bitplane = fp.fp32_mul_pim(a, b)
+    torch.cuda.synchronize()
+    bitplane_s = time.perf_counter() - t0
+    daz_a, daz_b = fp.flush_subnormal(a), fp.flush_subnormal(b)
+    ieee = daz_a * daz_b
+    # normal: the exact product (a float64 product of float32s is exact)
+    # at least 2^-126. Just below it IEEE rounds at the subnormal ulp,
+    # 2^-149, and may reach 2^-126, where the procedure rounds at 24 bits
+    # and then flushes: the reference's contract, not IEEE's.
+    exact = daz_a.double() * daz_b.double()
+    normal = ieee.isfinite() & (exact.abs() >= 2.0 ** -126)
+    plain = ref.pim_fp32_mul_ref(a, b)
+    max_err = max_abs_diff(out, plain)
+    checks = {
+        "lanes": a.numel(),
+        "differ_from_plain": bits_differ(out, plain),
+        "differ_from_fp32_mul_pim": bits_differ(out, bitplane),
+        "normal_products": int(normal.sum()),
+        "differ_from_torch_mul_where_normal": bits_differ(out[normal],
+                                                          ieee[normal]),
+        "flushed_normal_input_pairs": int(
+            ((a.abs() >= 2.0 ** -126) & (b.abs() >= 2.0 ** -126)
+             & a.isfinite() & b.isfinite() & (out == 0)).sum()),
+        "ieee_subnormal_products": int(
+            ((exact.abs() < 2.0 ** -126) & (exact != 0)).sum()),
+        "flushed_where_ieee_rounds_to_2^-126": int(
+            ((exact.abs() < 2.0 ** -126) & (ieee.abs() == 2.0 ** -126)
+             & (out == 0)).sum())}
+    rng = np.random.default_rng(seed + 71)
+    u = ((rng.integers(0, 2, (2, PIM_FP_ADD_LANES), dtype=np.uint32) << 31)
+         | (rng.integers(40, 216, (2, PIM_FP_ADD_LANES), dtype=np.uint32)
+            << 23)
+         | rng.integers(0, 2 ** 23, (2, PIM_FP_ADD_LANES), dtype=np.uint32))
+    x, y = torch.from_numpy(u.view(np.float32)).to(DEVICE)
+    s_ieee = x + y
+    keep = (s_ieee == 0) | (s_ieee.abs() >= 2.0 ** -126)
+    checks["add_lanes"] = int(keep.sum())
+    checks["add_differ_from_ieee"] = bits_differ(fp.fp32_add_pim(x, y)[keep],
+                                                 s_ieee[keep])
+    da = rng.standard_normal(PIM_FP_DOT).astype(np.float32)
+    db = rng.standard_normal(PIM_FP_DOT).astype(np.float32)
+    seq = np.float32(0)
+    for p, r in zip(da, db):
+        seq = np.float32(seq + np.float32(p * r))
+    dot = float(fp.pim_dot(torch.from_numpy(da).to(DEVICE),
+                           torch.from_numpy(db).to(DEVICE)))
+    checks["dot_differs_from_sequential"] = int(dot != float(seq))
+    bad = {k: v for k, v in checks.items() if "differ" in k and v}
+    if bad or not checks["flushed_normal_input_pairs"]:
+        raise AssertionError(f"pim_fp: {bad or 'no product was flushed'}")
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 72)
+    ta, tb = (torch.randint(-2 ** 31, 2 ** 31, (PIM_FP_TIME_N,),
+                            generator=gen, dtype=torch.int64, device=DEVICE)
+              .to(torch.int32).view(torch.float32) for _ in range(2))
+    if bits_differ(pim_fp32_mul(ta, tb), ref.pim_fp32_mul_ref(ta, tb)):
+        raise AssertionError("pim_fp: K8 differs from its plain version at "
+                             "the timed size")
+    sass = sass_instructions("pim_fp32_mul_kernel", "pim_fp")
+    timing = {"n": PIM_FP_TIME_N,
+              "ms": cuda_ms(lambda: pim_fp32_mul(ta, tb)),
+              "plain_ms": cuda_ms(lambda: ref.pim_fp32_mul_ref(ta, tb),
+                                  iters=5, warmup=1),
+              "library_ms": cuda_ms(lambda: torch.mul(ta, tb)),
+              "bound_ms": 12 * PIM_FP_TIME_N / HBM_BYTES_PER_S * 1e3,
+              "bound_by": "bytes", "sass": sass,
+              "int_instructions_per_element_static_estimate":
+                  sass["int_instructions"] / 5}
+    emit({"phase": "pim_fp", **K8, "path": "pim_fp32_mul",
+          "launches": launches, "max_abs_err": max_err, "checks": checks,
+          "bitplane_mul_s": bitplane_s, "timing": timing})
+    del a, b, out, plain, bitplane, daz_a, daz_b, ieee, exact, ta, tb
+    torch.cuda.empty_cache()
+    return {"launches": launches, "max_abs_err": max_err, **timing}
+
+
 def sums(rows) -> dict:
     """Times and bounds of one run's launches: each distinct shape's
     numbers times its count, summed (each shape's bound the larger of its
@@ -2136,8 +2606,8 @@ def pim_entry(ids, key, by_path, rows) -> dict:
     main paths (forward and backward; ``launches_by_path`` splits them),
     the times of one batch-256 serve forward (``pim_lenet``) and, under
     ``pim_train`` and ``backward``, those of one batch-64 train step (K2:
-    one executor step) and of ``pim_grad``'s backward (None for K2, whose
-    VJP no path runs)."""
+    one executor step) and of ``pim_grad``'s backward (K2: the executor's
+    backward there)."""
     launches = {path: counts[key] for path, counts in by_path.items()
                 if path != "pim_grad_backward"}
     backward = rows["pim_grad_backward"].get(key)
@@ -2178,6 +2648,8 @@ def main() -> int:
     phase_build()
     k4 = phase_kernels(args.seed)
     k6 = phase_kernels_q(args.seed)
+    attn = phase_kernels_attn(args.seed)
+    pim_fp = phase_pim_fp(args.seed)
     lenet_run = phase_pim_lenet(args.seed, PIM_SERVE)
     rows = {"pim_lenet": phase_kernels_pim(
         args.seed, lenet_run["shapes"], "pim_lenet", PIM_SERVE[0][1],
@@ -2187,8 +2659,7 @@ def main() -> int:
         args.seed, with_counts(train["shapes"]), "pim_train",
         TRAIN_BATCHES[0])
     grad = phase_pim_grad(args.seed)
-    rows["pim_grad_backward"] = phase_kernels_pim_backward(
-        args.seed, grad, train["shapes"]["k2"])
+    rows["pim_grad_backward"] = phase_kernels_pim_backward(args.seed, grad)
     lenet_q = phase_pim_lenet(args.seed, Q_SERVE)
     rows["pim_lenet_q"] = phase_kernels_pim_q(
         args.seed, lenet_q["shapes"]["k5"], "pim_lenet_q", Q_SERVE[0][1])
@@ -2203,11 +2674,18 @@ def main() -> int:
                              for k in PIM_KEYS},
                "pim_grad": {k: grad["forward"][k] + grad["backward"][k]
                             for k in PIM_KEYS},
+               "pim_grad_executor": {
+                   k: grad["executor"]["launches_forward"][k]
+                   + grad["executor"]["launches_backward"][k]
+                   for k in PIM_KEYS},
                "pim_lenet_q": lenet_q["launches"],
                "pim_train_q": train_q["launches"],
                "pim_grad_q": {k: grad_q["forward"][k] + grad_q["backward"][k]
                               for k in PIM_KEYS},
-               "pim_grad_backward": grad["backward"]}
+               "pim_grad_backward": {
+                   k: grad["backward"][k]
+                   + grad["executor"]["launches_backward"][k]
+                   for k in PIM_KEYS}}
     phase_parity(args.seed)
     serve = phase_serve(args.seed)
     phase_profile(serve["engine"], args.seed)
@@ -2224,6 +2702,8 @@ def main() -> int:
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r["library_ms"]}
 
+    long_bf16 = next(r for r in attn["results"] if r["dtype"] == "bfloat16"
+                     and r["shape"]["S"] == ATTN_LLAMA_SHAPES[-1][1])
     k5_launches = {path: by_path[path]["k5"]
                    for path in ("pim_lenet_q", "pim_train_q", "pim_grad_q")}
     emit({"kernels": [
@@ -2233,7 +2713,17 @@ def main() -> int:
           for ids, key in ((K1, "k1"), (K2, "k2"), (K3, "k3"))),
         {**K5, "launches": sum(k5_launches.values()),
          **sums(rows["pim_lenet_q"]), "launches_by_path": k5_launches,
-         "pim_train": sums(rows["pim_train_q"])}]})
+         "pim_train": sums(rows["pim_train_q"])},
+        {**K7, "launches": attn["launches"],
+         "max_abs_err": long_bf16["max_err"],
+         **{k: long_bf16[k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms")},
+         "case": {"dtype": "bfloat16", **long_bf16["shape"]}},
+        {**K8, **{k: pim_fp[k] for k in (
+            "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms",
+            "int_instructions_per_element_static_estimate")},
+         "case": {"n": pim_fp["n"]}}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

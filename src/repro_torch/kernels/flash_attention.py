@@ -1,5 +1,13 @@
-"""Paged-KV decode attention: the port of the reference's K4 and K6
-kernel entries.
+"""Attention kernels: the port of the reference's K7, K4 and K6 kernel
+entries.
+
+``flash_attention`` replaces the Pallas TPU kernel of the same name
+(``repro/kernels/flash_attention.py:flash_attention``, kernel body
+``_flash_kernel``) with a CUDA kernel for Hopper written by hand
+(``csrc/flash_attention.cu``): causal GQA attention over whole sequences,
+the kv head read in place, the online-softmax state in float32, KV tiles
+in the causal future skipped. It is forward only, as the reference gives
+it no VJP.
 
 ``paged_decode_attention_grouped`` replaces the Pallas TPU kernel of the
 same name (``repro/kernels/flash_attention.py:paged_decode_attention_grouped``,
@@ -15,7 +23,7 @@ design.
 On a CUDA tensor a wrapper launches its kernel (or raises); on a CPU
 tensor it runs the plain version in ``ref`` — the analogue of the
 reference's interpret mode. ``launches`` counts each kernel's launches,
-so a run can show its decode path went through the kernel.
+so a run can show its path went through the kernel.
 """
 
 from __future__ import annotations
@@ -28,6 +36,77 @@ from repro_torch.core import quant
 from repro_torch.kernels import build, ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# csrc flash_attention(q, k, v, out, B, S, H, G, D, dtype, stream)
+_FLASH_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 6 + (
+    ctypes.c_void_p,)
+_FLASH_HEAD_DIMS = (16, 32, 64, 128)   # csrc dispatch
+
+
+def _check_flash(q, k, v, q_chunk: int, kv_chunk: int) -> None:
+    """K7's contract, the reference wrapper's: q [B, S, H, D], k/v
+    [B, S, G, D] with G | H, one dtype (float32 or bfloat16), and S a
+    multiple of ``min(chunk, S)`` for both chunks."""
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}: want "
+                         f"[B, S, H, D] and [B, S, G, D]")
+    b, s, h, d = q.shape
+    if k.shape[:2] != (b, s) or k.shape[3] != d or h % k.shape[2]:
+        raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not "
+                         f"fit q {tuple(q.shape)} (need G | H)")
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention: dtypes {q.dtype}/{k.dtype}/"
+                        f"{v.dtype}; want one of float32, bfloat16")
+    for name, chunk in (("q_chunk", q_chunk), ("kv_chunk", kv_chunk)):
+        if chunk < 1 or s % min(chunk, s):
+            raise ValueError(f"flash_attention: S={s} is not a multiple of "
+                             f"min({name}={chunk}, S)")
+    for name, t in (("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"flash_attention: {name} is on {t.device}, q "
+                             f"on {q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise ValueError("flash_attention is forward only (the reference "
+                         "kernel has no VJP): call it on tensors that do "
+                         "not require grad, or under torch.no_grad()")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    q_chunk: int = 256, kv_chunk: int = 256) -> torch.Tensor:
+    """Causal GQA attention: q [B, S, H, D], k/v [B, S, G, D] -> [B, S, H,
+    D] in q's dtype; query head h reads kv head h // (H / G).
+
+    ``q_chunk`` / ``kv_chunk`` are the reference's tiling contract only
+    (S must be a multiple of each, clamped to S); the kernel's own tile
+    is 64 query rows by 64 keys, the ragged end masked. Forward only.
+    """
+    _check_flash(q, k, v, q_chunk, kv_chunk)
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu tensors, got "
+                         f"{q.device}")
+    b, s, h, d = q.shape
+    if d not in _FLASH_HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {d} not supported by "
+                         f"the kernel ({_FLASH_HEAD_DIMS})")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention: q, k, v must be contiguous")
+    out = torch.empty_like(q)
+    kernel = build.load("flash_attention", _FLASH_ARGTYPES)
+    with torch.cuda.device(q.device):
+        rc = kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    b, s, h, k.shape[2], d, _DTYPE_CODE[q.dtype],
+                    torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed "
+                           f"(cudaError {rc})")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
 # csrc paged_decode_attention(q, k, v, table, pos, out, B, H, G, D, bs, W,
 # dtype, stream)
 _ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 7 + (ctypes.c_void_p,)

@@ -1,6 +1,7 @@
 """Plain PyTorch versions of the port's kernels (the correctness contract):
 K4 and K6 (paged decode attention), K1, K2 and K3 (the PIM matmul and
-MAC) and K5 (the PIM matmul over quantized stored weights).
+MAC), K5 (the PIM matmul over quantized stored weights), K7 (causal GQA
+flash attention) and K8 (the bit-serial float32 multiply).
 
 Each CUDA kernel of the port is held against its plain version here: the
 CPU tests compare these with the reference's Pallas kernels, and
@@ -15,7 +16,7 @@ import math
 
 import torch
 
-from repro_torch.core import quant
+from repro_torch.core import fp, quant
 
 NEG_INF = -1e30
 
@@ -125,3 +126,90 @@ def pim_matmul_grouped_q_ref(a: torch.Tensor, q: torch.Tensor,
     :func:`pim_matmul_grouped_ref` — K5 equals K1 on ``q * s`` bit for
     bit."""
     return pim_matmul_grouped_ref(a, q * s, col_groups=col_groups, bk=bk)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor) -> torch.Tensor:
+    """Causal GQA attention (K7). q [B, S, H, D]; k/v [B, S, G, D] ->
+    [B, S, H, D] in q's dtype.
+
+    The reference's oracle step by step: K/V repeated to H heads, the
+    score einsum in q's dtype (bf16 scores are rounded to bf16 before
+    the float32 softmax), scaled by 1/sqrt(D), -1e30 above the diagonal,
+    softmax in float32, the probabilities cast to q's dtype before the
+    PV einsum.
+    """
+    s = q.shape[1]
+    causal = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+    return _masked_attention(q, k, v, causal)
+
+
+def _masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      keep: torch.Tensor) -> torch.Tensor:
+    """``flash_attention_ref``'s body under any mask: ``keep`` [S, S] is
+    True where query row i reads key j."""
+    rep = q.shape[2] // k.shape[2]
+    kk = k.repeat_interleave(rep, dim=2)
+    vv = v.repeat_interleave(rep, dim=2)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, kk).float()
+    scores = scores / math.sqrt(q.shape[3])
+    scores = scores.masked_fill(~keep, NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p.to(q.dtype), vv)
+
+
+_M23, _M24 = 0x7FFFFF, 0xFFFFFF
+
+
+def pim_fp32_mul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise float32 ``a * b`` by the paper's bit-serial
+    shift-and-add (K8, Fig. 4b), in int64 arithmetic (torch has no usable
+    uint32).
+
+    24 steps over b's significand bits add the shifted multiplicand into
+    two 24-bit limbs (lo, hi) with carry propagation; the product is
+    normalized on bit 47 and rounded to nearest even from the guard and
+    sticky bits, renormalized when the rounding overflows; the exponent
+    is ``ea + eb - 127 + top + overflow``. A result exponent <= 0 gives a
+    signed zero (FTZ), >= 255 a signed inf. An input whose exponent field
+    is 0 or 255 takes the native product of the inputs with subnormals
+    read as signed zeros (DAZ): the reference's contract under XLA.
+    """
+    a = a.to(torch.float32)
+    b = b.to(torch.float32)
+
+    def fields(x):
+        u = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+        return u >> 31, (u >> 23) & 0xFF, (u & _M23) | (1 << 23)
+
+    sa, ea, sig_a = fields(a)
+    sb, eb, sig_b = fields(b)
+    lo = torch.zeros_like(sig_a)
+    hi = torch.zeros_like(sig_a)
+    for i in range(24):
+        bit = (sig_b >> i) & 1
+        lo = lo + bit * ((sig_a & ((1 << (24 - i)) - 1)) << i)
+        hi = hi + bit * (sig_a >> (24 - i))
+        hi = hi + (lo >> 24)              # carry propagate
+        lo = lo & _M24
+
+    # product in [2^46, 2^48): normalize by top bit (47)
+    top = (hi >> 23) & 1
+    keep = torch.where(top == 1, hi, ((hi << 1) | (lo >> 23)) & _M24)
+    guard = torch.where(top == 1, (lo >> 23) & 1, (lo >> 22) & 1)
+    sticky = torch.where(top == 1, (lo & _M23) != 0, (lo & 0x3FFFFF) != 0)
+    keep = keep + (guard & (sticky.to(torch.int64) | (keep & 1)))
+    round_ovf = (keep >> 24) & 1
+    keep = torch.where(round_ovf == 1, keep >> 1, keep)
+
+    e = ea + eb - 127 + top + round_ovf
+    sign = (sa ^ sb) << 31
+    out = sign | (e.clamp(0, 255) << 23) | (keep & _M23)
+    out = torch.where(e <= 0, sign, out)
+    out = torch.where(e >= 255, sign | 0x7F800000, out)
+    out = out - ((out >> 31) << 32)       # the signed int32 of those bits
+    res = out.to(torch.int32).view(torch.float32)
+
+    special = (ea == 0) | (eb == 0) | (ea == 255) | (eb == 255)
+    native = fp.flush_subnormal(a) * fp.flush_subnormal(b)
+    return torch.where(special, native, res)

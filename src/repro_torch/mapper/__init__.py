@@ -20,8 +20,8 @@ Ported so far: the paper's LeNet, its forward pass and its training step
 (``map_lenet`` / ``compile_lenet``, ``kind="serve"`` or ``"train"``, and
 any step ``build_schedule`` is given, such as the trainer's AdamW step),
 on the fp32 grid or a quantized weight grid (``weight_dtype``, with
-``act_dtype`` and ``ideal_provision``); a compiled program is
-differentiable. Not yet (ROADMAP.md, queue item 3): pipeline partitions,
+``act_dtype`` and ``ideal_provision``); a compiled program and the
+per-block executor are differentiable. Not yet (ROADMAP.md, queue item 3): pipeline partitions,
 scan expansion, paged-KV placement, and ``map_arch`` / ``compile_arch``.
 """
 

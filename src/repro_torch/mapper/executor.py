@@ -22,6 +22,12 @@ error into the ``pim.quant_layer_rel_error`` histogram.
 The counters (``placed_blocks``, ``kernel_launches``, ...) add up over the
 executor's runs, as the reference's do.
 
+Differentiable, as the reference's executor is under ``jax.grad``: when an
+argument requires grad, a run records autograd's graph, and each placed
+block's cotangents come from K2's backward pass (``_Matmul`` in
+``repro_torch.kernels.pim_mac``), each MAC's from K3's. Otherwise the run
+is under ``torch.no_grad()``.
+
 ``run_fake_quant_plain`` is the quantized schedule's plain oracle: the
 same aten graph with native ops only, each placed product reading its
 stationary operand through ``core.quant.fake_quant`` per placed row block.
@@ -123,7 +129,8 @@ class ScheduleExecutor:
     def run(self, *args, **kwargs):
         flat = flatten_args(self.schedule, self.device, args, kwargs)
         tr = obs.tracer()
-        with torch.no_grad():
+        grad = torch.is_grad_enabled() and any(x.requires_grad for x in flat)
+        with torch.set_grad_enabled(grad):
             if tr.enabled:
                 # depth-0 run span; the per-node launch spans recorded in
                 # eval_placed nest under it

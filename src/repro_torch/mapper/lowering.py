@@ -217,7 +217,10 @@ def _grouped_reduce(out_g: torch.Tensor, meta) -> torch.Tensor:
 
 def _observe_quant_error(ctx: LoweringContext, w, q, s) -> None:
     """Record a quantized block's error (max over columns of |q·s - w|
-    relative to the column's absmax) into the obs histogram."""
+    relative to the column's absmax) into the obs histogram. The reading
+    syncs the host, so it is taken on detached tensors, off the autograd
+    graph."""
+    w, q, s = w.detach(), q.detach(), s.detach()
     qmax = quant.spec(ctx.weight_dtype).qmax
     rel = float(((q * s - w).abs() / (s * qmax)).max())
     obs.metrics().histogram("pim.quant_layer_rel_error").observe(rel)

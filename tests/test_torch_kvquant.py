@@ -25,6 +25,7 @@ Same numpy-seeded inputs on both sides.
 """
 
 import dataclasses
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -47,10 +48,13 @@ from repro_torch.checkpoint import (kv_pool_from_reference,
                                     params_from_reference)
 from repro_torch.configs import get_smoke_config
 from repro_torch.core import quant
-from repro_torch.kernels import flash_attention as port_k
 from repro_torch.kernels.ref import paged_decode_attention_q_ref
 from repro_torch.models import DecoderLM, attention
 from repro_torch.serve import Request, ServeEngine, kv
+
+# the module (``repro_torch.kernels.flash_attention`` the package attribute
+# is K7's wrapper, as in the reference)
+port_k = importlib.import_module("repro_torch.kernels.flash_attention")
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 GRIDS = ("int8", "fp8_e4m3", "fp8_e5m2", "fp16")

@@ -11,6 +11,8 @@ Same numpy-seeded inputs on both sides; rtol = atol = 1e-5 in float32.
 """
 
 
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,9 +24,12 @@ from repro.kernels.flash_attention import (
     paged_decode_attention_grouped as pallas_k4)
 from repro.models import attention as ref_attn
 from repro_torch.configs import get_smoke_config
-from repro_torch.kernels import flash_attention as port_k4
 from repro_torch.kernels.ref import paged_decode_attention_ref
 from repro_torch.models import attention
+
+# the module (``repro_torch.kernels.flash_attention`` the package attribute
+# is K7's wrapper, as in the reference)
+port_k4 = importlib.import_module("repro_torch.kernels.flash_attention")
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 BS, W = 4, 5
