@@ -43,7 +43,9 @@ Phases, each printing one JSON line:
    seeded random data, each held against its plain version (TF32 off; K1
    and K2 per output row to its own max|out|, with a control that
    dropping the last K tile fails that limit; K3 bit for bit), K1 equal
-   to K2 bit for bit, and timed beside its bound and a library call.
+   to K2 and to itself on a second run bit for bit, each K1/K2 launch's
+   K split recorded (one chunk at every K <= 256), and timed beside its
+   bound and a library call.
 9. ``pim_train`` — the paper's LeNet-5 trained through the mapper:
    ``Trainer(backend="pim")`` (the whole AdamW step compiled once) and
    ``backend="jit"`` (the plain eager step) from the same seeded
@@ -73,6 +75,12 @@ Phases, each printing one JSON line:
    make, which are those of the main path's backward, held against the
    plain formula as in 8, and timed; K2's VJP the same way at the K2
    nodes of ``pim_grad``'s executor backward, whose launches it equals.
+   Every K1/K2 launch records its K split (S chunks of whole 128-deep
+   tiles), equals the other kernel on the same blocks and itself on a
+   second run bit for bit; dB reads Aᵀ in place and equals the launch on
+   the materialized transpose, both timed beside the transpose copy;
+   ``split_db`` lists each split dB launch (conv1's and conv2's) with
+   its time, ``bmm``/``mm`` and bound.
 12. ``pim_lenet_q`` — phase 7 with the weights on each quantized grid
    (int8, fp8_e4m3, fp8_e5m2, fp16 at batch 256, int8 at 4096): 5 K5 and
    5 K3 launches per call, no K1; the compiled program bit-equal to the
@@ -878,12 +886,13 @@ def read_counts() -> dict:
 
 def profile_groups(name: str) -> str:
     """Kernel group of a profiled device kernel: K5 (the dequantizing
-    instantiation of K1's body), K1, K3, native convolutions (cuDNN),
-    copies/fills/concatenations, or the rest."""
+    instantiation of K1's body), K1 (with its split-K sum pass), K3,
+    native convolutions (cuDNN), copies/fills/concatenations, or the
+    rest."""
     name = name.lower()
-    if "pim_matmul_kernel<true>" in name:
+    if "pim_matmul_kernel<true" in name:
         return "k5"
-    if "pim_matmul_kernel" in name:
+    if "pim_matmul" in name:
         return "k1"
     if "pim_mac_kernel" in name:
         return "k3"
@@ -989,9 +998,10 @@ def recording_helpers(fault=None, key=None, index=None):
     """Log every single launch made through the kernel module's helpers
     ``_matmul_grouped`` (K1: G, col_groups, M, K, N), ``_matmul`` (K2: M,
     K, N), ``_mac`` (K3: elements) and ``_matmul_grouped_q`` (K5, as K1)
-    while open: the autograd Functions'
-    backward passes launch through them. With a ``fault``, the output of
-    the ``index``-th launch of kernel ``key`` goes through it
+    while open: the autograd Functions' backward passes launch through
+    them. A product logs its logical shape: with ``trans_a`` the stored
+    ``a`` is [.., K, M], read as its transpose. With a ``fault``, the
+    output of the ``index``-th launch of kernel ``key`` goes through it
     (``faulty``)."""
     mod = importlib.import_module("repro_torch.kernels.pim_mac")
     log = {"k1": [], "k2": [], "k3": [], "k5": []}
@@ -1001,14 +1011,15 @@ def recording_helpers(fault=None, key=None, index=None):
     calls = {k: faulty(fn, fault, index if k == key else None)
              for k, fn in orig.items()}
 
-    def k1(a, b, bm, bn, bk, cg):
-        log["k1"].append((b.shape[0], cg, a.shape[1], a.shape[2],
-                          b.shape[2]))
-        return calls["k1"](a, b, bm, bn, bk, cg)
+    def k1(a, b, bm, bn, bk, cg, trans_a=False):
+        m, k = a.shape[1:][::-1] if trans_a else a.shape[1:]
+        log["k1"].append((b.shape[0], cg, m, k, b.shape[2]))
+        return calls["k1"](a, b, bm, bn, bk, cg, trans_a=trans_a)
 
-    def k2(a, b, bm, bn, bk):
-        log["k2"].append((a.shape[0], a.shape[1], b.shape[1]))
-        return calls["k2"](a, b, bm, bn, bk)
+    def k2(a, b, bm, bn, bk, trans_a=False):
+        m, k = a.shape[::-1] if trans_a else a.shape
+        log["k2"].append((m, k, b.shape[1]))
+        return calls["k2"](a, b, bm, bn, bk, trans_a=trans_a)
 
     def k3(a, b, acc):
         log["k3"].append(a.numel())
@@ -1207,6 +1218,19 @@ def mm_limit(k: int) -> float:
     return PIM_MM_TOL * max(1.0, (k / 256) ** 0.5)
 
 
+def split_of(g: int, m: int, k: int, n: int) -> dict:
+    """The K split of a K1/K2/K5 launch of G groups of per-block shape (M,
+    K, N) (``pim_mac.split_k``): S, the chunk depth and the thread blocks
+    of the product. Fails if a launch with K <= 256 splits: every forward
+    and dA launch keeps its one ascending chain over K."""
+    from repro_torch.kernels.pim_mac import TILE_MN, chunk_depth, split_k
+    splits = split_k(m, k, n)
+    if k <= 256 and splits != 1:
+        raise AssertionError(f"({m}, {k}, {n}) splits {splits} ways")
+    return {"splits": splits, "chunk": chunk_depth(k, splits),
+            "blocks": g * (m // TILE_MN) * (n // TILE_MN) * splits}
+
+
 def hold_matmul(label, kernel, plain, dropped, tol=PIM_MM_TOL) -> dict:
     """Hold ``kernel()`` against ``plain()`` per output row, to ``tol`` x
     the row's max|out|; the control ``dropped()`` (the plain product
@@ -1247,8 +1271,11 @@ def phase_kernels_pim(seed: int, shapes: dict, path: str, batch: int,
     stacks (shared-A slabs repeated beforehand, untimed) for K1,
     ``torch.mm`` for K2, both with TF32 off, and ``torch.addcmul`` for K3
     (time only: it may round once). K1 and K2 are held per output row to
-    ``mm_limit`` of their contraction; K3 bit for bit. With ``wave`` the
-    K3 launches (one per add) are also made as one grouped wave."""
+    ``mm_limit`` of their contraction; K3 bit for bit. Each K1 and K2 row
+    records its K split (``split_of``: S = 1 at every K <= 256), and a K1
+    launch equals K2 on each block and itself on a second run bit for
+    bit. With ``wave`` the K3 launches (one per add) are also made as one
+    grouped wave."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.pim_mac import (pim_mac, pim_mac_grouped,
@@ -1276,9 +1303,12 @@ def phase_kernels_pim(seed: int, shapes: dict, path: str, batch: int,
             if not torch.equal(out[i], pim_matmul(a[i // cg], b[i])):
                 raise AssertionError(f"K1 {path} {name}: group {i} differs "
                                      f"from K2")
+        if not torch.equal(out, pim_matmul_grouped(a, b, col_groups=cg)):
+            raise AssertionError(f"K1 {path} {name}: a second run differs")
         a_rep = a.repeat_interleave(cg, 0)
         k1.append({"node": name, "G": g, "col_groups": cg, "M": m, "K": k,
-                   "N": n, "count": count, **r, "k1_equals_k2": True,
+                   "N": n, "count": count, **r, **split_of(g, m, k, n),
+                   "k1_equals_k2": True, "rerun_equal": True,
                    **pim_timing(
                        lambda: pim_matmul_grouped(a, b, col_groups=cg),
                        lambda: ref.pim_matmul_grouped_ref(a, b,
@@ -1297,7 +1327,7 @@ def phase_kernels_pim(seed: int, shapes: dict, path: str, batch: int,
                         mm_limit(k))
         r.pop("out")
         k2.append({"block": name, "M": m, "K": k, "N": n, "count": count,
-                   **r,
+                   **r, **split_of(1, m, k, n),
                    **pim_timing(
                        lambda: pim_matmul(a, b),
                        lambda: ref.pim_matmul_ref(a, b),
@@ -1694,7 +1724,9 @@ def phase_pim_grad(seed: int, weight_dtype: str = "fp32") -> dict:
     itself, whose backward products are K1 launches of the graph, as in
     the train step. For each, the typical |grad| per leaf beside the
     limit, and controls: each K1 and K3 launch of the backward dropped,
-    then scaled by 1.01. Emitted as ``pim_grad`` or ``pim_grad_q``."""
+    then scaled by 1.01. The autograd step's wall time and a profile of
+    its device time by kernel group (``profile_device``). Emitted as
+    ``pim_grad`` or ``pim_grad_q``."""
     import torch
     from repro_torch import mapper
     from repro_torch.data import make_digits
@@ -1756,6 +1788,7 @@ def phase_pim_grad(seed: int, weight_dtype: str = "fp32") -> dict:
             return torch.autograd.grad(prog(tree, x, y), leaves)
 
         ms = wall_ms(step, iters=10)
+        prof = profile_device(step, 5)
         plain_ms = wall_ms(lambda: torch.func.grad(lenet.lenet_loss)(
             stored, x, y), iters=10)
         graph = (grad_graph_check(abstract, params, x, y, plain)
@@ -1770,7 +1803,7 @@ def phase_pim_grad(seed: int, weight_dtype: str = "fp32") -> dict:
                        "launches_backward": backward,
                        "cotangents_asked": want, f"{mm}_nodes": nodes[mm],
                        "max_abs_err_vs_plain": err, "controls": controls,
-                       "ms_forward_backward": ms},
+                       "ms_forward_backward": ms, "profile": prof},
           "grad_graph": graph,
           "executor": executor and {k: v for k, v in executor.items()
                                     if k not in ("nodes", "launched")},
@@ -1788,7 +1821,8 @@ def executor_grad_check(schedule, tree, leaves, as_tree, x, y, prog_grads,
     ``_Matmul``) and K3 launches must be every cotangent autograd asked
     of them, with no K1 or K5. Its gradients agree with the compiled
     program's and with plain autograd's (``plain``) within rtol = atol =
-    1e-4."""
+    1e-4; whether they equal the compiled program's bit for bit is
+    recorded, and its step is profiled as the compiled one's."""
     import torch
     from repro_torch import mapper
     from repro_torch.mapper.executor import max_deviation
@@ -1804,22 +1838,28 @@ def executor_grad_check(schedule, tree, leaves, as_tree, x, y, prog_grads,
     want = asked(nodes)
     reset_counts()
     with recording_helpers() as launched:
-        grads = as_tree(torch.autograd.grad(loss, leaves))
+        flat = torch.autograd.grad(loss, leaves)
     torch.cuda.synchronize()
     backward = read_counts()
+    grads = as_tree(flat)
     if ((backward["k2"], backward["k3"]) != (want["k2"], want["k3"])
             or backward["k1"] or backward["k5"] or not backward["k2"]):
         raise AssertionError(f"pim_grad executor: backward launches "
                              f"{backward}, autograd asked for {want}")
     err_plain = max_deviation(grads, plain, **PIM_GRAD_TOL)
     err_prog = max_deviation(grads, as_tree(prog_grads), **PIM_GRAD_TOL)
-    ms = wall_ms(lambda: torch.autograd.grad(ex.run(tree, x, y), leaves),
-                 iters=5)
+
+    def step():
+        return torch.autograd.grad(ex.run(tree, x, y), leaves)
+
+    ms = wall_ms(step, iters=5)
     return {"launches_forward": forward, "launches_backward": backward,
             "cotangents_asked": want, "k2_nodes": nodes["k2"],
             "max_abs_err_vs_plain": err_plain,
             "max_abs_dev_vs_compiled": err_prog,
-            "ms_forward_backward": ms, "nodes": nodes, "launched": launched}
+            "bit_equal_to_compiled": all(map(torch.equal, flat, prog_grads)),
+            "ms_forward_backward": ms, "profile": profile_device(step, 3),
+            "nodes": nodes, "launched": launched}
 
 
 def grad_graph_check(abstract, params, x, y, plain) -> dict:
@@ -1867,14 +1907,21 @@ def phase_kernels_pim_backward(seed: int, grad_run: dict) -> dict:
     the plain formula on the plain kernels (K1 each output row to
     ``mm_limit`` of its contraction, with the dropped-K-tile control; K3
     bit for bit) and timed with its bound and a library call (``bmm``
-    with TF32 off; ``mul``). K2's VJP is held and timed the same way
-    (``mm``) at each K2 node of the executor's autograd graph in
-    ``pim_grad``; its launches must be those of the executor's
-    backward."""
+    with TF32 off, on Aᵀ as a view for dB; ``mul``). Each K1 and K2
+    launch records its K split (``split_of``), equals itself on a second
+    run and the other kernel on the same blocks bit for bit (K1 group by
+    group against K2; K2 against K1 with one group), and dB, which reads
+    Aᵀ in place, equals the launch on the materialized transpose; dB's
+    row also times that launch and the transpose copy it no longer
+    needs. K2's VJP is held and timed the same way (``mm``) at each K2
+    node of the executor's autograd graph in ``pim_grad``; its launches
+    must be those of the executor's backward. ``split_db`` gathers each
+    split dB launch's numbers."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.pim_mac import (pim_mac, pim_matmul,
                                              pim_matmul_grouped)
+    mod = importlib.import_module("repro_torch.kernels.pim_mac")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 50)
@@ -1896,6 +1943,17 @@ def phase_kernels_pim_backward(seed: int, grad_run: dict) -> dict:
                                             if t.requires_grad], g)
         it = iter(got)
         return [next(it) if w else None for w in wanted], log
+
+    def same_bits(label, launch, out, others) -> dict:
+        """``launch()`` a second time equals ``out`` bit for bit, and so
+        does each ``(i, other)``: ``out[i] == other()``."""
+        if not torch.equal(launch(), out):
+            raise AssertionError(f"{label}: a second run differs")
+        for i, other in others:
+            if not torch.equal(out[i], other()):
+                raise AssertionError(f"{label}: block {i} differs from the "
+                                     f"other kernel's launch")
+        return {"rerun_equal": True, "k1_equals_k2": True}
 
     made = collections.Counter()
     k1 = []
@@ -1925,37 +1983,61 @@ def phase_kernels_pim_backward(seed: int, grad_run: dict) -> dict:
             if not torch.equal(r.pop("out"), da):
                 raise AssertionError(f"K1 dA {lead}: autograd differs from "
                                      f"the launch")
+            raw = pim_matmul_grouped(g, bt)
             k1.append({"cotangent": "dA", "shared_a": cg > 1, **lead, **r,
+                       **split_of(g_, m, n, k),
+                       **same_bits(f"K1 dA {lead}",
+                                   lambda: pim_matmul_grouped(g, bt), raw,
+                                   [(i, lambda i=i: pim_matmul(g[i], bt[i]))
+                                    for i in range(g_)]),
                        **pim_timing(
                            lambda: pim_matmul_grouped(g, bt),
                            lambda: ref.pim_matmul_grouped_ref(g, bt),
                            lambda: torch.bmm(g, bt),
                            4 * (g.numel() + bt.numel() + g_ * m * k),
                            2 * g_ * m * k * n)})
-            del bt
+            del bt, raw
         if db is not None:             # dB = K1(Aᵀ, g, col_groups)
             at = a.transpose(1, 2).contiguous()
+
+            def in_place():            # the main path's launch: Aᵀ read
+                return mod._matmul_grouped(a, g, bk, bn, bm, cg,
+                                           trans_a=True)
+
             r = hold_matmul(
-                f"K1 dB {lead}",
-                lambda: pim_matmul_grouped(at, g, col_groups=cg),
+                f"K1 dB {lead}", in_place,
                 lambda: ref.pim_matmul_grouped_ref(at, g, col_groups=cg),
                 lambda: ref.pim_matmul_grouped_ref(at[..., :m - 128],
                                                    g[:, :m - 128],
                                                    col_groups=cg),
                 mm_limit(m))
-            if not torch.equal(r.pop("out"), db):
-                raise AssertionError(f"K1 dB {lead}: autograd differs from "
-                                     f"the launch")
-            at_rep = at.repeat_interleave(cg, 0)
-            k1.append({"cotangent": "dB", "shared_a": cg > 1, **lead, **r,
-                       **pim_timing(
-                           lambda: pim_matmul_grouped(at, g, col_groups=cg),
-                           lambda: ref.pim_matmul_grouped_ref(
-                               at, g, col_groups=cg),
-                           lambda: torch.bmm(at_rep, g),
-                           4 * (at.numel() + g.numel() + g_ * k * n),
-                           2 * g_ * m * k * n)})
-            del at, at_rep
+            out = r.pop("out")
+            if not (torch.equal(out, db) and torch.equal(
+                    out, pim_matmul_grouped(at, g, col_groups=cg))):
+                raise AssertionError(f"K1 dB {lead}: autograd, the launch "
+                                     f"and the launch on the materialized "
+                                     f"transpose differ")
+            a_rep = a.repeat_interleave(cg, 0)
+            row = {"cotangent": "dB", "shared_a": cg > 1, **lead, **r,
+                   **split_of(g_, k, m, n),
+                   **same_bits(f"K1 dB {lead}", in_place, out,
+                               [(i, lambda i=i: mod._matmul(
+                                   a[i // cg], g[i], bk, bn, bm,
+                                   trans_a=True)) for i in range(g_)]),
+                   "in_place_equals_materialized": True,
+                   "materialized_ms": cuda_ms(
+                       lambda: pim_matmul_grouped(at, g, col_groups=cg)),
+                   "transpose_copy_ms": cuda_ms(
+                       lambda: a.transpose(1, 2).contiguous()),
+                   **pim_timing(
+                       in_place,
+                       lambda: ref.pim_matmul_grouped_ref(
+                           at, g, col_groups=cg),
+                       lambda: torch.bmm(a_rep.transpose(1, 2), g),
+                       4 * (a.numel() + g.numel() + g_ * k * n),
+                       2 * g_ * m * k * n)}
+            k1.append(row)
+            del at, a_rep, out
         del a, b, g, da, db
     k3 = []
     for n, wanted, count in counted(grad_run["nodes"]["k3"]):
@@ -2003,34 +2085,56 @@ def phase_kernels_pim_backward(seed: int, grad_run: dict) -> dict:
         for sh in log["k2"]:
             made_k2[sh] += count
         lead = {"M": m, "K": k, "N": n, "count": count}
-        for name, lhs, rhs, got, c in (("dA", g, b.T.contiguous(), da, n),
-                                       ("dB", a.T.contiguous(), g, db, m)):
+        bt = b.T.contiguous()
+        at = a.T.contiguous()
+        # (name, the main path's launch, its operands as materialized,
+        # the contraction, the cotangent autograd gave)
+        for name, launch, lhs, rhs, c, got in (
+                ("dA", lambda: pim_matmul(g, bt), g, bt, n, da),
+                ("dB", lambda: mod._matmul(a, g, bk, bn, bm, trans_a=True),
+                 at, g, m, db)):
             if got is None:
                 continue
-            r = hold_matmul(f"K2 {name} {lead}",
-                            lambda: pim_matmul(lhs, rhs),
+            r = hold_matmul(f"K2 {name} {lead}", launch,
                             lambda: ref.pim_matmul_ref(lhs, rhs),
                             lambda: ref.pim_matmul_ref(lhs[:, :c - 128],
                                                        rhs[:c - 128]),
                             mm_limit(c))
-            if not torch.equal(r.pop("out"), got):
-                raise AssertionError(f"K2 {name} {lead}: autograd differs "
-                                     f"from the launch")
-            k2.append({"cotangent": name, **lead, **r, **pim_timing(
-                lambda: pim_matmul(lhs, rhs),
-                lambda: ref.pim_matmul_ref(lhs, rhs),
-                lambda: torch.mm(lhs, rhs),
-                4 * (lhs.numel() + rhs.numel() + lhs.shape[0] * rhs.shape[1]),
-                2 * lhs.shape[0] * c * rhs.shape[1])})
-        del a, b, g, da, db
+            out = r.pop("out")
+            if not (torch.equal(out, got)
+                    and torch.equal(out, pim_matmul(lhs, rhs))):
+                raise AssertionError(f"K2 {name} {lead}: autograd, the "
+                                     f"launch and the launch on the "
+                                     f"materialized operands differ")
+            p, q = lhs.shape[0], rhs.shape[1]
+            k2.append({"cotangent": name, **lead, **r,
+                       **split_of(1, p, c, q),
+                       **same_bits(f"K2 {name} {lead}",
+                                   lambda: launch()[None], out[None],
+                                   [(0, lambda: pim_matmul_grouped(
+                                       lhs[None], rhs[None])[0])]),
+                       **pim_timing(
+                           launch, lambda: ref.pim_matmul_ref(lhs, rhs),
+                           lambda: torch.mm(lhs, rhs) if name == "dA"
+                           else torch.mm(a.T, g),
+                           4 * (lhs.numel() + rhs.numel() + p * q),
+                           2 * p * c * q)})
+            del out
+        del a, b, g, da, db, at, bt
     if made_k2 != collections.Counter(grad_run["executor"]["launched"]["k2"]):
         raise AssertionError(f"kernels_pim backward: the held K2 nodes "
                              f"launch {sorted(made_k2.items())}, the "
                              f"executor's backward "
                              f"{grad_run['executor']['launched']['k2']}")
     torch.cuda.empty_cache()
+    split_db = [{"kernel": key, "G": r.get("G", 1), **{f: r[f] for f in (
+        "M", "K", "N", "splits", "chunk", "blocks", "ms", "library_ms",
+        "bound_ms", "max_err_over_limit", "control_over_limit")}}
+        for key, rows in (("k1", k1), ("k2", k2)) for r in rows
+        if r["cotangent"] == "dB" and r["splits"] > 1]
     emit({"phase": "kernels_pim", "path": "pim_grad_backward",
           "batch": PIM_GRAD_BATCH, "tol": "mm_limit(contraction)",
+          "split_db": split_db,
           "results": [{**K1, "shapes": k1}, {**K3, "shapes": k3},
                       {**K2, "path": "pim_grad executor", "shapes": k2}]})
     return {"k1": k1, "k2": k2, "k3": k3}
@@ -2096,6 +2200,7 @@ def phase_kernels_pim_q(seed: int, shapes: list, path: str,
         a_rep = a.repeat_interleave(cg, 0)
         rows.append({"node": name, "G": g, "col_groups": cg, "M": m,
                      "K": k, "N": n, "count": count, **r,
+                     **split_of(g, m, k, n),
                      "k5_equals_k1_on_q_times_s": True,
                      **pim_timing(
                          lambda: pim_matmul_grouped_q(a, q, s,

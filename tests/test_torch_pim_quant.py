@@ -227,7 +227,7 @@ def test_k5_vjp_launches_only_the_cotangents_asked(monkeypatch):
     calls = []
     real = pm._matmul_grouped
     monkeypatch.setattr(pm, "_matmul_grouped",
-                        lambda *a: calls.append(a[5]) or real(*a))
+                        lambda *a, **k: calls.append(a[5]) or real(*a, **k))
     a, w, q, s = _k5_operands((2, 2, 128, 128, 128), "fp16", 3)
     at = torch.from_numpy(a).requires_grad_(True)
     out = pim_matmul_grouped_q(at, q, s, col_groups=2)
