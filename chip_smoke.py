@@ -13,7 +13,15 @@ Phases, each printing one JSON line:
    with bf16 and f32 q), each (slot, head) row to its own scale, with a
    control that the tolerance fails a kernel reading one row past pos;
    and time kernel, plain version and one PyTorch library call computing
-   the same function.
+   the same function. K4 (split-KV: a split pass and an ordered combine
+   pass per call) also records its splits per slot, equals its rerun bit
+   for bit, makes no host sync (``torch.cuda.set_sync_debug_mode``), has
+   each of its two kernels timed under the profiler, and is held again at
+   a small shape the serve shapes do not reach (``K4_EDGE``: rep 6,
+   several splits a slot, splits past pos). K4 and K6, their plain
+   versions and SDPA are timed twice: by events over calls made back to
+   back (``ms``), and replayed from CUDA graphs (``device_graph_ms``: no
+   host in the loop; a K4 call is shorter than its wrapper's host time).
 3. ``parity``    — llama3-8b at full width, 2 layers, float32: the serve
    engine with the kernel and with the gather path gives identical tokens
    and per-tick logits within 1e-4 x max|logit| over an unquantized pool
@@ -25,7 +33,8 @@ Phases, each printing one JSON line:
 4. ``serve``     — llama3-8b at its full published config in bfloat16
    serves 16 requests; K4 must run once per layer per tick.
 5. ``profile``   — a short second load on the same engine under
-   ``torch.profiler``: device time by kernel group against wall time.
+   ``torch.profiler``: device time by kernel group (K4's two kernels, K6,
+   matrix products, the rest) against wall time.
 6. ``serve_kvq`` — the same model serves 16 requests over an fp8_e4m3 KV
    pool (kernel path, replayed prompts); K6 must run once per layer per
    tick, K4 never. ``profile_kvq`` profiles a second load on it.
@@ -106,7 +115,10 @@ Phases, each printing one JSON line:
 16. ``kernels_attn`` — K7 through ``ops.attention``, its only entry, at the
    reference's test shapes ((B, S, H, G, D) (1,128,4,2,64), (2,128,8,8,32),
    (1,64,6,3,16), chunks of 64) and llama3-8b's heads (H 32, G 8, D 128,
-   B 1, S 2048 and 8192), float32 and bfloat16: each call one launch, held
+   B 1, S 2048 and 8192) and a ragged length ((1,200,8,2,64), chunks of
+   256 clamped to S), float32 and bfloat16: each call one launch of the
+   body of its dtype (the profiler names it: bf16 on the tensor-core
+   body, whose SASS must hold HMMA instructions), held
    against ``flash_attention_ref`` (TF32 off) per (batch, query, head)
    row at rtol = atol = 2e-5 (f32) or 2e-2 (bf16), atol x the row's
    max|out|, with a control that
@@ -219,16 +231,21 @@ K4_SHAPES = dict(B=8, H=32, G=8, D=128, bs=16, W=64)
 K4_POS = (0, 15, 16, 255, 511, 700, 1000, 1023)   # 0, block edges, W*bs-1
 K4_TOL = {"float32": 1e-5, "bfloat16": 2e-2}     # x max|out| per row
 N_COPIES = 8        # rotated pool copies: the working set exceeds the L2
+# K4's split schedule where the serve shapes do not reach it: rep 6 (query
+# rows padded to 8), 4-key blocks (8 a split, 3 splits a slot, the last
+# one 4 entries short of a split), a slot at 0, a position inside a block,
+# a slot with a split wholly past it and one at the table's last key
+K4_EDGE = dict(B=4, H=12, G=2, D=64, bs=4, W=20)
+K4_EDGE_POS = (0, 5, 40, 79)
 
 
-def k4_table(rng):
-    """The serve shapes' block table and positions: every slot's valid
-    blocks are distinct random blocks of the pool, its table tail is the
-    scratch block 0."""
-    s = K4_SHAPES
+def k4_table(rng, s=K4_SHAPES, positions=K4_POS):
+    """A block table and positions (the serve shapes' by default): every
+    slot's valid blocks are distinct random blocks of the pool, its table
+    tail is the scratch block 0."""
     b, bs, w = s["B"], s["bs"], s["W"]
     n = 1 + b * w
-    pos = np.asarray(K4_POS, np.int32)
+    pos = np.asarray(positions, np.int32)
     table = np.zeros((b, w), np.int32)
     for i, p in enumerate(pos):
         nv = p // bs + 1
@@ -236,15 +253,15 @@ def k4_table(rng):
     return n, table, pos
 
 
-def k4_inputs(dtype, rng, device):
-    """Inputs at the serve phase's shapes (``k4_table``); block 0 holds
-    large finite values that must never be read."""
+def k4_inputs(dtype, rng, device, s=K4_SHAPES, positions=K4_POS,
+              copies=N_COPIES):
+    """Inputs at the serve phase's shapes (``k4_table``) or ``s``; block 0
+    holds large finite values that must never be read."""
     import torch
-    s = K4_SHAPES
     b, h, g, d, bs = s["B"], s["H"], s["G"], s["D"], s["bs"]
-    n, table, pos = k4_table(rng)
+    n, table, pos = k4_table(rng, s, positions)
     pools = []
-    for _ in range(N_COPIES):
+    for _ in range(copies):
         kv = rng.standard_normal((2, n, bs, g, d), np.float32)
         kv[:, 0] = 3.0e4
         pools.append(torch.from_numpy(kv).to(device, dtype))
@@ -295,7 +312,10 @@ def hold_and_time(label, q, pos, pools, kernel, plain, heads) -> dict:
 
     A control shows the tolerance fails a wrong kernel: the plain version
     reading one row past pos (clamped at the table's end) must exceed it
-    in every slot that this changes."""
+    in every slot that this changes. The three are timed again from CUDA
+    graphs (``graph_ms``): the device time of a call with no host in the
+    loop, beside the event time of calls made back to back, which the
+    host paces when a call is shorter than its wrapper's host time."""
     import torch
     import torch.nn.functional as F
     qname = str(q.dtype).split(".")[1]
@@ -342,7 +362,16 @@ def hold_and_time(label, q, pos, pools, kernel, plain, heads) -> dict:
     it = iter(range(1 << 30))
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         q4, *gathered[next(it) % N_COPIES], attn_mask=bias))
-    return {"max_err": err, "tol": tol, "max_err_over_limit": ratio,
+    graph = {
+        "kernel_graph_ms": graph_ms([lambda p=p: kernel(p, pos)
+                                     for p in pools]),
+        "plain_graph_ms": graph_ms([lambda p=p: plain(p, pos)
+                                    for p in pools]),
+        "library_graph_ms": graph_ms([
+            lambda g=g: F.scaled_dot_product_attention(q4, *g,
+                                                       attn_mask=bias)
+            for g in gathered])}
+    return {**graph, "max_err": err, "tol": tol, "max_err_over_limit": ratio,
             "off_by_one_min_over_limit": control,
             "kernel_ms": kernel_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "library_max_abs_err": lib_err,
@@ -357,6 +386,103 @@ def to_heads(k, v, table, dtype):
     return tuple(x[table.long()].reshape(s["B"], length, s["G"], s["D"])
                  .repeat_interleave(rep, dim=2).transpose(1, 2)
                  .to(dtype).contiguous() for x in (k, v))
+
+
+def kernel_ms_by_name(fn, calls: int) -> dict:
+    """Mean device time (ms) of each kernel that ``calls`` calls of ``fn``
+    launch, by the profiler's kernel name, after a warm call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / e.count / 1e3
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def graph_ms(fns) -> float:
+    """Device time of one call, over ``fns`` called in turn, captured once
+    into a CUDA graph and replayed: no host in the loop."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in fns:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for fn in fns:
+            fn()
+    return cuda_ms(graph.replay, iters=20) / len(fns)
+
+
+def k4_split_readings(q, pools, table, pos) -> dict:
+    """K4's split schedule at these inputs, and three checks of it: a call
+    and its rerun equal bit for bit (no float atomics); the wrapper makes
+    no host sync (it never reads ``pos``: under ``set_sync_debug_mode``
+    any sync raises); and each of its two kernels' device time under the
+    profiler over the rotated pools, the combine pass alone among
+    them."""
+    import torch
+    from repro_torch.kernels.flash_attention import (
+        paged_decode_attention_grouped, split_policy)
+
+    def call(p):
+        return paged_decode_attention_grouped(q, p[0], p[1], table, pos)
+
+    first = call(pools[0])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = call(pools[0])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if not torch.equal(first, again):
+        raise AssertionError("K4: a rerun differs from its call")
+    it = iter(range(1 << 30))
+    by_name = kernel_ms_by_name(lambda: call(pools[next(it) % N_COPIES]),
+                                40)
+    ms = {part: sum(t for n, t in by_name.items()
+                    if f"paged_decode_{part}_kernel" in n)
+          for part in ("split", "combine")}
+    if not all(ms.values()):
+        raise AssertionError(f"K4: the profiler saw {sorted(by_name)}")
+    per, n_split = split_policy(table.shape[1], pools[0][0].shape[1])
+    return {"blocks_per_split": per, "n_split": n_split,
+            "live_splits": int((pos // (per * pools[0][0].shape[1]) + 1)
+                               .sum()),
+            "rerun_equal": True, "host_syncs": 0,
+            "split_ms": ms["split"], "combine_ms": ms["combine"]}
+
+
+def k4_edge_readings(dtype, rng) -> dict:
+    """K4 at ``K4_EDGE``: each (slot, head) row within ``K4_TOL`` of the
+    plain version, and a call equal to its rerun bit for bit."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (
+        paged_decode_attention_grouped, split_policy)
+    name = str(dtype).split(".")[1]
+    q, (pool,), table, pos = k4_inputs(dtype, rng, DEVICE, K4_EDGE,
+                                       K4_EDGE_POS, copies=1)
+    out = paged_decode_attention_grouped(q, pool[0], pool[1], table, pos)
+    again = paged_decode_attention_grouped(q, pool[0], pool[1], table, pos)
+    want = ref.paged_decode_attention_ref(q, pool[0], pool[1], table, pos)
+    ratio = float(over_limit(out, want, K4_TOL[name]).max())
+    if not ratio <= 1.0 or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"K4 {name} at {K4_EDGE}: {ratio} x the limit")
+    if not torch.equal(out, again):
+        raise AssertionError(f"K4 {name} at {K4_EDGE}: a rerun differs")
+    per, n_split = split_policy(K4_EDGE["W"], K4_EDGE["bs"])
+    return {"shapes": K4_EDGE, "positions": list(K4_EDGE_POS),
+            "blocks_per_split": per, "n_split": n_split,
+            "max_err_over_limit": ratio, "rerun_equal": True}
 
 
 def phase_kernels(seed: int) -> dict:
@@ -379,7 +505,9 @@ def phase_kernels(seed: int) -> dict:
             lambda p: to_heads(p[0], p[1], table, dtype))
         bound_ms, bound_by = k4_bound(q, pos, name)
         results[name] = {"dtype": name, **r, "bound_ms": bound_ms,
-                         "bound_by": bound_by}
+                         "bound_by": bound_by,
+                         **k4_split_readings(q, pools, table, pos),
+                         "edge": k4_edge_readings(dtype, rng)}
         del pools
         torch.cuda.empty_cache()
     emit({"phase": "kernels", **K4, "shapes": K4_SHAPES,
@@ -690,8 +818,8 @@ def phase_profile(eng, seed: int, phase: str = "profile",
     phase's engine. The first ``warm_ticks`` ticks (admission, and
     prefill or prompt replay) run untraced; the remaining ticks run
     under ``torch.profiler``: device time of every kernel, grouped into
-    K4, K6, matrix products and the rest, against the host's wall
-    time."""
+    K4 (its split and combine kernels), K6, matrix products and the
+    rest, against the host's wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve import Request
@@ -717,10 +845,11 @@ def phase_profile(eng, seed: int, phase: str = "profile",
         us = e.self_device_time_total
         name = e.key.lower()
         n_kernels += e.count
-        if "paged_decode_kernel" in name:
-            groups["k4"] += us
-        elif "paged_decode_q_kernel" in name:
+        if "paged_decode_q_kernel" in name:
             groups["k6"] += us
+        elif ("paged_decode_split_kernel" in name
+              or "paged_decode_combine_kernel" in name):
+            groups["k4"] += us
         elif any(k in name for k in ("gemm", "gemv", "xmma", "cutlass",
                                      "nvjet")):
             groups["matmul"] += us
@@ -2331,6 +2460,10 @@ K7 = {"name": "flash_attention", "route": "cuda",
 # of 64; then llama3-8b's heads at S 2048 and 8192, the default chunks
 ATTN_TEST_SHAPES = ((1, 128, 4, 2, 64), (2, 128, 8, 8, 32), (1, 64, 6, 3, 16))
 ATTN_LLAMA_SHAPES = tuple((1, s, 32, 8, 128) for s in (2048, 8192))
+# S no multiple of the 64-row tile: the ragged tile's mask and zero-fill
+ATTN_RAGGED_SHAPES = ((1, 200, 8, 2, 64),)
+# the profiler's name of the body each dtype runs (csrc dispatch)
+ATTN_BODY = {"float32": "flash_kernel", "bfloat16": "flash_mma_kernel"}
 # the reference's tolerances (rtol = atol), atol here x max|out| of each
 # (batch, query, head) row
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -2401,9 +2534,11 @@ def phase_kernels_attn(seed: int) -> dict:
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.mapper.executor import full_float32
+    from torch.profiler import ProfilerActivity, profile
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 60)
     cases = [(name, shape, chunk) for name in ("float32", "bfloat16")
              for shapes, chunk in ((ATTN_TEST_SHAPES, 64),
+                                   (ATTN_RAGGED_SHAPES, 256),
                                    (ATTN_LLAMA_SHAPES, 256))
              for shape in shapes]
     results, launches = [], 0
@@ -2415,12 +2550,20 @@ def phase_kernels_attn(seed: int) -> dict:
                                                 (b, s, g, d)))
             label = f"K7 {name} {(b, s, h, g, d)}"
             flash_attention.launches = 0
-            out = ops.attention(q, k, v, q_chunk=chunk, kv_chunk=chunk)
-            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                out = ops.attention(q, k, v, q_chunk=chunk, kv_chunk=chunk)
+                torch.cuda.synchronize()
             if flash_attention.launches != 1:
                 raise AssertionError(f"{label}: ops.attention made "
                                      f"{flash_attention.launches} K7 "
                                      f"launches, want 1")
+            bodies = [e.key for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and "flash" in e.key]
+            if len(bodies) != 1 or f"{ATTN_BODY[name]}<" not in bodies[0]:
+                raise AssertionError(f"{label}: ran {bodies}, want "
+                                     f"{ATTN_BODY[name]}")
             launches += flash_attention.launches
             if not bool(torch.isfinite(out).all()):
                 raise AssertionError(f"{label}: non-finite output")
@@ -2439,7 +2582,7 @@ def phase_kernels_attn(seed: int) -> dict:
                     f"{label}: dropping the last query tile's diagonal KV "
                     f"tile gives only {float(control.max())} x the limit")
             r = {"dtype": name, "shape": dict(zip("BSHGD", (b, s, h, g, d))),
-                 "chunk": chunk, "tol": tol,
+                 "chunk": chunk, "body": ATTN_BODY[name], "tol": tol,
                  "max_err": float((out.float() - want.float()).abs().max()),
                  "max_err_over_limit": ratio,
                  "last_tile_max_err_over_limit": float(attn_over_limit(
@@ -2486,8 +2629,15 @@ def phase_kernels_attn(seed: int) -> dict:
             results.append(r)
             del q, k, v, out, want
             torch.cuda.empty_cache()
+    # the tensor cores are on the bf16 path: HMMA in its SASS (the f32
+    # body's for contrast)
+    sass = {body: sass_instructions(body, "flash_attention",
+                                    count=("HMMA",))
+            for body in ATTN_BODY.values()}
+    if not sass["flash_mma_kernel"]["HMMA"]:
+        raise AssertionError(f"K7: no HMMA in the bf16 body: {sass}")
     emit({"phase": "kernels_attn", **K7, "path": "ops.attention",
-          "launches": launches, "results": results})
+          "launches": launches, "sass": sass, "results": results})
     return {"launches": launches, "results": results}
 
 
@@ -2559,9 +2709,10 @@ def max_abs_diff(got, want) -> float:
     return float(diff.max()) if diff.numel() else 0.0
 
 
-def sass_instructions(kernel: str, source: str) -> dict:
-    """All and integer instructions of ``kernel`` in the built ``source``
-    library's SASS (``cuobjdump -sass``, beside nvcc)."""
+def sass_instructions(kernel: str, source: str, count=()) -> dict:
+    """All and integer instructions of ``kernel`` (every instantiation) in
+    the built ``source`` library's SASS (``cuobjdump -sass``, beside
+    nvcc), and those of each opcode prefix in ``count``."""
     from repro_torch.kernels import build
     cuobjdump = pathlib.Path(build._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(build.build(source))],
@@ -2581,7 +2732,8 @@ def sass_instructions(kernel: str, source: str) -> dict:
         raise AssertionError(f"no SASS found for {kernel} in {source}")
     return {"instructions": len(ops),
             "int_instructions": sum(op.startswith(SASS_INT_OPS)
-                                    for op in ops)}
+                                    for op in ops),
+            **{c: sum(op.startswith(c) for op in ops) for c in count}}
 
 
 def phase_pim_fp(seed: int) -> dict:
@@ -2802,17 +2954,26 @@ def main() -> int:
     print(gpu_name_and_power_limit(), flush=True)
 
     def entry(ids, launches, r):
+        # ms, plain_ms, library_ms: CUDA events over calls made back to
+        # back; the *_device_graph_ms beside them: the same calls replayed
+        # from a CUDA graph, with no host in the loop
         return {**ids, "launches": launches, "max_abs_err": r["max_err"],
                 "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                "library_ms": r["library_ms"]}
+                "library_ms": r["library_ms"],
+                "device_graph_ms": r["kernel_graph_ms"],
+                "plain_device_graph_ms": r["plain_graph_ms"],
+                "library_device_graph_ms": r["library_graph_ms"]}
 
     long_bf16 = next(r for r in attn["results"] if r["dtype"] == "bfloat16"
                      and r["shape"]["S"] == ATTN_LLAMA_SHAPES[-1][1])
     k5_launches = {path: by_path[path]["k5"]
                    for path in ("pim_lenet_q", "pim_train_q", "pim_grad_q")}
+    k4_bf16 = k4["bfloat16"]
     emit({"kernels": [
-        entry(K4, serve["launches"], k4["bfloat16"]),
+        {**entry(K4, serve["launches"], k4_bf16),
+         "n_split": k4_bf16["n_split"], "split_ms": k4_bf16["split_ms"],
+         "combine_ms": k4_bf16["combine_ms"]},
         entry(K6, kvq["launches"], k6[(SERVE_KV_DTYPE, "bfloat16")]),
         *(pim_entry(ids, key, by_path, rows)
           for ids, key in ((K1, "k1"), (K2, "k2"), (K3, "k3"))),

@@ -11,10 +11,13 @@ it no VJP.
 
 ``paged_decode_attention_grouped`` replaces the Pallas TPU kernel of the
 same name (``repro/kernels/flash_attention.py:paged_decode_attention_grouped``,
-kernel body ``_paged_decode_kernel``) with a CUDA kernel for Hopper written
-by hand (``csrc/paged_decode_attention.cu``): one launch covers every
-batch slot, KV blocks are read straight out of the shared pool through
-the block table, and the online-softmax state stays in float32.
+kernel body ``_paged_decode_kernel``) with CUDA kernels for Hopper written
+by hand (``csrc/paged_decode_attention.cu``): one call covers every batch
+slot, KV blocks are read straight out of the shared pool through the
+block table, and the softmax state stays in float32. A call is two
+kernels on one stream (split-KV): each slot's table is cut into splits of
+``split_policy`` blocks, whose partial softmax states a second kernel
+combines in split order; it counts as one launch.
 ``paged_decode_attention_grouped_q`` does the same over a quantized pool
 (``_paged_decode_kernel_q`` → ``csrc/paged_decode_attention_q.cu``),
 dequantizing each code on load. Each kernel source states its bound and
@@ -107,11 +110,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
-# csrc paged_decode_attention(q, k, v, table, pos, out, B, H, G, D, bs, W,
-# dtype, stream)
-_ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 7 + (ctypes.c_void_p,)
+# csrc paged_decode_attention(q, k, v, table, pos, out, ws_acc, ws_ml, B,
+# H, G, D, bs, W, nb, dtype, stream)
+_ARGTYPES = (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 8 + (ctypes.c_void_p,)
 _MAX_REP = 16           # csrc kMaxRep
 _MAX_HEAD_DIM = 256     # csrc kThreads * kMaxDChunks
+_SPLIT_KEYS = 32        # keys per split
+
+
+def split_policy(w: int, bs: int) -> tuple[int, int]:
+    """K4's split-KV schedule over a block table of ``w`` entries of
+    ``bs``-key blocks: (table entries per split, splits per slot), 32
+    keys a split. It depends on the shapes alone — never on the
+    positions — so the wrapper never reads ``pos`` on the host and a
+    slot's output does not depend on the other slots."""
+    per = max(1, _SPLIT_KEYS // bs)
+    return per, -(-w // per)
 
 
 def _check(q, k_store, v_store, block_table, pos, *,
@@ -152,6 +166,18 @@ def _check(q, k_store, v_store, block_table, pos, *,
                          f"{_MAX_REP}, D <= {_MAX_HEAD_DIM}")
 
 
+def _check_split(q, k_store, v_store, block_table, pos) -> None:
+    """K4's contract: ``_check``'s, and what the split kernel's 16-byte
+    copies need — D a multiple of 8, pools starting on 16 bytes."""
+    _check(q, k_store, v_store, block_table, pos)
+    if q.shape[-1] % 8:
+        raise ValueError(f"head dim {q.shape[-1]}: the kernel copies 16 "
+                         f"bytes at a time and needs D % 8 == 0")
+    for name, t in (("k_store", k_store), ("v_store", v_store)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
+
+
 def paged_decode_attention_grouped(q: torch.Tensor, k_store: torch.Tensor,
                                    v_store: torch.Tensor,
                                    block_table: torch.Tensor,
@@ -170,16 +196,23 @@ def paged_decode_attention_grouped(q: torch.Tensor, k_store: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention_grouped runs on cuda or "
                          f"cpu tensors, got {q.device}")
-    _check(q, k_store, v_store, block_table, pos)
+    _check_split(q, k_store, v_store, block_table, pos)
     b, h, d = q.shape
     _, bs, g, _ = k_store.shape
+    w = block_table.shape[1]
+    per, n_split = split_policy(w, bs)
     out = torch.empty_like(q)
+    # one float32 workspace: each split's unnormalised acc [B, G, n_split,
+    # rep, D], then its (max, sum) per query row [B, G, n_split, rep, 2]
+    rows = b * h * n_split
+    ws = torch.empty(rows * (d + 2), dtype=torch.float32, device=q.device)
     kernel = build.load("paged_decode_attention", _ARGTYPES)
     with torch.cuda.device(q.device):
         rc = kernel(
             q.data_ptr(), k_store.data_ptr(), v_store.data_ptr(),
             block_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
-            b, h, g, d, bs, block_table.shape[1], _DTYPE_CODE[q.dtype],
+            ws.data_ptr(), ws.data_ptr() + 4 * rows * d, b, h, g, d, bs, w,
+            per, _DTYPE_CODE[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"paged_decode_attention kernel launch failed "

@@ -52,6 +52,19 @@ def test_attention_matches_pallas_kernel(bshgd, dtype):
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
+def test_ragged_sequence_matches_pallas_kernel(dtype):
+    """S = 200 is no multiple of the kernel's 64-row tiles: the default
+    chunks (256) clamp to S on both sides, and the last tile is ragged."""
+    jdt, tdt, tol = DTYPES[dtype]
+    arrays = _inputs((1, 200, 8, 2, 64), seed=2)
+    want = ref_ops.attention(*(jnp.asarray(a, jdt) for a in arrays))
+    q, k, v = (torch.from_numpy(a).to(tdt) for a in arrays)
+    got = ops.attention(q, k, v)
+    assert got.dtype == tdt and got.shape == q.shape
+    _close(got, want, tol)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
 def test_plain_version_matches_reference_oracle(dtype):
     jdt, tdt, tol = DTYPES[dtype]
     arrays = _inputs(SHAPES[0], seed=1)

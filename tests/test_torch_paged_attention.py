@@ -98,13 +98,19 @@ def _bad_inputs():
     yield "head dim", (q, k[..., :8].contiguous(), v[..., :8].contiguous(),
                        table, pos)
     yield "G | H", (q[:, :3].contiguous(), k, v, table, pos)
+    # the split kernel's 16-byte copies: D % 8 == 0, pools on 16 bytes
+    yield "head dim % 8", (q[..., :12].contiguous(),
+                           k[..., :12].contiguous(),
+                           v[..., :12].contiguous(), table, pos)
+    k_off = torch.empty(k.numel() + 1)[1:].view(k.shape).copy_(k)
+    yield "16-byte aligned", (q, k_off, v, table, pos)
 
 
 @pytest.mark.parametrize("case", [c for c, _ in _bad_inputs()])
 def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(case):
     args = dict(_bad_inputs())[case]
     with pytest.raises((TypeError, ValueError)):
-        port_k4._check(*args)
+        port_k4._check_split(*args)
 
 
 # ---------------------------------------------------------------------------
