@@ -13,12 +13,16 @@ Phases, each printing one JSON line:
    with bf16 and f32 q), each (slot, head) row to its own scale, with a
    control that the tolerance fails a kernel reading one row past pos;
    and time kernel, plain version and one PyTorch library call computing
-   the same function. K4 (split-KV: a split pass and an ordered combine
-   pass per call) also records its splits per slot, equals its rerun bit
-   for bit, makes no host sync (``torch.cuda.set_sync_debug_mode``), has
-   each of its two kernels timed under the profiler, and is held again at
-   a small shape the serve shapes do not reach (``K4_EDGE``: rep 6,
-   several splits a slot, splits past pos). K4 and K6, their plain
+   the same function. K4 and K6 (split-KV: a split pass and an ordered
+   combine pass per call, sharing ``csrc/paged_decode_split.cuh``, each
+   under kernel names of its own) also record their splits per slot,
+   equal their reruns bit for bit, make no host sync
+   (``torch.cuda.set_sync_debug_mode``), have each of their two kernels
+   timed under the profiler, and are held again at a small shape the
+   serve shapes do not reach (``K4_EDGE``: rep 6, several splits a slot,
+   splits past pos; K6 on a 1-byte grid and the fp16 grid), with the
+   control that the plain version one row past pos fails the limit there
+   too. K4 and K6, their plain
    versions and SDPA are timed twice: by events over calls made back to
    back (``ms``), and replayed from CUDA graphs (``device_graph_ms``: no
    host in the loop; a K4 call is shorter than its wrapper's host time).
@@ -33,8 +37,8 @@ Phases, each printing one JSON line:
 4. ``serve``     — llama3-8b at its full published config in bfloat16
    serves 16 requests; K4 must run once per layer per tick.
 5. ``profile``   — a short second load on the same engine under
-   ``torch.profiler``: device time by kernel group (K4's two kernels, K6,
-   matrix products, the rest) against wall time.
+   ``torch.profiler``: device time by kernel group (K4's two kernels,
+   K6's two, matrix products, the rest) against wall time.
 6. ``serve_kvq`` — the same model serves 16 requests over an fp8_e4m3 KV
    pool (kernel path, replayed prompts); K6 must run once per layer per
    tick, K4 never. ``profile_kvq`` profiles a second load on it.
@@ -137,7 +141,8 @@ Phases, each printing one JSON line:
    addition where the sum is normal or zero, ``pim_dot`` to a sequential
    float32 sum; K8 timed at 2^24 elements against its plain version and
    ``torch.mul`` beside its byte bound and its SASS integer instructions
-   per element.
+   per element (over the sites where the kernel inlines the procedure,
+   counted by their one FMUL each).
 
 Then the card's name and power limit, one line with every kernel's
 numbers, and as the last line ``{"ok": true, "device": {...}}``. Any
@@ -226,6 +231,7 @@ K6 = {"name": "paged_decode_attention_grouped_q", "route": "cuda",
 K6_CASES = tuple((g, t) for t in ("bfloat16", "float32")
                  for g in ("int8", "fp8_e4m3", "fp8_e5m2", "fp16"))
 SERVE_KV_DTYPE = "fp8_e4m3"
+K6_EDGE_GRIDS = ("fp8_e4m3", "fp16")   # a 1-byte grid and the 2-byte one
 # serve-phase shapes: batch 8, llama3-8b heads, 16-token blocks, 1024 max_len
 K4_SHAPES = dict(B=8, H=32, G=8, D=128, bs=16, W=64)
 K4_POS = (0, 15, 16, 255, 511, 700, 1000, 1023)   # 0, block edges, W*bs-1
@@ -301,6 +307,21 @@ def over_limit(out, want, tol):
     return err / (tol * want.abs().amax(-1)).clamp_min(1e-30)
 
 
+def off_by_one_control(label, plain, want, pos, length, tol) -> float:
+    """The control of a decode kernel's tolerance: ``plain`` reading one
+    row past pos (clamped at the table's end) must exceed ``tol`` x
+    max|out| in every slot that this changes; returns the least excess."""
+    import torch
+    moved = pos < length - 1
+    off = over_limit(plain(torch.clamp(pos + 1, max=length - 1)), want,
+                     tol).amax(-1)[moved]
+    control = float(off.min())
+    if not control > 1:
+        raise AssertionError(f"{label}: reading one row past pos gives "
+                             f"only {control} x the limit in some slot")
+    return control
+
+
 def hold_and_time(label, q, pos, pools, kernel, plain, heads) -> dict:
     """Hold ``kernel(pool, pos)`` against ``plain(pool, pos)`` on the
     first pool within ``K4_TOL`` x max|out| of each (slot, head), then
@@ -331,14 +352,8 @@ def hold_and_time(label, q, pos, pools, kernel, plain, heads) -> dict:
                              f"max|out| of a (slot, head)")
     s = K4_SHAPES
     length = s["W"] * s["bs"]
-    moved = pos < length - 1
-    off_by_one = over_limit(plain(pools[0], torch.clamp(pos + 1,
-                                                        max=length - 1)),
-                            want, tol).amax(-1)[moved]
-    control = float(off_by_one.min())
-    if not control > 1:
-        raise AssertionError(f"{label}: reading one row past pos gives "
-                             f"only {control} x the limit in some slot")
+    control = off_by_one_control(label, lambda at: plain(pools[0], at),
+                                 want, pos, length, tol)
 
     def rotated(fn):
         it = iter(range(1 << 30))
@@ -422,19 +437,16 @@ def graph_ms(fns) -> float:
     return cuda_ms(graph.replay, iters=20) / len(fns)
 
 
-def k4_split_readings(q, pools, table, pos) -> dict:
-    """K4's split schedule at these inputs, and three checks of it: a call
-    and its rerun equal bit for bit (no float atomics); the wrapper makes
-    no host sync (it never reads ``pos``: under ``set_sync_debug_mode``
-    any sync raises); and each of its two kernels' device time under the
-    profiler over the rotated pools, the combine pass alone among
-    them."""
+def split_readings(label, call, prefix, pools, table, pos, bs) -> dict:
+    """The split schedule of K4 or K6 (``call(pool)``, its kernels named
+    ``<prefix>_split_kernel`` and ``<prefix>_combine_kernel``) at these
+    inputs, and three checks of it: a call and its rerun equal bit for
+    bit (no float atomics); the wrapper makes no host sync (it never
+    reads ``pos``: under ``set_sync_debug_mode`` any sync raises); and
+    each of its two kernels' device time under the profiler over the
+    rotated pools, the combine pass alone among them."""
     import torch
-    from repro_torch.kernels.flash_attention import (
-        paged_decode_attention_grouped, split_policy)
-
-    def call(p):
-        return paged_decode_attention_grouped(q, p[0], p[1], table, pos)
+    from repro_torch.kernels.flash_attention import split_policy
 
     first = call(pools[0])
     torch.cuda.synchronize()
@@ -444,45 +456,59 @@ def k4_split_readings(q, pools, table, pos) -> dict:
     finally:
         torch.cuda.set_sync_debug_mode("default")
     if not torch.equal(first, again):
-        raise AssertionError("K4: a rerun differs from its call")
+        raise AssertionError(f"{label}: a rerun differs from its call")
     it = iter(range(1 << 30))
     by_name = kernel_ms_by_name(lambda: call(pools[next(it) % N_COPIES]),
                                 40)
     ms = {part: sum(t for n, t in by_name.items()
-                    if f"paged_decode_{part}_kernel" in n)
+                    if f"{prefix}_{part}_kernel" in n)
           for part in ("split", "combine")}
     if not all(ms.values()):
-        raise AssertionError(f"K4: the profiler saw {sorted(by_name)}")
-    per, n_split = split_policy(table.shape[1], pools[0][0].shape[1])
+        raise AssertionError(f"{label}: the profiler saw {sorted(by_name)}")
+    per, n_split = split_policy(table.shape[1], bs)
     return {"blocks_per_split": per, "n_split": n_split,
-            "live_splits": int((pos // (per * pools[0][0].shape[1]) + 1)
-                               .sum()),
+            "live_splits": int((pos // (per * bs) + 1).sum()),
             "rerun_equal": True, "host_syncs": 0,
             "split_ms": ms["split"], "combine_ms": ms["combine"]}
 
 
-def k4_edge_readings(dtype, rng) -> dict:
-    """K4 at ``K4_EDGE``: each (slot, head) row within ``K4_TOL`` of the
-    plain version, and a call equal to its rerun bit for bit."""
+def hold_edge(label, kernel, plain, pos, tol) -> dict:
+    """A decode kernel at ``K4_EDGE``: each (slot, head) row of
+    ``kernel(pos)`` within ``tol`` x max|out| of ``plain(pos)``, a call
+    equal to its rerun bit for bit, and the control (the plain version
+    one row past pos must exceed the limit)."""
     import torch
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import (
-        paged_decode_attention_grouped, split_policy)
-    name = str(dtype).split(".")[1]
-    q, (pool,), table, pos = k4_inputs(dtype, rng, DEVICE, K4_EDGE,
-                                       K4_EDGE_POS, copies=1)
-    out = paged_decode_attention_grouped(q, pool[0], pool[1], table, pos)
-    again = paged_decode_attention_grouped(q, pool[0], pool[1], table, pos)
-    want = ref.paged_decode_attention_ref(q, pool[0], pool[1], table, pos)
-    ratio = float(over_limit(out, want, K4_TOL[name]).max())
+    from repro_torch.kernels.flash_attention import split_policy
+    out, again, want = kernel(pos), kernel(pos), plain(pos)
+    ratio = float(over_limit(out, want, tol).max())
     if not ratio <= 1.0 or not bool(torch.isfinite(out).all()):
-        raise AssertionError(f"K4 {name} at {K4_EDGE}: {ratio} x the limit")
+        raise AssertionError(f"{label} at {K4_EDGE}: {ratio} x the limit")
     if not torch.equal(out, again):
-        raise AssertionError(f"K4 {name} at {K4_EDGE}: a rerun differs")
+        raise AssertionError(f"{label} at {K4_EDGE}: a rerun differs")
+    control = off_by_one_control(f"{label} at {K4_EDGE}", plain, want, pos,
+                                 K4_EDGE["W"] * K4_EDGE["bs"], tol)
     per, n_split = split_policy(K4_EDGE["W"], K4_EDGE["bs"])
     return {"shapes": K4_EDGE, "positions": list(K4_EDGE_POS),
             "blocks_per_split": per, "n_split": n_split,
-            "max_err_over_limit": ratio, "rerun_equal": True}
+            "max_err_over_limit": ratio, "off_by_one_min_over_limit": control,
+            "rerun_equal": True}
+
+
+def k4_edge_readings(dtype, rng) -> dict:
+    """K4 at ``K4_EDGE`` (``hold_edge``)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (
+        paged_decode_attention_grouped)
+    name = str(dtype).split(".")[1]
+    q, (pool,), table, pos = k4_inputs(dtype, rng, DEVICE, K4_EDGE,
+                                       K4_EDGE_POS, copies=1)
+    return hold_edge(
+        f"K4 {name}",
+        lambda at: paged_decode_attention_grouped(q, pool[0], pool[1],
+                                                  table, at),
+        lambda at: ref.paged_decode_attention_ref(q, pool[0], pool[1],
+                                                  table, at),
+        pos, K4_TOL[name])
 
 
 def phase_kernels(seed: int) -> dict:
@@ -506,7 +532,12 @@ def phase_kernels(seed: int) -> dict:
         bound_ms, bound_by = k4_bound(q, pos, name)
         results[name] = {"dtype": name, **r, "bound_ms": bound_ms,
                          "bound_by": bound_by,
-                         **k4_split_readings(q, pools, table, pos),
+                         **split_readings(
+                             f"K4 {name}",
+                             lambda p: paged_decode_attention_grouped(
+                                 q, p[0], p[1], table, pos),
+                             "paged_decode", pools, table, pos,
+                             K4_SHAPES["bs"]),
                          "edge": k4_edge_readings(dtype, rng)}
         del pools
         torch.cuda.empty_cache()
@@ -517,22 +548,22 @@ def phase_kernels(seed: int) -> dict:
     return results
 
 
-def k6_inputs(kv_dtype, dtype, rng, device):
-    """K6's inputs at the serve shapes (``k4_table``): ``N_COPIES`` pools
-    of random K/V quantized on the card with the port's quantizer, whose
-    scratch block 0 holds the grid's max-magnitude codes and scales of
-    3e4 — garbage that must never be read."""
+def k6_inputs(kv_dtype, dtype, rng, device, s=K4_SHAPES, positions=K4_POS,
+              copies=N_COPIES):
+    """K6's inputs at the serve shapes (``k4_table``) or ``s``: ``copies``
+    pools of random K/V quantized on the card with the port's quantizer,
+    whose scratch block 0 holds the grid's max-magnitude codes and scales
+    of 3e4 — garbage that must never be read."""
     import torch
     from repro_torch.core import quant
-    s = K4_SHAPES
     b, h, g, d, bs = s["B"], s["H"], s["G"], s["D"], s["bs"]
-    n, table, pos = k4_table(rng)
+    n, table, pos = k4_table(rng, s, positions)
     spec = quant.spec(kv_dtype)
     top = ((1 << spec.n_mant) - 1 if spec.kind == "int" else
            (((1 << spec.n_exp) - 1) << spec.n_mant) | ((1 << spec.n_mant) - 1))
     gen = torch.Generator(device=device).manual_seed(int(rng.integers(1 << 31)))
     pools = []
-    for _ in range(N_COPIES):
+    for _ in range(copies):
         kv = torch.randn((2, n, bs, g, d), generator=gen, device=device)
         codes, scales = quant.quantize_kv(kv, kv_dtype)
         codes[:, 0] = top
@@ -564,8 +595,27 @@ def k6_bound(q, codes, pos) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def k6_edge_readings(kv_dtype, dtype, rng) -> dict:
+    """K6 at ``K4_EDGE`` (``hold_edge``)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (
+        paged_decode_attention_grouped_q)
+    name = str(dtype).split(".")[1]
+    q, (pool,), table, pos = k6_inputs(kv_dtype, dtype, rng, DEVICE,
+                                       K4_EDGE, K4_EDGE_POS, copies=1)
+    (kc, vc), (ks, vs) = pool
+    return hold_edge(
+        f"K6 {kv_dtype}/{name}",
+        lambda at: paged_decode_attention_grouped_q(
+            q, kc, ks, vc, vs, table, at, kv_dtype=kv_dtype),
+        lambda at: ref.paged_decode_attention_q_ref(
+            q, kc, ks, vc, vs, table, at, kv_dtype),
+        pos, K4_TOL[name])
+
+
 def phase_kernels_q(seed: int) -> dict:
-    """K6 against its plain version for every grid, timed as K4 is. The
+    """K6 against its plain version for every grid, timed and checked as
+    K4 is (its split readings; its edge check for ``K6_EDGE_GRIDS``). The
     library yardstick's K/V are dequantized as well as gathered
     beforehand: no single PyTorch call dequantizes and attends, so it
     times the attention alone."""
@@ -599,9 +649,17 @@ def phase_kernels_q(seed: int) -> dict:
                                                            kv_dtype),
             heads)
         bound_ms, bound_by = k6_bound(q, pools[0][0], pos)
+        split = split_readings(
+            f"K6 {kv_dtype}/{qname}",
+            lambda p: paged_decode_attention_grouped_q(*args(p, pos),
+                                                       kv_dtype=kv_dtype),
+            "paged_decode_q", pools, table, pos, K4_SHAPES["bs"])
+        edge = (k6_edge_readings(kv_dtype, dtype, rng)
+                if kv_dtype in K6_EDGE_GRIDS else None)
         results[(kv_dtype, qname)] = {"kv_dtype": kv_dtype, "dtype": qname,
                                       **r, "bound_ms": bound_ms,
-                                      "bound_by": bound_by}
+                                      "bound_by": bound_by, **split,
+                                      "edge": edge}
         del pools
         torch.cuda.empty_cache()
     emit({"phase": "kernels", **K6, "shapes": K4_SHAPES,
@@ -811,6 +869,20 @@ def phase_serve(seed: int) -> dict:
     return {"launches": launches, "engine": eng}
 
 
+def decode_group(name: str) -> str | None:
+    """"k6" or "k4" for a profiled kernel of K6 or K4 (each its split and
+    combine kernels, by their own names: no K6 name holds a K4 name), else
+    None."""
+    name = name.lower()
+    if any(f"paged_decode_q_{part}_kernel" in name
+           for part in ("split", "combine")):
+        return "k6"
+    if any(f"paged_decode_{part}_kernel" in name
+           for part in ("split", "combine")):
+        return "k4"
+    return None
+
+
 def phase_profile(eng, seed: int, phase: str = "profile",
                   prompt_len: int = 256, warm_ticks: int = 1) -> None:
     """Where a decode tick's time goes: a second load (8 requests of
@@ -845,11 +917,8 @@ def phase_profile(eng, seed: int, phase: str = "profile",
         us = e.self_device_time_total
         name = e.key.lower()
         n_kernels += e.count
-        if "paged_decode_q_kernel" in name:
-            groups["k6"] += us
-        elif ("paged_decode_split_kernel" in name
-              or "paged_decode_combine_kernel" in name):
-            groups["k4"] += us
+        if decode_group(name):
+            groups[decode_group(name)] += us
         elif any(k in name for k in ("gemm", "gemv", "xmma", "cutlass",
                                      "nvjet")):
             groups["matmul"] += us
@@ -1014,11 +1083,13 @@ def read_counts() -> dict:
 
 
 def profile_groups(name: str) -> str:
-    """Kernel group of a profiled device kernel: K5 (the dequantizing
-    instantiation of K1's body), K1 (with its split-K sum pass), K3,
-    native convolutions (cuDNN), copies/fills/concatenations, or the
-    rest."""
+    """Kernel group of a profiled device kernel: K4 or K6
+    (``decode_group``), K5 (the dequantizing instantiation of K1's body),
+    K1 (with its split-K sum pass), K3, native convolutions (cuDNN),
+    copies/fills/concatenations, or the rest."""
     name = name.lower()
+    if decode_group(name):
+        return decode_group(name)
     if "pim_matmul_kernel<true" in name:
         return "k5"
     if "pim_matmul" in name:
@@ -1048,7 +1119,7 @@ def profile_device(fn, calls: int) -> dict:
             fn()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-    groups = dict.fromkeys(("k1", "k5", "k3", "native_conv",
+    groups = dict.fromkeys(("k1", "k5", "k3", "k4", "k6", "native_conv",
                             "copy_fill_cat", "other"), 0.0)
     n_kernels = 0
     for e in prof.key_averages():
@@ -2751,9 +2822,10 @@ def phase_pim_fp(seed: int) -> dict:
     ``PIM_FP_TIME_N`` elements against its plain version and
     ``torch.mul``, beside its byte bound and a static estimate of its
     integer instructions per element: the kernel's integer SASS
-    instructions over the five sites where it inlines the per-element
+    instructions over the sites where it inlines the per-element
     procedure (four in its float4 loop, one in its scalar tail), its loop,
-    address and special-value code included."""
+    address and special-value code included. The sites are counted in the
+    SASS: each holds one FMUL, its special-value product."""
     import torch
     from repro_torch.core import fp
     from repro_torch.kernels import ref
@@ -2825,7 +2897,11 @@ def phase_pim_fp(seed: int) -> dict:
     if bits_differ(pim_fp32_mul(ta, tb), ref.pim_fp32_mul_ref(ta, tb)):
         raise AssertionError("pim_fp: K8 differs from its plain version at "
                              "the timed size")
-    sass = sass_instructions("pim_fp32_mul_kernel", "pim_fp")
+    sass = sass_instructions("pim_fp32_mul_kernel", "pim_fp",
+                             count=("FMUL",))
+    if not sass["FMUL"]:
+        raise AssertionError("pim_fp: no FMUL in K8's SASS to count its "
+                             "inlined sites by")
     timing = {"n": PIM_FP_TIME_N,
               "ms": cuda_ms(lambda: pim_fp32_mul(ta, tb)),
               "plain_ms": cuda_ms(lambda: ref.pim_fp32_mul_ref(ta, tb),
@@ -2833,8 +2909,9 @@ def phase_pim_fp(seed: int) -> dict:
               "library_ms": cuda_ms(lambda: torch.mul(ta, tb)),
               "bound_ms": 12 * PIM_FP_TIME_N / HBM_BYTES_PER_S * 1e3,
               "bound_by": "bytes", "sass": sass,
+              "inlined_sites": sass["FMUL"],
               "int_instructions_per_element_static_estimate":
-                  sass["int_instructions"] / 5}
+                  sass["int_instructions"] / sass["FMUL"]}
     emit({"phase": "pim_fp", **K8, "path": "pim_fp32_mul",
           "launches": launches, "max_abs_err": max_err, "checks": checks,
           "bitplane_mul_s": bitplane_s, "timing": timing})
@@ -2970,11 +3047,14 @@ def main() -> int:
     k5_launches = {path: by_path[path]["k5"]
                    for path in ("pim_lenet_q", "pim_train_q", "pim_grad_q")}
     k4_bf16 = k4["bfloat16"]
+    k6_serve = k6[(SERVE_KV_DTYPE, "bfloat16")]
     emit({"kernels": [
         {**entry(K4, serve["launches"], k4_bf16),
          "n_split": k4_bf16["n_split"], "split_ms": k4_bf16["split_ms"],
          "combine_ms": k4_bf16["combine_ms"]},
-        entry(K6, kvq["launches"], k6[(SERVE_KV_DTYPE, "bfloat16")]),
+        {**entry(K6, kvq["launches"], k6_serve),
+         "n_split": k6_serve["n_split"], "split_ms": k6_serve["split_ms"],
+         "combine_ms": k6_serve["combine_ms"]},
         *(pim_entry(ids, key, by_path, rows)
           for ids, key in ((K1, "k1"), (K2, "k2"), (K3, "k3"))),
         {**K5, "launches": sum(k5_launches.values()),

@@ -3,8 +3,10 @@
 Each ``csrc/<name>.cu`` has a plain C interface. It is compiled with
 ``nvcc`` for Hopper (``sm_90a``) into a shared library at first use and
 loaded with ``ctypes``; nothing includes PyTorch's headers, so a build
-takes seconds. A library is named by a hash of its source and the flags,
-so an edited source is rebuilt and an unchanged one is loaded as it is.
+takes seconds. A source may include the headers ``csrc/*.cuh`` that
+kernels share. A library is named by a hash of its source, every header
+and the flags (``_tag``), so an edited source or header is rebuilt and an
+unchanged one is loaded as it is.
 Libraries go to ``build/repro_torch_kernels/`` at the root of a source
 checkout (the package at ``src/repro_torch`` beside ``pyproject.toml``),
 and to ``build/`` inside this directory for an installed package.
@@ -42,13 +44,23 @@ def _nvcc() -> str:
     return nvcc
 
 
+def _tag(src: pathlib.Path) -> str:
+    """The name tag of ``src``'s library: a hash of its bytes, of every
+    header ``*.cuh`` beside it in sorted order (names and bytes), and of
+    the flags. A source may include any of the headers, so an edit to one
+    renames every library."""
+    h = hashlib.sha1(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:12]
+
+
 def build(name: str) -> pathlib.Path:
     """Compile ``csrc/<name>.cu`` unless its library is built already;
     returns the library's path."""
     src = CSRC / f"{name}.cu"
-    tag = hashlib.sha1(src.read_bytes()
-                       + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = BUILD_DIR / f"lib{name}-{tag}.so"
+    out = BUILD_DIR / f"lib{name}-{_tag(src)}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -19,9 +19,11 @@ kernels on one stream (split-KV): each slot's table is cut into splits of
 ``split_policy`` blocks, whose partial softmax states a second kernel
 combines in split order; it counts as one launch.
 ``paged_decode_attention_grouped_q`` does the same over a quantized pool
-(``_paged_decode_kernel_q`` → ``csrc/paged_decode_attention_q.cu``),
-dequantizing each code on load. Each kernel source states its bound and
-design.
+(``_paged_decode_kernel_q`` → ``csrc/paged_decode_attention_q.cu``), on
+the same splits and passes (``csrc/paged_decode_split.cuh``), with kernels
+of its own names: each split copies its rows' codes and scales, and
+dequantizes each code where it is read. Each kernel source states its
+bound and design.
 
 On a CUDA tensor a wrapper launches its kernel (or raises); on a CPU
 tensor it runs the plain version in ``ref`` — the analogue of the
@@ -166,16 +168,34 @@ def _check(q, k_store, v_store, block_table, pos, *,
                          f"{_MAX_REP}, D <= {_MAX_HEAD_DIM}")
 
 
+def _check_copies(k_store, v_store, step: int) -> None:
+    """What the split kernel's 16-byte row copies need: a head dim that
+    is a multiple of ``step`` elements, pools starting on 16 bytes."""
+    if k_store.shape[-1] % step:
+        raise ValueError(f"head dim {k_store.shape[-1]}: the kernel copies "
+                         f"16 bytes at a time and needs D % {step} == 0 for "
+                         f"{k_store.dtype} rows")
+    for name, t in (("k_store", k_store), ("v_store", v_store)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
+
+
 def _check_split(q, k_store, v_store, block_table, pos) -> None:
     """K4's contract: ``_check``'s, and what the split kernel's 16-byte
     copies need — D a multiple of 8, pools starting on 16 bytes."""
     _check(q, k_store, v_store, block_table, pos)
-    if q.shape[-1] % 8:
-        raise ValueError(f"head dim {q.shape[-1]}: the kernel copies 16 "
-                         f"bytes at a time and needs D % 8 == 0")
-    for name, t in (("k_store", k_store), ("v_store", v_store)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must start on a 16-byte boundary")
+    _check_copies(k_store, v_store, 8)
+
+
+def _split_workspace(q, n_split: int) -> tuple[torch.Tensor, int, int]:
+    """One float32 workspace for a split call: each split's unnormalised
+    acc [B, G, n_split, rep, D], then its (max, sum) per query row [B, G,
+    n_split, rep, 2]. Returns it (held by the caller through the launch)
+    and the addresses of the two parts."""
+    b, h, d = q.shape
+    rows = b * h * n_split
+    ws = torch.empty(rows * (d + 2), dtype=torch.float32, device=q.device)
+    return ws, ws.data_ptr(), ws.data_ptr() + 4 * rows * d
 
 
 def paged_decode_attention_grouped(q: torch.Tensor, k_store: torch.Tensor,
@@ -202,17 +222,13 @@ def paged_decode_attention_grouped(q: torch.Tensor, k_store: torch.Tensor,
     w = block_table.shape[1]
     per, n_split = split_policy(w, bs)
     out = torch.empty_like(q)
-    # one float32 workspace: each split's unnormalised acc [B, G, n_split,
-    # rep, D], then its (max, sum) per query row [B, G, n_split, rep, 2]
-    rows = b * h * n_split
-    ws = torch.empty(rows * (d + 2), dtype=torch.float32, device=q.device)
+    ws, ws_acc, ws_ml = _split_workspace(q, n_split)
     kernel = build.load("paged_decode_attention", _ARGTYPES)
     with torch.cuda.device(q.device):
         rc = kernel(
             q.data_ptr(), k_store.data_ptr(), v_store.data_ptr(),
             block_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
-            ws.data_ptr(), ws.data_ptr() + 4 * rows * d, b, h, g, d, bs, w,
-            per, _DTYPE_CODE[q.dtype],
+            ws_acc, ws_ml, b, h, g, d, bs, w, per, _DTYPE_CODE[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"paged_decode_attention kernel launch failed "
@@ -225,8 +241,9 @@ paged_decode_attention_grouped.launches = 0
 
 
 # csrc paged_decode_attention_q(q, k, k_scale, v, v_scale, table, pos, out,
-# B, H, G, D, bs, W, dtype, codes, n_exp, n_mant, bias, stream)
-_ARGTYPES_Q = ((ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 11
+# ws_acc, ws_ml, B, H, G, D, bs, W, nb, dtype, codes, n_exp, n_mant, bias,
+# stream)
+_ARGTYPES_Q = ((ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 12
                + (ctypes.c_void_p,))
 # csrc ``codes``: 0 int8 grid codes, 1 uint8 / 2 16-bit sign|exp|mant codes
 _CODES = {torch.int8: 0, torch.uint8: 1, torch.int16: 2}
@@ -254,6 +271,16 @@ def _check_q(q, k_store, k_scale, v_store, v_scale, block_table, pos,
     _check(q, k_store, v_store, block_table, pos, store_dtype=want)
 
 
+def _check_split_q(q, k_store, k_scale, v_store, v_scale, block_table, pos,
+                   kv_dtype: str) -> None:
+    """K6's contract on the card: ``_check_q``'s, and what the split
+    kernel's 16-byte copies of the codes need — D times the bytes of a
+    code a multiple of 16, pools starting on 16 bytes."""
+    _check_q(q, k_store, k_scale, v_store, v_scale, block_table, pos,
+             kv_dtype)
+    _check_copies(k_store, v_store, 16 // k_store.element_size())
+
+
 def paged_decode_attention_grouped_q(q: torch.Tensor, k_store: torch.Tensor,
                                      k_scale: torch.Tensor,
                                      v_store: torch.Tensor,
@@ -273,25 +300,29 @@ def paged_decode_attention_grouped_q(q: torch.Tensor, k_store: torch.Tensor,
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"paged_decode_attention_grouped_q runs on cuda or "
                          f"cpu tensors, got {q.device}")
-    _check_q(q, k_store, k_scale, v_store, v_scale, block_table, pos,
-             kv_dtype)
     if q.device.type == "cpu":
+        _check_q(q, k_store, k_scale, v_store, v_scale, block_table, pos,
+                 kv_dtype)
         return ref.paged_decode_attention_q_ref(
             q, k_store, k_scale, v_store, v_scale, block_table, pos,
             kv_dtype)
+    _check_split_q(q, k_store, k_scale, v_store, v_scale, block_table, pos,
+                   kv_dtype)
     s = quant.spec(kv_dtype)
     b, h, d = q.shape
     _, bs, g, _ = k_store.shape
+    w = block_table.shape[1]
+    per, n_split = split_policy(w, bs)
     out = torch.empty_like(q)
+    ws, ws_acc, ws_ml = _split_workspace(q, n_split)
     kernel = build.load("paged_decode_attention_q", _ARGTYPES_Q)
     with torch.cuda.device(q.device):
         rc = kernel(
             q.data_ptr(), k_store.data_ptr(), k_scale.data_ptr(),
             v_store.data_ptr(), v_scale.data_ptr(), block_table.data_ptr(),
-            pos.data_ptr(), out.data_ptr(), b, h, g, d, bs,
-            block_table.shape[1], _DTYPE_CODE[q.dtype],
-            _CODES[k_store.dtype], s.n_exp, s.n_mant,
-            s.bias if s.kind == "float" else 0,
+            pos.data_ptr(), out.data_ptr(), ws_acc, ws_ml, b, h, g, d, bs, w,
+            per, _DTYPE_CODE[q.dtype], _CODES[k_store.dtype], s.n_exp,
+            s.n_mant, s.bias if s.kind == "float" else 0,
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"paged_decode_attention_q kernel launch failed "
