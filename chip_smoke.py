@@ -7,7 +7,8 @@ Phases, each printing one JSON line:
 
 1. ``build``     — compile every CUDA kernel of the port with nvcc, one
    process per source, all started together (six sources; K1, K2 and K5
-   share one).
+   share one); the CUDA toolkit's version (K3's table is one kernel
+   parameter of up to 32,764 bytes: CUDA 12.1 or later).
 2. ``kernels``   — hold each kernel against its plain PyTorch version on
    the card at the shapes of the serve phases (K4; K6 for each KV grid,
    with bf16 and f32 q), each (slot, head) row to its own scale, with a
@@ -52,13 +53,23 @@ Phases, each printing one JSON line:
    logged for the next phase.
 8. ``kernels_pim`` — K1, K2 and K3 at the shapes ``pim_lenet`` launched
    them at batch 256 (K1 at each placed node's grouped shape, K2 at each
-   placed block's, K3 at each add's and one grouped wave of the adds), on
-   seeded random data, each held against its plain version (TF32 off; K1
-   and K2 per output row to its own max|out|, with a control that
-   dropping the last K tile fails that limit; K3 bit for bit), K1 equal
-   to K2 and to itself on a second run bit for bit, each K1/K2 launch's
-   K split recorded (one chunk at every K <= 256), and timed beside its
-   bound and a library call.
+   placed block's, K3 at each add's wave form — its members' shapes,
+   layouts, operand strides and immediates — and the adds as one wave),
+   on seeded random data, each held against its plain version (TF32 off;
+   K1 and K2 per output row to its own max|out|, with a control that
+   dropping the last K tile fails that limit), K1 equal to K2 and to
+   itself on a second run bit for bit, each K1/K2 launch's K split
+   recorded (one chunk at every K <= 256), and timed beside its bound and
+   a library call. K3 (``hold_k3``): one launch a wave, bit for bit, each
+   output in its member's layout, a negated immediate caught, no host
+   sync (``set_sync_debug_mode``), timed by events, by CUDA graph and on
+   the host, beside its bound (each operand read once where it lies) and
+   ``add`` / ``sub`` / ``mul`` (and ``addcmul``); a wave of every member
+   form (dense, broadcast, 0-d on the card and on the CPU, immediates,
+   strided, six dims, off 16 bytes, NaN, inf) bit for bit against the
+   plain version and the pre-change formulation, with the ``0 + (-0) =
+   +0`` control; and K3's SASS by source line (the flat path holds its
+   16-byte loads and no division).
 9. ``pim_train`` — the paper's LeNet-5 trained through the mapper:
    ``Trainer(backend="pim")`` (the whole AdamW step compiled once) and
    ``backend="jit"`` (the plain eager step) from the same seeded
@@ -68,7 +79,8 @@ Phases, each printing one JSON line:
    step, ms per step, images/s, peak memory, ``train.step_wall_s``. Then
    20 steps at batch 4096 with a profile of the compiled step. The
    batch-64 step's launches are logged, and ``kernels_pim`` (``"path":
-   "pim_train"``) holds and times K1, K2 and K3 at their shapes as in 8.
+   "pim_train"``) holds and times K1, K2 and K3 at their shapes as in 8
+   (K3 at each of the step's real waves).
 10. ``pim_grad`` — gradients of ``lenet_loss`` at batch 256 through the
    mapper against ``torch.func.grad`` of the plain loss (rtol = atol =
    1e-4): autograd through a compiled ``lenet_loss`` program (its
@@ -83,11 +95,12 @@ Phases, each printing one JSON line:
    asked): its gradients within 1e-4 of the compiled program's and of
    plain autograd.
 11. ``kernels_pim`` (``"path": "pim_grad_backward"``) — the VJP of each K1
-   node (dA with and without a shared A, dB) and K3 node of ``pim_grad``'s
-   autograd graph at its shapes: the cotangents equal the launches they
-   make, which are those of the main path's backward, held against the
-   plain formula as in 8, and timed; K2's VJP the same way at the K2
-   nodes of ``pim_grad``'s executor backward, whose launches it equals.
+   node (dA with and without a shared A, dB) of ``pim_grad``'s autograd
+   graph at its shapes: the cotangents equal the launches they make,
+   which are those of the main path's backward, held against the plain
+   formula as in 8, and timed; K3 at each wave the backward launched, as
+   in 8; K2's VJP the same way at the K2 nodes of ``pim_grad``'s
+   executor backward, whose launches it equals.
    Every K1/K2 launch records its K split (S chunks of whole 128-deep
    tiles), equals the other kernel on the same blocks and itself on a
    second run bit for bit; dB reads Aᵀ in place and equals the launch on
@@ -155,6 +168,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import ctypes
 import dataclasses
 import importlib
 import json
@@ -212,8 +226,14 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         libs = dict(pool.map(timed, names))
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "seconds_by_library": libs})
+    seconds = time.perf_counter() - t0
+    # K3's table is one kernel parameter of up to 32,764 bytes: CUDA 12.1
+    # or later
+    layout = build.load("pim_mac_layout", (ctypes.c_int,), source="pim_mac")
+    nvcc = subprocess.run([build._nvcc(), "--version"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    emit({"phase": "build", "seconds": seconds, "seconds_by_library": libs,
+          "nvcc": nvcc.splitlines()[-2:], "cuda_toolkit": layout(4)})
 
 
 # ---------------------------------------------------------------------------
@@ -1151,15 +1171,16 @@ def faulty(fn, fault, index: int):
 @contextlib.contextmanager
 def recording_launches(fault=None, index=None):
     """Log the argument shapes of every K1, K2, K3 and K5 launch the
-    mapper's lowering makes while open. The lowering's wrappers are
-    wrapped, not replaced: they launch and count as always. With a
-    ``fault``, the output of the ``index``-th K1 launch goes through it
-    (``faulty``): a control that a check must catch."""
+    mapper's lowering makes while open (K3: the elements of each wave
+    under ``k3``, its ``wave_form`` under ``k3_forms``). The lowering's
+    wrappers are wrapped, not replaced: they launch and count as always.
+    With a ``fault``, the output of the ``index``-th K1 launch goes
+    through it (``faulty``): a control that a check must catch."""
     from repro_torch.mapper import lowering
-    log = {"k1": [], "k2": [], "k3": [], "k5": []}
+    log = {"k1": [], "k2": [], "k3": [], "k5": [], "k3_forms": []}
     orig = {name: getattr(lowering, name)
-            for name in ("pim_matmul_grouped", "pim_matmul", "pim_mac",
-                         "pim_mac_grouped", "pim_matmul_grouped_q")}
+            for name in ("pim_matmul_grouped", "pim_matmul", "mac_wave",
+                         "pim_matmul_grouped_q")}
     k1_call = faulty(orig["pim_matmul_grouped"], fault, index)
 
     def k1(a, b, **kw):
@@ -1176,15 +1197,12 @@ def recording_launches(fault=None, index=None):
         log["k2"].append((a.shape[0], a.shape[1], b.shape[1]))
         return orig["pim_matmul"](a, b, **kw)
 
-    def k3(a, b, acc):
-        log["k3"].append(a.numel())
-        return orig["pim_mac"](a, b, acc)
+    def k3(members, *args):           # one K3 launch over the whole wave
+        log["k3"].append(wave_elements(members))
+        log["k3_forms"].append(wave_form(members))
+        return orig["mac_wave"](members, *args)
 
-    def k3_wave(triples):             # one K3 launch over the whole wave
-        log["k3"].append(sum(a.numel() for a, _, _ in triples))
-        return orig["pim_mac_grouped"](triples)
-
-    for name, fn in zip(orig, (k1, k2, k3, k3_wave, k5)):
+    for name, fn in zip(orig, (k1, k2, k3, k5)):
         setattr(lowering, name, fn)
     try:
         yield log
@@ -1193,22 +1211,45 @@ def recording_launches(fault=None, index=None):
             setattr(lowering, name, fn)
 
 
+def wave_elements(members) -> int:
+    """The elements of a K3 wave (its members' outputs)."""
+    return sum(int(np.prod(m[0], dtype=np.int64)) for m in members)
+
+
+def wave_form(members) -> tuple:
+    """A K3 wave's form, hashable: per member its shape, its output's
+    layout and, per operand, ("t", shape, strides, on the CPU, requires
+    grad) for a tensor or the number itself."""
+    import torch
+
+    def operand(x):
+        if isinstance(x, torch.Tensor):
+            return ("t", tuple(x.shape), tuple(x.stride()), x.is_cpu,
+                    x.requires_grad)
+        return float(x)
+    return tuple((tuple(m[0]), m[4] and tuple(m[4]),
+                  *(operand(x) for x in m[1:4])) for m in members)
+
+
 @contextlib.contextmanager
 def recording_helpers(fault=None, key=None, index=None):
     """Log every single launch made through the kernel module's helpers
     ``_matmul_grouped`` (K1: G, col_groups, M, K, N), ``_matmul`` (K2: M,
-    K, N), ``_mac`` (K3: elements) and ``_matmul_grouped_q`` (K5, as K1)
-    while open: the autograd Functions' backward passes launch through
-    them. A product logs its logical shape: with ``trans_a`` the stored
+    K, N), ``_mac`` (K3: a wave's elements, and its ``wave_form`` under
+    ``k3_forms``) and ``_matmul_grouped_q`` (K5, as K1) while open: the
+    autograd Functions' backward passes launch through them. A product logs its logical shape: with ``trans_a`` the stored
     ``a`` is [.., K, M], read as its transpose. With a ``fault``, the
     output of the ``index``-th launch of kernel ``key`` goes through it
     (``faulty``)."""
     mod = importlib.import_module("repro_torch.kernels.pim_mac")
-    log = {"k1": [], "k2": [], "k3": [], "k5": []}
+    log = {"k1": [], "k2": [], "k3": [], "k5": [], "k3_forms": []}
     names = {"k1": "_matmul_grouped", "k2": "_matmul", "k3": "_mac",
              "k5": "_matmul_grouped_q"}
     orig = {k: getattr(mod, n) for k, n in names.items()}
-    calls = {k: faulty(fn, fault, index if k == key else None)
+    # K3's launch returns one output per member: a fault hits each
+    faults = {k: fault if fault is None or k != "k3"
+              else (lambda outs: [fault(o) for o in outs]) for k in names}
+    calls = {k: faulty(fn, faults[k], index if k == key else None)
              for k, fn in orig.items()}
 
     def k1(a, b, bm, bn, bk, cg, trans_a=False):
@@ -1221,9 +1262,10 @@ def recording_helpers(fault=None, key=None, index=None):
         log["k2"].append((m, k, b.shape[1]))
         return calls["k2"](a, b, bm, bn, bk, trans_a=trans_a)
 
-    def k3(a, b, acc):
-        log["k3"].append(a.numel())
-        return calls["k3"](a, b, acc)
+    def k3(members, *args):
+        log["k3"].append(wave_elements(members))
+        log["k3_forms"].append(wave_form(members))
+        return calls["k3"](members, *args)
 
     def k5(a, q, s, bm, bn, bk, cg):
         log["k5"].append((q.shape[0], cg, a.shape[1], a.shape[2],
@@ -1243,7 +1285,7 @@ def launch_shapes(prog, prog_log, ex_log, mm: str) -> dict:
     """The logged launches of one compiled call (``mm``: K1, or K5 on a
     quantized grid; K3) and one executor run (K2), each named by the node
     (and block) its plan step lowers: ``mm`` (G, col_groups, M, K, N) per
-    placed node, K2 (M, K, N) per placed block, K3 the element count of
+    placed node, K2 (M, K, N) per placed block, K3 the ``wave_form`` of
     each add; each row one launch (a count of 1, as ``phase_kernels_pim``
     takes them)."""
     placed = [st.node for st in prog.ctx.steps if st.kind == "placed"]
@@ -1251,17 +1293,18 @@ def launch_shapes(prog, prog_log, ex_log, mm: str) -> dict:
     blocks = [f"{nd.name}@{blk.row0},{blk.col0}" for nd in nodes
               for blk in prog.schedule.placement.iter_blocks(nd.idx, 0)]
     adds = [nd.name for nd in placed if nd.kind == "eltwise"]
-    want = (len(nodes), len(blocks), len(adds), prog_log["k3"])
+    want = (len(nodes), len(blocks), len(adds), prog_log["k3_forms"])
     got = (len(prog_log[mm]), len(ex_log["k2"]), len(prog_log["k3"]),
-           ex_log["k3"])
+           ex_log["k3_forms"])
     if got != want:
         raise AssertionError(f"pim_lenet: logged launches {got[:3]} do not "
                              f"follow the plan's {want[:3]} (or the "
-                             f"executor's adds differ in size)")
+                             f"executor's adds differ in form)")
     return {mm: [(nd.name, *sh, 1)
                  for nd, sh in zip(nodes, prog_log[mm])],
             "k2": [(b, *sh, 1) for b, sh in zip(blocks, ex_log["k2"])],
-            "k3": [(add, n, 1) for add, n in zip(adds, prog_log["k3"])]}
+            "k3": [(add, form, 1)
+                   for add, form in zip(adds, prog_log["k3_forms"])]}
 
 
 def seeded_params(seed: int, bias_seed: int):
@@ -1310,7 +1353,7 @@ def phase_pim_lenet(seed: int, cases) -> dict:
     from repro_torch.mapper.executor import full_float32, max_deviation
     from repro_torch.models import lenet
     params = seeded_params(seed, seed + 30)
-    launches = shapes = None
+    launches = shapes = profile = None
     for dtype, batch in cases:
         phase = "pim_lenet" if dtype == "fp32" else "pim_lenet_q"
         mm = "k1" if dtype == "fp32" else "k5"
@@ -1376,9 +1419,11 @@ def phase_pim_lenet(seed: int, cases) -> dict:
               "modeled_pim_latency_s": prog.schedule.report.latency_s,
               f"{mm}_launch_shapes": prog_log[mm],
               "profile": prof})
+        if profile is None:
+            profile = prof
         del out, oracle, x
         torch.cuda.empty_cache()
-    return {"launches": launches, "shapes": shapes}
+    return {"launches": launches, "shapes": shapes, "profile": profile}
 
 
 # ---------------------------------------------------------------------------
@@ -1469,17 +1514,18 @@ def phase_kernels_pim(seed: int, shapes: dict, path: str, batch: int,
     output written once; 2 MK N float32 operations for a product, 2 per
     MAC element) and the library call — ``torch.bmm`` on the same padded
     stacks (shared-A slabs repeated beforehand, untimed) for K1,
-    ``torch.mm`` for K2, both with TF32 off, and ``torch.addcmul`` for K3
-    (time only: it may round once). K1 and K2 are held per output row to
-    ``mm_limit`` of their contraction; K3 bit for bit. Each K1 and K2 row
-    records its K split (``split_of``: S = 1 at every K <= 256), and a K1
-    launch equals K2 on each block and itself on a second run bit for
-    bit. With ``wave`` the K3 launches (one per add) are also made as one
-    grouped wave."""
+    ``torch.mm`` for K2, both with TF32 off. K1 and K2 are held per output
+    row to ``mm_limit`` of their contraction. Each K1 and K2 row records
+    its K split (``split_of``: S = 1 at every K <= 256), and a K1 launch
+    equals K2 on each block and itself on a second run bit for bit. K3 at
+    each logged wave's form (``hold_k3``: bit for bit, controls, host
+    syncs, events, graph and host time, its bound and library calls).
+    With ``wave`` the adds are also made as one wave, and a wave of every
+    member form (``k3_forms``) is held with its -0, NaN and inf cases;
+    the phase then also reads K3's SASS (``k3_sass``)."""
     import torch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.pim_mac import (pim_mac, pim_mac_grouped,
-                                             pim_matmul, pim_matmul_grouped)
+    from repro_torch.kernels.pim_mac import pim_matmul, pim_matmul_grouped
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 20)
@@ -1535,44 +1581,338 @@ def phase_kernels_pim(seed: int, shapes: dict, path: str, batch: int,
                        4 * (a.numel() + b.numel() + m * n),
                        2 * m * k * n)})
         del a, b
-    k3 = []
-    waves = []
-    for name, n, count in shapes["k3"] + ([("wave", None, 0)] if wave
-                                          else []):
-        if n is None:                   # the adds as one K3 launch
-            flat = [torch.cat([t[i] for t in waves]) for i in range(3)]
-            got = pim_mac_grouped(waves)
-            if not all(torch.equal(x, pim_mac(*t))
-                       for x, t in zip(got, waves)):
-                raise AssertionError(f"K3 {path} wave: differs from per-add "
-                                     f"K3")
-            a, b, acc = flat
-            n = a.numel()
-        else:
-            a, b, acc = randn(n), randn(n), randn(n)
-            if wave:
-                waves.append((a, b, acc))
-        out, want = pim_mac(a, b, acc), ref.pim_mac_ref(a, b, acc)
-        if not torch.equal(out, want):
-            raise AssertionError(f"K3 {path} {name}: not bit-equal to the "
-                                 f"plain version")
-        fused = int((torch.addcmul(acc, a, b) != out).sum())
-        k3.append({"node": name, "n": n, "count": count,
-                   "max_err": float((out - want).abs().max()),
-                   "bit_equal": True,
-                   "addcmul_elements_differing": fused,
-                   **pim_timing(
-                       lambda: pim_mac(a, b, acc),
-                       lambda: ref.pim_mac_ref(a, b, acc),
-                       lambda: torch.addcmul(acc, a, b),
-                       16 * n, 2 * n)})
-    del waves
+    k3 = [hold_k3(f"K3 {path} {name}", form, count, randn)
+          for name, form, count in shapes["k3"]]
+    extra = {}
+    if wave:                        # the adds as one wave, and every form
+        adds = tuple(m for _, form, _ in shapes["k3"] for m in form)
+        k3.append(hold_k3(f"K3 {path} adds as one wave", adds, 0, randn))
+        extra = {"k3_forms": k3_forms(randn), "k3_sass": k3_sass()}
     torch.cuda.empty_cache()
     emit({"phase": "kernels_pim", "path": path, "batch": batch,
           "tol": "mm_limit(K)",
           "results": [{**K1, "shapes": k1}, {**K2, "shapes": k2},
-                      {**K3, "shapes": k3}]})
+                      {**K3, "shapes": k3, **extra}]})
     return {"k1": k1, "k2": k2, "k3": [r for r in k3 if r["count"]]}
+
+
+def wave_members(form, randn) -> list:
+    """The members of a logged ``wave_form`` over fresh data: each tensor
+    operand at its logged shape and strides (a strided view of seeded
+    random storage; on the CPU where a CPU 0-d tensor was logged), each
+    number as logged."""
+    from repro_torch.kernels.pim_mac import MacMember
+
+    def operand(x):
+        if not isinstance(x, tuple):
+            return x
+        _, shape, stride, cpu, _ = x
+        extent = 1 + sum((d - 1) * st for d, st in zip(shape, stride))
+        t = randn(max(extent, 1)).as_strided(shape, stride)
+        return t.cpu() if cpu else t
+    return [MacMember(shape, *(operand(x) for x in ops), stride)
+            for shape, stride, *ops in form]
+
+
+def same_bits(x, y) -> bool:
+    """Bit for bit, NaN as NaN (the card's NaN is not the CPU's)."""
+    import torch
+    if x.shape != y.shape:
+        return False
+    nan = torch.isnan(x)
+    return bool((nan == torch.isnan(y)).all()) and torch.equal(
+        x[~nan].view(torch.int32), y[~nan].view(torch.int32))
+
+
+def k3_library(member):
+    """(name, call): the one PyTorch call that computes a member's
+    function — ``add`` for ``acc + a*1``, ``sub`` / ``rsub`` for ``acc +
+    a*(-1)``, ``mul`` for ``0 + a*b`` (it may keep the sign of a zero
+    product), else ``addcmul`` (it may round once)."""
+    import torch
+    _, a, b, acc, _ = member
+    tensor = isinstance(acc, torch.Tensor)
+    if not isinstance(b, torch.Tensor) and b == 1.0:
+        return "add", (lambda: torch.add(acc, a)) if tensor else (
+            lambda: torch.add(a, acc))
+    if not isinstance(b, torch.Tensor) and b == -1.0:
+        return ("sub", lambda: torch.sub(acc, a)) if tensor else (
+            "rsub", lambda: torch.rsub(a, acc))
+    if not tensor and acc == 0.0:
+        return "mul", lambda: torch.mul(a, b)
+    dev = a.device if isinstance(a, torch.Tensor) else b.device
+    a_, b_, acc_ = (x if isinstance(x, torch.Tensor)
+                    else torch.tensor(x, device=dev) for x in (a, b, acc))
+    return "addcmul", lambda: torch.addcmul(acc_, a_, b_)
+
+
+def host_us(fn, iters: int = 200) -> float:
+    """Mean host time (µs) of one ``fn()`` call: the time to enqueue it,
+    no sync in the loop."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / iters * 1e6
+
+
+def negated_immediate(members):
+    """The members with their first non-zero immediate negated (what a
+    kernel that swapped an immediate for its negation computes), or None
+    where the wave has none."""
+    for i, m in enumerate(members):
+        for r in (1, 2, 3):
+            if not hasattr(m[r], "shape") and m[r] != 0:
+                bad = list(m)
+                bad[r] = -m[r]
+                return [*members[:i], type(m)(*bad), *members[i + 1:]]
+    return None
+
+
+# calls captured in one CUDA graph to time a K3 wave: a one-launch graph
+# is paced by its own launch
+GRAPH_CALLS = 32
+
+
+def hold_k3(label, form, count, randn) -> dict:
+    """K3 over one wave of ``form`` (``wave_members``): one launch, bit
+    for bit (NaN as NaN) against its plain version on the card, each
+    output in the layout its member asked for; a control — the same wave
+    with a non-zero immediate negated must fail that check —; no host sync
+    in a launch (``set_sync_debug_mode("error")``); timed by events over
+    back-to-back calls (``ms``, the wrapper's host time paces it), from a
+    CUDA graph of ``GRAPH_CALLS`` calls (``device_graph_ms``) and on the
+    host (``host_us``), beside
+    its bound — each operand read once where it lies (a broadcast tensor
+    its own elements, an immediate or a CPU 0-d tensor nothing), each
+    output written once; 2 operations an element — and the library calls
+    computing each member's function (``k3_library``: ``add``, ``sub``,
+    ``mul``), with ``addcmul`` on the members' materialized operands for
+    continuity with earlier rows."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.pim_mac import mac_wave
+    pm = importlib.import_module("repro_torch.kernels.pim_mac")
+    members = wave_members(form, randn)
+    plain = pm._normalized(members, "pim_mac")
+    before = pm.pim_mac.launches
+    out = mac_wave(members)
+    want = ref.pim_mac_wave_ref(plain)
+    torch.cuda.synchronize()
+    if pm.pim_mac.launches != before + 1:
+        raise AssertionError(f"{label}: not one launch")
+    for o, w, m in zip(out, want, members, strict=True):
+        if not same_bits(o, w):
+            raise AssertionError(f"{label}: member {m[0]} not bit-equal to "
+                                 f"the plain version")
+        if m[4] is not None and o.stride() != tuple(m[4]):
+            raise AssertionError(f"{label}: member {m[0]} written in "
+                                 f"{o.stride()}, asked {m[4]}")
+    bad = negated_immediate(members)
+    caught = None
+    if bad is not None:
+        caught = not all(same_bits(o, w) for o, w in zip(mac_wave(bad),
+                                                          want))
+        if not caught:
+            raise AssertionError(f"{label}: a negated immediate passes")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        mac_wave(members)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    rows = pm._plan(plain).rows
+    n = wave_elements(members)
+    operands = {(x.data_ptr(), tuple(x.shape), x.stride()): x.numel()
+                for m in members for x in m[1:4]
+                if isinstance(x, torch.Tensor) and x.is_cuda}
+    nbytes = 4 * (n + sum(operands.values()))
+    libs = [k3_library(m) for m in plain]
+    full = [tuple(torch.broadcast_to(torch.as_tensor(
+        x, dtype=torch.float32, device=DEVICE), m[0]).contiguous()
+        for x in m[1:4]) for m in plain]
+
+    def kernel():
+        return mac_wave(members)
+
+    def library():
+        return [call() for _, call in libs]
+
+    return {"wave": label, "members": len(members), "n": n, "count": count,
+            "flat_members": sum(not r.flags & pm._FLAG_STRIDED
+                                for r in rows),
+            "strided_members": sum(bool(r.flags & pm._FLAG_STRIDED)
+                                   for r in rows),
+            "max_err": 0.0, "bit_equal": True, "host_syncs": 0,
+            "negated_immediate_caught": caught,
+            **pim_timing(kernel, lambda: ref.pim_mac_wave_ref(plain),
+                         library, nbytes, 2 * n),
+            "library": sorted({name for name, _ in libs}),
+            "device_graph_ms": graph_ms([kernel] * GRAPH_CALLS),
+            "library_graph_ms": graph_ms([library] * GRAPH_CALLS),
+            "host_us": host_us(kernel), "library_host_us": host_us(library),
+            "addcmul_ms": cuda_ms(lambda: [torch.addcmul(acc, a, b)
+                                           for a, b, acc in full])}
+
+
+def k3_forms(randn) -> dict:
+    """K3 over one ragged wave of every member form, bit for bit (NaN as
+    NaN) against its plain version and against the formulation before
+    waves read operands in place (each operand broadcast and laid out
+    contiguously, then the plain MAC): dense members; a [C] bias over an
+    NHWC view of NCHW and over [N, C]; a 0-d tensor on the card and one on
+    the CPU (read as a number); AdamW's float64 constants (0.1, 1e-8, 1 -
+    0.999) as immediates; rsub; transposed and sliced operands; a wave
+    member of six dims (an operand copied into place, counted); an
+    operand off 16 bytes (the scalar path); an immediate -0 in an add and
+    an rsub; NaN and inf. Two controls: a
+    mul whose product is -0 reads +0 (``torch.mul`` keeps -0), and the
+    wave with an immediate negated fails the check."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.pim_mac import MacMember, mac_wave
+    pm = importlib.import_module("repro_torch.kernels.pim_mac")
+
+    def t(*shape):
+        return randn(*shape) if shape else randn(1)[0]
+
+    inf, nan = float("inf"), float("nan")
+    x = t(4, 6, 5, 5)
+    nhwc = x.permute(0, 2, 3, 1)
+    s0 = t()
+    neg_a = torch.tensor([-0.0, 0.0, -1.0, 1e-30, -3.0, 2.0], device=DEVICE)
+    neg_b = torch.tensor([1.0, -1.0, 0.0, -1e-30, 0.0, -0.0], device=DEVICE)
+    members = [
+        *(MacMember(s, t(*s), t(*s), t(*s))
+          for s in ((5, 7), (64,), (2, 3, 4), (1031,), (3000,))),
+        MacMember(tuple(nhwc.shape), nhwc, 1.0, t(6), nhwc.stride()),
+        MacMember((4, 6, 5, 5), x, 1.0, t(6, 1, 1)),
+        MacMember((8, 35), t(8, 35), 1.0, t(35)),
+        MacMember((3, 4), t(3, 4), s0, 0.0),
+        MacMember((), s0, -1.0, 1),
+        MacMember((5,), t(5), torch.tensor(0.25), 0.0),
+        *(MacMember((257,), t(257), v, 0.0) for v in (0.1, 1e-8, 1 - 0.999)),
+        MacMember((257,), t(257), 1.0, 1e-8),
+        MacMember((7, 3), t(7, 3), -1.0, 1),
+        MacMember((5, 7), t(7, 5).T, t(5, 14)[:, ::2], t(5, 7)),
+        MacMember((5, 7), t(7, 5).T, 2.0, t(1, 7), (1, 5)),
+        MacMember((2, 3, 4, 5, 6, 7),
+                  t(4, 3, 8, 5, 12, 7)[::2, :, ::2, :, ::2, :],
+                  t(7, 6, 5, 4, 3, 2).permute(5, 4, 3, 2, 1, 0), 0.5),
+        MacMember((1000,), t(1001)[1:], t(1000), 0.5),
+        MacMember((6,), neg_a, 1.0, -0.0),      # an immediate -0 kept
+        MacMember((6,), neg_a, -1.0, -0.0),
+        MacMember((6,), neg_a, neg_b, 0.0),
+        MacMember((7,), torch.tensor([nan, inf, -inf, 1.0, inf, 0.0, 2.0],
+                                     device=DEVICE),
+                  torch.tensor([1.0, 0.0, 2.0, inf, 1.0, nan, 3.0],
+                               device=DEVICE),
+                  torch.tensor([0.0, 1.0, inf, -inf, -inf, 1.0, nan],
+                               device=DEVICE))]
+    before = (pm.pim_mac.launches, pm.pim_mac.materialized)
+    out = mac_wave(members)
+    torch.cuda.synchronize()
+    launches = pm.pim_mac.launches - before[0]
+    copied = pm.pim_mac.materialized - before[1]
+    plain = ref.pim_mac_wave_ref(pm._normalized(members, "pim_mac"))
+    for o, w, m in zip(out, plain, members, strict=True):
+        pre = ref.pim_mac_ref(*(torch.broadcast_to(torch.as_tensor(
+            v, dtype=torch.float32, device=DEVICE), m[0]).contiguous()
+            for v in m[1:4]))
+        if not (same_bits(o, w) and same_bits(o.contiguous(), pre)):
+            raise AssertionError(f"K3 forms: member {m[0]} not bit-equal")
+    if launches != 1 or not copied:
+        raise AssertionError(f"K3 forms: {launches} launches, {copied} "
+                             f"operands copied; want 1 and some")
+    zero = out[-2].view(torch.int32)
+    signed = torch.mul(neg_a, neg_b).view(torch.int32)
+    if not (bool((zero == 0).all()) and bool((signed == -2 ** 31).all())):
+        raise AssertionError("K3 forms: 0 + (-0) is not +0")
+    bad = mac_wave(negated_immediate(members))
+    if all(same_bits(o, w) for o, w in zip(bad, plain)):
+        raise AssertionError("K3 forms: a negated immediate passes")
+    rows = pm._plan(pm._normalized(members, "pim_mac")).rows
+    return {"members": len(members), "launches": launches,
+            "bit_equal": True, "pre_change_bit_equal": True,
+            "operands_copied": copied,
+            "flat_members": sum(not r.flags & pm._FLAG_STRIDED
+                                for r in rows),
+            "float4_members": sum(bool(r.flags & pm._FLAG_VEC)
+                                  for r in rows),
+            "neg_zero_reads_plus_zero": True,
+            "negated_immediate_caught": True}
+
+
+def k3_sass() -> dict:
+    """K3's SASS by the source lines of its two paths: ``pim_mac.cu``
+    built again with line info (``-cubin -lineinfo``, the library's
+    flags otherwise) and disassembled (``nvdisasm --print-line-info``).
+    Each instruction counts under the flat path (``load4`` through
+    ``flat_member``), the index map (``divmod`` through
+    ``strided_member``), the compiler's 64-bit division subroutine (which
+    the wide index map calls) or elsewhere, by the line it comes from.
+    The flat path must hold the 16-byte loads and stores and none of the
+    index map's multiply-high or division instructions."""
+    import tempfile
+    from repro_torch.kernels import build
+    src = build.CSRC / "pim_mac.cu"
+    text = src.read_text().splitlines()
+
+    def line_of(anchor):
+        return next(i for i, ln in enumerate(text, 1) if anchor in ln)
+
+    flat = (line_of("float4 load4("), line_of("// x / size[d + 1]") - 1)
+    index = (flat[1] + 1, line_of("pim_mac_kernel(const __grid_constant__")
+             - 2)
+    nvcc = build._nvcc()
+    flags = [f for f in build.NVCC_FLAGS
+             if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    with tempfile.TemporaryDirectory() as tmp:
+        cubin = pathlib.Path(tmp) / "pim_mac.cubin"
+        subprocess.run([nvcc, *flags, "-cubin", "-lineinfo", "-o",
+                        str(cubin), str(src)], check=True,
+                       capture_output=True, timeout=300)
+        sass = subprocess.run(
+            [str(pathlib.Path(nvcc).with_name("nvdisasm")),
+             "--print-line-info", str(cubin)], check=True,
+            capture_output=True, text=True, timeout=120).stdout
+    ops = ("LDG.E.128", "STG.E.128", "LDG.E", "STG.E", "IMAD.HI", "CALL",
+           "MUFU.RCP", "I2F")
+    counts = {k: collections.Counter()
+              for k in ("flat", "index", "subroutine", "other")}
+    line = 0
+    for ln in sass.splitlines():
+        if "//## File" in ln and "pim_mac.cu" in ln:
+            line = int(ln.rsplit("line", 1)[1].split()[0].strip(","))
+        elif ln.startswith("$") and ln.rstrip().endswith(":"):
+            line = -1               # the compiler's 64-bit division, called
+        elif ln.strip().startswith("/*") and "*/" in ln:
+            words = ln.split("*/", 1)[1].split()
+            if words and words[0].startswith("@"):
+                words = words[1:]
+            if not words or not words[0][0].isalpha():
+                continue
+            where = ("subroutine" if line < 0 else
+                     "flat" if flat[0] <= line <= flat[1] else
+                     "index" if index[0] <= line <= index[1] else "other")
+            counts[where]["instructions"] += 1
+            for op in ops:
+                if words[0] == op or words[0].startswith(op + "."):
+                    counts[where][op] += 1
+    got = {k: dict(v) for k, v in counts.items()}
+    f = counts["flat"]
+    if not (f["LDG.E.128"] and f["STG.E.128"]) or any(
+            f[op] for op in ("IMAD.HI", "CALL", "MUFU.RCP", "I2F")):
+        raise AssertionError(f"K3 SASS: the flat path {got['flat']}")
+    if not counts["index"]["IMAD.HI"]:
+        raise AssertionError(f"K3 SASS: no multiply-shift division in the "
+                             f"index map {got['index']}")
+    return {"lines": {"flat": flat, "index": index}, **got}
 
 
 # ---------------------------------------------------------------------------
@@ -1778,7 +2118,8 @@ def phase_pim_train(seed: int) -> dict:
         out["losses"] = losses
         out["ms_per_step"] = wall["steady_mean"] * 1e3
         out["shapes"] = {"k1": prog_log["k1"], "k2": ex_log["k2"],
-                         "k3": prog_log["k3"]}
+                         "k3": prog_log["k3_forms"]}
+        out["profile"] = prof
         del pim, jit, got, want, again, state, batches, ex
         torch.cuda.empty_cache()
 
@@ -1823,9 +2164,9 @@ def backward_nodes(loss) -> dict:
     """The kernel nodes of ``loss``'s autograd graph, each by its saved
     operands and the cotangents autograd will ask of it: K1 (A's shape,
     B's shape, tiles, (dA, dB) wanted), K2 (as K1), K5 (A's shape, Q's
-    shape, tiles, (dA, dq, ds) wanted), K3 (elements, (da, db, dacc)
-    wanted). Fails if a native matrix product or convolution is in the
-    graph."""
+    shape, tiles, (dA, dq, ds) wanted), K3 (a wave's elements, (da, db,
+    dacc) asked by some member). Fails if a native matrix product or
+    convolution is in the graph."""
     nodes = {"k1": [], "k2": [], "k3": [], "k5": []}
     seen, stack = set(), [loss.grad_fn]
     while stack:
@@ -1847,16 +2188,18 @@ def backward_nodes(loss) -> dict:
             a, q, _ = fn.saved_tensors
             nodes["k5"].append((tuple(a.shape), tuple(q.shape), fn.tiles,
                                 wanted[:3]))
-        elif name == "_MacBackward":
-            nodes["k3"].append((fn.saved_tensors[0].numel(), wanted))
+        elif name == "_MacWaveBackward":
+            nodes["k3"].append((sum(int(np.prod(m[0], dtype=np.int64))
+                                    for m in fn.spec), fn.asked))
         stack.extend(f for f, _ in fn.next_functions)
     return nodes
 
 
 def asked(nodes) -> dict:
     """The backward launches ``nodes`` ask of K1, K2 and K3: one per
-    operand that wants a cotangent (K3's accumulator takes the cotangent
-    as it is; K5's dA and dq are K1 launches, its ds none)."""
+    operand that wants a cotangent (K3: one per wave for its members'
+    da, one for their db; the accumulator takes the cotangent as it is;
+    K5's dA and dq are K1 launches, its ds none)."""
     return {"k1": sum(sum(w[:2]) for *_, w in nodes["k1"] + nodes["k5"]),
             "k2": sum(sum(w) for *_, w in nodes["k2"]),
             "k3": sum(sum(w[:2]) for _, w in nodes["k3"])}
@@ -2009,7 +2352,7 @@ def phase_pim_grad(seed: int, weight_dtype: str = "fp32") -> dict:
                                     if k not in ("nodes", "launched")},
           "plain_ms": plain_ms})
     return {"forward": forward, "backward": backward, "nodes": nodes,
-            "launched": launched, "executor": executor}
+            "launched": launched, "executor": executor, "profile": prof}
 
 
 def executor_grad_check(schedule, tree, leaves, as_tree, x, y, prog_grads,
@@ -2099,15 +2442,17 @@ def grad_graph_check(abstract, params, x, y, plain) -> dict:
 
 
 def phase_kernels_pim_backward(seed: int, grad_run: dict) -> dict:
-    """The backward of each K1 and K3 node of ``pim_grad``'s autograd
-    graph (``backward_nodes``), each distinct node once with its count:
-    random operands of the node's shapes, the cotangents it was asked for
-    through its autograd Function, whose launches, over every node, must
-    be those the main path's backward made. Each launch is held against
-    the plain formula on the plain kernels (K1 each output row to
-    ``mm_limit`` of its contraction, with the dropped-K-tile control; K3
-    bit for bit) and timed with its bound and a library call (``bmm``
-    with TF32 off, on Aᵀ as a view for dB; ``mul``). Each K1 and K2
+    """The backward of each K1 node of ``pim_grad``'s autograd graph
+    (``backward_nodes``), each distinct node once with its count: random
+    operands of the node's shapes, the cotangents it was asked for through
+    its autograd Function, whose launches, over every node, must be those
+    the main path's backward made. Each launch is held against the plain
+    formula on the plain kernels (each output row to ``mm_limit`` of its
+    contraction, with the dropped-K-tile control) and timed with its
+    bound and a library call (``bmm`` with TF32 off, on Aᵀ as a view for
+    dB). K3: each wave the main path's backward launched (``da = g*b +
+    0`` over its members), at its logged form (``hold_k3``; library
+    ``mul``). Each K1 and K2
     launch records its K split (``split_of``), equals itself on a second
     run and the other kernel on the same blocks bit for bit (K1 group by
     group against K2; K2 against K1 with one group), and dB, which reads
@@ -2119,8 +2464,7 @@ def phase_kernels_pim_backward(seed: int, grad_run: dict) -> dict:
     split dB launch's numbers."""
     import torch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.pim_mac import (pim_mac, pim_matmul,
-                                             pim_matmul_grouped)
+    from repro_torch.kernels.pim_mac import pim_matmul, pim_matmul_grouped
     mod = importlib.import_module("repro_torch.kernels.pim_mac")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2239,35 +2583,13 @@ def phase_kernels_pim_backward(seed: int, grad_run: dict) -> dict:
             k1.append(row)
             del at, a_rep, out
         del a, b, g, da, db
-    k3 = []
-    for n, wanted, count in counted(grad_run["nodes"]["k3"]):
-        a, b, acc, g = randn(n), randn(n), randn(n), randn(n)
-        zero = torch.zeros_like(g)
-        (da, db, dacc), log = cotangents(pim_mac, (a, b, acc), wanted, g)
-        for sh in log["k3"]:
-            made["k3", sh] += count
-        if dacc is not None and not torch.equal(dacc, g):
-            raise AssertionError(f"K3 dacc {n}: not the cotangent")
-        for name, other, got in (("da", b, da), ("db", a, db)):
-            if got is None:
-                continue
-            out = pim_mac(g, other, zero)
-            if not (torch.equal(out, got)
-                    and torch.equal(out, ref.pim_mac_ref(g, other, zero))):
-                raise AssertionError(f"K3 {name} {n}: not bit-equal to the "
-                                     f"plain version")
-            # the function is g * other: 12 n bytes, n operations; the
-            # zero accumulator the VJP reads is overhead against that
-            k3.append({"cotangent": name, "n": n, "count": count,
-                       "max_err": 0.0, "bit_equal": True,
-                       **pim_timing(
-                           lambda: pim_mac(g, other, zero),
-                           lambda: ref.pim_mac_ref(g, other, zero),
-                           lambda: torch.mul(g, other),
-                           12 * n, n)})
+    # K3: each wave the main path's backward launched, at its logged form
+    k3 = [hold_k3(f"K3 pim_grad backward wave {i}", form, count, randn)
+          for i, (form, count) in enumerate(collections.Counter(
+              grad_run["launched"]["k3_forms"]).items())]
     path = collections.Counter(
-        {(key, sh): c for key in ("k1", "k3") for sh, c in
-         collections.Counter(grad_run["launched"][key]).items()})
+        {("k1", sh): c for sh, c in
+         collections.Counter(grad_run["launched"]["k1"]).items()})
     if made != path:
         raise AssertionError(f"kernels_pim backward: the held nodes launch "
                              f"{sorted(made.items())}, pim_grad's backward "
@@ -2928,11 +3250,15 @@ def sums(rows) -> dict:
         return sum(r[key] * r["count"] for r in rows)
 
     t_bytes, t_ops = total("bytes_ms"), total("ops_ms")
+    # K3's rows add its graph and host times and its host syncs
+    extra = ("device_graph_ms", "library_graph_ms", "host_us",
+             "library_host_us", "addcmul_ms", "host_syncs")
     return {"max_abs_err": max(r["max_err"] for r in rows),
             "ms": total("ms"), "plain_ms": total("plain_ms"),
             "bound_ms": total("bound_ms"),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": total("library_ms")}
+            "library_ms": total("library_ms"),
+            **{k: total(k) for k in extra if all(k in r for r in rows)}}
 
 
 def pim_entry(ids, key, by_path, rows) -> dict:
@@ -2955,9 +3281,11 @@ def pim_entry(ids, key, by_path, rows) -> dict:
 
 def with_counts(shapes: dict) -> dict:
     """Logged launch shapes as ``phase_kernels_pim`` rows: each distinct
-    shape once, named by itself, with its count."""
-    return {key: [("x".join(map(str, row[:-1])), *row)
-                  for row in counted(rows)]
+    shape once, named by itself, with its count; each distinct K3 wave
+    form once, named by its order of first launch."""
+    return {key: [(f"wave {i}", form, n) for i, (form, n) in enumerate(
+        collections.Counter(rows).items())] if key == "k3" else
+            [("x".join(map(str, row[:-1])), *row) for row in counted(rows)]
             for key, rows in shapes.items()}
 
 
@@ -3042,6 +3370,9 @@ def main() -> int:
                 "plain_device_graph_ms": r["plain_graph_ms"],
                 "library_device_graph_ms": r["library_graph_ms"]}
 
+    # the PIM paths' kernels per call under the profiler: one batch-256
+    # serve forward, one batch-64 train step, one pim_grad step
+    paths = {"pim_lenet": lenet_run, "pim_train": train, "pim_grad": grad}
     long_bf16 = next(r for r in attn["results"] if r["dtype"] == "bfloat16"
                      and r["shape"]["S"] == ATTN_LLAMA_SHAPES[-1][1])
     k5_launches = {path: by_path[path]["k5"]
@@ -3056,7 +3387,15 @@ def main() -> int:
          "n_split": k6_serve["n_split"], "split_ms": k6_serve["split_ms"],
          "combine_ms": k6_serve["combine_ms"]},
         *(pim_entry(ids, key, by_path, rows)
-          for ids, key in ((K1, "k1"), (K2, "k2"), (K3, "k3"))),
+          for ids, key in ((K1, "k1"), (K2, "k2"))),
+        {**pim_entry(K3, "k3", by_path, rows),
+         "member_cap": importlib.import_module(
+             "repro_torch.kernels.pim_mac").MAC_MAX_MEMBERS,
+         "kernels_per_call": {p: r["profile"]["kernels_per_call"]
+                              for p, r in paths.items()},
+         "device_busy_share": {
+             p: r["profile"]["device_busy_share_under_profiler"]
+             for p, r in paths.items()}},
         {**K5, "launches": sum(k5_launches.values()),
          **sums(rows["pim_lenet_q"]), "launches_by_path": k5_launches,
          "pim_train": sums(rows["pim_train_q"])},

@@ -12,6 +12,7 @@ CPU.
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -87,12 +88,46 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, h, d).to(q.dtype)
 
 
-def pim_mac_ref(a: torch.Tensor, b: torch.Tensor,
-                acc: torch.Tensor) -> torch.Tensor:
+def pim_mac_ref(a, b, acc):
     """Elementwise float32 MAC ``acc + a*b`` (K3): two eager ops, so two
     roundings — the product, then the sum — as the paper's MAC unit and
-    the CUDA kernel compute it."""
-    return acc + a * b
+    the CUDA kernel compute it. Each operand is a float32 tensor (they
+    broadcast) or a number, read as float32 (rounded to nearest); a
+    product or sum of two numbers is rounded to float32 as well."""
+    prod = (_f32(_f32(a) * _f32(b)) if not isinstance(a, torch.Tensor)
+            and not isinstance(b, torch.Tensor) else _num(a) * _num(b))
+    if not isinstance(acc, torch.Tensor) and not isinstance(prod,
+                                                            torch.Tensor):
+        return _f32(_f32(acc) + prod)
+    return _num(acc) + prod
+
+
+def pim_mac_wave_ref(members) -> list[torch.Tensor]:
+    """K3 over a wave (one launch of the kernel): for each member ``(shape,
+    a, b, acc, stride)`` (``kernels.pim_mac.MacMember``),
+    :func:`pim_mac_ref` over its shape, a fresh tensor, laid out in
+    ``stride`` (a dense layout of the shape) where that is given."""
+    outs = []
+    for shape, a, b, acc, *rest in members:
+        out = pim_mac_ref(a, b, acc)
+        stride = rest[0] if rest else None
+        if stride is not None and (tuple(out.shape) != tuple(shape)
+                                   or out.stride() != tuple(stride)):
+            out = torch.empty_strided(shape, stride, dtype=torch.float32,
+                                      device=out.device).copy_(out)
+        elif tuple(out.shape) != tuple(shape):
+            out = out.expand(shape).contiguous()
+        outs.append(out)
+    return outs
+
+
+def _f32(x) -> float:
+    """A number rounded to float32 (to nearest), as a Python float."""
+    return ctypes.c_float(x).value
+
+
+def _num(x):
+    return x if isinstance(x, torch.Tensor) else _f32(x)
 
 
 def pim_matmul_ref(a: torch.Tensor, b: torch.Tensor, *,

@@ -36,7 +36,10 @@ stays float32 and gradients flow straight through.
 Grouped, the walk also coalesces *independent* placed nodes: same-shape
 placed matmuls whose operands are all already computed ride one grouped
 launch, and whole waves of ready
-eltwise add/sub/mul nodes ride one ``pim_mac_grouped`` (K3) launch.
+eltwise add/sub/mul nodes ride one K3 launch (``mac_wave``), which
+reads each member's operands where they lie (broadcasts through their
+strides, numbers as immediates) and writes each output in its node's
+traced layout.
 Fusion only ever *reorders* nodes whose inputs were already available, so
 values are unchanged.
 
@@ -76,7 +79,7 @@ import torch.nn.functional as F
 
 from repro_torch import obs
 from repro_torch.core import estimator, quant
-from repro_torch.kernels.pim_mac import (pim_mac, pim_mac_grouped, pim_matmul,
+from repro_torch.kernels.pim_mac import (MacMember, mac_wave, pim_matmul,
                                          pim_matmul_grouped,
                                          pim_matmul_grouped_q)
 from repro_torch.mapper.graph import OpNode
@@ -363,29 +366,28 @@ def _eltwise_ok(fx: torch.fx.Node, node: OpNode) -> bool:
             and val.numel() > 0 and node.op in ("add", "sub", "mul"))
 
 
-def _eltwise_operands(fx, node, args):
-    """``(a, b, acc)`` with out = acc + a*b, broadcasts resolved and laid
-    out contiguously (the kernel's operands)."""
+def _eltwise_member(fx, node, args) -> MacMember:
+    """The node as K3's member ``acc + a*b`` over its traced shape: the
+    operands as read — a tensor broadcast through its strides, a Python
+    number and the constants 1, -1 and 0 as float32 immediates — and the
+    node's traced layout for the output. Makes no tensor (but for an
+    operand of another dtype than the node's, cast as the reference
+    casts it)."""
     val = _traced(fx)
-    dev = next(a.device for a in args if isinstance(a, torch.Tensor))
-
-    def full(x):
-        x = torch.as_tensor(x, dtype=val.dtype, device=dev)
-        return torch.broadcast_to(x, val.shape).contiguous()
-
-    a, b = full(args[0]), full(args[1])
+    x, y = (v.to(val.dtype) if isinstance(v, torch.Tensor)
+            and v.dtype != val.dtype else v for v in args[:2])
     if fx.target is aten.rsub.Scalar:      # rsub(y, s) = s - y
-        a, b = b, a
-    one = torch.ones_like(a)
-    if node.op == "add":       # b + a*1
-        return a, one, b
-    if node.op == "sub":       # a + b*(-1)
-        return b, -one, a
-    return a, b, torch.zeros_like(a)      # mul: 0 + a*b
+        x, y = y, x
+    shape, stride = tuple(val.shape), val.stride()
+    if node.op == "add":       # y + x*1
+        return MacMember(shape, x, 1.0, y, stride)
+    if node.op == "sub":       # x + y*(-1)
+        return MacMember(shape, y, -1.0, x, stride)
+    return MacMember(shape, x, y, 0.0, stride)      # mul: 0 + x*y
 
 
 def lower_eltwise(ctx: LoweringContext, fx, node, args, kwargs):
-    out = pim_mac(*_eltwise_operands(fx, node, args))
+    (out,) = mac_wave([_eltwise_member(fx, node, args)])
     ctx.eltwise_calls += 1
     ctx.eltwise_launches += 1
     return _conform(out, fx)
@@ -437,9 +439,10 @@ def _fuse_matmuls(ctx: LoweringContext, group, read) -> list:
 
 
 def _fuse_eltwise(ctx: LoweringContext, group, read) -> list:
-    """One ragged ``pim_mac_grouped`` launch for a ready eltwise wave."""
-    outs = pim_mac_grouped([
-        _eltwise_operands(fx, nd, torch.fx.node.map_arg(fx.args, read))
+    """One K3 launch (``mac_wave``) for a ready eltwise wave, each member
+    read where it lies."""
+    outs = mac_wave([
+        _eltwise_member(fx, nd, torch.fx.node.map_arg(fx.args, read))
         for fx, nd in group])
     ctx.eltwise_calls += len(group)
     ctx.eltwise_launches += 1

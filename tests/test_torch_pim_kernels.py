@@ -243,7 +243,7 @@ def _wrapper_calls():
             "pim_matmul_grouped_ref"),
         "pim_matmul": (pim_matmul, mm, (a2, b2), "pim_matmul_ref"),
         "pim_mac": (pim_mac, lambda p, q, r: r + p * q, tuple(x),
-                    "pim_mac_ref"),
+                    "pim_mac_wave_ref"),
     }
 
 

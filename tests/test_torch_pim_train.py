@@ -323,11 +323,12 @@ def test_grad_through_compiled_loss_matches_plain_autograd(ref_params,
             for k, layer in params.items()}
     calls = {"mm": 0, "mac": 0}
     real_mm, real_mac = (kernel_ref.pim_matmul_grouped_ref,
-                         kernel_ref.pim_mac_ref)
+                         kernel_ref.pim_mac_wave_ref)
     monkeypatch.setattr(kernel_ref, "pim_matmul_grouped_ref",
                         lambda *a, **k: calls.__setitem__(
                             "mm", calls["mm"] + 1) or real_mm(*a, **k))
-    monkeypatch.setattr(kernel_ref, "pim_mac_ref",
+    # one call of K3's plain version per launch (a whole wave)
+    monkeypatch.setattr(kernel_ref, "pim_mac_wave_ref",
                         lambda *a, **k: calls.__setitem__(
                             "mac", calls["mac"] + 1) or real_mac(*a, **k))
     loss = prog(tree, *args)
