@@ -68,8 +68,10 @@ Phases, each printing one JSON line:
    form (dense, broadcast, 0-d on the card and on the CPU, immediates,
    strided, six dims, off 16 bytes, NaN, inf) bit for bit against the
    plain version and the pre-change formulation, with the ``0 + (-0) =
-   +0`` control; and K3's SASS by source line (the flat path holds its
-   16-byte loads and no division).
+   +0`` control; K3's SASS by source line (the flat path holds its
+   16-byte loads and no division); and waves of 179 and 600 members,
+   above what a table passed by value holds (``k3_above_cap``: the table
+   through device memory, one launch, bit for bit, no host sync).
 9. ``pim_train`` — the paper's LeNet-5 trained through the mapper:
    ``Trainer(backend="pim")`` (the whole AdamW step compiled once) and
    ``backend="jit"`` (the plain eager step) from the same seeded
@@ -132,8 +134,9 @@ Phases, each printing one JSON line:
 16. ``kernels_attn`` — K7 through ``ops.attention``, its only entry, at the
    reference's test shapes ((B, S, H, G, D) (1,128,4,2,64), (2,128,8,8,32),
    (1,64,6,3,16), chunks of 64) and llama3-8b's heads (H 32, G 8, D 128,
-   B 1, S 2048 and 8192) and a ragged length ((1,200,8,2,64), chunks of
-   256 clamped to S), float32 and bfloat16: each call one launch of the
+   B 1, S 2048 and 8192), a ragged length ((1,200,8,2,64), chunks of
+   256 clamped to S) and head dims the kernel pads to 128 ((1,256,8,2,112),
+   (1,256,8,2,80)), float32 and bfloat16: each call one launch of the
    body of its dtype (the profiler names it: bf16 on the tensor-core
    body, whose SASS must hold HMMA instructions), held
    against ``flash_attention_ref`` (TF32 off) per (batch, query, head)
@@ -156,6 +159,21 @@ Phases, each printing one JSON line:
    ``torch.mul`` beside its byte bound and its SASS integer instructions
    per element (over the sites where the kernel inlines the procedure,
    counted by their one FMUL each).
+18. ``pim_llama`` — llama3-8b's decode step through the mapper,
+   ``compile_arch("llama3-8b", "serve")``, at its published width in
+   float32 cut to 2 layers, batch 8, a 512-token contiguous cache, on
+   the fp32 grid (K1 on the LM head) and the int8 grid (K5), K3 on the
+   final norm's MACs, the layer stack native: launches per step equal
+   to the CPU's (1 and 3), the compiled step within rtol = atol = 1e-4
+   of the per-block executor and the plain step (``prog.verify``; int8:
+   the plain step over the stored head, ``run_fake_quant_plain``), 16
+   greedy steps with identical tokens, no host sync in a step, and the
+   control that the head's last block column zeroed fails that hold.
+   Then the published config as it is (bf16, 32 layers), batch 8, a
+   2048-token cache: ms per compiled and plain step, wall and under the
+   profiler, K1's LM-head launch against its bound and ``mm``, peak
+   memory. ``kernels_pim`` (``"path": "pim_llama"`` / ``"pim_llama_q"``)
+   holds K1, K2, K3 and K5 at that step's launches as in 8 and 13.
 
 Then the card's name and power limit, one line with every kernel's
 numbers, and as the last line ``{"ok": true, "device": {...}}``. Any
@@ -1106,7 +1124,8 @@ def profile_groups(name: str) -> str:
     """Kernel group of a profiled device kernel: K4 or K6
     (``decode_group``), K5 (the dequantizing instantiation of K1's body),
     K1 (with its split-K sum pass), K3, native convolutions (cuDNN),
-    copies/fills/concatenations, or the rest."""
+    native matrix products (cuBLAS), copies/fills/concatenations, or the
+    rest."""
     name = name.lower()
     if decode_group(name):
         return decode_group(name)
@@ -1117,8 +1136,10 @@ def profile_groups(name: str) -> str:
     if "pim_mac_kernel" in name:
         return "k3"
     if any(k in name for k in ("conv", "cudnn", "wgrad", "dgrad", "fprop",
-                               "implicit_gemm", "xmma")):
+                               "implicit_gemm")):
         return "native_conv"
+    if any(k in name for k in ("gemm", "gemv", "nvjet", "xmma")):
+        return "native_mm"
     if any(k in name for k in ("copy", "fill", "cat", "memset", "memcpy")):
         return "copy_fill_cat"
     return "other"
@@ -1140,7 +1161,7 @@ def profile_device(fn, calls: int) -> dict:
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
     groups = dict.fromkeys(("k1", "k5", "k3", "k4", "k6", "native_conv",
-                            "copy_fill_cat", "other"), 0.0)
+                            "native_mm", "copy_fill_cat", "other"), 0.0)
     n_kernels = 0
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -1169,19 +1190,23 @@ def faulty(fn, fault, index: int):
 
 
 @contextlib.contextmanager
-def recording_launches(fault=None, index=None):
+def recording_launches(fault=None, index=None, key="k1"):
     """Log the argument shapes of every K1, K2, K3 and K5 launch the
     mapper's lowering makes while open (K3: the elements of each wave
     under ``k3``, its ``wave_form`` under ``k3_forms``). The lowering's
     wrappers are wrapped, not replaced: they launch and count as always.
-    With a ``fault``, the output of the ``index``-th K1 launch goes
-    through it (``faulty``): a control that a check must catch."""
+    With a ``fault``, the output of the ``index``-th K1 launch (``key``
+    "k5": K5's) goes through it (``faulty``): a control that a check must
+    catch."""
     from repro_torch.mapper import lowering
     log = {"k1": [], "k2": [], "k3": [], "k5": [], "k3_forms": []}
     orig = {name: getattr(lowering, name)
             for name in ("pim_matmul_grouped", "pim_matmul", "mac_wave",
                          "pim_matmul_grouped_q")}
-    k1_call = faulty(orig["pim_matmul_grouped"], fault, index)
+    k1_call = faulty(orig["pim_matmul_grouped"], fault,
+                     index if key == "k1" else None)
+    k5_call = faulty(orig["pim_matmul_grouped_q"], fault,
+                     index if key == "k5" else None)
 
     def k1(a, b, **kw):
         log["k1"].append((b.shape[0], kw.get("col_groups", 1), a.shape[1],
@@ -1191,7 +1216,7 @@ def recording_launches(fault=None, index=None):
     def k5(a, q, s, **kw):
         log["k5"].append((q.shape[0], kw.get("col_groups", 1), a.shape[1],
                           a.shape[2], q.shape[2]))
-        return orig["pim_matmul_grouped_q"](a, q, s, **kw)
+        return k5_call(a, q, s, **kw)
 
     def k2(a, b, **kw):
         log["k2"].append((a.shape[0], a.shape[1], b.shape[1]))
@@ -1437,12 +1462,16 @@ def pim_bound(nbytes: int, flops: int) -> tuple[float, float]:
             flops / PEAK_FLOPS["float32"] * 1e3)
 
 
-def pim_timing(kernel, plain, library, nbytes: int, flops: int) -> dict:
-    """Kernel, plain version and library call timed, beside the bound of
-    ``nbytes`` moved and ``flops`` float32 operations."""
+def pim_timing(kernel, plain, library, nbytes: int, flops: int,
+               iters: int = 40) -> dict:
+    """Kernel, plain version and library call timed (``iters`` calls
+    each), beside the bound of ``nbytes`` moved and ``flops`` float32
+    operations."""
     t_bytes, t_ops = pim_bound(nbytes, flops)
-    return {"ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain),
-            "library_ms": cuda_ms(library),
+    warm = min(3, iters)
+    return {"ms": cuda_ms(kernel, iters, warm),
+            "plain_ms": cuda_ms(plain, iters, warm),
+            "library_ms": cuda_ms(library, iters, warm),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes_ms": t_bytes, "ops_ms": t_ops}
@@ -1506,7 +1535,7 @@ def counted(rows) -> list:
 
 
 def phase_kernels_pim(seed: int, shapes: dict, path: str, batch: int,
-                      wave: bool = False) -> dict:
+                      wave: bool = False, iters: int = 40) -> dict:
     """K1, K2 and K3 at the ``shapes`` of one of ``path``'s main-path runs,
     each distinct shape once with its number of launches (``counted``), on
     seeded random data, against their plain versions on the card, and
@@ -1522,7 +1551,10 @@ def phase_kernels_pim(seed: int, shapes: dict, path: str, batch: int,
     syncs, events, graph and host time, its bound and library calls).
     With ``wave`` the adds are also made as one wave, and a wave of every
     member form (``k3_forms``) is held with its -0, NaN and inf cases;
-    the phase then also reads K3's SASS (``k3_sass``)."""
+    the phase then also reads K3's SASS (``k3_sass``) and holds two waves
+    above the member cap a table passed by value holds
+    (``k3_above_cap``). ``iters``: the calls timed of each K1 and K2
+    shape (fewer where a plain version takes seconds)."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.pim_mac import pim_matmul, pim_matmul_grouped
@@ -1561,7 +1593,7 @@ def phase_kernels_pim(seed: int, shapes: dict, path: str, batch: int,
                                                           col_groups=cg),
                        lambda: torch.bmm(a_rep, b),
                        4 * (a.numel() + b.numel() + g * m * n),
-                       2 * g * m * k * n)})
+                       2 * g * m * k * n, iters)})
         del a, b, a_rep, out
     k2 = []
     for name, m, k, n, count in shapes["k2"]:
@@ -1579,7 +1611,7 @@ def phase_kernels_pim(seed: int, shapes: dict, path: str, batch: int,
                        lambda: ref.pim_matmul_ref(a, b),
                        lambda: torch.mm(a, b),
                        4 * (a.numel() + b.numel() + m * n),
-                       2 * m * k * n)})
+                       2 * m * k * n, iters)})
         del a, b
     k3 = [hold_k3(f"K3 {path} {name}", form, count, randn)
           for name, form, count in shapes["k3"]]
@@ -1587,7 +1619,9 @@ def phase_kernels_pim(seed: int, shapes: dict, path: str, batch: int,
     if wave:                        # the adds as one wave, and every form
         adds = tuple(m for _, form, _ in shapes["k3"] for m in form)
         k3.append(hold_k3(f"K3 {path} adds as one wave", adds, 0, randn))
-        extra = {"k3_forms": k3_forms(randn), "k3_sass": k3_sass()}
+        extra = {"k3_forms": k3_forms(randn), "k3_sass": k3_sass(),
+                 "k3_above_cap": [k3_above_cap(n, randn)
+                                  for n in K3_ABOVE_CAP]}
     torch.cuda.empty_cache()
     emit({"phase": "kernels_pim", "path": path, "batch": batch,
           "tol": "mm_limit(K)",
@@ -1758,6 +1792,66 @@ def hold_k3(label, form, count, randn) -> dict:
             "host_us": host_us(kernel), "library_host_us": host_us(library),
             "addcmul_ms": cuda_ms(lambda: [torch.addcmul(acc, a, b)
                                            for a, b, acc in full])}
+
+
+# wave sizes above the member cap of a table passed by value (178): the
+# table then goes to the card through device memory, still one launch
+K3_ABOVE_CAP = (179, 600)
+
+
+def k3_above_cap(n: int, randn) -> dict:
+    """K3 over one wave of ``n`` members (dense triples, a bias over [R,
+    8], an rsub of immediates, a transposed operand times an immediate,
+    ragged shapes): one launch, bit for bit (NaN as NaN) against its
+    plain version on the card, each output in its member's layout, no
+    host sync (``set_sync_debug_mode("error")``: the table's copy to the
+    card is enqueued on the stream); timed by events beside its bound and
+    the members' library calls (``k3_library``)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.pim_mac import MAC_MAX_MEMBERS, MacMember, \
+        mac_wave
+    pm = importlib.import_module("repro_torch.kernels.pim_mac")
+    if n <= MAC_MAX_MEMBERS:
+        raise AssertionError(f"K3 above the cap: {n} members is not above "
+                             f"{MAC_MAX_MEMBERS}")
+    members = []
+    for i in range(n):
+        shape = (3 + i % 61, 8)
+        a = randn(*shape)
+        members.append((MacMember(shape, a, randn(*shape), randn(*shape)),
+                        MacMember(shape, a, 1.0, randn(8)),
+                        MacMember(shape, a, -1.0, 0.5),
+                        MacMember(shape[::-1], a.T, 2.0, 0.0))[i % 4])
+    plain = pm._normalized(members, "pim_mac")
+    label = f"K3 a wave of {n} members"
+    before = pm.pim_mac.launches
+    out = mac_wave(members)
+    want = ref.pim_mac_wave_ref(plain)
+    torch.cuda.synchronize()
+    if pm.pim_mac.launches != before + 1:
+        raise AssertionError(f"{label}: not one launch")
+    for o, w in zip(out, want, strict=True):
+        if not same_bits(o, w):
+            raise AssertionError(f"{label}: not bit-equal to the plain "
+                                 f"version")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        mac_wave(members)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    elems = wave_elements(members)
+    operands = {(x.data_ptr(), tuple(x.shape), x.stride()): x.numel()
+                for m in members for x in m[1:4]
+                if isinstance(x, torch.Tensor)}
+    libs = [k3_library(m) for m in plain]
+    return {"wave": label, "members": n, "n": elems, "bit_equal": True,
+            "max_err": 0.0, "host_syncs": 0,
+            **pim_timing(lambda: mac_wave(members),
+                         lambda: ref.pim_mac_wave_ref(plain),
+                         lambda: [call() for _, call in libs],
+                         4 * (elems + sum(operands.values())), 2 * elems,
+                         iters=10)}
 
 
 def k3_forms(randn) -> dict:
@@ -2855,6 +2949,9 @@ ATTN_TEST_SHAPES = ((1, 128, 4, 2, 64), (2, 128, 8, 8, 32), (1, 64, 6, 3, 16))
 ATTN_LLAMA_SHAPES = tuple((1, s, 32, 8, 128) for s in (2048, 8192))
 # S no multiple of the 64-row tile: the ragged tile's mask and zero-fill
 ATTN_RAGGED_SHAPES = ((1, 200, 8, 2, 64),)
+# head dims the kernel is not compiled for, zero-padded to 128 by the
+# wrapper (zamba2_7b's 112, and 80)
+ATTN_PADDED_SHAPES = ((1, 256, 8, 2, 112), (1, 256, 8, 2, 80))
 # the profiler's name of the body each dtype runs (csrc dispatch)
 ATTN_BODY = {"float32": "flash_kernel", "bfloat16": "flash_mma_kernel"}
 # the reference's tolerances (rtol = atol), atol here x max|out| of each
@@ -2925,13 +3022,15 @@ def phase_kernels_attn(seed: int) -> dict:
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                    flash_head_dim)
     from repro_torch.mapper.executor import full_float32
     from torch.profiler import ProfilerActivity, profile
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 60)
     cases = [(name, shape, chunk) for name in ("float32", "bfloat16")
              for shapes, chunk in ((ATTN_TEST_SHAPES, 64),
                                    (ATTN_RAGGED_SHAPES, 256),
+                                   (ATTN_PADDED_SHAPES, 64),
                                    (ATTN_LLAMA_SHAPES, 256))
              for shape in shapes]
     results, launches = [], 0
@@ -2975,7 +3074,8 @@ def phase_kernels_attn(seed: int) -> dict:
                     f"{label}: dropping the last query tile's diagonal KV "
                     f"tile gives only {float(control.max())} x the limit")
             r = {"dtype": name, "shape": dict(zip("BSHGD", (b, s, h, g, d))),
-                 "chunk": chunk, "body": ATTN_BODY[name], "tol": tol,
+                 "chunk": chunk, "body": ATTN_BODY[name],
+                 "compiled_head_dim": flash_head_dim(d), "tol": tol,
                  "max_err": float((out.float() - want.float()).abs().max()),
                  "max_err_over_limit": ratio,
                  "last_tile_max_err_over_limit": float(attn_over_limit(
@@ -3242,6 +3342,308 @@ def phase_pim_fp(seed: int) -> dict:
     return {"launches": launches, "max_abs_err": max_err, **timing}
 
 
+# ---------------------------------------------------------------------------
+# 18. pim_llama: llama3-8b's decode step through the mapper
+# ---------------------------------------------------------------------------
+
+# the hold: llama3-8b at its published width, float32, cut to 2 layers
+LLAMA_HOLD = dict(batch=8, seq_len=512, n_layers=2)
+LLAMA_STEPS = 16           # greedy decode steps, compiled against plain
+LLAMA_TOL = dict(rtol=1e-4, atol=1e-4)   # the mapper's verify tolerance
+# the K3 launches of one step: the final norm's three MACs, the CPU's
+# count (tests/test_torch_compile_arch.py); the layer stack runs natively
+LLAMA_K3 = 3
+# the timed run: the published config as it is (bf16, 32 layers)
+LLAMA_TIME = dict(batch=8, seq_len=2048, pos=1024)
+
+
+def llama_params(cfg, seed: int):
+    """(the reference's parameter tree, seeded, on the card; a zero
+    contiguous cache is made by the caller): a ``DecoderLM`` initialised
+    from ``seed`` and its ``stacked_params``, the module dropped."""
+    import torch
+    from repro_torch.models import DecoderLM
+    model = DecoderLM(cfg, device=DEVICE).init(seed)
+    params = model.stacked_params()
+    del model
+    torch.cuda.empty_cache()
+    return params
+
+
+def llama_cache(cfg, batch: int, seq_len: int):
+    import torch
+    shape = (cfg.n_layers, batch, seq_len, cfg.n_kv_heads,
+             cfg.resolved_head_dim)
+    dtype = getattr(torch, cfg.dtype)
+    return {"layers": {"block0": {
+        name: torch.zeros(shape, dtype=dtype, device=DEVICE)
+        for name in ("k", "v")}}}
+
+
+def head_column_zeroed(prog):
+    """A fault of the LM head's K1 (or K5) launch: its last block
+    column's groups zeroed (the logits of the vocabulary's last 32 or 128
+    entries)."""
+    import torch
+    head = prog.schedule.graph.nodes[-1]
+    np_ = prog.schedule.placement.node_placements[head.idx]
+    last = [r * np_.col_blocks + np_.col_blocks - 1
+            for r in range(np_.row_blocks)]
+
+    def fault(out):
+        return out.index_fill(0, torch.tensor(last, device=out.device), 0.0)
+    return fault
+
+
+def llama_hold(seed: int, weight_dtype: str) -> dict:
+    """``compile_arch("llama3-8b", "serve", weight_dtype=...)`` at
+    ``LLAMA_HOLD`` (published width, float32, 2 layers): the main path —
+    every count set to 0 just before one compiled step and one executor
+    run, read just after — with its launches logged; the compiled step
+    against the executor and the plain step (``prog.verify``; int8: the
+    plain step over the weights the grid stores,
+    ``run_fake_quant_plain``) at ``LLAMA_TOL``; ``LLAMA_STEPS`` greedy
+    steps with identical tokens; no host sync in a compiled step
+    (``set_sync_debug_mode("error")``); and the control: the step with
+    the LM head's last block column zeroed must fail the hold."""
+    import torch
+    from repro_torch import mapper
+    from repro_torch.configs import get_config
+    from repro_torch.launch import make_serve_step
+    from repro_torch.mapper.executor import (full_float32, max_deviation,
+                                             run_fake_quant_plain)
+    cfg = dataclasses.replace(get_config("llama3-8b"),
+                              n_layers=LLAMA_HOLD["n_layers"],
+                              dtype="float32")
+    b, s = LLAMA_HOLD["batch"], LLAMA_HOLD["seq_len"]
+    mm = "k1" if weight_dtype == "fp32" else "k5"
+    params = llama_params(cfg, seed)
+    cache = llama_cache(cfg, b, s)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 70)
+    tok = torch.randint(0, cfg.vocab_size, (b,), generator=gen,
+                        device=DEVICE, dtype=torch.int32)
+    pos0 = torch.tensor(0, dtype=torch.int32, device=DEVICE)
+    t0 = time.perf_counter()
+    prog = mapper.compile_arch("llama3-8b", "serve", batch=b, seq_len=s,
+                               weight_dtype=weight_dtype, config=cfg)
+    compile_s = time.perf_counter() - t0
+    ex = mapper.ScheduleExecutor(prog.schedule)
+    step = make_serve_step(cfg)
+
+    def plain(params, cache, tok, pos):
+        with torch.no_grad(), full_float32():
+            if weight_dtype == "fp32":
+                return step(params, cache, tok, pos)
+            return run_fake_quant_plain(prog.schedule, params, cache, tok,
+                                        pos)
+
+    with full_float32():
+        reset_counts()
+        with recording_launches() as prog_log:
+            out = prog(params, cache, tok, pos0)
+        prog_counts = read_counts()
+        with recording_launches() as ex_log:
+            ex_out = ex.run(params, cache, tok, pos0)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        ex_counts = {k: counts[k] - prog_counts[k] for k in counts}
+        blocks = prog.placed_blocks
+        want = ({"k1": 0, "k2": 0, "k3": LLAMA_K3, "k5": 0, mm: 1},
+                {"k1": 0, "k2": blocks, "k3": LLAMA_K3, "k5": 0})
+        if (prog_counts, ex_counts) != want or (
+                prog.matmul_launches, prog.eltwise_launches) != (1,
+                                                                 LLAMA_K3):
+            raise AssertionError(f"pim_llama {weight_dtype}: launches "
+                                 f"{prog_counts} compiled, {ex_counts} "
+                                 f"per-block; want {want}")
+        logits = out[0]
+        if logits.shape != (b, cfg.vocab_size) or not bool(
+                torch.isfinite(logits).all()):
+            raise AssertionError(f"pim_llama {weight_dtype}: logits "
+                                 f"{tuple(logits.shape)} not finite")
+        vs_executor = max_deviation(out, ex_out, **LLAMA_TOL)
+        executor_bit_equal = all(torch.equal(x, y) for x, y in zip(
+            torch.utils._pytree.tree_leaves(out),
+            torch.utils._pytree.tree_leaves(ex_out)))
+        if weight_dtype == "fp32":
+            vs_plain = prog.verify(params, cache, tok, pos0, **LLAMA_TOL)
+        else:
+            vs_plain = max_deviation(out, plain(params, cache, tok, pos0),
+                                     **LLAMA_TOL)
+        del ex_out
+        # greedy decode, compiled against plain, from the same start
+        c_cache = p_cache = cache
+        c_tok = p_tok = tok
+        worst = 0.0
+        tokens = []
+        for i in range(LLAMA_STEPS):
+            pos = torch.tensor(i, dtype=torch.int32, device=DEVICE)
+            lc, c_cache = prog(params, c_cache, c_tok, pos)
+            lp, p_cache = plain(params, p_cache, p_tok, pos)
+            worst = max(worst, max_deviation(lc, lp, **LLAMA_TOL))
+            c_tok = lc.argmax(-1).to(torch.int32)
+            p_tok = lp.argmax(-1).to(torch.int32)
+            if not torch.equal(c_tok, p_tok):
+                raise AssertionError(f"pim_llama {weight_dtype}: step {i} "
+                                     f"tokens differ")
+            tokens.append(c_tok.tolist())
+        cache_dev = max_deviation(c_cache, p_cache, **LLAMA_TOL)
+        del c_cache, p_cache
+        # no host sync inside a compiled step
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            prog(params, cache, tok, pos0)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        # the control: the LM head's last block column zeroed fails the hold
+        with recording_launches(fault=head_column_zeroed(prog), index=0,
+                                key=mm):
+            bad = prog(params, cache, tok, pos0)[0]
+        try:
+            max_deviation(bad, out[0], **LLAMA_TOL)
+        except AssertionError:
+            control = float((bad - out[0]).abs().max())
+        else:
+            raise AssertionError(f"pim_llama {weight_dtype}: the head's "
+                                 f"last block column zeroed passes the hold")
+    shapes = {mm: prog_log[mm], "k2": ex_log["k2"],
+              "k3": prog_log["k3_forms"]}
+    r = {"weight_dtype": weight_dtype, "launches": counts,
+         "launches_per_step": {"compiled": prog_counts,
+                               "per_block": ex_counts},
+         "placed_blocks": blocks, "nodes": len(prog.schedule.graph.nodes),
+         "subarrays": prog.schedule.placement.n_subarrays,
+         "compile_s": compile_s,
+         "max_abs_err_vs_executor": vs_executor,
+         "compiled_bit_equal_executor": executor_bit_equal,
+         "plain": ("decode_step" if weight_dtype == "fp32" else
+                   "run_fake_quant_plain: the plain step over the stored "
+                   "LM head"),
+         "max_abs_err_vs_plain": vs_plain,
+         "greedy_steps": LLAMA_STEPS, "greedy_max_abs_err": worst,
+         "greedy_tokens_identical": True, "tokens_first_slot": [
+             t[0] for t in tokens],
+         "cache_max_abs_err": cache_dev, "host_syncs_in_step": 0,
+         "control_head_column_zeroed_max_abs_err": control,
+         f"{mm}_launch_shapes": prog_log[mm]}
+    del params, cache, out, prog, ex, bad
+    torch.cuda.empty_cache()
+    return {"row": r, "shapes": shapes, "launches": counts}
+
+
+def llama_time(seed: int) -> dict:
+    """The published config as it is (bf16, 32 layers) at ``LLAMA_TIME``:
+    one compiled step counted (K1 1, K3 ``LLAMA_K3``); ms per compiled and
+    per plain step (wall, and device time under the profiler: kernels
+    per step, busy share, time by kernel group); the LM head's K1 launch
+    alone on its operands against its bound and ``mm`` of the unpadded
+    operands (TF32 off); ``max_memory_allocated``."""
+    import torch
+    from repro_torch import mapper
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.pim_mac import pim_matmul_grouped
+    from repro_torch.launch import make_serve_step
+    from repro_torch.mapper import lowering
+    from repro_torch.mapper.executor import full_float32
+    cfg = get_config("llama3-8b")
+    b, s = LLAMA_TIME["batch"], LLAMA_TIME["seq_len"]
+    torch.cuda.reset_peak_memory_stats()
+    params = llama_params(cfg, seed)
+    cache = llama_cache(cfg, b, s)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 71)
+    tok = torch.randint(0, cfg.vocab_size, (b,), generator=gen,
+                        device=DEVICE, dtype=torch.int32)
+    pos = torch.tensor(LLAMA_TIME["pos"], dtype=torch.int32, device=DEVICE)
+    prog = mapper.compile_arch("llama3-8b", "serve", batch=b, seq_len=s)
+    step = make_serve_step(cfg)
+    with torch.no_grad(), full_float32():
+        reset_counts()
+        logits = prog(params, cache, tok, pos)[0]
+        torch.cuda.synchronize()
+        counts = read_counts()
+        if counts != {"k1": 1, "k2": 0, "k3": LLAMA_K3, "k5": 0}:
+            raise AssertionError(f"pim_llama time: launches {counts}")
+        if not bool(torch.isfinite(logits.float()).all()):
+            raise AssertionError("pim_llama time: logits not finite")
+        want = step(params, cache, tok, pos)[0]
+        agree = float((logits.argmax(-1) == want.argmax(-1)).float().mean())
+        del logits, want
+        ms = wall_ms(lambda: prog(params, cache, tok, pos), iters=5,
+                     warmup=1)
+        plain_ms = wall_ms(lambda: step(params, cache, tok, pos), iters=5,
+                           warmup=1)
+        prof = profile_device(lambda: prog(params, cache, tok, pos), 3)
+        plain_prof = profile_device(lambda: step(params, cache, tok, pos), 3)
+        peak = torch.cuda.max_memory_allocated()
+        # the LM head's K1 launch alone, on the operands the step builds
+        head = prog.schedule.graph.nodes[-1]
+        x = torch.randn((b, cfg.d_model), generator=gen, device=DEVICE)
+        w = params["lm_head"]["w"]
+        a_g, b_g, meta = lowering._grouped_operands(prog.ctx, head.idx, x, w)
+        cg = meta[1]
+        t_bytes, t_ops = pim_bound(4 * (a_g.numel() + b_g.numel()
+                                        + b_g.shape[0] * a_g.shape[1]
+                                        * b_g.shape[2]),
+                                   2 * b_g.shape[0] * a_g.shape[1]
+                                   * a_g.shape[2] * b_g.shape[2])
+        w32 = w.float()
+        u_bytes, u_ops = pim_bound(4 * (x.numel() + w32.numel()
+                                        + b * cfg.vocab_size),
+                                   2 * b * cfg.d_model * cfg.vocab_size)
+        head_k1 = {
+            "G": b_g.shape[0], "col_groups": cg, "M": a_g.shape[1],
+            "K": a_g.shape[2], "N": b_g.shape[2],
+            "ms": cuda_ms(lambda: pim_matmul_grouped(a_g, b_g,
+                                                     col_groups=cg),
+                          iters=5, warmup=1),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "operands_build_ms": cuda_ms(lambda: lowering._grouped_operands(
+                prog.ctx, head.idx, x, w), iters=5, warmup=1),
+            "library_ms": cuda_ms(lambda: torch.mm(x, w32), iters=5,
+                                  warmup=1),
+            "library": "torch.mm of the unpadded f32 operands (TF32 off)",
+            "unpadded_bound_ms": max(u_bytes, u_ops)}
+        del a_g, b_g, w32
+    r = {"config": "llama3-8b published (configs/llama3_8b.py), bf16, 32 "
+                   "layers, not cut", **LLAMA_TIME,
+         "launches_per_step": counts,
+         "greedy_token_agreement_vs_plain_bf16": agree,
+         "ms_per_step": ms, "plain_ms_per_step": plain_ms,
+         "profile": prof, "plain_profile": plain_prof,
+         # the LM head's padded operands, built alone, against the step
+         "head_padding_share_of_device_time": (
+             head_k1["operands_build_ms"] / prof["device_ms_per_call"]),
+         "max_memory_allocated_gb": peak / 1e9, "head_k1": head_k1}
+    if peak >= 80e9:
+        raise AssertionError(f"pim_llama time: {peak / 1e9} GB allocated")
+    del params, cache, prog
+    torch.cuda.empty_cache()
+    return r
+
+
+def phase_pim_llama(seed: int) -> dict:
+    """llama3-8b's decode step through the mapper (``compile_arch(...,
+    "serve")``): ``llama_hold`` on the fp32 grid (K1 on the LM head) and
+    the int8 grid (K5), then ``llama_time`` on the published config.
+    Emitted as one ``pim_llama`` line."""
+    fp32 = llama_hold(seed, "fp32")
+    int8 = llama_hold(seed, "int8")
+    timing = llama_time(seed)
+    emit({"phase": "pim_llama",
+          "config": "llama3-8b at its published width (configs/"
+                    "llama3_8b.py), float32, cut to "
+                    f"{LLAMA_HOLD['n_layers']} layers",
+          **{k: LLAMA_HOLD[k] for k in ("batch", "seq_len")},
+          "reduced": {"n_layers": [32, LLAMA_HOLD["n_layers"]],
+                      "dtype": ["bfloat16", "float32"]},
+          "tol": LLAMA_TOL, "fp32": fp32["row"], "int8": int8["row"],
+          "time": timing})
+    return {"fp32": fp32, "int8": int8, "time": timing}
+
+
 def sums(rows) -> dict:
     """Times and bounds of one run's launches: each distinct shape's
     numbers times its count, summed (each shape's bound the larger of its
@@ -3265,9 +3667,10 @@ def pim_entry(ids, key, by_path, rows) -> dict:
     """A PIM kernel's kernels-line entry: its launches summed over the
     main paths (forward and backward; ``launches_by_path`` splits them),
     the times of one batch-256 serve forward (``pim_lenet``) and, under
-    ``pim_train`` and ``backward``, those of one batch-64 train step (K2:
-    one executor step) and of ``pim_grad``'s backward (K2: the executor's
-    backward there)."""
+    ``pim_train``, ``backward`` and ``pim_llama``, those of one batch-64
+    train step (K2: one executor step), of ``pim_grad``'s backward (K2:
+    the executor's backward there) and of one llama3-8b decode step (K2:
+    one executor step)."""
     launches = {path: counts[key] for path, counts in by_path.items()
                 if path != "pim_grad_backward"}
     backward = rows["pim_grad_backward"].get(key)
@@ -3276,7 +3679,8 @@ def pim_entry(ids, key, by_path, rows) -> dict:
             "launches_by_path": {**launches, "pim_grad_backward":
                                  by_path["pim_grad_backward"][key]},
             "pim_train": sums(rows["pim_train"][key]),
-            "backward": sums(backward) if backward else None}
+            "backward": sums(backward) if backward else None,
+            "pim_llama": sums(rows["pim_llama"][key])}
 
 
 def with_counts(shapes: dict) -> dict:
@@ -3330,6 +3734,13 @@ def main() -> int:
         args.seed, with_counts(train_q["shapes"])["k5"], "pim_train_q",
         TRAIN_BATCHES[0])
     grad_q = phase_pim_grad(args.seed, Q_TRAIN_DTYPE)
+    llama = phase_pim_llama(args.seed)
+    rows["pim_llama"] = phase_kernels_pim(
+        args.seed, with_counts(llama["fp32"]["shapes"]), "pim_llama",
+        LLAMA_HOLD["batch"], iters=3)
+    rows["pim_llama_q"] = phase_kernels_pim_q(
+        args.seed, with_counts({"k5": llama["int8"]["shapes"]["k5"]})["k5"],
+        "pim_llama_q", LLAMA_HOLD["batch"])
     by_path = {"pim_lenet": lenet_run["launches"],
                "pim_train": {k: train["launches"][k]
                              + train["executor_launches"][k]
@@ -3344,6 +3755,8 @@ def main() -> int:
                "pim_train_q": train_q["launches"],
                "pim_grad_q": {k: grad_q["forward"][k] + grad_q["backward"][k]
                               for k in PIM_KEYS},
+               "pim_llama": llama["fp32"]["launches"],
+               "pim_llama_q": llama["int8"]["launches"],
                "pim_grad_backward": {
                    k: grad["backward"][k]
                    + grad["executor"]["launches_backward"][k]
@@ -3376,7 +3789,8 @@ def main() -> int:
     long_bf16 = next(r for r in attn["results"] if r["dtype"] == "bfloat16"
                      and r["shape"]["S"] == ATTN_LLAMA_SHAPES[-1][1])
     k5_launches = {path: by_path[path]["k5"]
-                   for path in ("pim_lenet_q", "pim_train_q", "pim_grad_q")}
+                   for path in ("pim_lenet_q", "pim_train_q", "pim_grad_q",
+                                "pim_llama_q")}
     k4_bf16 = k4["bfloat16"]
     k6_serve = k6[(SERVE_KV_DTYPE, "bfloat16")]
     emit({"kernels": [
@@ -3398,7 +3812,8 @@ def main() -> int:
              for p, r in paths.items()}},
         {**K5, "launches": sum(k5_launches.values()),
          **sums(rows["pim_lenet_q"]), "launches_by_path": k5_launches,
-         "pim_train": sums(rows["pim_train_q"])},
+         "pim_train": sums(rows["pim_train_q"]),
+         "pim_llama": sums(rows["pim_llama_q"])},
         {**K7, "launches": attn["launches"],
          "max_abs_err": long_bf16["max_err"],
          **{k: long_bf16[k] for k in ("ms", "plain_ms", "bound_ms",

@@ -4,7 +4,12 @@
 way ``repro.checkpoint.ckpt`` saves them — '/'-joined key paths such as
 ``layers/block0/attn/wq``, the layer stack on a leading axis of each
 ``layers/...`` leaf — and returns a :class:`DecoderLM` holding the same
-values. ``kv_pool_from_reference`` takes the reference's paged KV pool
+values; ``stacked_from_reference`` returns them as the reference's own
+tree instead (``transformer.param_tree``), what ``decode_step`` and a
+mapped decode step take, and ``model_from_stacked`` is the inverse of
+``DecoderLM.stacked_params``: a module holding a tree's values, so that
+the module and the mapped step compute from the same weights.
+``kv_pool_from_reference`` takes the reference's paged KV pool
 and returns the port's pool dict, bit for bit. ``lenet_params_from_reference``
 takes the reference's LeNet parameter dict and returns the port's, whose
 layout is the same. Plain numpy in, so all three read saved arrays as well
@@ -18,12 +23,13 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from repro_torch._device import resolve_device
+from repro_torch._device import resolve_device, torch_dtype
 from repro_torch.configs.base import ArchConfig
 from repro_torch.configs.lenet5 import CONFIG as LENET5, LeNetConfig
 from repro_torch.core import quant
 from repro_torch.models import lenet
-from repro_torch.models.transformer import DecoderLM
+from repro_torch.models.transformer import (LAYER_LEAVES, DecoderLM,
+                                            leaf_shapes, param_tree)
 
 
 def _to_torch(arr: np.ndarray) -> torch.Tensor:
@@ -50,21 +56,14 @@ def params_from_reference(flat: Mapping[str, np.ndarray], cfg: ArchConfig,
     want["final_norm/scale"] = (model.final_norm.scale,
                                 flat["final_norm/scale"])
     want["lm_head/w"] = (model.lm_head.w, flat["lm_head/w"])
-    names = {"norm1/scale": lambda b: b.norm1.scale,
-             "norm2/scale": lambda b: b.norm2.scale,
-             "attn/wq": lambda b: b.attn.wq, "attn/wk": lambda b: b.attn.wk,
-             "attn/wv": lambda b: b.attn.wv, "attn/wo": lambda b: b.attn.wo,
-             "mlp/w_gate": lambda b: b.mlp.w_gate,
-             "mlp/w_up": lambda b: b.mlp.w_up,
-             "mlp/w_down": lambda b: b.mlp.w_down}
-    for name, get in names.items():
+    for name, attr in LAYER_LEAVES.items():
         key = f"layers/block0/{name}"
         stacked = flat[key]
         if stacked.shape[0] != cfg.n_layers:
             raise ValueError(f"{key}: {stacked.shape[0]} stacked layers, "
                              f"config has {cfg.n_layers}")
         for i, blk in enumerate(model.layers):
-            want[f"{key}[{i}]"] = (get(blk), stacked[i])
+            want[f"{key}[{i}]"] = (blk.get_parameter(attr), stacked[i])
     extra = set(flat) - {k.split("[")[0] for k in want}
     if extra:
         raise ValueError(f"reference leaves not ported: {sorted(extra)}")
@@ -76,6 +75,46 @@ def params_from_reference(flat: Mapping[str, np.ndarray], cfg: ArchConfig,
                                  f"expects {param.dtype} "
                                  f"{tuple(param.shape)}")
             param.copy_(t)
+    return model
+
+
+def stacked_from_reference(flat: Mapping[str, np.ndarray], cfg: ArchConfig,
+                           device: str | torch.device | None = None
+                           ) -> dict:
+    """The reference's flattened parameters ``flat`` as its tree
+    (``transformer.param_tree``, the layers stacked), bit for bit, on
+    ``device`` (CUDA by default). Raises on a missing or extra key, or a
+    shape or dtype that does not match ``cfg``."""
+    want = leaf_shapes(cfg)
+    if set(flat) != set(want):
+        raise ValueError(f"reference leaves {sorted(set(flat) ^ set(want))}"
+                         f" differ from the port's tree")
+    dev, dtype = resolve_device(device), torch_dtype(cfg.dtype)
+    out = {}
+    for key, shape in want.items():
+        t = _to_torch(flat[key])
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"{key}: {t.dtype} {tuple(t.shape)}, port "
+                             f"expects {dtype} {shape}")
+        out[key] = t.to(dev)
+    return param_tree(out)
+
+
+def model_from_stacked(tree: Mapping, cfg: ArchConfig,
+                       device: str | torch.device | None = None
+                       ) -> DecoderLM:
+    """The inverse of ``DecoderLM.stacked_params``: a ``DecoderLM`` on
+    ``device`` (CUDA by default) whose parameters equal the tree's."""
+    model = DecoderLM(cfg, device=device)
+    with torch.no_grad():
+        model.embed.table.copy_(tree["embed"]["table"])
+        model.final_norm.scale.copy_(tree["final_norm"]["scale"])
+        model.lm_head.w.copy_(tree["lm_head"]["w"])
+        lp = tree["layers"]["block0"]
+        for key, attr in LAYER_LEAVES.items():
+            group, name = key.split("/")
+            for i, blk in enumerate(model.layers):
+                blk.get_parameter(attr).copy_(lp[group][name][i])
     return model
 
 

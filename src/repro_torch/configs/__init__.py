@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.configs.lenet5 import CONFIG as LENET5, LeNetConfig
 
 ARCH_IDS = ("llama3-8b",)
@@ -27,5 +27,5 @@ def get_smoke_config(name: str) -> ArchConfig:
     return mod.smoke_config()
 
 
-__all__ = ["ARCH_IDS", "ArchConfig", "LENET5", "LeNetConfig", "get_config",
-           "get_smoke_config"]
+__all__ = ["ARCH_IDS", "ArchConfig", "LENET5", "LeNetConfig", "ShapeSpec",
+           "get_config", "get_smoke_config"]

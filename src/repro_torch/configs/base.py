@@ -1,5 +1,6 @@
 """Architecture config schema (a copy of the reference's ``ArchConfig``,
-so the port reads the same configs and counts the same parameters)."""
+so the port reads the same configs and counts the same parameters) and
+the input shape of a step (``ShapeSpec``, the reference's)."""
 
 from __future__ import annotations
 
@@ -97,3 +98,11 @@ class ArchConfig:
             shared = per_attn + 3 * d * self.d_ff + 2 * d
             blocks = self.n_layers * (per_mamba + d) + shared
         return emb + head + blocks
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str   # train | prefill | decode

@@ -14,7 +14,13 @@ forms.
 
 An aten graph is flat: ``make_fx`` inlines calls and unrolls Python
 loops, so every node runs once (the reference's scan multiplicity is
-always 1 here).
+always 1 here). Where the reference's jaxpr has sub-jaxprs — a call such
+as the custom-VJP ``rms_norm``, or the scanned layer stack — the traced
+code marks them with :func:`region`, and :func:`capture` records each fx
+node's regions in its meta (:func:`scope_of`): the mapper's graph drops
+the edges that cross a region's boundary and folds a stack's iterations
+back into one set of nodes with ``repeat``, as the reference's graph
+does (``repro_torch.mapper.graph``). The op counts do not depend on it.
 
 A backward pass is captured from ``torch.func.grad_and_value`` (the
 reference's ``jax.value_and_grad``). Where torch's autograd formulas fuse
@@ -38,11 +44,14 @@ costed nodes in its order:
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import itertools
 import math
 from typing import Any, Callable
 
 import torch
+import torch.fx.traceback as fx_traceback
 from torch.fx.experimental.proxy_tensor import make_fx
 from torch.utils import _pytree as pytree
 
@@ -105,6 +114,39 @@ def add_any(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 @add_any.register_fake
 def _add_any_fake(a, b):
     return a + b
+
+
+# where a traced node's regions live: node.meta["custom"][SCOPE_KEY]
+SCOPE_KEY = "repro_torch.region"
+_REGION_IDS = itertools.count()
+
+
+@contextlib.contextmanager
+def region(kind: str, name: str):
+    """Mark the ops traced inside as one sub-jaxpr of the reference:
+    ``kind`` ``"call"`` (a call primitive, as the custom-VJP ``rms_norm``)
+    or ``"scan"`` (one iteration of the scanned layer stack ``name``).
+    Each entry is a region of its own: a frame ``(kind, name, id)`` pushed
+    onto the scope that :func:`capture` copies into each fx node made
+    inside (:func:`scope_of`). Outside a trace it only updates a dict."""
+    meta = fx_traceback.current_meta
+    saved = meta.get("custom")
+    frames = (saved or {}).get(SCOPE_KEY, ())
+    meta["custom"] = {**(saved or {}),
+                      SCOPE_KEY: (*frames, (kind, name, next(_REGION_IDS)))}
+    try:
+        yield
+    finally:
+        if saved is None:
+            meta.pop("custom", None)
+        else:
+            meta["custom"] = saved
+
+
+def scope_of(node) -> tuple:
+    """The regions an fx node was traced in, outermost first: frames
+    ``(kind, name, id)``; () outside any."""
+    return node.meta.get("custom", {}).get(SCOPE_KEY, ())
 
 
 @dataclasses.dataclass
@@ -295,7 +337,8 @@ def capture(fn: Callable, *args, **kwargs) -> Capture:
     ``make_fx(tracing_mode="fake")``: shapes and dtypes only (meta-device
     arguments welcome — nothing is allocated or computed). Backward
     formulas are respelled as the reference's primitives
-    (:data:`DECOMPOSITIONS`)."""
+    (:data:`DECOMPOSITIONS`); each node keeps the regions it was traced
+    in (:func:`region`)."""
     flat, in_spec = pytree.tree_flatten((args, kwargs))
     if not all(isinstance(x, torch.Tensor) for x in flat):
         raise TypeError("every argument leaf must be a tensor")
@@ -307,8 +350,9 @@ def capture(fn: Callable, *args, **kwargs) -> Capture:
         out_spec[:] = [spec]
         return outs
 
-    gm = make_fx(flat_fn, tracing_mode="fake",
-                 decomposition_table=DECOMPOSITIONS)(*flat)
+    with fx_traceback.preserve_node_meta():     # regions into node meta
+        gm = make_fx(flat_fn, tracing_mode="fake",
+                     decomposition_table=DECOMPOSITIONS)(*flat)
     _hoist_residuals(gm)
     return Capture(gm=gm, in_spec=in_spec, out_spec=out_spec[0])
 

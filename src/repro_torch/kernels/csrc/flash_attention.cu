@@ -242,7 +242,7 @@ flash_kernel(const T* __restrict__ q,     // [B, S, H, D]
 
 template <int D, typename T>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int S, int H, int G, cudaStream_t stream) {
+           int S, int H, int G, float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -253,8 +253,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   const dim3 grid(B * H, (S + kBQ - 1) / kBQ);
   flash_kernel<D, T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), S, H, G,
-      1.0f / sqrtf((float)D));
+      static_cast<const T*>(v), static_cast<T*>(out), S, H, G, scale);
   return (int)cudaGetLastError();
 }
 
@@ -520,7 +519,7 @@ flash_mma_kernel(const bf16* __restrict__ q,     // [B, S, H, D]
 
 template <int D>
 int launch_mma(const void* q, const void* k, const void* v, void* out, int B,
-               int S, int H, int G, cudaStream_t stream) {
+               int S, int H, int G, float scale, cudaStream_t stream) {
   constexpr size_t smem = mma_smem_bytes<D>();
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -531,47 +530,50 @@ int launch_mma(const void* q, const void* k, const void* v, void* out, int B,
   const dim3 grid(B * H, (S + kBQ - 1) / kBQ);
   flash_mma_kernel<D><<<grid, kMmaThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), S, H, G,
-      1.0f / sqrtf((float)D));
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), S, H, G, scale);
   return (int)cudaGetLastError();
 }
 
 int dispatch_f32(const void* q, const void* k, const void* v, void* out,
-                 int B, int S, int H, int G, int D, cudaStream_t stream) {
+                 int B, int S, int H, int G, int D, float scale,
+                 cudaStream_t stream) {
   switch (D) {
-    case 16: return launch<16, float>(q, k, v, out, B, S, H, G, stream);
-    case 32: return launch<32, float>(q, k, v, out, B, S, H, G, stream);
-    case 64: return launch<64, float>(q, k, v, out, B, S, H, G, stream);
-    case 128: return launch<128, float>(q, k, v, out, B, S, H, G, stream);
+    case 16: return launch<16, float>(q, k, v, out, B, S, H, G, scale, stream);
+    case 32: return launch<32, float>(q, k, v, out, B, S, H, G, scale, stream);
+    case 64: return launch<64, float>(q, k, v, out, B, S, H, G, scale, stream);
+    case 128: return launch<128, float>(q, k, v, out, B, S, H, G, scale, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 int dispatch_bf16(const void* q, const void* k, const void* v, void* out,
-                  int B, int S, int H, int G, int D, cudaStream_t stream) {
+                  int B, int S, int H, int G, int D, float scale,
+                  cudaStream_t stream) {
   switch (D) {
-    case 16: return launch_mma<16>(q, k, v, out, B, S, H, G, stream);
-    case 32: return launch_mma<32>(q, k, v, out, B, S, H, G, stream);
-    case 64: return launch_mma<64>(q, k, v, out, B, S, H, G, stream);
-    case 128: return launch_mma<128>(q, k, v, out, B, S, H, G, stream);
+    case 16: return launch_mma<16>(q, k, v, out, B, S, H, G, scale, stream);
+    case 32: return launch_mma<32>(q, k, v, out, B, S, H, G, scale, stream);
+    case 64: return launch_mma<64>(q, k, v, out, B, S, H, G, scale, stream);
+    case 128: return launch_mma<128>(q, k, v, out, B, S, H, G, scale, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; D in {16, 32, 64, 128}; contiguous
+// dtype: 0 = float32, 1 = bfloat16; D in {16, 32, 64, 128}, the head dim
+// as stored (a smaller one zero-padded up to it by the wrapper); scale the
+// scores' factor, 1/sqrt of the head dim before padding; contiguous
 // tensors on the current device. Returns a cudaError_t (0 on success).
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* out, int B, int S, int H, int G, int D,
-                               int dtype, void* stream) {
+                               int dtype, float scale, void* stream) {
   if (B < 1 || S < 1 || G < 1 || H % G != 0 ||
       (long long)B * H > 0x7FFFFFFFLL || (S + kBQ - 1) / kBQ > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return dispatch_f32(q, k, v, out, B, S, H, G, D, s);
-    case 1: return dispatch_bf16(q, k, v, out, B, S, H, G, D, s);
+    case 0: return dispatch_f32(q, k, v, out, B, S, H, G, D, scale, s);
+    case 1: return dispatch_bf16(q, k, v, out, B, S, H, G, D, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

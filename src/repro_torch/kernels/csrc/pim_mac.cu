@@ -40,7 +40,11 @@
 // broadcast over an NHWC view, say) it takes four elements at a time
 // with 16-byte loads and stores.
 // The table's size is a template argument, so a small wave does not pay
-// at launch for copying the largest parameter block.
+// at launch for copying the largest parameter block. A wave of more than
+// kMaxMembers members (the most one parameter block holds) keeps its one
+// launch: the wrapper copies the same table into device memory, stream
+// ordered and without a host sync, and pim_mac_table_kernel reads it
+// there, one member a block staged in shared memory.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -259,16 +263,20 @@ __device__ __forceinline__ void strided_member4(const Member& m,
   }
 }
 
-template <int kCap>
-__global__ void __launch_bounds__(kThreads)
-pim_mac_kernel(const __grid_constant__ Wave<kCap> w) {
-  const int blk = blockIdx.x;
-  int lo = 0, hi = w.members - 1;
-  while (lo < hi) {              // the last member starting at or before blk
+// The last member of table m[0, members) whose first block is at or
+// before blk.
+__device__ __forceinline__ int member_of(const Member* m, int members,
+                                         int blk) {
+  int lo = 0, hi = members - 1;
+  while (lo < hi) {
     const int mid = (lo + hi + 1) >> 1;
-    if (w.m[mid].first_block <= blk) lo = mid; else hi = mid - 1;
+    if (m[mid].first_block <= blk) lo = mid; else hi = mid - 1;
   }
-  const Member& m = w.m[lo];
+  return lo;
+}
+
+// This block's kBlockElems elements of member m.
+__device__ __forceinline__ void member_block(const Member& m, int blk) {
   const long long base =
       static_cast<long long>(blk - m.first_block) * kBlockElems;
   if (!(m.flags & kFlagStrided))
@@ -279,6 +287,24 @@ pim_mac_kernel(const __grid_constant__ Wave<kCap> w) {
     strided_member4(m, base);
   else
     strided_member<unsigned>(m, base);
+}
+
+template <int kCap>
+__global__ void __launch_bounds__(kThreads)
+pim_mac_kernel(const __grid_constant__ Wave<kCap> w) {
+  const int blk = blockIdx.x;
+  member_block(w.m[member_of(w.m, w.members, blk)], blk);
+}
+
+// The same over a table in device memory, for a wave above kMaxMembers:
+// one thread finds the block's member and stages it in shared memory.
+__global__ void __launch_bounds__(kThreads)
+pim_mac_table_kernel(const Member* __restrict__ table, int members) {
+  __shared__ Member m;
+  const int blk = blockIdx.x;
+  if (threadIdx.x == 0) m = table[member_of(table, members, blk)];
+  __syncthreads();
+  member_block(m, blk);
 }
 
 template <int kCap>
@@ -296,27 +322,47 @@ long long blocks_of(long long n) {
   return (n + kBlockElems - 1) / kBlockElems;
 }
 
+// Whether ``members`` packed rows, ``blocks`` blocks in all, are a wave:
+// each row's first block the sum of the rows before it.
+bool valid_table(const Member* rows, int members, int blocks) {
+  if (members < 1 || blocks < 1) return false;
+  long long next = 0;
+  for (int i = 0; i < members; ++i) {
+    if (rows[i].n < 1 || rows[i].first_block != next) return false;
+    next += blocks_of(rows[i].n);
+  }
+  return next == blocks;
+}
+
 }  // namespace
 
 // One launch over ``members`` rows of ``table`` (the wrapper's packed
 // Member array, each row's first block the sum of the rows before it),
-// ``blocks`` in all, on ``stream``.
+// ``blocks`` in all, on ``stream``: the table passed by value, at most
+// kMaxMembers rows.
 extern "C" int pim_mac_wave(const void* table, int members, int blocks,
                             void* stream) {
-  if (members < 1 || members > kMaxMembers || blocks < 1)
-    return (int)cudaErrorInvalidValue;
   const Member* rows = static_cast<const Member*>(table);
-  long long next = 0;
-  for (int i = 0; i < members; ++i) {
-    if (rows[i].n < 1 || rows[i].first_block != next)
-      return (int)cudaErrorInvalidValue;
-    next += blocks_of(rows[i].n);
-  }
-  if (next != blocks) return (int)cudaErrorInvalidValue;
+  if (members > kMaxMembers || !valid_table(rows, members, blocks))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (members <= 4) return launch<4>(rows, members, blocks, s);
   if (members <= 32) return launch<32>(rows, members, blocks, s);
   return launch<kMaxMembers>(rows, members, blocks, s);
+}
+
+// The same wave of any number of rows, read from ``device_table``: a copy
+// of ``table`` in device memory that is ready on ``stream`` (the caller
+// enqueued it there) and stays allocated until this launch has run.
+// ``table``, on the host, is what is checked.
+extern "C" int pim_mac_wave_table(const void* table, const void* device_table,
+                                  int members, int blocks, void* stream) {
+  if (!valid_table(static_cast<const Member*>(table), members, blocks))
+    return (int)cudaErrorInvalidValue;
+  pim_mac_table_kernel<<<blocks, kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const Member*>(device_table), members);
+  return (int)cudaGetLastError();
 }
 
 // The layout the wrapper packs and checks at load time: 0 sizeof(Member),

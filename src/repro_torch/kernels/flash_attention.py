@@ -35,16 +35,35 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from repro_torch.core import quant
 from repro_torch.kernels import build, ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# csrc flash_attention(q, k, v, out, B, S, H, G, D, dtype, stream)
+# csrc flash_attention(q, k, v, out, B, S, H, G, D, dtype, scale, stream)
 _FLASH_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 6 + (
-    ctypes.c_void_p,)
+    ctypes.c_float, ctypes.c_void_p)
 _FLASH_HEAD_DIMS = (16, 32, 64, 128)   # csrc dispatch
+
+
+def flash_head_dim(d: int) -> int:
+    """The head dim K7 is compiled for that takes a head dim ``d``: the
+    least of ``_FLASH_HEAD_DIMS`` at or above it. The wrapper zero-pads
+    q, k and v up to it: zero columns add nothing to QKᵀ and give zero
+    output columns, which it slices off. Raises above 128."""
+    for dp in _FLASH_HEAD_DIMS:
+        if d <= dp:
+            return dp
+    raise ValueError(f"flash_attention: head dim {d} above the kernel's "
+                     f"largest, {_FLASH_HEAD_DIMS[-1]}")
+
+
+def _flash_scale(d: int) -> float:
+    """1/sqrt(d) in float32, as the kernel computed it from its own D
+    before it took padded head dims."""
+    return float(np.float32(1.0) / np.sqrt(np.float32(d)))
 
 
 def _check_flash(q, k, v, q_chunk: int, kv_chunk: int) -> None:
@@ -84,7 +103,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     ``q_chunk`` / ``kv_chunk`` are the reference's tiling contract only
     (S must be a multiple of each, clamped to S); the kernel's own tile
-    is 64 query rows by 64 keys, the ragged end masked. Forward only.
+    is 64 query rows by 64 keys, the ragged end masked. A head dim D up
+    to 128 runs on the card: one that the kernel is not compiled for is
+    zero-padded up to the next one (``flash_head_dim``), the scores
+    still scaled by 1/sqrt(D). Forward only.
     """
     _check_flash(q, k, v, q_chunk, kv_chunk)
     if q.device.type == "cpu":
@@ -93,22 +115,24 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, got "
                          f"{q.device}")
     b, s, h, d = q.shape
-    if d not in _FLASH_HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {d} not supported by "
-                         f"the kernel ({_FLASH_HEAD_DIMS})")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+    dp = flash_head_dim(d)
+    if dp != d:
+        q, k, v = (torch.nn.functional.pad(t, (0, dp - d)) for t in (q, k, v))
+    elif not (q.is_contiguous() and k.is_contiguous()
+              and v.is_contiguous()):
         raise ValueError("flash_attention: q, k, v must be contiguous")
     out = torch.empty_like(q)
     kernel = build.load("flash_attention", _FLASH_ARGTYPES)
     with torch.cuda.device(q.device):
         rc = kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    b, s, h, k.shape[2], d, _DTYPE_CODE[q.dtype],
+                    b, s, h, k.shape[2], dp, _DTYPE_CODE[q.dtype],
+                    _flash_scale(d),
                     torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed "
                            f"(cudaError {rc})")
     flash_attention.launches += 1
-    return out
+    return out if dp == d else out[..., :d]
 
 
 flash_attention.launches = 0

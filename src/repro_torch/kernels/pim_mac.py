@@ -456,16 +456,14 @@ def mac_wave(members, name: str = "pim_mac") -> list[torch.Tensor]:
     version on the CPU): each member's ``acc + a*b`` over its shape, the
     outputs in order. Numbers are rounded to float32 once (as
     ``torch.as_tensor(x, dtype=torch.float32)`` rounds them); a CPU 0-d
-    tensor in a wave on the card is read as a number. At most
-    ``MAC_MAX_MEMBERS`` members, on either device. Differentiable
-    (``_MacWave``)."""
+    tensor in a wave on the card is read as a number. Any number of
+    members, one launch: up to ``MAC_MAX_MEMBERS`` the table is the
+    kernel's parameter, above it a copy in device memory
+    (``_launch_table``). Differentiable (``_MacWave``)."""
     members = [m if type(m) is MacMember else MacMember(*m)
                for m in members]
     if not members:
         raise ValueError(f"{name} needs at least one member")
-    if len(members) > MAC_MAX_MEMBERS:
-        raise ValueError(f"{name}: a wave of {len(members)} members; one "
-                         f"K3 launch takes at most {MAC_MAX_MEMBERS}")
     key, grad = _signature(members)
     if grad and torch.is_grad_enabled():
         members = _normalized(members, name)
@@ -481,7 +479,9 @@ def mac_wave(members, name: str = "pim_mac") -> list[torch.Tensor]:
 
 MAC_DIMS = 4              # csrc kDims: a member's collapsed dims
 MAC_BLOCK = 2048          # csrc kBlockElems: the elements a block takes
-MAC_MAX_MEMBERS = 178     # csrc kMaxMembers: a table in 32,764 bytes
+MAC_MAX_MEMBERS = 178     # csrc kMaxMembers: the most members a table
+                          # passed by value (32,764 bytes) holds; a larger
+                          # wave's table goes through device memory
 # csrc member flags: bit r set, operand r is dense (a flat member's
 # pointer with stride 1; a pointer without it reads one value)
 _FLAG_STRIDED, _FLAG_VEC, _FLAG_WIDE = 8, 16, 32
@@ -497,6 +497,9 @@ _MAC_LAYOUT = (_MEMBER_BYTES, MAC_MAX_MEMBERS, MAC_BLOCK, 176)
 # csrc pim_mac_wave(table, members, blocks, stream)
 _MAC_WAVE_ARGTYPES = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                       ctypes.c_void_p)
+# csrc pim_mac_wave_table(table, device_table, members, blocks, stream)
+_MAC_TABLE_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_void_p)
 
 
 def _f32(x) -> float:
@@ -710,7 +713,8 @@ def _vec_ok(row) -> bool:
         not row.flags & _FLAG_WIDE and bool(row.dense))
 
 
-_MAC_FN: list = []          # K3's C entry, once its layout is checked
+_MAC_FN: list = []          # K3's C entries (table by value, in device
+                            # memory), once the layout is checked
 
 
 def _launch(plan: _Plan, values) -> list:
@@ -730,16 +734,32 @@ def _launch(plan: _Plan, values) -> list:
     if not plan.live:
         return outs
     table = filled_table(plan, values, base)
-    kernel = _MAC_FN[0] if _MAC_FN else _mac_kernel()
-    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    if not _MAC_FN:
+        _mac_kernel()
     if device.index == torch._C._cuda_getDevice():
-        rc = kernel(table, plan.live, plan.blocks, stream)
+        rc = _launch_table(table, plan, device)
     else:
         with torch.cuda.device(device):
-            rc = kernel(table, plan.live, plan.blocks, stream)
+            rc = _launch_table(table, plan, device)
     _raise_on(rc, "pim_mac")
     pim_mac.launches += 1
     return outs
+
+
+def _launch_table(table: ctypes.Array, plan: _Plan,
+                  device: torch.device) -> int:
+    """Launch K3 over the filled ``table`` on the current stream: by value
+    up to ``MAC_MAX_MEMBERS`` rows, else from a copy in device memory. That
+    copy goes through pinned memory and is enqueued on the launch's
+    stream (no host sync); the stream-ordered allocators keep both
+    buffers from reuse until the stream has passed the launch."""
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    if plan.live <= MAC_MAX_MEMBERS:
+        return _MAC_FN[0](table, plan.live, plan.blocks, stream)
+    rows = torch.frombuffer(table, dtype=torch.uint8).pin_memory()
+    on_card = rows.to(device, non_blocking=True)
+    return _MAC_FN[1](table, on_card.data_ptr(), plan.live, plan.blocks,
+                      stream)
 
 
 def filled_table(plan: _Plan, values, out_base: int) -> ctypes.Array:
@@ -771,8 +791,10 @@ def _mac_kernel() -> ctypes._CFuncPtr:
     if got != _MAC_LAYOUT:
         raise RuntimeError(f"pim_mac: csrc's table layout {got}, the "
                            f"wrapper packs {_MAC_LAYOUT}")
-    _MAC_FN.append(build.load("pim_mac_wave", _MAC_WAVE_ARGTYPES,
-                              source="pim_mac"))
+    _MAC_FN.extend((build.load("pim_mac_wave", _MAC_WAVE_ARGTYPES,
+                               source="pim_mac"),
+                    build.load("pim_mac_wave_table", _MAC_TABLE_ARGTYPES,
+                               source="pim_mac")))
     return _MAC_FN[0]
 
 

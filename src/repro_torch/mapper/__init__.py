@@ -21,8 +21,11 @@ Ported so far: the paper's LeNet, its forward pass and its training step
 any step ``build_schedule`` is given, such as the trainer's AdamW step),
 on the fp32 grid or a quantized weight grid (``weight_dtype``, with
 ``act_dtype`` and ``ideal_provision``); a compiled program and the
-per-block executor are differentiable. Not yet (ROADMAP.md, queue item 3): pipeline partitions,
-scan expansion, paged-KV placement, and ``map_arch`` / ``compile_arch``.
+per-block executor are differentiable; and a registered architecture's
+decode step (``map_arch`` / ``compile_arch``, ``kind="serve"``), its layer
+stack folded into the reference's scanned nodes. Not yet (ROADMAP.md,
+queue item 3): the train step of an architecture, pipeline partitions,
+scan expansion and paged-KV placement.
 """
 
 from repro_torch.mapper.api import (abstract_like, compile_arch,

@@ -5,7 +5,13 @@ allocated) and compiles it into a placed, cost-rolled static schedule;
 ``compile_lenet`` goes one step further, schedule ->
 :func:`repro_torch.mapper.compile.compile_schedule` -> a
 ``CompiledProgram`` running the forward pass *through the placement* on
-the port's PIM kernels.
+the port's PIM kernels. ``map_arch`` / ``compile_arch`` do the same for a
+registered architecture's decode step (``kind="serve"``): one token
+against a ``seq_len`` contiguous cache, its layer stack folded into the
+reference's scanned nodes; the compiled step runs the nodes outside the
+stack on the kernels (the LM head on K1, or K5 on a quantized grid; the
+final norm's MACs on K3) and those inside natively, as the reference's
+lowering binds the placed ops of a scan body.
 
 ``weight_dtype`` stores the placed weights on a reduced-precision grid
 (``"int8"`` / ``"fp8_e4m3"`` / ``"fp8_e5m2"`` / ``"fp16"``; K5 in the
@@ -14,8 +20,9 @@ width, and ``ideal_provision`` picks the ideal bound's footprint (see
 ``build_schedule``).
 
 Not ported yet, and raising ``NotImplementedError`` with their ROADMAP
-item: ``partitions``, ``expand_scans=True``, and ``map_arch`` /
-``compile_arch``.
+item: ``partitions`` and ``expand_scans=True`` (item 3.3), and
+``map_arch`` / ``compile_arch`` with ``kind="train"`` (item 3.2, the
+train half).
 """
 
 from __future__ import annotations
@@ -23,8 +30,10 @@ from __future__ import annotations
 import torch
 from torch.utils import _pytree as pytree
 
+from repro_torch import configs
 from repro_torch._device import resolve_device
 from repro_torch._tree import tree_map
+from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.configs.lenet5 import CONFIG
 from repro_torch.mapper import compile as compile_mod
 from repro_torch.mapper import placement as placement_mod
@@ -95,13 +104,62 @@ def compile_lenet(kind: str = "serve", *, batch: int = 4, lr: float = 0.05,
     return compile_mod.compile_schedule(sched, device=dev)
 
 
-def map_arch(*args, **kwargs):
-    raise NotImplementedError(
-        "map_arch is not ported yet (ROADMAP.md, queue item 3.2: the "
-        "decoder LM through the mapper)")
+def map_arch(name: str, kind: str = "train", *, seq_len: int = 128,
+             batch: int = 1, smoke: bool = False,
+             hierarchy: PIMHierarchy | None = None,
+             policy: placement_mod.PlacementPolicy | None = None,
+             tech: str = "proposed",
+             weight_dtype: str = "fp32",
+             act_dtype: str = "fp32",
+             ideal_provision: str = "fp32",
+             partitions: int | None = None,
+             expand_scans: bool = False,
+             config: ArchConfig | None = None) -> schedule_mod.Schedule:
+    """Map one registered architecture's step: ``kind="serve"`` schedules
+    one decode step against a ``seq_len`` cache at ``batch``, traced on
+    meta tensors (the full configs map without allocating). ``smoke=True``
+    uses the reduced config; ``config``, where given, is mapped instead of
+    the registered one (the architecture cut in depth, say).
+    ``kind="train"``, ``partitions`` and ``expand_scans`` raise
+    ``NotImplementedError`` (not ported yet)."""
+    if kind == "train":
+        raise NotImplementedError(
+            "map_arch(kind='train') is not ported yet (ROADMAP.md, queue "
+            "item 3.2: the decoder LM through the mapper, its train half)")
+    if kind != "serve":
+        raise ValueError(f"kind must be 'train' or 'serve', got {kind!r}")
+    from repro_torch.launch import steps as steps_mod
+
+    cfg = config or (configs.get_smoke_config(name) if smoke
+                     else configs.get_config(name))
+    shape = ShapeSpec(f"map_{kind}", seq_len, batch, kind)
+    token, pos = steps_mod.decode_input_specs(cfg, shape)
+    return schedule_mod.build_schedule(
+        steps_mod.make_serve_step(cfg), steps_mod.abstract_params(cfg),
+        steps_mod.abstract_cache(cfg, shape), token, pos,
+        hierarchy=hierarchy, policy=policy, tech=tech,
+        weight_dtype=weight_dtype, act_dtype=act_dtype,
+        ideal_provision=ideal_provision, partitions=partitions,
+        expand_scans=expand_scans)
 
 
-def compile_arch(*args, **kwargs):
-    raise NotImplementedError(
-        "compile_arch is not ported yet (ROADMAP.md, queue item 3.2: the "
-        "decoder LM through the mapper)")
+def compile_arch(name: str, kind: str = "train", *, seq_len: int = 128,
+                 batch: int = 1, smoke: bool = False,
+                 hierarchy: PIMHierarchy | None = None,
+                 policy: placement_mod.PlacementPolicy | None = None,
+                 tech: str = "proposed", weight_dtype: str = "fp32",
+                 act_dtype: str = "fp32", ideal_provision: str = "fp32",
+                 partitions: int | None = None,
+                 config: ArchConfig | None = None,
+                 device: str | torch.device | None = None
+                 ) -> compile_mod.CompiledProgram:
+    """Map one architecture's step and compile it to a program that runs
+    on ``device`` (CUDA by default): for ``serve``, ``prog(params, cache,
+    token, pos)`` -> (logits, cache), ``params`` the reference's tree
+    (``DecoderLM.stacked_params``)."""
+    sched = map_arch(name, kind, seq_len=seq_len, batch=batch, smoke=smoke,
+                     hierarchy=hierarchy, policy=policy, tech=tech,
+                     weight_dtype=weight_dtype, act_dtype=act_dtype,
+                     ideal_provision=ideal_provision, partitions=partitions,
+                     config=config)
+    return compile_mod.compile_schedule(sched, device=device)

@@ -44,7 +44,8 @@ from torch.utils import _pytree as pytree
 from repro_torch import obs
 from repro_torch._device import resolve_device
 from repro_torch.core import quant
-from repro_torch.mapper.lowering import LoweringContext, eval_placed
+from repro_torch.mapper.lowering import (LoweringContext, eval_placed,
+                                         native_kwargs)
 from repro_torch.mapper.schedule import Schedule
 
 
@@ -161,7 +162,8 @@ class ScheduleExecutor:
 
 def run_fake_quant_plain(schedule: Schedule, *args, **kwargs):
     """The schedule's aten graph run with native ops on the arguments'
-    device (float32, TF32 off), each placed product — ``aten.mm`` or a
+    device (float32, TF32 off), each placed product outside a scanned
+    stack (the lowering runs those inside natively) — ``aten.mm`` or a
     forward ``aten.convolution`` with a placement — over its stationary
     operand (the node's weight, of shape ``node.weight_shape``) replaced by
     ``quant.fake_quant`` of it per (placed row block, column) on the
@@ -174,7 +176,8 @@ def run_fake_quant_plain(schedule: Schedule, *args, **kwargs):
                         f"{schedule.graph.in_spec}")
     grid = schedule.hierarchy.subarray.weight_dtype
     placed = {nd.fx_node: nd for nd in schedule.graph.nodes
-              if nd.idx in schedule.placement.node_placements}
+              if nd.idx in schedule.placement.node_placements
+              and not nd.scanned}
     aten = torch.ops.aten
 
     def stored(w, node):              # w: the (k, n) stationary operand
@@ -199,6 +202,7 @@ def run_fake_quant_plain(schedule: Schedule, *args, **kwargs):
 
     env: dict = {}
     leaves = iter(flat)
+    device = flat[0].device if flat else None
     with torch.no_grad(), full_float32():
         for fx in schedule.graph.gm.graph.nodes:
             if fx.op == "placeholder":
@@ -208,7 +212,7 @@ def run_fake_quant_plain(schedule: Schedule, *args, **kwargs):
                 return pytree.tree_unflatten(outs, schedule.graph.out_spec)
             else:
                 args = torch.fx.node.map_arg(fx.args, env.__getitem__)
-                kw = torch.fx.node.map_arg(fx.kwargs, env.__getitem__)
+                kw = native_kwargs(fx, env.__getitem__, device)
                 env[fx] = call(fx, placed.get(fx.name), args, kw)
     raise AssertionError("the graph has no output node")
 

@@ -28,11 +28,27 @@ tanh between two matmuls still links them), except what an op reads only
 for its shape: the ``*_like`` and ``new_*`` factories, and of a
 convolution's cotangents the input of the input's and the weight of the
 weight's — each reads the output cotangent and the other operand, as the
-reference's transposed convolutions do. A flat aten graph has no
-sub-graph boundaries, so every edge is precise.
+reference's transposed convolutions do. Nor does an edge cross the
+boundary of a region the traced code marked (``estimator.region``): the
+reference's var identity stops at a sub-jaxpr (a call such as the
+custom-VJP ``rms_norm``, a scan body), so its edges into and out of one
+are dropped, and the port drops the same ones.
 
-Scan expansion (``expand_graph``, ``plan_scan_expansion``) is not ported:
-an aten graph has no scan — ``make_fx`` unrolls loops.
+A product's ``out_shape`` is its value as the program reads it:
+``x @ w`` over a 3-D ``x`` traces as ``mm`` between a flattening view and
+``_unsafe_view``, and a batched product as ``bmm`` followed by the view
+that unflattens its batch dims; the reference's ``dot_general`` keeps
+those dims, so the node takes the shape of that one view.
+
+A scanned layer stack: ``make_fx`` unrolls the loop the reference scans.
+Each iteration of a ``"scan"`` region must repeat the first op for op
+(the same aten ops on the same shapes, the same nodes with the same
+edges); the graph keeps the first iteration's nodes, marked ``scanned``,
+with ``repeat`` the number of iterations and their op totals multiplied
+by it, drops the others, and numbers the nodes afresh — the reference's
+node list. Scan expansion (``expand_graph``, ``plan_scan_expansion``,
+which let partition cuts land inside the stack) is not ported yet
+(ROADMAP.md, queue item 3.3).
 """
 
 from __future__ import annotations
@@ -50,8 +66,8 @@ from repro_torch.core.estimator import OpCounts
 class OpNode:
     idx: int
     kind: str                 # matmul | conv | eltwise
-    name: str                 # "<aten op>.<idx>"
-    repeat: int               # static multiplicity (always 1: flat graph)
+    name: str                 # "<op>.<idx>"; every product "mm.<idx>"
+    repeat: int               # static multiplicity (scan iterations)
     deps: list[int]
     out_shape: tuple[int, ...]
     out_elems: int            # per execution
@@ -59,7 +75,10 @@ class OpNode:
     adds: int = 0
     muls: int = 0
     fx_node: str = ""         # name of the source fx node (executor key;
-                              # the reference's ``eqn_id``)
+                              # the reference's ``eqn_id``): for a scanned
+                              # node, the first iteration's
+    scanned: bool = False     # inside a scanned layer stack: runs natively
+                              # (the reference binds it as its primitive)
 
     @property
     def weight_shape(self) -> tuple[int, int] | None:
@@ -171,13 +190,36 @@ def _data_inputs(fx: torch.fx.Node) -> list[torch.fx.Node]:
     return ins
 
 
+def _product_shape(fx: torch.fx.Node) -> tuple[int, ...]:
+    """A product's value as the program reads it: the shape of the one
+    view that unflattens it (``_unsafe_view`` after ``mm``, that or
+    ``view`` after ``bmm``), else its own (module docstring)."""
+    users = list(fx.users)
+    views = ({aten._unsafe_view.default} if fx.target is aten.mm.default
+             else {aten._unsafe_view.default, aten.view.default})
+    if len(users) == 1 and users[0].target in views:
+        return estimator.shape_of(users[0])
+    return estimator.shape_of(fx)
+
+
+def _stack_of(scope: tuple):
+    """The outermost scan region of a scope: ``(stack name, iteration
+    id)``, or None."""
+    for kind, name, rid in scope:
+        if kind == "scan":
+            return name, rid
+    return None
+
+
 def build_graph_from_capture(cap: estimator.Capture,
                              fn: Callable | None = None) -> OpGraph:
     nodes: list[OpNode] = []
     origin: dict[torch.fx.Node, frozenset[int]] = {}  # -> producing nodes
     for fx, scale in estimator.iter_nodes(cap.gm):
+        here = estimator.scope_of(fx)
         src = frozenset().union(*[origin.get(v, frozenset())
-                                  for v in _data_inputs(fx)])
+                                  for v in _data_inputs(fx)
+                                  if estimator.scope_of(v) == here])
         kind = estimator.node_kind(fx.target)
         if kind is None:
             origin[fx] = src
@@ -191,6 +233,8 @@ def build_graph_from_capture(cap: estimator.Capture,
             out_shape = _conv_out_shape(fx, half)
         elif kind == "matmul" and estimator.mm_transposed(fx):
             out_shape = estimator.shape_of(fx)[::-1]
+        elif kind == "matmul":
+            out_shape = _product_shape(fx)
         else:
             out_shape = estimator.shape_of(fx)
         out_elems = estimator.numel(out_shape)
@@ -200,7 +244,7 @@ def build_graph_from_capture(cap: estimator.Capture,
         node: OpNode
         if kind == "matmul":
             b, m, n, k = estimator.mm_dims(fx)
-            node = MatmulNode(name=f"{name}.{idx}",
+            node = MatmulNode(name=f"mm.{idx}",
                               macs=scale * b * m * n * k, batch=b, m=m, k=k,
                               n=n, transposed=estimator.mm_transposed(fx),
                               **common)
@@ -217,8 +261,70 @@ def build_graph_from_capture(cap: estimator.Capture,
                                op=name, **common)
         nodes.append(node)
         origin[fx] = frozenset({node.idx})
+    nodes = _fold_stacks(nodes, cap.gm)
     return OpGraph(nodes=nodes, gm=cap.gm, in_spec=cap.in_spec,
                    out_spec=cap.out_spec, fn=fn)
+
+
+def _iteration_row(nd: OpNode, first: int) -> tuple:
+    """What two iterations of a stack must agree on for a node: every
+    field but its index, name, fx node and edges, and the edges relative
+    to the iteration's first node."""
+    row = dataclasses.asdict(nd)
+    for key in ("idx", "name", "fx_node", "deps"):
+        del row[key]
+    return (type(nd).__name__, tuple(sorted(row.items())),
+            tuple(d - first for d in nd.deps))
+
+
+def _fold_stacks(nodes: list[OpNode],
+                 gm: torch.fx.GraphModule) -> list[OpNode]:
+    """Fold each scanned layer stack back into its first iteration's
+    nodes (module docstring); renumber every node. Raises ``ValueError``
+    where an iteration does not repeat the first."""
+    by_fx = {nd.fx_node: nd for nd in nodes}
+    # stack -> iteration id -> (its aten ops, its nodes), in trace order
+    stacks: dict[str, dict[int, tuple[list, list]]] = {}
+    for fx in gm.graph.nodes:
+        at = _stack_of(estimator.scope_of(fx))
+        if at is None:
+            continue
+        ops, its_nodes = stacks.setdefault(at[0], {}).setdefault(
+            at[1], ([], []))
+        val = fx.meta.get("val")
+        ops.append((fx.target, tuple(getattr(val, "shape", ())),
+                    getattr(val, "dtype", None)))
+        if fx.name in by_fx:
+            its_nodes.append(by_fx[fx.name])
+    drop: set[int] = set()
+    for stack, iterations in stacks.items():
+        (ops0, first), *rest = iterations.values()
+        count = len(iterations)
+        rows0 = [_iteration_row(nd, first[0].idx if first else 0)
+                 for nd in first]
+        for i, (ops, its) in enumerate(rest, start=1):
+            rows = [_iteration_row(nd, its[0].idx if its else 0)
+                    for nd in its]
+            if ops != ops0 or rows != rows0:
+                raise ValueError(
+                    f"layer stack {stack!r}: iteration {i} does not "
+                    f"repeat iteration 0 op for op ({len(ops)} vs "
+                    f"{len(ops0)} aten ops, {len(its)} vs {len(first)} "
+                    f"nodes); the reference scans only identical layers")
+            drop.update(nd.idx for nd in its)
+        for nd in first:
+            nd.repeat *= count
+            nd.macs *= count
+            nd.adds *= count
+            nd.muls *= count
+            nd.scanned = True
+    kept = [nd for nd in nodes if nd.idx not in drop]
+    new_idx = {nd.idx: i for i, nd in enumerate(kept)}
+    return [dataclasses.replace(
+        nd, idx=new_idx[nd.idx], name=f"{nd.name.rsplit('.', 1)[0]}."
+                                      f"{new_idx[nd.idx]}",
+        deps=[new_idx[d] for d in nd.deps if d in new_idx])
+        for nd in kept]
 
 
 def build_graph(fn: Callable, *args, **kwargs) -> OpGraph:

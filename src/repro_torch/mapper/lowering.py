@@ -56,6 +56,11 @@ actual kernel launches — under the per-block oracle they are equal (plus
 eltwise); under grouped execution launches collapse to about one per
 placed node.
 
+A node inside a scanned layer stack (``OpNode.scanned``) runs its own
+aten op in every iteration, as the reference's lowering binds the placed
+ops of a scan body as their primitives: only the nodes outside the stack
+reach the kernels.
+
 Rules decline — and the node runs its own aten op, numerically exact,
 just not routed through the PIM kernels — for: batched matmuls (``bmm``),
 non-float matmuls, convolutions with a bias, groups, dilation,
@@ -194,13 +199,19 @@ def _grouped_operands(ctx: LoweringContext, node_idx: int, a2, b2):
     b2 = b2.to(torch.float32)
     a_g = a2.new_zeros((R, mp, kb))
     b_g = b2.new_zeros((R * C, kb, nb))
+    full = min(n // w, C)             # column chunks of the full width
     for r in range(R):
         rows = slice(r * h, (r + 1) * h)
         chunk = a2[:, rows]
         a_g[r, :m, :chunk.shape[1]] = chunk
-        for c in range(C):
-            wb = b2[rows, c * w:(c + 1) * w]
-            b_g[r * C + c, :wb.shape[0], :wb.shape[1]] = wb
+        wb = b2[rows]
+        hr = wb.shape[0]
+        # the full-width column chunks in one copy, the ragged last apart
+        b_g[r * C:r * C + full, :hr, :w] = wb[:, :full * w].reshape(
+            hr, full, w).transpose(0, 1)
+        if full < C and full * w < n:
+            tail = wb[:, full * w:(full + 1) * w]
+            b_g[r * C + full, :hr, :tail.shape[1]] = tail
     return a_g, b_g, (R, C, m, n, w)
 
 
@@ -477,7 +488,8 @@ def plan(ctx: LoweringContext) -> list[Step]:
     for fx in fx_nodes:
         node = ctx.node_by_fx.get(fx.name) if fx.op == "call_function" \
             else None
-        if node is not None and _OK[node.kind](fx, node):
+        if node is not None and not node.scanned and _OK[node.kind](fx,
+                                                                    node):
             lowered[fx] = node
     cands: dict[str, list] = {}
     if ctx.grouped:
@@ -540,6 +552,16 @@ def _run_placed(ctx: LoweringContext, step: Step, read) -> list:
     return [(fx, RULES[step.node.kind](ctx, fx, step.node, args, kwargs))]
 
 
+def native_kwargs(fx: torch.fx.Node, read, device) -> dict:
+    """A natively run node's keyword arguments on this call's values. A
+    factory (``arange``, ``zeros``, ...) traced on meta tensors holds
+    ``device=meta``: it makes its tensor on the call's ``device``."""
+    kwargs = torch.fx.node.map_arg(fx.kwargs, read)
+    if "device" in kwargs and device is not None:
+        kwargs = {**kwargs, "device": device}
+    return kwargs
+
+
 def eval_placed(ctx: LoweringContext, flat_args) -> list:
     """Replay the plan on the flat argument leaves; returns the flat
     output leaves. Placed nodes run through the rules (their kernels),
@@ -554,7 +576,7 @@ def eval_placed(ctx: LoweringContext, flat_args) -> list:
             env[fx] = flat_args[step.index]
         elif step.kind == "native":
             env[fx] = fx.target(*torch.fx.node.map_arg(fx.args, read),
-                                **torch.fx.node.map_arg(fx.kwargs, read))
+                                **native_kwargs(fx, read, device))
         elif step.kind == "placed":
             if tr.enabled:
                 # record the launch as an execute-lane span, synced so dur

@@ -190,7 +190,7 @@ def _not_ported(partitions, expand_scans: bool) -> None:
     if expand_scans:
         raise NotImplementedError(
             "scan expansion is not ported yet (ROADMAP.md, queue item "
-            "3.2, with the decoder LM through the mapper)")
+            "3.3, with the pipeline partitions it lets cut the stack)")
 
 
 def build_schedule_from_graph(

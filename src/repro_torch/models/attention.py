@@ -1,4 +1,13 @@
-"""GQA attention over a paged KV pool: decode and whole-prompt prefill.
+"""GQA attention: decode against a contiguous KV cache, and decode and
+whole-prompt prefill over a paged KV pool.
+
+``decode_attention`` is the port of the reference's decode path against
+a contiguous cache ``[B, max_len, G, head_dim]``, a function of the
+reference's attention params (``{"wq", "wk", "wv", "wo"}``) that returns
+the updated cache, as the reference does; the mapper traces it
+(``launch.steps.make_serve_step``) and its grouped einsums are spelled
+as the reference's ``dot_general`` products (operand order, batch dims,
+output layout), so the traced products are the reference's nodes.
 
 Port of the paged paths of ``repro.models.attention``. The KV pool of the
 whole model is one stacked tensor per leaf, ``[n_layers, num_blocks,
@@ -78,17 +87,85 @@ def init_attention(cfg: ArchConfig, dtype, device) -> Attention:
                      qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm)
 
 
-def _project_qkv(x, attn: Attention, cfg: ArchConfig, positions):
+def _project_qkv(x, wq, wk, wv, cfg: ArchConfig, positions):
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = (x @ attn.wq).reshape(b, s, cfg.n_heads, hd)
-    k = (x @ attn.wk).reshape(b, s, cfg.n_kv_heads, hd)
-    v = (x @ attn.wv).reshape(b, s, cfg.n_kv_heads, hd)
+    q = (x @ wq).reshape(b, s, cfg.n_heads, hd)
+    k = (x @ wk).reshape(b, s, cfg.n_kv_heads, hd)
+    v = (x @ wv).reshape(b, s, cfg.n_kv_heads, hd)
     q = layers.apply_rope(q, positions, theta=cfg.rope_theta,
                           style=cfg.rope_style)
     k = layers.apply_rope(k, positions, theta=cfg.rope_theta,
                           style=cfg.rope_style)
     return q, k, v
+
+
+# ---------------------------------------------------------------------------
+# decode against a contiguous cache
+# ---------------------------------------------------------------------------
+
+
+def init_kv_cache(batch: int, max_len: int, n_kv: int, head_dim: int,
+                  dtype, device) -> dict[str, torch.Tensor]:
+    """One attention site's contiguous cache ``{"k", "v"}``, each ``[batch,
+    max_len, n_kv, head_dim]`` of zeros."""
+    shape = (batch, max_len, n_kv, head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _updated(cache: torch.Tensor, new: torch.Tensor,
+             pos: torch.Tensor) -> torch.Tensor:
+    """``cache`` [B, S, G, D] with ``new`` [B, 1, G, D] written at ``pos``,
+    out of place: the reference's ``dynamic_update_slice_in_dim`` (a
+    negative position counts from the end, and the row is clamped into
+    the cache). ``pos`` stays on the device: no host read."""
+    s = cache.shape[1]
+    at = torch.where(pos < 0, pos + s, pos).clamp(0, s - 1)
+    return cache.index_copy(1, at.reshape(1).long(), new.to(cache.dtype))
+
+
+def _softmax(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softmax`` over the last axis, as its jaxpr spells it: the
+    max subtracted, exp, divided by the sum."""
+    e = torch.exp(x - x.amax(-1, keepdim=True))
+    return e / e.sum(-1, keepdim=True)
+
+
+def decode_attention(x: torch.Tensor, p: dict, cfg: ArchConfig,
+                     cache: dict, pos: torch.Tensor):
+    """x: [B, 1, D]; ``p`` the reference's attention params; ``cache``
+    ``{"k", "v"}`` [B, max_len, G, hd]; pos: a 0-d int tensor, the current
+    length. Returns (out [B, 1, D], the updated cache), the cache written
+    out of place. Grouped products, KV never repeated: the scores are the
+    reference's ``dot_general(k, q)`` over (b, g) — ``bmm`` of k [B·G, S,
+    hd] by q [B·G, hd, R] — and the values its ``dot_general(v, p)``."""
+    b = x.shape[0]
+    hd = cfg.resolved_head_dim
+    g = cfg.n_kv_heads
+    r = cfg.n_heads // g
+    q, k_new, v_new = _project_qkv(x, p["wq"], p["wk"], p["wv"], cfg,
+                                   pos.expand(b, 1))
+    k = _updated(cache["k"], k_new, pos)
+    v = _updated(cache["v"], v_new, pos)
+    s = k.shape[1]
+    qg = q.reshape(b, 1, g, r, hd)                      # [B, 1, G, R, hd]
+    scores = torch.bmm(k.permute(0, 2, 1, 3).reshape(b * g, s, hd),
+                       qg.permute(0, 2, 4, 1, 3).reshape(b * g, hd, r))
+    scores = scores.view(b, g, s, 1, r).permute(0, 1, 4, 3, 2)  # b g r q k
+    scores = scores.float() / math.sqrt(hd)
+    valid = torch.arange(s, device=x.device) <= pos
+    probs = _softmax(torch.where(valid, scores, NEG_INF)).to(q.dtype)
+    out = torch.bmm(v.permute(0, 2, 3, 1).reshape(b * g, hd, s),
+                    probs.permute(0, 1, 4, 2, 3).reshape(b * g, s, r))
+    out = out.view(b, g, hd, r, 1).permute(0, 4, 1, 3, 2)   # b q g r d
+    out = out.reshape(b, 1, cfg.n_heads * hd) @ p["wo"]
+    return out, {"k": k, "v": v}
+
+
+# ---------------------------------------------------------------------------
+# paged KV pool
+# ---------------------------------------------------------------------------
 
 
 def init_paged_kv_cache(n_layers: int, num_blocks: int, block_size: int,
@@ -155,7 +232,8 @@ def paged_decode_attention(x, attn: Attention, cfg: ArchConfig,
     b = x.shape[0]
     hd = cfg.resolved_head_dim
     bs = k_store.shape[1]
-    q, k_new, v_new = _project_qkv(x, attn, cfg, pos[:, None])
+    q, k_new, v_new = _project_qkv(x, attn.wq, attn.wk, attn.wv, cfg,
+                                   pos[:, None])
     rows = torch.arange(b, device=x.device)
     blk = block_table[rows, (pos // bs).long()].long()      # [B] tail blocks
     off = (pos % bs).long()
@@ -211,7 +289,8 @@ def paged_prefill_attention(x, attn: Attention, cfg: ArchConfig,
     w = table_row.shape[0]
     g = cfg.n_kv_heads
     gpos = p0 + torch.arange(t, device=x.device)             # [T]
-    q, k_new, v_new = _project_qkv(x, attn, cfg, gpos[None])
+    q, k_new, v_new = _project_qkv(x, attn.wq, attn.wk, attn.wv, cfg,
+                                   gpos[None])
     new_valid = torch.arange(t, device=x.device) < n_new
     tbl = table_row.long()
     blk = torch.where(new_valid, tbl[torch.clamp(gpos // bs, 0, w - 1)], 0)

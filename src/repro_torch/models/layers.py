@@ -6,6 +6,12 @@ matmuls in the compute dtype); small ``nn.Module``s hold the weights in
 the reference's layout (``x @ w``, weights ``[in, out]``), so the
 checkpoint bridge copies leaves across without transposing. Sharding
 constraints are dropped: the port runs on one device.
+
+The functions are spelled as the reference's jaxpr has them, so that the
+mapper traces the same priced ops (``repro_torch.core.estimator``): the
+norm's mean as a sum divided by its length, RoPE's inverse frequencies
+as a division, and ``rms_norm`` inside a ``"call"`` region, as the
+reference's custom-VJP ``rms_norm`` is a call of its own.
 """
 
 from __future__ import annotations
@@ -13,6 +19,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.core import estimator
 
 
 def dense_init_(w: torch.Tensor, generator: torch.Generator,
@@ -41,10 +49,11 @@ def empty_param(shape, dtype, device) -> nn.Parameter:
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-5) -> torch.Tensor:
-    x32 = x.float()
-    var = x32.square().mean(-1, keepdim=True)
-    y = x32 * torch.rsqrt(var + eps)
-    return (y * scale.float()).to(x.dtype)
+    with estimator.region("call", "rms_norm"):
+        x32 = x.float()
+        var = x32.square().sum(-1, keepdim=True) / x32.shape[-1]
+        y = x32 * torch.rsqrt(var + eps)
+        return (y * scale.float()).to(x.dtype)
 
 
 class RMSNorm(nn.Module):
@@ -68,7 +77,8 @@ class RMSNorm(nn.Module):
 
 def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
     ar = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device)
-    return 1.0 / (theta ** (ar / head_dim))        # [head_dim / 2]
+    p = theta ** (ar / head_dim)
+    return torch.full_like(p, 1.0) / p             # [head_dim / 2]
 
 
 def _rotate(x, cos, sin):

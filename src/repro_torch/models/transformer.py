@@ -1,6 +1,6 @@
-"""Decoder-only LM on the paged KV path: the port of
-``repro.models.transformer.DecoderLM`` for ``block_pattern="attn"`` with
-dense SwiGLU MLPs (llama3-8b).
+"""Decoder-only LM: the port of ``repro.models.transformer.DecoderLM``
+for ``block_pattern="attn"`` with dense SwiGLU MLPs (llama3-8b), on a
+paged KV pool and against a contiguous cache.
 
 The reference stacks the layers on a leading axis and scans over them;
 the port keeps one ``nn.Module`` per layer and loops. The KV pool stays
@@ -14,7 +14,15 @@ Entry points:
   * ``decode_step_paged(cache, token, block_table, pos)`` -> logits
     ``[B, V]``, one token for every slot;
   * ``prefill_paged(cache, tokens, table_row, p0, n_new)`` writes one
-    slot's prompt KV in one call.
+    slot's prompt KV in one call;
+  * ``decode_step(params, cache, token, pos)`` -> (logits ``[B, V]``,
+    cache): one token against a contiguous cache (``init_cache``), a
+    function of the reference's parameter tree (``stacked_params``,
+    ``param_tree``) — the layers stacked on a leading axis, as the
+    reference scans them — so the mapper can trace it on meta tensors
+    (``launch.steps.make_serve_step``). Each layer runs in a ``"scan"``
+    region (``core.estimator.region``), which the mapper's graph folds
+    back into the reference's scanned nodes.
 """
 
 from __future__ import annotations
@@ -24,7 +32,76 @@ from torch import nn
 
 from repro_torch._device import resolve_device, torch_dtype
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import estimator
 from repro_torch.models import attention, layers
+
+# the reference's per-layer leaves (``layers/block0/<name>``, stacked on a
+# leading axis) and the port's per-layer module attribute of each
+LAYER_LEAVES = {"norm1/scale": "norm1.scale", "norm2/scale": "norm2.scale",
+                "attn/wq": "attn.wq", "attn/wk": "attn.wk",
+                "attn/wv": "attn.wv", "attn/wo": "attn.wo",
+                "mlp/w_gate": "mlp.w_gate", "mlp/w_up": "mlp.w_up",
+                "mlp/w_down": "mlp.w_down"}
+
+
+def leaf_shapes(cfg: ArchConfig) -> dict[str, tuple[int, ...]]:
+    """Every leaf of the reference's parameter tree by its '/'-joined key
+    path (``checkpoint/ckpt.py:_flatten``'s), with its shape."""
+    d, f, v = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    hq = cfg.n_heads * cfg.resolved_head_dim
+    hkv = cfg.n_kv_heads * cfg.resolved_head_dim
+    per_layer = {"norm1/scale": (d,), "norm2/scale": (d,),
+                 "attn/wq": (d, hq), "attn/wk": (d, hkv),
+                 "attn/wv": (d, hkv), "attn/wo": (hq, d),
+                 "mlp/w_gate": (d, f), "mlp/w_up": (d, f),
+                 "mlp/w_down": (f, d)}
+    return {"embed/table": (v, d), "final_norm/scale": (d,),
+            "lm_head/w": (d, v),
+            **{f"layers/block0/{k}": (cfg.n_layers, *shape)
+               for k, shape in per_layer.items()}}
+
+
+def param_tree(flat: dict) -> dict:
+    """The nested parameter tree of '/'-joined key paths, in the order of
+    ``leaf_shapes`` (the order a traced step's arguments flatten in)."""
+    tree: dict = {}
+    for key, leaf in flat.items():
+        *path, last = key.split("/")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[last] = leaf
+    return tree
+
+
+def decode_step(cfg: ArchConfig, params: dict, cache: dict,
+                token: torch.Tensor, pos: torch.Tensor):
+    """The reference's ``DecoderLM.decode_step``: token [B] int; pos a
+    0-d int tensor, the current position; ``params`` the reference's
+    tree (``param_tree``), ``cache`` ``{"layers": {"block0": {"k",
+    "v"}}}``, leaves ``[L, B, max_len, G, hd]``. Returns (logits [B, V],
+    the updated cache, written out of place). Each layer is one
+    iteration of a ``"scan"`` region."""
+    x = layers.embed(token[:, None], params["embed"]["table"])
+    lp = params["layers"]["block0"]
+    lc = cache["layers"]["block0"]
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        with estimator.region("scan", "layers"):
+            h = layers.rms_norm(x, lp["norm1"]["scale"][i], cfg.norm_eps)
+            att, kv = attention.decode_attention(
+                h, {name: w[i] for name, w in lp["attn"].items()}, cfg,
+                {"k": lc["k"][i], "v": lc["v"][i]}, pos)
+            x = x + att
+            ks.append(kv["k"])
+            vs.append(kv["v"])
+            h = layers.rms_norm(x, lp["norm2"]["scale"][i], cfg.norm_eps)
+            x = x + layers.mlp(h, lp["mlp"]["w_gate"][i],
+                               lp["mlp"]["w_up"][i], lp["mlp"]["w_down"][i])
+    x = layers.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
+    logits = layers.lm_head(x, params["lm_head"]["w"])
+    return logits[:, 0], {"layers": {"block0": {"k": torch.stack(ks),
+                                                "v": torch.stack(vs)}}}
 
 
 class Block(nn.Module):
@@ -74,6 +151,40 @@ class DecoderLM(nn.Module):
             if m is not self and hasattr(m, "init"):
                 m.init(gen)
         return self
+
+    # -- the reference's parameter tree, a contiguous cache ------------------
+
+    def stacked_params(self) -> dict:
+        """The module's parameters as the reference's tree: the layers'
+        leaves stacked on a leading axis (a copy), the rest as they are —
+        what ``decode_step`` and a mapped step take
+        (``checkpoint.bridge.params_into`` is the inverse)."""
+        flat = {"embed/table": self.embed.table,
+                "final_norm/scale": self.final_norm.scale,
+                "lm_head/w": self.lm_head.w}
+        for key, attr in LAYER_LEAVES.items():
+            flat[f"layers/block0/{key}"] = torch.stack([
+                blk.get_parameter(attr) for blk in self.layers])
+        return param_tree({k: flat[k] for k in leaf_shapes(self.cfg)})
+
+    def init_cache(self, batch: int, max_len: int) -> dict:
+        """The contiguous KV cache ``decode_step`` takes: ``{"layers":
+        {"block0": {"k", "v"}}}``, each ``[n_layers, batch, max_len,
+        n_kv, head_dim]`` of zeros in the model dtype."""
+        cfg = self.cfg
+        site = attention.init_kv_cache(batch, max_len, cfg.n_kv_heads,
+                                       cfg.resolved_head_dim, self.dtype,
+                                       self.device)
+        return {"layers": {"block0": {
+            name: t.expand(cfg.n_layers, *t.shape).clone()
+            for name, t in site.items()}}}
+
+    def decode_step(self, params: dict, cache: dict, token: torch.Tensor,
+                    pos: torch.Tensor):
+        """One decode step against a contiguous cache, on ``params`` (the
+        reference's tree, ``stacked_params()`` for this module's own):
+        module-level ``decode_step`` with this model's config."""
+        return decode_step(self.cfg, params, cache, token, pos)
 
     # -- paged KV ------------------------------------------------------------
 

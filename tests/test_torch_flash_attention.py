@@ -17,6 +17,7 @@ import torch
 from repro.kernels import ops as ref_ops
 from repro.kernels import ref as ref_kernels
 from repro_torch.kernels import flash_attention, flash_attention_ref, ops
+from repro_torch.kernels.flash_attention import flash_head_dim
 
 SHAPES = [(1, 128, 4, 2, 64), (2, 128, 8, 8, 32), (1, 64, 6, 3, 16)]
 DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
@@ -110,3 +111,29 @@ def test_contract_raises():
         flash_attention(q.requires_grad_(True), k, v)
     with torch.no_grad():       # no gradient is expected there
         flash_attention(q, k, v)
+
+
+@pytest.mark.parametrize("d", [112, 80])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_head_dims_the_kernel_pads_match_pallas_kernel(d, dtype):
+    """zamba2_7b's head dim 112 and 80: on the card the kernel zero-pads
+    them to 128 (``flash_head_dim``); the plain version takes them as
+    they are, and both sides hold to the reference's kernel."""
+    jdt, tdt, tol = DTYPES[dtype]
+    arrays = _inputs((1, 128, 4, 2, d), seed=3)
+    want = ref_ops.attention(*(jnp.asarray(a, jdt) for a in arrays),
+                             q_chunk=64, kv_chunk=64)
+    q, k, v = (torch.from_numpy(a).to(tdt) for a in arrays)
+    got = ops.attention(q, k, v, q_chunk=64, kv_chunk=64)
+    assert got.dtype == tdt and got.shape == q.shape
+    _close(got, want, tol)
+    assert flash_head_dim(d) == 128
+
+
+def test_head_dim_policy_and_its_limit():
+    """Each head dim runs on the least compiled size at or above it; a
+    head dim above 128 raises (no config of the repo reaches it)."""
+    assert [flash_head_dim(d) for d in (1, 16, 17, 32, 33, 64, 65, 128)] \
+        == [16, 16, 32, 32, 64, 64, 128, 128]
+    with pytest.raises(ValueError, match="above the kernel's largest"):
+        flash_head_dim(129)

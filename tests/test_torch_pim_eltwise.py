@@ -336,17 +336,29 @@ def test_an_operand_past_four_dims_is_copied_and_counted():
     assert _bits_equal(got.contiguous(), _pre_change(m))
 
 
-def test_a_wave_above_the_member_cap_raises():
-    x = torch.ones(3)
-    with pytest.raises(ValueError, match=str(MAC_MAX_MEMBERS)):
-        mac_wave([MacMember((3,), x, 2.0, 0.0)] * (MAC_MAX_MEMBERS + 1))
-    got = mac_wave([MacMember((3,), x, float(i), 0.0)
-                    for i in range(MAC_MAX_MEMBERS)])
-    assert [float(g[0]) for g in got] == [float(i)
-                                          for i in range(MAC_MAX_MEMBERS)]
-    rows, _ = wave_rows(pm._normalized(
-        [MacMember((3,), x, 2.0, 0.0)] * MAC_MAX_MEMBERS, "test"))
-    assert len(pack_rows(rows)) == MAC_MAX_MEMBERS * pm._MEMBER_BYTES
+@pytest.mark.parametrize("n", [MAC_MAX_MEMBERS + 1, 600])
+def test_a_wave_above_the_member_cap_is_one_launch(n, monkeypatch):
+    """A wave of more members than one table passed by value holds (the
+    card then reads the same table from device memory) is one launch, bit
+    for bit the plain version, its packed table and the pre-change
+    formulation, every member form among its members."""
+    forms = [m for case in CASES for m in _wave(case, n)]
+    members = [forms[i % len(forms)] for i in range(n)]
+    calls = []
+    real = ref.pim_mac_wave_ref
+    monkeypatch.setattr(ref, "pim_mac_wave_ref",
+                        lambda ms: calls.append(len(ms)) or real(ms))
+    got = mac_wave(members)
+    assert calls == [n]
+    table = _on_the_table(members)
+    for m, g, t in zip(members, got, table, strict=True):
+        want = _pre_change(m)
+        assert _bits_equal(g.contiguous(), want)
+        assert _bits_equal(t.contiguous(), want)
+    rows, _ = wave_rows(pm._normalized(members, "test"))
+    assert len(pack_rows([r for r in rows if r.n])) == sum(
+        1 for r in rows if r.n) * pm._MEMBER_BYTES > (
+        MAC_MAX_MEMBERS * pm._MEMBER_BYTES)
 
 
 def test_table_layout_is_the_c_struct():
