@@ -136,7 +136,8 @@ Phases, each printing one JSON line:
    (1,64,6,3,16), chunks of 64) and llama3-8b's heads (H 32, G 8, D 128,
    B 1, S 2048 and 8192), a ragged length ((1,200,8,2,64), chunks of
    256 clamped to S) and head dims the kernel pads to 128 ((1,256,8,2,112),
-   (1,256,8,2,80)), float32 and bfloat16: each call one launch of the
+   (1,256,8,2,80)) or 256 ((1,256,8,2,160)), and 256 itself
+   ((1,256,8,2,256)), float32 and bfloat16: each call one launch of the
    body of its dtype (the profiler names it: bf16 on the tensor-core
    body, whose SASS must hold HMMA instructions), held
    against ``flash_attention_ref`` (TF32 off) per (batch, query, head)
@@ -174,6 +175,26 @@ Phases, each printing one JSON line:
    profiler, K1's LM-head launch against its bound and ``mm``, peak
    memory. ``kernels_pim`` (``"path": "pim_llama"`` / ``"pim_llama_q"``)
    holds K1, K2, K3 and K5 at that step's launches as in 8 and 13.
+19. ``pim_llama_train`` — llama3-8b's train step through the mapper,
+   ``compile_arch("llama3-8b", "train")``, at its published width in
+   float32 cut to 2 layers (1.487 B parameters), batch 1, seq 128, one
+   ``TokenStream`` batch, seeded parameters and AdamW state: every
+   product lies in a folded loop and runs natively, so K3 alone launches
+   (84 waves a compiled step, 148 launches a per-block step, the CPU's
+   counts; members up to the 525 M elements of the embedding and the LM
+   head); one run on the card at a time, its outputs moved to host
+   memory: the compiled step bit-equal to the executor's and within
+   rtol = atol = 1e-4 of the plain step (loss, params, m and v), no host
+   sync in a step, the control (the last wave one ulp off) breaking the
+   bit equality, every wave of a step held against K3's plain version
+   member by member, peak memory. Then 3 steps of ``Trainer(backend=
+   "pim")`` against ``"jit"`` (losses within 1e-4, each run's final
+   checkpoint timed and removed). Then the published dtype (bf16) cut to
+   4 layers, batch 1, seq 2048: ms per compiled and plain step (wall and
+   under the profiler: kernels a step, busy share), peak memory, and
+   each of the step's K3 waves timed on its own operands by events and by
+   CUDA graph against its plain version, its library calls and its byte
+   bound; the K3 entry of the kernels line carries their sum.
 
 Then the card's name and power limit, one line with every kernel's
 numbers, and as the last line ``{"ok": true, "device": {...}}``. Any
@@ -1085,7 +1106,6 @@ PIM_SERVE = (("fp32", 256), ("fp32", 4096))
 # the row's max|out|: the two sum each product in another order
 PIM_MM_TOL = 1e-5
 PIM_TOL = dict(rtol=1e-4, atol=1e-4)    # the mapper's verify tolerance
-
 
 
 def wall_ms(fn, iters: int = 20, warmup: int = 2) -> float:
@@ -2950,8 +2970,10 @@ ATTN_LLAMA_SHAPES = tuple((1, s, 32, 8, 128) for s in (2048, 8192))
 # S no multiple of the 64-row tile: the ragged tile's mask and zero-fill
 ATTN_RAGGED_SHAPES = ((1, 200, 8, 2, 64),)
 # head dims the kernel is not compiled for, zero-padded to 128 by the
-# wrapper (zamba2_7b's 112, and 80)
-ATTN_PADDED_SHAPES = ((1, 256, 8, 2, 112), (1, 256, 8, 2, 80))
+# wrapper (zamba2_7b's 112, and 80), and above 128: 160 padded to 256,
+# and 256 itself
+ATTN_PADDED_SHAPES = ((1, 256, 8, 2, 112), (1, 256, 8, 2, 80),
+                      (1, 256, 8, 2, 160), (1, 256, 8, 2, 256))
 # the profiler's name of the body each dtype runs (csrc dispatch)
 ATTN_BODY = {"float32": "flash_kernel", "bfloat16": "flash_mma_kernel"}
 # the reference's tolerances (rtol = atol), atol here x max|out| of each
@@ -3644,6 +3666,474 @@ def phase_pim_llama(seed: int) -> dict:
     return {"fp32": fp32, "int8": int8, "time": timing}
 
 
+# ---------------------------------------------------------------------------
+# 19. pim_llama_train: llama3-8b's train step through the mapper
+# ---------------------------------------------------------------------------
+
+# the hold: llama3-8b at its published width, float32, cut to 2 layers
+LLAMA_TRAIN_HOLD = dict(batch=1, seq_len=128, n_layers=2)
+LLAMA_TRAIN_TOL = dict(rtol=1e-4, atol=1e-4)   # the mapper's verify tol
+# K3 launches of one compiled and one per-block step at the hold (the
+# plan tests/test_torch_arch_train.py counts on the CPU): the 148
+# add/sub/mul nodes outside the folded loops, in 84 waves; every product
+# lies in a loop and runs natively, so K1, K2 and K5 launch nothing
+LLAMA_TRAIN_K3 = {"compiled": 84, "per_block": 148}
+LLAMA_TRAIN_STEPS = 3      # Trainer(backend="pim") against "jit"
+LLAMA_TRAIN_LR = 3e-4      # make_train_step's default
+# the timed run: the published dtype (bf16), cut to 4 layers (AdamW's
+# state for 32 does not fit one card), the longest sequence the
+# reference trains on full attention
+LLAMA_TRAIN_TIME = dict(batch=1, seq_len=2048, n_layers=4)
+# a K3 wave of more elements than this is timed by fewer calls
+K3_BIG_WAVE = 1 << 26
+
+
+def llama_train_state(cfg, seed: int):
+    """(params, opt_state) on the card: the seeded parameters
+    (``llama_params``) and a seeded AdamW state in the reference's tree,
+    m ~ 1e-3 N(0, 1), v the square of another such draw, step 5."""
+    import torch
+    from repro_torch._tree import tree_map
+    params = llama_params(cfg, seed)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 80)
+
+    def draw(p):
+        return 1e-3 * torch.randn(p.shape, generator=gen, device=DEVICE)
+
+    opt = {"m": tree_map(draw, params),
+           "v": tree_map(lambda p: draw(p).square_(), params),
+           "step": torch.tensor(5, dtype=torch.int32, device=DEVICE)}
+    return params, opt
+
+
+def token_batch(cfg, batch: int, seq_len: int, seed: int, step: int = 0):
+    """``TokenStream(seed=seed).batch(step)`` on the card."""
+    import torch
+    from repro_torch.data import TokenStream
+    stream = TokenStream(cfg.vocab_size, seq_len, batch, seed=seed)
+    return {k: torch.as_tensor(v, device=DEVICE)
+            for k, v in stream.batch(step).items()}
+
+
+def host_copy(tree):
+    """A pytree's tensors copied to host memory (the card holds one run's
+    outputs at a time at full width)."""
+    import torch
+    return torch.utils._pytree.tree_map(lambda t: t.cpu(), tree)
+
+
+def compared_leafwise(host, tree, check) -> dict:
+    """``check(path, host leaf, leaf)`` over the leaves of two step outputs
+    ``(params, opt_state, loss)``, the first held in host memory, each of
+    its leaves brought back to the card one at a time; the largest
+    difference of each group (loss, params, m, v)."""
+    from repro_torch._tree import leaves_with_path
+    worst = dict.fromkeys(("loss", "params", "m", "v", "step"), 0.0)
+    leaves = dict(leaves_with_path(tree))
+    for path, h in leaves_with_path(host):
+        d = leaves[path]
+        h = h.to(d.device)
+        check(path, h, d)
+        group = ("loss" if path == "2" else "params" if path[0] == "0"
+                 else path.split("/")[1])
+        if h.numel():
+            worst[group] = max(worst[group], float(
+                (h.double() - d.double()).abs().max()))
+    return worst
+
+
+def ulp_up(out):
+    """A fault of one K3 launch: each output's first element moved one
+    ulp up."""
+    import torch
+    bad = out.clone()
+    flat = bad.view(-1)
+    flat[0] = torch.nextafter(flat[0], torch.tensor(float("inf"),
+                                                    device=out.device))
+    return bad
+
+
+@contextlib.contextmanager
+def holding_waves(label):
+    """Hold every K3 wave the mapper's lowering launches while open
+    against its plain version, member by member (one plain output alive
+    at a time: a member of llama3-8b's step holds up to 525 M elements),
+    bit for bit, NaN as NaN; log each wave's members and elements. The
+    launches go and count as always."""
+    from repro_torch.kernels import ref
+    from repro_torch.mapper import lowering
+    pm = importlib.import_module("repro_torch.kernels.pim_mac")
+    orig = lowering.mac_wave
+    log = []
+
+    def held(members, *args):
+        outs = orig(members, *args)
+        for i, (o, m) in enumerate(zip(outs, pm._normalized(members,
+                                                             "pim_mac"),
+                                       strict=True)):
+            (want,) = ref.pim_mac_wave_ref([m])
+            if not same_bits(o, want):
+                raise AssertionError(f"{label}: wave {len(log)} member {i} "
+                                     f"{tuple(m[0])} not bit-equal to the "
+                                     f"plain version")
+            del want
+        log.append({"members": len(members),
+                    "n": wave_elements(members)})
+        return outs
+
+    lowering.mac_wave = held
+    try:
+        yield log
+    finally:
+        lowering.mac_wave = orig
+
+
+@contextlib.contextmanager
+def timing_waves():
+    """Time every K3 wave the mapper's lowering launches while open, on
+    the step's own operands: the launch by events over calls made back
+    to back (``ms``) and from a CUDA graph (``device_graph_ms``), its
+    plain version, and the library calls computing each member's function
+    (``k3_library``: ``add`` / ``sub`` / ``mul``) by events and by graph,
+    beside its bound (each operand read once where it lies, each output
+    written once). A wave above ``K3_BIG_WAVE`` elements is timed by 2
+    calls (1 in a graph); the step's own launch goes and counts as
+    always."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.mapper import lowering
+    pm = importlib.import_module("repro_torch.kernels.pim_mac")
+    orig = lowering.mac_wave
+    rows = []
+
+    def timed(members, *args):
+        outs = orig(members, *args)
+        plain = pm._normalized(members, "pim_mac")
+        libs = [k3_library(m) for m in plain]
+        n = wave_elements(members)
+        big = n > K3_BIG_WAVE
+        iters, calls = (2, 1) if big else (20, GRAPH_CALLS)
+        operands = {(x.data_ptr(), tuple(x.shape), x.stride()): x.numel()
+                    for m in members for x in m[1:4]
+                    if isinstance(x, torch.Tensor) and x.is_cuda}
+
+        def kernel():
+            return orig(members, *args)
+
+        def library():
+            return [call() for _, call in libs]
+
+        rows.append({
+            "wave": len(rows), "members": len(members), "n": n,
+            "count": 1, "max_err": 0.0,
+            **pim_timing(kernel, lambda: ref.pim_mac_wave_ref(plain),
+                         library, 4 * (n + sum(operands.values())), 2 * n,
+                         iters),
+            "library": sorted({name for name, _ in libs}),
+            "device_graph_ms": graph_ms([kernel] * calls),
+            "library_graph_ms": graph_ms([library] * calls)})
+        torch.cuda.empty_cache()
+        return outs
+
+    lowering.mac_wave = timed
+    try:
+        yield rows
+    finally:
+        lowering.mac_wave = orig
+
+
+def llama_train_hold(seed: int) -> dict:
+    """``compile_arch("llama3-8b", "train")`` at ``LLAMA_TRAIN_HOLD``
+    (published width, float32, 2 layers, batch 1, seq 128) on seeded
+    parameters and AdamW state and one ``TokenStream`` batch. The main
+    path — every count set to 0 just before one compiled step and one
+    executor step, read just after — must launch K3 alone, at the CPU's
+    counts (``LLAMA_TRAIN_K3``). One run on the card at a time, its
+    outputs moved to host memory: the compiled step bit-equal to the
+    per-block executor's; within ``LLAMA_TRAIN_TOL`` of the plain step
+    (loss, and every leaf of params, m and v; TF32 off); no host sync in
+    a compiled step (``set_sync_debug_mode("error")``); the control — the
+    step's last K3 wave (the last leaf's ``p - lr·upd``) one ulp off in
+    one element of each output — must break the bit equality; and every
+    K3 wave of a step held against its plain version member by member
+    (``holding_waves``). ``max_memory_allocated`` over the hold."""
+    import torch
+    from repro_torch import mapper
+    from repro_torch.configs import get_config
+    from repro_torch.launch import make_train_step
+    from repro_torch.mapper.executor import full_float32
+    cfg = dataclasses.replace(get_config("llama3-8b"),
+                              n_layers=LLAMA_TRAIN_HOLD["n_layers"],
+                              dtype="float32")
+    b, s = LLAMA_TRAIN_HOLD["batch"], LLAMA_TRAIN_HOLD["seq_len"]
+    torch.cuda.reset_peak_memory_stats()
+    params, opt = llama_train_state(cfg, seed)
+    batch = token_batch(cfg, b, s, seed)
+    t0 = time.perf_counter()
+    prog = mapper.compile_arch("llama3-8b", "train", batch=b, seq_len=s,
+                               config=cfg)
+    compile_s = time.perf_counter() - t0
+    ex = mapper.ScheduleExecutor(prog.schedule)
+    step = make_train_step(cfg)
+    label = "pim_llama_train hold"
+    with full_float32():
+        reset_counts()
+        with recording_launches() as log:
+            out = prog(params, opt, batch)
+        torch.cuda.synchronize()
+        prog_counts = read_counts()
+        loss = float(out[2])
+        if not all(bool(torch.isfinite(x).all())
+                   for x in torch.utils._pytree.tree_leaves(out)[:-1]):
+            raise AssertionError(f"{label}: a leaf is not finite")
+        got = host_copy(out)
+        del out
+        ex_out = ex.run(params, opt, batch)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        ex_counts = {k: counts[k] - prog_counts[k] for k in counts}
+        want = ({"k1": 0, "k2": 0, "k3": LLAMA_TRAIN_K3["compiled"],
+                 "k5": 0},
+                {"k1": 0, "k2": 0, "k3": LLAMA_TRAIN_K3["per_block"],
+                 "k5": 0})
+        if (prog_counts, ex_counts) != want or (
+                prog.eltwise_launches, prog.matmul_launches,
+                ex.eltwise_launches) != (LLAMA_TRAIN_K3["compiled"], 0,
+                                         LLAMA_TRAIN_K3["per_block"]):
+            raise AssertionError(f"{label}: launches {prog_counts} "
+                                 f"compiled, {ex_counts} per-block; want "
+                                 f"{want}")
+
+        def bit_equal(path, h, d):
+            if not torch.equal(h, d):
+                raise AssertionError(f"{label}: {path} differs from the "
+                                     f"per-block executor's")
+
+        compared_leafwise(got, ex_out, bit_equal)
+        del ex_out
+
+        def close(path, h, d):
+            torch.testing.assert_close(h, d, **LLAMA_TRAIN_TOL,
+                                       msg=lambda m: f"{label} {path}: {m}")
+
+        plain = step(params, opt, batch)
+        vs_plain = compared_leafwise(got, plain, close)
+        del plain
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            again = prog(params, opt, batch)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        del again
+        # the control: the last wave one ulp off
+        with recording_helpers(fault=ulp_up, key="k3",
+                               index=LLAMA_TRAIN_K3["compiled"] - 1):
+            bad = prog(params, opt, batch)
+        differing = {}
+
+        def count(path, h, d):
+            if not torch.equal(h, d):
+                differing[path] = int((h != d).sum())
+
+        compared_leafwise(got, bad, count)
+        del bad
+        if not differing:
+            raise AssertionError(f"{label}: the last K3 wave one ulp off "
+                                 f"passes the bit-for-bit hold")
+        with holding_waves(label) as waves:
+            again = prog(params, opt, batch)
+        del again
+    peak = torch.cuda.max_memory_allocated()
+    if peak >= 80e9:
+        raise AssertionError(f"{label}: {peak / 1e9} GB allocated")
+    largest = max(waves, key=lambda w: w["n"])
+    r = {"launches": counts,
+         "launches_per_step": {"compiled": prog_counts,
+                               "per_block": ex_counts},
+         "nodes": len(prog.schedule.graph.nodes),
+         "subarrays": prog.schedule.placement.n_subarrays,
+         "parameters": sum(x.numel() for x in
+                           torch.utils._pytree.tree_leaves(params)),
+         "compile_s": compile_s, "loss": loss,
+         "compiled_bit_equal_executor": True,
+         "max_abs_err_vs_plain": vs_plain, "host_syncs_in_step": 0,
+         "control_last_wave_one_ulp_elements_differing": differing,
+         "k3_waves_held_bit_equal": len(waves),
+         "k3_largest_wave": largest,
+         "k3_largest_member": max(int(np.prod(f[0], dtype=np.int64))
+                                  for form in log["k3_forms"]
+                                  for f in form),
+         "max_memory_allocated_gb": peak / 1e9}
+    del params, opt, got, prog, ex
+    torch.cuda.empty_cache()
+    return r
+
+
+def llama_train_trainer(seed: int) -> dict:
+    """``Trainer(backend="pim")`` against ``Trainer(backend="jit")`` at the
+    hold's cut, ``LLAMA_TRAIN_STEPS`` steps of ``TokenStream`` batches
+    from the same seeded parameters (AdamW from zeros), one after the
+    other: losses within ``LLAMA_TRAIN_TOL``. Each writes its final
+    checkpoint (params, m and v) into a temporary directory removed after
+    it; its time is the run's less its steps'."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.launch import make_train_step
+    from repro_torch.mapper.executor import full_float32
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train import Trainer, TrainerConfig
+    cfg = dataclasses.replace(get_config("llama3-8b"),
+                              n_layers=LLAMA_TRAIN_HOLD["n_layers"],
+                              dtype="float32")
+    b, s = LLAMA_TRAIN_HOLD["batch"], LLAMA_TRAIN_HOLD["seq_len"]
+    stream = TokenStream(cfg.vocab_size, s, b, seed=seed)
+    opt = make_optimizer("adamw", lr=LLAMA_TRAIN_LR)
+
+    def init_state():
+        p = llama_params(cfg, seed)
+        return p, opt.init(p)
+
+    runs = {}
+    for backend in ("pim", "jit"):
+        d = tempfile.mkdtemp(prefix="llama_train_ckpt_")
+        try:
+            obs.metrics().reset()
+            tc = TrainerConfig(total_steps=LLAMA_TRAIN_STEPS,
+                               ckpt_every=LLAMA_TRAIN_STEPS + 1, ckpt_dir=d,
+                               keep=1, async_ckpt=False)
+            with full_float32():
+                t0 = time.perf_counter()
+                tr = Trainer(tc, train_step=make_train_step(
+                                 cfg, lr=LLAMA_TRAIN_LR),
+                             init_state=init_state, batch_fn=stream.batch,
+                             backend=backend, device=DEVICE)
+                build_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                out = tr.run()
+                run_s = time.perf_counter() - t0
+            walls = step_wall_s()
+            ckpt_bytes = sum(f.stat().st_size
+                             for f in pathlib.Path(d).iterdir())
+            runs[backend] = {
+                "losses": out["losses"], "build_s": build_s,
+                "run_s": run_s, "step_wall_s": walls,
+                "checkpoint_s": run_s - walls["count"] * walls["mean"],
+                "checkpoint_gb": ckpt_bytes / 1e9}
+            del tr, out
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+        torch.cuda.empty_cache()
+    np.testing.assert_allclose(runs["pim"]["losses"], runs["jit"]["losses"],
+                               **LLAMA_TRAIN_TOL)
+    return {"steps": LLAMA_TRAIN_STEPS, "lr": LLAMA_TRAIN_LR, **runs,
+            "max_loss_diff": float(np.abs(
+                np.subtract(runs["pim"]["losses"],
+                            runs["jit"]["losses"])).max())}
+
+
+def llama_train_time(seed: int) -> dict:
+    """llama3-8b at its published dtype (bf16) cut to
+    ``LLAMA_TRAIN_TIME``'s 4 layers, batch 1, seq 2048, on seeded
+    parameters and AdamW state: one warm compiled step counted (K3 at the
+    plan's waves, no K1, K2 or K5; the loss finite and against the plain
+    step's), then ms per compiled and plain step (wall, 3 steps after one
+    warm), device time, kernels a step and the busy share under the
+    profiler, ``max_memory_allocated``; then one more compiled step with
+    every K3 wave timed on its own operands (``timing_waves``) against
+    its library calls and its byte bound."""
+    import torch
+    from repro_torch import mapper
+    from repro_torch.configs import get_config
+    from repro_torch.launch import make_train_step
+    cfg = dataclasses.replace(get_config("llama3-8b"),
+                              n_layers=LLAMA_TRAIN_TIME["n_layers"])
+    b, s = LLAMA_TRAIN_TIME["batch"], LLAMA_TRAIN_TIME["seq_len"]
+    torch.cuda.reset_peak_memory_stats()
+    params, opt = llama_train_state(cfg, seed)
+    batch = token_batch(cfg, b, s, seed)
+    prog = mapper.compile_arch("llama3-8b", "train", batch=b, seq_len=s,
+                               config=cfg)
+    waves = sum(st.kind == "placed" for st in prog.ctx.steps)
+    step = make_train_step(cfg)
+    reset_counts()
+    out = prog(params, opt, batch)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if counts != {"k1": 0, "k2": 0, "k3": waves, "k5": 0}:
+        raise AssertionError(f"pim_llama_train time: launches {counts}, "
+                             f"want {waves} K3")
+    loss = float(out[2])
+    del out
+    plain_loss = float(step(params, opt, batch)[2])
+    if not np.isfinite(loss):
+        raise AssertionError("pim_llama_train time: loss not finite")
+    ms = wall_ms(lambda: prog(params, opt, batch), iters=3, warmup=1)
+    plain_ms = wall_ms(lambda: step(params, opt, batch), iters=3, warmup=1)
+    prof = profile_device(lambda: prog(params, opt, batch), 1)
+    plain_prof = profile_device(lambda: step(params, opt, batch), 1)
+    peak = torch.cuda.max_memory_allocated()
+    with timing_waves() as rows:
+        prog(params, opt, batch)
+    torch.cuda.synchronize()
+    if len(rows) != waves:
+        raise AssertionError(f"pim_llama_train time: {len(rows)} waves "
+                             f"timed, the plan has {waves}")
+    r = {"config": "llama3-8b at its published width (configs/"
+                   "llama3_8b.py), bf16, cut to "
+                   f"{LLAMA_TRAIN_TIME['n_layers']} layers",
+         **LLAMA_TRAIN_TIME,
+         "reduced": {"n_layers": [32, LLAMA_TRAIN_TIME["n_layers"]]},
+         "parameters": sum(x.numel() for x in
+                           torch.utils._pytree.tree_leaves(params)),
+         "launches_per_step": counts, "loss": loss,
+         "plain_loss": plain_loss, "loss_abs_diff": abs(loss - plain_loss),
+         "ms_per_step": ms, "plain_ms_per_step": plain_ms,
+         "profile": prof, "plain_profile": plain_prof,
+         "max_memory_allocated_gb": peak / 1e9,
+         "k3_per_step": {**sums(rows),
+                         "waves": len(rows),
+                         "elements": sum(w["n"] for w in rows),
+                         "largest_wave": max(rows, key=lambda w: w["n"])}}
+    if peak >= 80e9:
+        raise AssertionError(f"pim_llama_train time: {peak / 1e9} GB "
+                             f"allocated")
+    del params, opt, prog
+    torch.cuda.empty_cache()
+    return {"row": r, "k3_rows": rows}
+
+
+def phase_pim_llama_train(seed: int) -> dict:
+    """llama3-8b's train step through the mapper (``compile_arch(...,
+    "train")``, ``Trainer(backend="pim")``): ``llama_train_hold``,
+    ``llama_train_trainer`` and ``llama_train_time``. Emitted as one
+    ``pim_llama_train`` line."""
+    t0 = time.perf_counter()
+    hold = llama_train_hold(seed)
+    t1 = time.perf_counter()
+    trainer = llama_train_trainer(seed)
+    t2 = time.perf_counter()
+    timing = llama_train_time(seed)
+    seconds = {"hold": t1 - t0, "trainer": t2 - t1,
+               "time": time.perf_counter() - t2}
+    emit({"phase": "pim_llama_train", "seconds": seconds,
+          "config": "llama3-8b at its published width (configs/"
+                    "llama3_8b.py), float32, cut to "
+                    f"{LLAMA_TRAIN_HOLD['n_layers']} layers",
+          **{k: LLAMA_TRAIN_HOLD[k] for k in ("batch", "seq_len")},
+          "reduced": {"n_layers": [32, LLAMA_TRAIN_HOLD["n_layers"]],
+                      "dtype": ["bfloat16", "float32"]},
+          "tol": LLAMA_TRAIN_TOL, "hold": hold, "trainer": trainer,
+          "time": timing["row"]})
+    return {"launches": hold["launches"], "k3_rows": timing["k3_rows"],
+            "time": timing["row"]}
+
+
 def sums(rows) -> dict:
     """Times and bounds of one run's launches: each distinct shape's
     numbers times its count, summed (each shape's bound the larger of its
@@ -3667,10 +4157,11 @@ def pim_entry(ids, key, by_path, rows) -> dict:
     """A PIM kernel's kernels-line entry: its launches summed over the
     main paths (forward and backward; ``launches_by_path`` splits them),
     the times of one batch-256 serve forward (``pim_lenet``) and, under
-    ``pim_train``, ``backward`` and ``pim_llama``, those of one batch-64
-    train step (K2: one executor step), of ``pim_grad``'s backward (K2:
-    the executor's backward there) and of one llama3-8b decode step (K2:
-    one executor step)."""
+    ``pim_train``, ``backward``, ``pim_llama`` and ``pim_llama_train``,
+    those of one batch-64 train step (K2: one executor step), of
+    ``pim_grad``'s backward (K2: the executor's backward there), of one
+    llama3-8b decode step (K2: one executor step) and of one llama3-8b
+    train step (bf16, 4 layers, seq 2048; K3 alone launches there)."""
     launches = {path: counts[key] for path, counts in by_path.items()
                 if path != "pim_grad_backward"}
     backward = rows["pim_grad_backward"].get(key)
@@ -3680,7 +4171,10 @@ def pim_entry(ids, key, by_path, rows) -> dict:
                                  by_path["pim_grad_backward"][key]},
             "pim_train": sums(rows["pim_train"][key]),
             "backward": sums(backward) if backward else None,
-            "pim_llama": sums(rows["pim_llama"][key])}
+            "pim_llama": sums(rows["pim_llama"][key]),
+            "pim_llama_train": (sums(rows["pim_llama_train"][key])
+                                if rows["pim_llama_train"].get(key)
+                                else None)}
 
 
 def with_counts(shapes: dict) -> dict:
@@ -3735,6 +4229,8 @@ def main() -> int:
         TRAIN_BATCHES[0])
     grad_q = phase_pim_grad(args.seed, Q_TRAIN_DTYPE)
     llama = phase_pim_llama(args.seed)
+    llama_train = phase_pim_llama_train(args.seed)
+    rows["pim_llama_train"] = {"k3": llama_train["k3_rows"]}
     rows["pim_llama"] = phase_kernels_pim(
         args.seed, with_counts(llama["fp32"]["shapes"]), "pim_llama",
         LLAMA_HOLD["batch"], iters=3)
@@ -3757,6 +4253,7 @@ def main() -> int:
                               for k in PIM_KEYS},
                "pim_llama": llama["fp32"]["launches"],
                "pim_llama_q": llama["int8"]["launches"],
+               "pim_llama_train": llama_train["launches"],
                "pim_grad_backward": {
                    k: grad["backward"][k]
                    + grad["executor"]["launches_backward"][k]
@@ -3785,7 +4282,8 @@ def main() -> int:
 
     # the PIM paths' kernels per call under the profiler: one batch-256
     # serve forward, one batch-64 train step, one pim_grad step
-    paths = {"pim_lenet": lenet_run, "pim_train": train, "pim_grad": grad}
+    paths = {"pim_lenet": lenet_run, "pim_train": train, "pim_grad": grad,
+             "pim_llama_train": llama_train["time"]}
     long_bf16 = next(r for r in attn["results"] if r["dtype"] == "bfloat16"
                      and r["shape"]["S"] == ATTN_LLAMA_SHAPES[-1][1])
     k5_launches = {path: by_path[path]["k5"]

@@ -5,8 +5,10 @@ way ``repro.checkpoint.ckpt`` saves them — '/'-joined key paths such as
 ``layers/block0/attn/wq``, the layer stack on a leading axis of each
 ``layers/...`` leaf — and returns a :class:`DecoderLM` holding the same
 values; ``stacked_from_reference`` returns them as the reference's own
-tree instead (``transformer.param_tree``), what ``decode_step`` and a
-mapped decode step take, and ``model_from_stacked`` is the inverse of
+tree instead (``transformer.param_tree``), what ``decode_step``,
+``hidden_states`` and a mapped step take, and ``opt_state_from_reference``
+the reference's AdamW state for that tree (so that both frameworks take
+one step from the same state), and ``model_from_stacked`` is the inverse of
 ``DecoderLM.stacked_params``: a module holding a tree's values, so that
 the module and the mapped step compute from the same weights.
 ``kv_pool_from_reference`` takes the reference's paged KV pool
@@ -18,6 +20,7 @@ as live ones.
 
 from __future__ import annotations
 
+import math
 from typing import Mapping
 
 import numpy as np
@@ -30,6 +33,7 @@ from repro_torch.core import quant
 from repro_torch.models import lenet
 from repro_torch.models.transformer import (LAYER_LEAVES, DecoderLM,
                                             leaf_shapes, param_tree)
+from repro_torch.optim.optimizers import BLOCK as OPT_BLOCK
 
 
 def _to_torch(arr: np.ndarray) -> torch.Tensor:
@@ -98,6 +102,43 @@ def stacked_from_reference(flat: Mapping[str, np.ndarray], cfg: ArchConfig,
                              f"expects {dtype} {shape}")
         out[key] = t.to(dev)
     return param_tree(out)
+
+
+def opt_state_from_reference(flat: Mapping[str, np.ndarray], cfg: ArchConfig,
+                             device: str | torch.device | None = None
+                             ) -> dict:
+    """The reference's AdamW state, flattened as ``repro.checkpoint.ckpt``
+    saves it (``step``, ``m/<param path>``, ``v/<param path>``; on the
+    int8 grid each moment a ``.../q`` int8 [blocks, 256] and
+    ``.../scale`` float32 [blocks, 1] pair), as the port's state tree
+    (``optim.adamw_init``'s, for ``stacked_from_reference``'s parameters),
+    bit for bit, on ``device`` (CUDA by default). Raises on a missing or
+    extra key, or a shape or dtype that does not match ``cfg`` and its
+    ``opt_state_dtype``."""
+    state_dtype = cfg.opt_state_dtype
+    want: dict[str, tuple[tuple, torch.dtype]] = {"step": ((), torch.int32)}
+    for moment in ("m", "v"):
+        for key, shape in leaf_shapes(cfg).items():
+            if state_dtype == "int8":
+                blocks = -(-math.prod(shape) // OPT_BLOCK)
+                want[f"{moment}/{key}/q"] = ((blocks, OPT_BLOCK), torch.int8)
+                want[f"{moment}/{key}/scale"] = ((blocks, 1), torch.float32)
+            else:
+                want[f"{moment}/{key}"] = (shape, torch_dtype(state_dtype))
+    if set(flat) != set(want):
+        raise ValueError(f"reference state leaves "
+                         f"{sorted(set(flat) ^ set(want))} differ from the "
+                         f"port's tree")
+    dev = resolve_device(device)
+    out = {}
+    for key, (shape, dtype) in want.items():
+        t = _to_torch(flat[key])
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"{key}: {t.dtype} {tuple(t.shape)}, port "
+                             f"expects {dtype} {shape}")
+        out[key] = t.to(dev)
+    tree = param_tree({k: v for k, v in out.items() if k != "step"})
+    return {"m": tree["m"], "v": tree["v"], "step": out["step"]}
 
 
 def model_from_stacked(tree: Mapping, cfg: ArchConfig,

@@ -40,6 +40,12 @@ costed nodes in its order:
   oriented as the reference's ``dot_general`` contracting dim 0 of both
   operands: ``(bᵀa)ᵀ`` with ``a`` the stationary operand
   (:func:`mm_transposed`).
+
+A backward written out by hand (the decoder's layer stack) spells the
+ops the reference's graph does not see as ops of their own, unpriced:
+the cotangent sum :func:`add_any`, ``silu``'s VJP :func:`silu_vjp` (the
+reference's ``silu`` is a jit whose ops it does not walk) and
+``jnp.where``'s outputs :func:`select_parts`.
 """
 
 from __future__ import annotations
@@ -114,6 +120,40 @@ def add_any(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 @add_any.register_fake
 def _add_any_fake(a, b):
     return a + b
+
+
+@torch.library.custom_op("repro_torch::select_parts", mutates_args=())
+def select_parts(mask: torch.Tensor, x: torch.Tensor,
+                 fill: float) -> tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """``jnp.where(mask, x, fill)`` as the reference traces it: one call
+    whose outputs are the selection, the mask and a zero (what the
+    selection's transpose selects from). The reference's graph gives
+    every output of such a call an edge from each input, ``x`` included;
+    one op of its own carries the same edges here."""
+    return (torch.where(mask, x, torch.full((), fill, dtype=x.dtype,
+                                             device=x.device)),
+            mask.clone(), x.new_zeros(()))
+
+
+@select_parts.register_fake
+def _select_parts_fake(mask, x, fill):
+    return (torch.empty_like(x), torch.empty_like(mask), x.new_empty(()))
+
+
+@torch.library.custom_op("repro_torch::silu_vjp", mutates_args=())
+def silu_vjp(g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The cotangent of ``x`` in ``silu(x)`` for the cotangent ``g``, as
+    the reference's transpose computes it: ``g·σ + (x·g)·σ(1-σ)``. The
+    reference's ``silu`` is a jit of its own, whose ops its graph does not
+    price; one op of its own keeps them unpriced here."""
+    sig = torch.sigmoid(x)
+    return g * sig + (x * g) * (sig * (1 - sig))
+
+
+@silu_vjp.register_fake
+def _silu_vjp_fake(g, x):
+    return torch.empty_like(g)
 
 
 # where a traced node's regions live: node.meta["custom"][SCOPE_KEY]

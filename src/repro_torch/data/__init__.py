@@ -1,5 +1,6 @@
-"""Data of the port: the procedural digits (``pipeline``)."""
+"""Data of the port: the procedural digits and the synthetic token stream
+(``pipeline``)."""
 
-from repro_torch.data.pipeline import DigitsDataset, make_digits
+from repro_torch.data.pipeline import DigitsDataset, TokenStream, make_digits
 
-__all__ = ["DigitsDataset", "make_digits"]
+__all__ = ["DigitsDataset", "TokenStream", "make_digits"]

@@ -1,11 +1,12 @@
-"""The procedural digits dataset: a copy of the reference's numpy-only
-``make_digits`` (``repro/data/pipeline.py``), so the port serves the same
-images as the reference for the same seed.
+"""The data pipeline: a copy of the reference's numpy-only procedural
+digits and synthetic token stream (``repro/data/pipeline.py``), so the
+port serves the same batches as the reference for the same seed.
 
 MNIST is not available offline: ``make_digits`` renders a procedural
 10-class digit-like dataset (5x7 glyph stamps + jitter + noise, 28x28x1).
-``DigitsDataset`` serves its deterministic per-step batches. The
-synthetic token stream is not ported.
+``DigitsDataset`` serves its deterministic per-step batches.
+``TokenStream`` serves LM batches ``{"tokens", "labels"}`` from a noisy
+order-1 Markov chain, each a pure function of (seed, step, host_rank).
 """
 
 from __future__ import annotations
@@ -67,3 +68,40 @@ class DigitsDataset:
 
     def eval_set(self, n: int = 2_000) -> tuple[np.ndarray, np.ndarray]:
         return make_digits(n, seed=self.seed * 7_777_777 + 123456)
+
+
+@dataclasses.dataclass
+class TokenStream:
+    """Synthetic LM token stream with learnable structure.
+
+    Tokens follow a noisy order-1 Markov chain over the vocab (a random
+    permutation transition with jump noise) so a real model achieves a
+    below-uniform loss. Batch ``i`` is a pure function of (seed, i,
+    host_rank)."""
+
+    vocab_size: int
+    seq_len: int
+    batch_size: int            # per-host batch
+    seed: int = 0
+    host_rank: int = 0
+    n_hosts: int = 1
+
+    def __post_init__(self):
+        rng = np.random.default_rng(self.seed ^ 0xC0FFEE)
+        self._perm = rng.permutation(self.vocab_size)
+
+    def batch(self, step: int) -> dict:
+        rng = np.random.default_rng(
+            (self.seed * 1_000_003 + step) * 65_537 + self.host_rank)
+        b, s = self.batch_size, self.seq_len
+        toks = np.empty((b, s + 1), np.int64)
+        toks[:, 0] = rng.integers(0, self.vocab_size, b)
+        jump = rng.random((b, s)) < 0.1
+        jumps = rng.integers(0, self.vocab_size, (b, s))
+        for t in range(s):
+            nxt = self._perm[toks[:, t]]
+            toks[:, t + 1] = np.where(jump[:, t], jumps[:, t], nxt)
+        return {
+            "tokens": toks[:, :-1].astype(np.int32),
+            "labels": toks[:, 1:].astype(np.int32),
+        }

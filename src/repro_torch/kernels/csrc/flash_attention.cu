@@ -29,7 +29,10 @@
 // into rows padded by 16 bytes, so the 8 rows an ldmatrix phase reads sit
 // on distinct banks; K and V go through a 2-stage ring, the next tile's
 // copy in flight while the current one is used. Q's A-fragments are
-// loaded once (ldmatrix) and kept in registers; K's B-fragments come from
+// loaded once (ldmatrix) and kept in registers (at D 256, 168,960 bytes of
+// shared memory and one block an SM, they are re-read from shared memory
+// each tile, which keeps the accumulator's 128 registers a thread clear of
+// spills); K's B-fragments come from
 // ldmatrix, V's from ldmatrix.trans ([keys][D] row-major is PV's k x n
 // operand). The score accumulator is the softmax's input: a row lives on
 // a quad of 4 lanes, whose max and sum reduce by __shfl_xor_sync over
@@ -59,7 +62,8 @@
 // shared memory (transposed), and keeps the output columns tx + 16 c of
 // its four rows in registers. Query tiles go out longest first. What it
 // does not yet do about the bound: no copy in flight during compute, one
-// block per SM at D = 128 (~120 KB of shared memory), and float32 FMAs
+// block per SM at D = 128 (~120 KB of shared memory; 222,208 bytes at
+// D = 256, under the 227 KB a block may opt in to), and float32 FMAs
 // (TF32 would break the float32 tolerance).
 
 #include <cuda_bf16.h>
@@ -385,7 +389,11 @@ flash_mma_kernel(const bf16* __restrict__ q,     // [B, S, H, D]
   stage_tile<D>(vs, vb, kv_row, 0, S, tid);
   cp_async_commit();
 
-  uint32_t qf[kKS][4];
+  // q's A-fragments stay in registers up to D 128; at D 256 they would
+  // take 64 more registers a thread beside the 128 of the accumulator,
+  // so each KV tile re-reads them from shared memory instead
+  constexpr bool kQInRegs = D <= 128;
+  uint32_t qf[kQInRegs ? kKS : 1][4];
   float o[kDT][4];
 #pragma unroll
   for (int t = 0; t < kDT; ++t)
@@ -404,11 +412,14 @@ flash_mma_kernel(const bf16* __restrict__ q,     // [B, S, H, D]
     cp_async_commit();      // empty past the last tile: the count stays
     cp_async_wait<1>();     // every group but the newest: tile jk landed
     __syncthreads();
-    if (jk == 0) {
+    if constexpr (kQInRegs) {
+      if (jk == 0) {
 #pragma unroll
-      for (int kk = 0; kk < kKS; ++kk)
-        ldmatrix_x4(qf[kk], smem_addr(qs + (warp * 16 + (lane & 15)) * kRow +
-                                      kk * 16 + (lane >> 4) * 8));
+        for (int kk = 0; kk < kKS; ++kk)
+          ldmatrix_x4(qf[kk], smem_addr(qs + (warp * 16 + (lane & 15)) *
+                                                 kRow +
+                                        kk * 16 + (lane >> 4) * 8));
+      }
     }
 
     // s = q k^T over the tile's 64 keys: 16 x 64 a warp, float32
@@ -420,6 +431,10 @@ flash_mma_kernel(const bf16* __restrict__ q,     // [B, S, H, D]
       for (int e = 0; e < 4; ++e) s[t][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < kKS; ++kk) {
+      if constexpr (!kQInRegs)
+        ldmatrix_x4(qf[0], smem_addr(qs + (warp * 16 + (lane & 15)) * kRow +
+                                     kk * 16 + (lane >> 4) * 8));
+      const uint32_t(&qa)[4] = qf[kQInRegs ? kk : 0];
 #pragma unroll
       for (int np = 0; np < kNT / 2; ++np) {
         // keys 16 np + {0..7, 8..15} x d 16 kk + {0..7, 8..15}
@@ -427,8 +442,8 @@ flash_mma_kernel(const bf16* __restrict__ q,     // [B, S, H, D]
         ldmatrix_x4(kf, smem_addr(kt + (np * 16 + (lane & 7) +
                                         (lane >> 4) * 8) * kRow +
                                   kk * 16 + ((lane >> 3) & 1) * 8));
-        mma_bf16(s[2 * np], qf[kk], kf[0], kf[1]);
-        mma_bf16(s[2 * np + 1], qf[kk], kf[2], kf[3]);
+        mma_bf16(s[2 * np], qa, kf[0], kf[1]);
+        mma_bf16(s[2 * np + 1], qa, kf[2], kf[3]);
       }
     }
 
@@ -542,6 +557,7 @@ int dispatch_f32(const void* q, const void* k, const void* v, void* out,
     case 32: return launch<32, float>(q, k, v, out, B, S, H, G, scale, stream);
     case 64: return launch<64, float>(q, k, v, out, B, S, H, G, scale, stream);
     case 128: return launch<128, float>(q, k, v, out, B, S, H, G, scale, stream);
+    case 256: return launch<256, float>(q, k, v, out, B, S, H, G, scale, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -554,13 +570,14 @@ int dispatch_bf16(const void* q, const void* k, const void* v, void* out,
     case 32: return launch_mma<32>(q, k, v, out, B, S, H, G, scale, stream);
     case 64: return launch_mma<64>(q, k, v, out, B, S, H, G, scale, stream);
     case 128: return launch_mma<128>(q, k, v, out, B, S, H, G, scale, stream);
+    case 256: return launch_mma<256>(q, k, v, out, B, S, H, G, scale, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; D in {16, 32, 64, 128}, the head dim
+// dtype: 0 = float32, 1 = bfloat16; D in {16, 32, 64, 128, 256}, the head dim
 // as stored (a smaller one zero-padded up to it by the wrapper); scale the
 // scores' factor, 1/sqrt of the head dim before padding; contiguous
 // tensors on the current device. Returns a cudaError_t (0 on success).

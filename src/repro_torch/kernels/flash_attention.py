@@ -45,14 +45,14 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # csrc flash_attention(q, k, v, out, B, S, H, G, D, dtype, scale, stream)
 _FLASH_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 6 + (
     ctypes.c_float, ctypes.c_void_p)
-_FLASH_HEAD_DIMS = (16, 32, 64, 128)   # csrc dispatch
+_FLASH_HEAD_DIMS = (16, 32, 64, 128, 256)   # csrc dispatch
 
 
 def flash_head_dim(d: int) -> int:
     """The head dim K7 is compiled for that takes a head dim ``d``: the
     least of ``_FLASH_HEAD_DIMS`` at or above it. The wrapper zero-pads
     q, k and v up to it: zero columns add nothing to QKᵀ and give zero
-    output columns, which it slices off. Raises above 128."""
+    output columns, which it slices off. Raises above 256."""
     for dp in _FLASH_HEAD_DIMS:
         if d <= dp:
             return dp
@@ -104,7 +104,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``q_chunk`` / ``kv_chunk`` are the reference's tiling contract only
     (S must be a multiple of each, clamped to S); the kernel's own tile
     is 64 query rows by 64 keys, the ragged end masked. A head dim D up
-    to 128 runs on the card: one that the kernel is not compiled for is
+    to 256 runs on the card: one that the kernel is not compiled for is
     zero-padded up to the next one (``flash_head_dim``), the scores
     still scaled by 1/sqrt(D). Forward only.
     """

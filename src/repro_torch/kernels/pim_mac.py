@@ -13,7 +13,8 @@ roundings, over a whole ragged wave in one launch (``mac_wave``). Where
 the reference's wrapper broadcasts, fills and concatenates a wave's
 operands inside its jit, K3 reads each member's operands where they lie
 — a tensor through its strides, a number as a float32 immediate — and
-writes each output into one allocation; ``pim_mac``, ``pim_mac_grouped``
+writes each output into one allocation (a member of ``OWN_ALLOCATION``
+elements or more into one of its own); ``pim_mac``, ``pim_mac_grouped``
 and the mapper's eltwise lowering all launch through it. Each kernel
 source states its bound and design.
 
@@ -478,6 +479,11 @@ def mac_wave(members, name: str = "pim_mac") -> list[torch.Tensor]:
 
 
 MAC_DIMS = 4              # csrc kDims: a member's collapsed dims
+# a member of this many elements or more gets an output allocation of its
+# own, not a view of the wave's one allocation: each output is freed when
+# its last reader is done (a wave of AdamW's first products at llama3-8b's
+# full width is 23.8 GB, its members read at different times)
+OWN_ALLOCATION = 1 << 20
 MAC_BLOCK = 2048          # csrc kBlockElems: the elements a block takes
 MAC_MAX_MEMBERS = 178     # csrc kMaxMembers: the most members a table
                           # passed by value (32,764 bytes) holds; a larger
@@ -629,7 +635,8 @@ def _mac(members, name: str = "pim_mac",
          key: tuple | None = None) -> list[torch.Tensor]:
     """One K3 launch over a wave (its plain version on the CPU): one
     output per member, on the card each a view of one fresh allocation
-    (for one member, the allocation itself). The table is planned once per
+    (for one member, or one of ``OWN_ALLOCATION`` elements or more, an
+    allocation of its own). The table is planned once per
     ``_signature`` of the wave (``_plan``, which checks the members) and
     kept; a call fills in its tensors' addresses and launches. ``key``:
     the wave's signature, where the caller has it."""
@@ -644,12 +651,16 @@ def _mac(members, name: str = "pim_mac",
             m.shape, m.stride and tuple(m.stride))[1])
             for m in _normalized(members, name)])
     plan = _plan(_normalized(members, name), device)
+    values = [r.values for r in plan.rows]
     if plan.kept and all(x.device == device for m in members
                          for x in m[1:4] if isinstance(x, torch.Tensor)):
         if len(_PLANS) >= _PLANS_KEPT:
             _PLANS.clear()
-        _PLANS[key] = plan
-    return _launch(plan, [r.values for r in plan.rows])
+        # kept without this call's operands: a plan must not hold tensors
+        # alive (an AdamW wave's at full width are gigabytes)
+        _PLANS[key] = plan._replace(rows=tuple(r._replace(values=())
+                                               for r in plan.rows))
+    return _launch(plan, values)
 
 
 def _signature(members) -> tuple[tuple, bool]:
@@ -721,19 +732,21 @@ def _launch(plan: _Plan, values) -> list:
     """One launch of ``plan`` over the members' operands ``values`` (a,
     b, acc each), its outputs allocated here."""
     rows, device = plan.rows, plan.device
+
+    def own(r):
+        return torch.empty_strided(r.shape, r.out_stride,
+                                   dtype=torch.float32, device=device)
+
     if len(rows) == 1:
-        r = rows[0]
-        outs = [torch.empty_strided(r.shape, r.out_stride,
-                                    dtype=torch.float32, device=device)]
-        base = outs[0].data_ptr()
+        outs = [own(rows[0])]
     else:
         buf = torch.empty(plan.total, dtype=torch.float32, device=device)
-        outs = [buf.as_strided(r.shape, r.out_stride, r.offset)
+        outs = [own(r) if r.offset < 0 else
+                buf.as_strided(r.shape, r.out_stride, r.offset)
                 for r in rows]
-        base = buf.data_ptr()
     if not plan.live:
         return outs
-    table = filled_table(plan, values, base)
+    table = filled_table(plan, values, outs)
     if not _MAC_FN:
         _mac_kernel()
     if device.index == torch._C._cuda_getDevice():
@@ -762,20 +775,23 @@ def _launch_table(table: ctypes.Array, plan: _Plan,
                       stream)
 
 
-def filled_table(plan: _Plan, values, out_base: int) -> ctypes.Array:
+def filled_table(plan: _Plan, values, out_base) -> ctypes.Array:
     """``plan``'s table with this call's addresses: each output at
-    ``out_base`` plus its offset, each pointer operand of ``values`` at its
+    ``out_base`` plus its offset (``out_base`` a list: at each row's
+    output tensor of it), each pointer operand of ``values`` at its
     tensor's; a flat row whose dense operand is not on 16 bytes loses the
     float4 path."""
     table = plan.table_type.from_buffer_copy(plan.table)
     at = 0
-    for r, vals in zip(plan.rows, values):
+    for k, (r, vals) in enumerate(zip(plan.rows, values)):
         if not r.n:
             continue
         ptrs = [0, 0, 0]
         for i in r.pointers:
             ptrs[i] = vals[i].data_ptr()
-        _ADDRESSES.pack_into(table, at, out_base + 4 * r.offset, *ptrs)
+        out = (out_base[k].data_ptr() if isinstance(out_base, list)
+               else out_base + 4 * r.offset)
+        _ADDRESSES.pack_into(table, at, out, *ptrs)
         if r.flags & _FLAG_VEC and any(ptrs[i] % 16 for i in r.dense):
             _FLAG_BYTE.pack_into(table, at + _FLAGS_AT,
                                  r.flags & ~_FLAG_VEC)
@@ -803,7 +819,8 @@ class MacRow(NamedTuple):
 
     shape: tuple          # the member's shape
     out_stride: tuple     # its output's strides in the wave's allocation
-    offset: int           # its output's first element there
+    offset: int           # its output's first element there; -1: an
+                          # allocation of its own (OWN_ALLOCATION)
     n: int                # elements
     first_block: int
     flags: int            # csrc member flags
@@ -946,8 +963,9 @@ def _row_plan(shape: tuple, stride, sig: tuple) -> tuple:
 def wave_rows(members) -> tuple[list[MacRow], int]:
     """K3's table for a wave as ``_normalized`` leaves it, and the float32
     elements of the one allocation its outputs take (each output on 16
-    bytes): each member as ``_row_plan`` reads it, with its numbers; a
-    copied operand is counted in ``pim_mac.materialized``."""
+    bytes; a member of ``OWN_ALLOCATION`` elements or more takes one of
+    its own, offset -1): each member as ``_row_plan`` reads it, with its
+    numbers; a copied operand is counted in ``pim_mac.materialized``."""
     rows, offset, first_block = [], 0, 0
     for shape, *values, stride in members:
         sig = tuple((x.shape, x.stride()) if isinstance(x, torch.Tensor)
@@ -961,10 +979,12 @@ def wave_rows(members) -> tuple[list[MacRow], int]:
                 device=values[r].device).copy_(values[r])
             pim_mac.materialized += 1
         imm = tuple(0.0 if r in pointers else values[r] for r in range(3))
-        rows.append(MacRow(shape, out_stride, offset, n, first_block,
-                           flags, pointers, dense, strides, size, magic,
-                           shift, imm, tuple(values), bool(copies)))
-        offset += -(-n // 4) * 4
+        big = n >= OWN_ALLOCATION
+        rows.append(MacRow(shape, out_stride, -1 if big else offset, n,
+                           first_block, flags, pointers, dense, strides,
+                           size, magic, shift, imm, tuple(values),
+                           bool(copies)))
+        offset += 0 if big else -(-n // 4) * 4
         first_block += -(-n // MAC_BLOCK)
     return rows, offset
 

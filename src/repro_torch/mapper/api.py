@@ -6,12 +6,16 @@ allocated) and compiles it into a placed, cost-rolled static schedule;
 :func:`repro_torch.mapper.compile.compile_schedule` -> a
 ``CompiledProgram`` running the forward pass *through the placement* on
 the port's PIM kernels. ``map_arch`` / ``compile_arch`` do the same for a
-registered architecture's decode step (``kind="serve"``): one token
+registered architecture's step. ``kind="serve"``: one decode token
 against a ``seq_len`` contiguous cache, its layer stack folded into the
 reference's scanned nodes; the compiled step runs the nodes outside the
 stack on the kernels (the LM head on K1, or K5 on a quantized grid; the
 final norm's MACs on K3) and those inside natively, as the reference's
-lowering binds the placed ops of a scan body.
+lowering binds the placed ops of a scan body. ``kind="train"``: one
+AdamW step; every product lies in a folded loop (the layer stack, its
+transpose, the cross-entropy's chunks), so the compiled step reaches K3
+alone, for the eltwise nodes outside them (the rope tables, the final
+norm and its VJP, the update).
 
 ``weight_dtype`` stores the placed weights on a reduced-precision grid
 (``"int8"`` / ``"fp8_e4m3"`` / ``"fp8_e5m2"`` / ``"fp16"``; K5 in the
@@ -20,9 +24,7 @@ width, and ``ideal_provision`` picks the ideal bound's footprint (see
 ``build_schedule``).
 
 Not ported yet, and raising ``NotImplementedError`` with their ROADMAP
-item: ``partitions`` and ``expand_scans=True`` (item 3.3), and
-``map_arch`` / ``compile_arch`` with ``kind="train"`` (item 3.2, the
-train half).
+item: ``partitions`` and ``expand_scans=True`` (item 3.3).
 """
 
 from __future__ import annotations
@@ -115,29 +117,33 @@ def map_arch(name: str, kind: str = "train", *, seq_len: int = 128,
              partitions: int | None = None,
              expand_scans: bool = False,
              config: ArchConfig | None = None) -> schedule_mod.Schedule:
-    """Map one registered architecture's step: ``kind="serve"`` schedules
-    one decode step against a ``seq_len`` cache at ``batch``, traced on
-    meta tensors (the full configs map without allocating). ``smoke=True``
-    uses the reduced config; ``config``, where given, is mapped instead of
-    the registered one (the architecture cut in depth, say).
-    ``kind="train"``, ``partitions`` and ``expand_scans`` raise
-    ``NotImplementedError`` (not ported yet)."""
-    if kind == "train":
-        raise NotImplementedError(
-            "map_arch(kind='train') is not ported yet (ROADMAP.md, queue "
-            "item 3.2: the decoder LM through the mapper, its train half)")
-    if kind != "serve":
+    """Map one registered architecture's step, traced on meta tensors
+    (the full configs map without allocating): ``kind="train"`` schedules
+    one AdamW step (forward, backward and update) over a batch of
+    ``batch`` sequences of ``seq_len`` tokens; ``kind="serve"`` one decode
+    step against a ``seq_len`` cache at ``batch``. ``smoke=True`` uses
+    the reduced config; ``config``, where given, is mapped instead of the
+    registered one (the architecture cut in depth, say). ``partitions``
+    and ``expand_scans`` raise ``NotImplementedError`` (not ported
+    yet)."""
+    if kind not in ("train", "serve"):
         raise ValueError(f"kind must be 'train' or 'serve', got {kind!r}")
     from repro_torch.launch import steps as steps_mod
 
     cfg = config or (configs.get_smoke_config(name) if smoke
                      else configs.get_config(name))
     shape = ShapeSpec(f"map_{kind}", seq_len, batch, kind)
-    token, pos = steps_mod.decode_input_specs(cfg, shape)
+    params = steps_mod.abstract_params(cfg)
+    if kind == "train":
+        args = (steps_mod.make_train_step(cfg), params,
+                steps_mod.abstract_opt_state(cfg, params),
+                steps_mod.input_specs(cfg, shape))
+    else:
+        args = (steps_mod.make_serve_step(cfg), params,
+                steps_mod.abstract_cache(cfg, shape),
+                *steps_mod.decode_input_specs(cfg, shape))
     return schedule_mod.build_schedule(
-        steps_mod.make_serve_step(cfg), steps_mod.abstract_params(cfg),
-        steps_mod.abstract_cache(cfg, shape), token, pos,
-        hierarchy=hierarchy, policy=policy, tech=tech,
+        *args, hierarchy=hierarchy, policy=policy, tech=tech,
         weight_dtype=weight_dtype, act_dtype=act_dtype,
         ideal_provision=ideal_provision, partitions=partitions,
         expand_scans=expand_scans)
@@ -154,9 +160,11 @@ def compile_arch(name: str, kind: str = "train", *, seq_len: int = 128,
                  device: str | torch.device | None = None
                  ) -> compile_mod.CompiledProgram:
     """Map one architecture's step and compile it to a program that runs
-    on ``device`` (CUDA by default): for ``serve``, ``prog(params, cache,
-    token, pos)`` -> (logits, cache), ``params`` the reference's tree
-    (``DecoderLM.stacked_params``)."""
+    on ``device`` (CUDA by default), ``params`` the reference's tree
+    (``DecoderLM.stacked_params``): for ``train``, ``prog(params,
+    opt_state, batch)`` -> (params, opt_state, loss), ``batch`` a
+    ``TokenStream`` batch (``{"tokens", "labels"}``) as tensors; for
+    ``serve``, ``prog(params, cache, token, pos)`` -> (logits, cache)."""
     sched = map_arch(name, kind, seq_len=seq_len, batch=batch, smoke=smoke,
                      hierarchy=hierarchy, policy=policy, tech=tech,
                      weight_dtype=weight_dtype, act_dtype=act_dtype,

@@ -47,9 +47,10 @@ The reference walks its jaxpr afresh on every trace; the port plans the
 walk once (:func:`plan`, when the context is made): which aten node runs
 natively, which through a rule, and which nodes ride a fused launch —
 everything that does not depend on argument values. :func:`eval_placed`
-then replays the plan on concrete tensors. A lowered output takes the
-strides its aten node had when traced, so every native view op after it
-replays as traced.
+then replays the plan on concrete tensors, dropping each value after the
+last step that reads it. A lowered output takes the strides its aten
+node had when traced, so every native view op after it replays as
+traced.
 
 ``placed_blocks`` counts block-level work, ``kernel_launches`` counts
 actual kernel launches — under the per-block oracle they are equal (plus
@@ -122,6 +123,7 @@ class Step:
     node: OpNode | None = None
     peers: tuple = ()             # ((fx, node), ...) fused into this launch
     index: int = 0
+    free: tuple = ()              # values no later step reads
 
 
 @dataclasses.dataclass
@@ -481,9 +483,20 @@ def plan(ctx: LoweringContext) -> list[Step]:
     every *later* placed node of its kind that is ready (all inputs
     computed by then) and matches it (matmul: same operand shapes and
     block grid; eltwise: add/sub/mul of the same dtype); those nodes are
-    computed early, at the lead's step, and skip their own slot."""
+    computed early, at the lead's step, and skip their own slot. A launch
+    takes no node from past the next folded loop (an op in a ``"scan"``
+    region): a value pulled across a loop would be held through it — at
+    llama3-8b's full width AdamW's first products, 17.8 GB, through the
+    whole forward and backward."""
     gm = ctx.schedule.graph.gm
     fx_nodes = list(gm.graph.nodes)
+    # the position of the first op of a loop at or after each position
+    barrier = [len(fx_nodes)] * (len(fx_nodes) + 1)
+    for i in range(len(fx_nodes) - 1, -1, -1):
+        in_loop = any(kind == "scan" for kind, _, _ in
+                      estimator.scope_of(fx_nodes[i]))
+        barrier[i] = i if in_loop else barrier[i + 1]
+    at = {fx: i for i, fx in enumerate(fx_nodes)}
     lowered = {}
     for fx in fx_nodes:
         node = ctx.node_by_fx.get(fx.name) if fx.op == "call_function" \
@@ -523,6 +536,8 @@ def plan(ctx: LoweringContext) -> list[Step]:
                        else _traced(fx).dtype)
                 lst = cands[node.kind]
                 for fx2 in lst[lst.index(fx) + 1:]:
+                    if at[fx2] > barrier[at[fx]]:
+                        break
                     nd2 = lowered[fx2]
                     if (fx2 in done or not all(
                             v in done for v in _inputs_of(fx2))):
@@ -537,7 +552,27 @@ def plan(ctx: LoweringContext) -> list[Step]:
                 done.update(fx2 for fx2, _ in peers)
             steps.append(Step("placed", fx, node, tuple(peers)))
         done.add(fx)
-    return steps
+    return _with_frees(steps)
+
+
+def _with_frees(steps: list[Step]) -> list[Step]:
+    """Each step with the values it reads last: the replay drops them
+    after it, so a step's peak memory is what is still to be read (a
+    train step at full width holds parameters, optimizer state and their
+    updates, not every intermediate of the update)."""
+    last: dict[torch.fx.Node, int] = {}
+    made: dict[torch.fx.Node, int] = {}
+    for i, step in enumerate(steps):
+        for fx in (step.fx, *(fx for fx, _ in step.peers)):
+            made[fx] = i
+            if step.kind != "input":
+                for v in _inputs_of(fx):
+                    last[v] = i
+    frees: dict[int, list] = {}
+    for fx, i in made.items():
+        frees.setdefault(last.get(fx, i), []).append(fx)
+    return [dataclasses.replace(step, free=tuple(frees.get(i, ())))
+            for i, step in enumerate(steps)]
 
 
 def _run_placed(ctx: LoweringContext, step: Step, read) -> list:
@@ -595,4 +630,6 @@ def eval_placed(ctx: LoweringContext, flat_args) -> list:
             env.update(outs)
         else:
             return [read(v) for v in fx.args[0]]
+        for v in step.free:
+            env.pop(v, None)
     raise AssertionError("the plan has no output step")

@@ -101,6 +101,76 @@ def _project_qkv(x, wq, wk, wv, cfg: ArchConfig, positions):
 
 
 # ---------------------------------------------------------------------------
+# full causal attention over a sequence (train / prefill)
+# ---------------------------------------------------------------------------
+
+
+def causal_mask(s: int, device) -> torch.Tensor:
+    """[S, S] bool, True on and below the diagonal."""
+    return torch.ones((s, s), dtype=torch.bool, device=device).tril()
+
+
+def grouped_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """q [B, S, H, D], k [B, S, G, D] -> scores [B, G, R, S_q, S_k] in q's
+    dtype, unscaled: the reference's ``dot_general(k, q)`` over (b, g),
+    ``bmm`` of k [B·G, S_k, D] by q [B·G, D, S_q·R]."""
+    b, s, h, d = q.shape
+    g = k.shape[2]
+    r = h // g
+    out = torch.bmm(k.permute(0, 2, 1, 3).reshape(b * g, s, d),
+                    q.reshape(b, s, g, r, d).permute(0, 2, 4, 1, 3)
+                    .reshape(b * g, d, s * r))
+    return out.view(b, g, s, s, r).permute(0, 1, 4, 3, 2)
+
+
+def softmax_parts(x: torch.Tensor):
+    """``_softmax``'s (probabilities, exp, sum): what its VJP reads."""
+    e = torch.exp(x - x.amax(-1, keepdim=True))
+    ssum = e.sum(-1, keepdim=True)
+    return e / ssum, e, ssum
+
+
+def grouped_values(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """probs [B, G, R, S_q, S_k], v [B, S, G, D] -> out [B, S, H, D]: the
+    reference's ``dot_general(v, probs)`` over (b, g), ``bmm`` of v
+    [B·G, D, S_k] by probs [B·G, S_k, R·S_q]."""
+    b, g, r, s, _ = probs.shape
+    d = v.shape[-1]
+    out = torch.bmm(v.permute(0, 2, 3, 1).reshape(b * g, d, s),
+                    probs.permute(0, 1, 4, 2, 3).reshape(b * g, s, r * s))
+    return out.view(b, g, d, r, s).permute(0, 4, 1, 3, 2).reshape(
+        b, s, g * r, d)
+
+
+def full_causal_attention(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor) -> torch.Tensor:
+    """The reference's full attention (``attention.py:84-96``): grouped
+    GQA products, KV never repeated; q [B, S, H, D], k/v [B, S, G, D] ->
+    [B, S, H, D]."""
+    s, d = q.shape[1], q.shape[-1]
+    scores = grouped_scores(q, k) / math.sqrt(d)
+    masked = torch.where(causal_mask(s, q.device), scores.float(), NEG_INF)
+    return grouped_values(softmax_parts(masked)[0].to(q.dtype), v)
+
+
+def attention_block(x: torch.Tensor, p: dict, cfg: ArchConfig,
+                    positions: torch.Tensor, *,
+                    chunked: bool = False) -> torch.Tensor:
+    """The reference's ``attention_block`` on its full-attention branch:
+    x [B, S, D] -> [B, S, D]. The chunked branch (sequences above
+    ``transformer.CHUNKED_ATTN_THRESHOLD``) raises."""
+    if chunked:
+        raise NotImplementedError(
+            "chunked attention (flash_attention_pair / flash_attention_xla, "
+            "sequences above 2048) is not ported yet (ROADMAP.md, queue "
+            "item 3.7: training above seq 2048)")
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(x, p["wq"], p["wk"], p["wv"], cfg, positions)
+    out = full_causal_attention(q, k, v)
+    return out.reshape(b, s, -1) @ p["wo"]
+
+
+# ---------------------------------------------------------------------------
 # decode against a contiguous cache
 # ---------------------------------------------------------------------------
 

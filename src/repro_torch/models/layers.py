@@ -11,10 +11,14 @@ The functions are spelled as the reference's jaxpr has them, so that the
 mapper traces the same priced ops (``repro_torch.core.estimator``): the
 norm's mean as a sum divided by its length, RoPE's inverse frequencies
 as a division, and ``rms_norm`` inside a ``"call"`` region, as the
-reference's custom-VJP ``rms_norm`` is a call of its own.
+reference's custom-VJP ``rms_norm`` is a call of its own. ``rms_norm``
+and ``fused_xent_head`` are ``autograd.Function``s whose backward passes
+are the reference's custom VJPs, op for op.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -47,13 +51,56 @@ def empty_param(shape, dtype, device) -> nn.Parameter:
 # ---------------------------------------------------------------------------
 
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor,
-             eps: float = 1e-5) -> torch.Tensor:
+def rms_norm_fwd(x: torch.Tensor, scale: torch.Tensor,
+                 eps: float = 1e-5) -> torch.Tensor:
+    """The norm's forward, in its ``"call"`` region (the reference's
+    custom-VJP ``rms_norm`` is a call of its own)."""
     with estimator.region("call", "rms_norm"):
         x32 = x.float()
         var = x32.square().sum(-1, keepdim=True) / x32.shape[-1]
         y = x32 * torch.rsqrt(var + eps)
         return (y * scale.float()).to(x.dtype)
+
+
+def rms_norm_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
+                 eps: float = 1e-5) -> tuple[torch.Tensor, torch.Tensor]:
+    """The reference's ``_rms_bwd`` op for op: (dx, dscale) from the saved
+    input alone. Outside any region: the reference's transpose inlines the
+    custom VJP's backward where the cotangent flows, so its edges run on
+    into the ops around it."""
+    x32 = x.float()
+    g32 = g.float()
+    s32 = scale.float()
+    n = x.shape[-1]
+    r = torch.rsqrt(x32.square().sum(-1, keepdim=True) / n + eps)
+    gs = g32 * s32
+    dot = (gs * x32).sum(-1, keepdim=True)
+    dx = r * gs - r.pow(3) * x32 * (dot / n)
+    dscale = (g32 * x32 * r).reshape(-1, n).sum(0)
+    return dx.to(x.dtype), dscale.to(scale.dtype)
+
+
+class _RMSNorm(torch.autograd.Function):
+    """``rms_norm`` with the reference's custom VJP (``rms_norm_bwd``)."""
+
+    @staticmethod
+    def forward(x, scale, eps):
+        return rms_norm_fwd(x, scale, eps)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, scale, ctx.eps = inputs
+        ctx.save_for_backward(x, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        return (*rms_norm_bwd(x, scale, g, ctx.eps), None)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    return _RMSNorm.apply(x, scale, eps)
 
 
 class RMSNorm(nn.Module):
@@ -81,7 +128,7 @@ def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
     return torch.full_like(p, 1.0) / p             # [head_dim / 2]
 
 
-def _rotate(x, cos, sin):
+def rotate(x, cos, sin):
     """Rotate pairs split by halves: x [..., rd]."""
     half = cos.shape[-1]
     x1, x2 = x[..., :half], x[..., half: 2 * half]
@@ -97,11 +144,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, *, theta: float,
         raise NotImplementedError(
             f"rope_style={style!r} is not ported yet (ROADMAP.md, port "
             f"queue item 5: remaining model families)")
-    inv = rope_freqs(x.shape[-1], theta, x.device)
-    ang = positions[..., None].float() * inv         # [B, S, D/2]
-    cos = torch.cos(ang)[:, :, None, :].to(x.dtype)
-    sin = torch.sin(ang)[:, :, None, :].to(x.dtype)
-    return _rotate(x, cos, sin)
+    return rotate(x, *rope_table(x.shape[-1], theta, positions, x.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -164,3 +207,111 @@ class LMHead(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return lm_head(x, self.w)
+
+
+# ---------------------------------------------------------------------------
+# fused LM head + cross-entropy (the reference's custom VJP)
+# ---------------------------------------------------------------------------
+# The float32 logits [tokens, vocab] never exist whole: the forward keeps
+# each sequence chunk's logsumexp, the backward recomputes the chunk's
+# logits and feeds dx and dw from them. Each chunk is one iteration of a
+# "scan" region ("xent" forward, "xent.T" backward: two loops, two names),
+# so the mapper folds them as the reference's two scans, even at one
+# chunk, and its lowering runs them natively.
+
+
+def _xent_chunks(x, labels, n_chunks: int):
+    """x [B, S, D] and labels [B, S] as n_chunks chunks along S:
+    ([C, B, S/C, D], [C, B, S/C])."""
+    b, s, d = x.shape
+    sc = s // n_chunks
+    return (x.reshape(b, n_chunks, sc, d).movedim(1, 0),
+            labels.reshape(b, n_chunks, sc).movedim(1, 0))
+
+
+def _chunk_logits(xc: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The chunk's logits in float32 (the reference's einsum with
+    ``preferred_element_type=float32``: bfloat16 products are exact in
+    float32, so the operands are widened first)."""
+    return xc.float() @ w.float()
+
+
+def logsumexp(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.logsumexp`` over the last axis as its jaxpr spells it: a
+    max that is 0 where not finite, subtracted and added back."""
+    m = x.amax(-1)
+    m = torch.where(m.abs() < math.inf, m, torch.zeros_like(m))
+    s = torch.exp(x - m[..., None]).sum(-1)
+    return torch.log(s.abs()) + m
+
+
+class _FusedXentHead(torch.autograd.Function):
+    """``fused_xent_head`` with the reference's custom VJP: outputs the
+    loss and each chunk's logsumexp (saved for the backward, not
+    differentiable)."""
+
+    @staticmethod
+    def forward(x, w, labels, n_chunks):
+        b, s, _ = x.shape
+        xr, lr = _xent_chunks(x, labels, n_chunks)
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        lses = []
+        for c in range(n_chunks):
+            with estimator.region("scan", "xent"):
+                logits = _chunk_logits(xr[c], w)
+                lse = logsumexp(logits)
+                gold = torch.take_along_dim(
+                    logits, lr[c][..., None].long(), -1)[..., 0]
+                total = total + (lse - gold).sum()
+                lses.append(lse)
+        return total / (b * s), torch.stack(lses)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, w, labels, ctx.n_chunks = inputs
+        ctx.mark_non_differentiable(output[1])
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, w, labels, output[1])
+
+    @staticmethod
+    def backward(ctx, g, _):
+        x, w, labels, lses = ctx.saved_tensors
+        b, s, d = x.shape
+        n_tok = b * s
+        xr, lr = _xent_chunks(x, labels, ctx.n_chunks)
+        vocab = w.shape[1]
+        dw = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+        dxs = []
+        for c in range(ctx.n_chunks):
+            with estimator.region("scan", "xent.T"):
+                xc = xr[c]
+                logits = _chunk_logits(xc, w)
+                p = torch.exp(logits - lses[c][..., None])
+                onehot = (lr[c][..., None] == torch.arange(
+                    vocab, device=w.device)).float()
+                dlogits = (p - onehot) * (g / n_tok)
+                dxs.append(dlogits.to(x.dtype) @ w.t())
+                # dw as the reference's dot_general(xc, dlogits): the
+                # product dlogitsᵀ·xc, transposed (estimator.mm_transposed)
+                dw = dw + (dlogits.reshape(-1, vocab).t()
+                           @ xc.float().reshape(-1, d)).t()
+        dx = torch.stack(dxs).movedim(0, 1).reshape(b, s, d).to(x.dtype)
+        return dx, dw.to(w.dtype), None, None
+
+
+def fused_xent_head(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
+                    n_chunks: int = 8) -> torch.Tensor:
+    """mean_t [logsumexp(x_t W) - (x_t W)[label_t]]; x [B, S, D], w [D, V],
+    labels [B, S] int: the reference's ``fused_xent_head``, its custom VJP
+    included."""
+    return _FusedXentHead.apply(x, w, labels, n_chunks)[0]
+
+
+def rope_table(head_dim: int, theta: float, positions: torch.Tensor,
+               dtype) -> tuple[torch.Tensor, torch.Tensor]:
+    """``apply_rope``'s (cos, sin), each [B, S, 1, head_dim / 2] in
+    ``dtype``, for the ``"full"`` style."""
+    inv = rope_freqs(head_dim, theta, positions.device)
+    ang = positions[..., None].float() * inv
+    return (torch.cos(ang)[:, :, None, :].to(dtype),
+            torch.sin(ang)[:, :, None, :].to(dtype))

@@ -22,12 +22,27 @@ Entry points:
     reference scans them — so the mapper can trace it on meta tensors
     (``launch.steps.make_serve_step``). Each layer runs in a ``"scan"``
     region (``core.estimator.region``), which the mapper's graph folds
-    back into the reference's scanned nodes.
+    back into the reference's scanned nodes;
+  * ``hidden_states(cfg, params, tokens)`` / ``apply`` -> the final-norm
+    hidden states ``[B, S, D]`` / the logits ``[B, S, V]`` over a whole
+    sequence (train and prefill), functions of the same tree. The layer
+    stack is one ``autograd.Function`` (``_LayerStack``): its forward runs
+    each layer as one iteration of the ``"scan"`` region ``"layers"``,
+    its backward each layer's VJP, last layer first, as one iteration of
+    ``"layers.T"`` — the reference's scan and its transpose. The VJP is
+    written out op for op in the order the reference's transpose emits
+    (``_unit_backward``), so the mapper traces the reference's nodes;
+    under ``cfg.remat`` each iteration first recomputes its layer's
+    forward from the saved layer input, as the reference's
+    ``jax.checkpoint``-ed scan body does.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch._device import resolve_device, torch_dtype
@@ -104,6 +119,258 @@ def decode_step(cfg: ArchConfig, params: dict, cache: dict,
                                                 "v": torch.stack(vs)}}}
 
 
+# sequence length above which the reference attends chunk by chunk
+# (flash_attention_xla / flash_attention_pair), not ported yet
+CHUNKED_ATTN_THRESHOLD = 2048
+
+# the stack's per-layer leaves in the reference's (sorted) key order
+STACK_LEAVES = tuple(sorted(LAYER_LEAVES))
+
+
+def _layer(leaves, i: int) -> dict:
+    return {key: leaf[i] for key, leaf in zip(STACK_LEAVES, leaves)}
+
+
+def _weight_grad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The cotangent of ``w`` in ``x @ w``: ``xᵀg`` over the flattened
+    rows, [in, out] (the reference's ``dot_general(g, x)`` transposed;
+    ``estimator.mm_transposed``)."""
+    return x.reshape(-1, x.shape[-1]).t() @ g.reshape(-1, g.shape[-1])
+
+
+def _unit_forward(x, w: dict, cfg: ArchConfig, positions, mask,
+                  tables=None, *, full: bool = True) -> dict:
+    """One layer's forward over a sequence, returning what its VJP reads.
+
+    ``tables``: the (q, k) rope tables made once outside the stack, as
+    the reference's linearization hoists them out of its scan; ``None``
+    makes them here, before each rotation, as its recomputing (remat)
+    body does, and takes the masked scores through
+    ``estimator.select_parts`` (the mask and the zero the selection's VJP
+    reads then come from the scores, as in the reference's graph).
+    ``full=False`` stops where the VJP stops reading: before the down
+    projection."""
+    eps, hd = cfg.norm_eps, cfg.resolved_head_dim
+    b, s, _ = x.shape
+    h1 = layers.rms_norm_fwd(x, w["norm1/scale"], eps)
+    q = (h1 @ w["attn/wq"]).reshape(b, s, cfg.n_heads, hd)
+    k = (h1 @ w["attn/wk"]).reshape(b, s, cfg.n_kv_heads, hd)
+    v = (h1 @ w["attn/wv"]).reshape(b, s, cfg.n_kv_heads, hd)
+
+    def table(j):
+        return tables[j] if tables is not None else layers.rope_table(
+            hd, cfg.rope_theta, positions, x.dtype)
+
+    tq = table(0)
+    qr = layers.rotate(q, *tq)
+    tk = table(1)
+    kr = layers.rotate(k, *tk)
+    scores = (attention.grouped_scores(qr, kr) / math.sqrt(hd)).float()
+    if tables is not None:
+        masked = torch.where(mask, scores, attention.NEG_INF)
+        select = (mask, 0.0)
+    else:
+        masked, *select = estimator.select_parts(mask, scores,
+                                                 attention.NEG_INF)
+    p, e, ssum = attention.softmax_parts(masked)
+    p = p.to(x.dtype)
+    o = attention.grouped_values(p, v).reshape(b, s, -1)
+    xm = x + o @ w["attn/wo"]
+    h2 = layers.rms_norm_fwd(xm, w["norm2/scale"], eps)
+    gate = h2 @ w["mlp/w_gate"]
+    up = h2 @ w["mlp/w_up"]
+    sg = F.silu(gate)
+    hm = sg * up
+    r = dict(x=x, h1=h1, tq=tq, tk=tk, qr=qr, kr=kr, v=v, p=p, e=e,
+             ssum=ssum, select=select, o=o, xm=xm, h2=h2, gate=gate, up=up,
+             sg=sg, hm=hm)
+    if full:
+        r["out"] = xm + hm @ w["mlp/w_down"]
+    return r
+
+
+def _rotate_bwd(ct: torch.Tensor, cos, sin) -> torch.Tensor:
+    """The VJP of ``layers.rotate``, as the reference's transpose spells
+    it."""
+    half = cos.shape[-1]
+    c1, c2 = ct[..., :half], ct[..., half:2 * half]
+    t1 = c2 * sin
+    t2 = c2 * cos
+    t3 = c1.neg() * sin
+    d2 = estimator.add_any(t2, t3)
+    t4 = c1 * cos
+    d1 = estimator.add_any(t1, t4)
+    return torch.cat([d1, d2], -1)
+
+
+def _unit_backward(ct: torch.Tensor, r: dict, w: dict,
+                   cfg: ArchConfig) -> tuple[torch.Tensor, dict]:
+    """One layer's VJP from the values ``_unit_forward`` returned: (the
+    cotangent of its input, its leaves' gradients). The ops and their
+    order are the reference's transpose of the layer: the down projection
+    first, the weight's cotangent before the input's, the cotangent sums
+    unpriced (``estimator.add_any``)."""
+    eps, hd = cfg.norm_eps, cfg.resolved_head_dim
+    g, rep = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    b, s, _ = ct.shape
+    add = estimator.add_any
+    grads = {}
+    # MLP: out = xm + (silu(h2 @ wg) * (h2 @ wu)) @ wd
+    grads["mlp/w_down"] = _weight_grad(r["hm"], ct)
+    dhm = ct @ w["mlp/w_down"].t()
+    ct_up = r["sg"] * dhm
+    ct_sg = dhm * r["up"]
+    ct_gate = estimator.silu_vjp(ct_sg, r["gate"])
+    grads["mlp/w_up"] = _weight_grad(r["h2"], ct_up)
+    dx_up = ct_up @ w["mlp/w_up"].t()
+    grads["mlp/w_gate"] = _weight_grad(r["h2"], ct_gate)
+    dx_gate = ct_gate @ w["mlp/w_gate"].t()
+    dxm, grads["norm2/scale"] = layers.rms_norm_bwd(
+        r["xm"], w["norm2/scale"], add(dx_up, dx_gate), eps)
+    ct = add(ct, dxm)
+    # attention: xm = x + o @ wo
+    grads["attn/wo"] = _weight_grad(r["o"], ct)
+    do = (ct @ w["attn/wo"].t()).reshape(b, s, g, rep, hd)
+    v, p = r["v"], r["p"]
+    ct_p = torch.bmm(
+        do.permute(0, 2, 3, 1, 4).reshape(b * g, rep * s, hd),
+        v.permute(0, 2, 3, 1).reshape(b * g, hd, s)).view(b, g, rep, s, s)
+    ct_vt = torch.bmm(
+        do.permute(0, 2, 4, 3, 1).reshape(b * g, hd, rep * s),
+        p.reshape(b * g, rep * s, s)).view(b, g, hd, s)
+    dv = ct_vt.permute(0, 3, 1, 2)
+    # softmax: p = e / sum(e), e = exp(masked - max)
+    e, ssum = r["e"], r["ssum"]
+    ct_p = ct_p.float()
+    t = ct_p * ssum.pow(-2)
+    t = t * e
+    neg = t.sum(-1, keepdim=True).neg()
+    ct_e = add(ct_p / ssum, neg) * e
+    mask, zero = r["select"]
+    ct_s = torch.where(mask, ct_e, zero).to(ct.dtype) / math.sqrt(hd)
+    dq = torch.bmm(ct_s.permute(0, 1, 3, 2, 4).reshape(b * g, s * rep, s),
+                   r["kr"].permute(0, 2, 1, 3).reshape(b * g, s, hd)
+                   ).view(b, g, s, rep, hd)
+    dk = torch.bmm(ct_s.permute(0, 1, 4, 3, 2).reshape(b * g, s, s * rep),
+                   r["qr"].reshape(b, s, g, rep, hd).permute(0, 2, 1, 3, 4)
+                   .reshape(b * g, s * rep, hd)).view(b, g, s, hd)
+    dk = _rotate_bwd(dk.permute(0, 2, 1, 3), *r["tk"]).reshape(b, s, -1)
+    dq = _rotate_bwd(dq.permute(0, 2, 1, 3, 4).reshape(b, s, g * rep, hd),
+                     *r["tq"]).reshape(b, s, -1)
+    dv = dv.reshape(b, s, -1)
+    grads["attn/wv"] = _weight_grad(r["h1"], dv)
+    dx_v = dv @ w["attn/wv"].t()
+    grads["attn/wk"] = _weight_grad(r["h1"], dk)
+    dx_k = dk @ w["attn/wk"].t()
+    grads["attn/wq"] = _weight_grad(r["h1"], dq)
+    dx_q = dq @ w["attn/wq"].t()
+    dx, grads["norm1/scale"] = layers.rms_norm_bwd(
+        r["x"], w["norm1/scale"], add(add(dx_v, dx_k), dx_q), eps)
+    return add(ct, dx), grads
+
+
+# what the backward keeps of a layer's forward without remat
+_RESIDUALS = ("h1", "qr", "kr", "v", "p", "e", "ssum", "o", "xm", "h2",
+              "gate", "up", "sg", "hm")
+
+
+class _LayerStack(torch.autograd.Function):
+    """The layer stack, ``x`` through every layer (module docstring).
+    Inputs: the config, x, positions, the causal mask, the (q, k) rope
+    tables (cos, sin each) and the stacked leaves (``STACK_LEAVES``).
+    Outputs: x and what the backward reads (the layers' inputs after the
+    first; without remat also each layer's ``_RESIDUALS``), the latter
+    not differentiable."""
+
+    @staticmethod
+    def forward(cfg, x, positions, mask, qc, qs, kc, ks, *leaves):
+        tables = ((qc, qs), (kc, ks))
+        saved = []
+        for i in range(cfg.n_layers):
+            with estimator.region("scan", "layers"):
+                r = _unit_forward(x, _layer(leaves, i), cfg, positions,
+                                  mask, tables)
+            if i:
+                saved.append(x)
+            if not cfg.remat:
+                saved.extend(r[key] for key in _RESIDUALS)
+            x = r["out"]
+        return (x, *saved)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.cfg = inputs[0]
+        ctx.mark_non_differentiable(*output[1:])
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(*inputs[1:], *output[1:])
+
+    @staticmethod
+    def backward(ctx, ct, *_):
+        cfg = ctx.cfg
+        x, positions, mask, qc, qs, kc, ks, *rest = ctx.saved_tensors
+        n = len(STACK_LEAVES)
+        leaves, saved = rest[:n], rest[n:]
+        per = 0 if cfg.remat else len(_RESIDUALS)
+        grads = [[None] * cfg.n_layers for _ in leaves]
+        # no_grad: the VJP is written out and never differentiated, and
+        # its unpriced ops (estimator.add_any, silu_vjp, select_parts)
+        # have no VJP for torch.func to record
+        with torch.no_grad():
+            for i in reversed(range(cfg.n_layers)):
+                # layer i's block of the saved list: its input (after the
+                # first layer), then its residuals
+                at = i * per + i
+                xi = saved[at - 1] if i else x
+                with estimator.region("scan", "layers.T"):
+                    w = _layer(leaves, i)
+                    if cfg.remat:
+                        r = _unit_forward(xi, w, cfg, positions, mask,
+                                          full=False)
+                    else:
+                        r = dict(zip(_RESIDUALS, saved[at:at + per]), x=xi,
+                                 tq=(qc, qs), tk=(kc, ks),
+                                 select=(mask, 0.0))
+                    ct, g = _unit_backward(ct, r, w, cfg)
+                for j, key in enumerate(STACK_LEAVES):
+                    grads[j][i] = g[key]
+            grads = [torch.stack(gl) for gl in grads]
+        return (None, ct, None, None, None, None, None, None, *grads)
+
+
+def hidden_states(cfg: ArchConfig, params: dict,
+                  tokens: torch.Tensor) -> torch.Tensor:
+    """The reference's ``DecoderLM.hidden_states`` for token inputs:
+    tokens [B, S] int -> the final norm's output [B, S, D], on the
+    reference's parameter tree. Full attention only: above
+    ``CHUNKED_ATTN_THRESHOLD`` it raises."""
+    x = layers.embed(tokens, params["embed"]["table"])
+    b, s, _ = x.shape
+    if s > CHUNKED_ATTN_THRESHOLD:
+        raise NotImplementedError(
+            f"seq {s} > {CHUNKED_ATTN_THRESHOLD} takes the reference's "
+            f"chunked attention, not ported yet (ROADMAP.md, queue item "
+            f"3.7: training above seq 2048)")
+    hd = cfg.resolved_head_dim
+    pos = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(
+        b, s)
+    tq = layers.rope_table(hd, cfg.rope_theta, pos, x.dtype)
+    tk = layers.rope_table(hd, cfg.rope_theta, pos, x.dtype)
+    mask = attention.causal_mask(s, x.device)
+    lp = params["layers"]["block0"]
+    leaves = [lp[group][name] for group, name in
+              (key.split("/") for key in STACK_LEAVES)]
+    x = _LayerStack.apply(cfg, x, pos, mask, *tq, *tk, *leaves)[0]
+    return layers.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
+
+
+def apply(cfg: ArchConfig, params: dict,
+          tokens: torch.Tensor) -> torch.Tensor:
+    """Full-sequence logits [B, S, V]: ``hidden_states`` then the LM
+    head."""
+    return layers.lm_head(hidden_states(cfg, params, tokens),
+                          params["lm_head"]["w"])
+
+
 class Block(nn.Module):
     """Pre-norm attention + SwiGLU MLP."""
 
@@ -178,6 +445,18 @@ class DecoderLM(nn.Module):
         return {"layers": {"block0": {
             name: t.expand(cfg.n_layers, *t.shape).clone()
             for name, t in site.items()}}}
+
+    def hidden_states(self, params: dict,
+                      tokens: torch.Tensor) -> torch.Tensor:
+        """Module-level ``hidden_states`` with this model's config."""
+        return hidden_states(self.cfg, params, tokens)
+
+    def apply(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+        """Module-level ``apply`` with this model's config: the logits of
+        the reference's ``DecoderLM.apply``, a function of the tree (it
+        takes the place of ``nn.Module.apply``, which no code of the
+        port calls)."""
+        return apply(self.cfg, params, tokens)
 
     def decode_step(self, params: dict, cache: dict, token: torch.Tensor,
                     pos: torch.Tensor):

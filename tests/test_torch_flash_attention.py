@@ -131,9 +131,27 @@ def test_head_dims_the_kernel_pads_match_pallas_kernel(d, dtype):
 
 
 def test_head_dim_policy_and_its_limit():
-    """Each head dim runs on the least compiled size at or above it; a
-    head dim above 128 raises (no config of the repo reaches it)."""
-    assert [flash_head_dim(d) for d in (1, 16, 17, 32, 33, 64, 65, 128)] \
-        == [16, 16, 32, 32, 64, 64, 128, 128]
+    """Each head dim runs on the least compiled size at or above it, up
+    to 256; a head dim above 256 raises."""
+    assert [flash_head_dim(d) for d in (1, 16, 17, 32, 33, 64, 65, 128,
+                                        129, 160, 256)] \
+        == [16, 16, 32, 32, 64, 64, 128, 128, 256, 256, 256]
     with pytest.raises(ValueError, match="above the kernel's largest"):
-        flash_head_dim(129)
+        flash_head_dim(257)
+
+
+@pytest.mark.parametrize("d", [160, 256])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_head_dims_above_128_match_pallas_kernel(d, dtype):
+    """Head dims above 128: on the card 160 is zero-padded to 256 and 256
+    runs as it is (``flash_head_dim``); the plain version takes them as
+    they are, and both sides hold to the reference's kernel."""
+    jdt, tdt, tol = DTYPES[dtype]
+    arrays = _inputs((1, 128, 4, 2, d), seed=4)
+    want = ref_ops.attention(*(jnp.asarray(a, jdt) for a in arrays),
+                             q_chunk=64, kv_chunk=64)
+    q, k, v = (torch.from_numpy(a).to(tdt) for a in arrays)
+    got = ops.attention(q, k, v, q_chunk=64, kv_chunk=64)
+    assert got.dtype == tdt and got.shape == q.shape
+    _close(got, want, tol)
+    assert flash_head_dim(d) == 256

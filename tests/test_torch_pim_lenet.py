@@ -19,6 +19,7 @@ On the CPU the wrappers run their plain versions, so these are the
 plain kernels' numbers; ``chip_smoke.py`` runs the same path on the card.
 """
 
+import dataclasses
 import json
 import pathlib
 
@@ -34,7 +35,7 @@ from repro.data.pipeline import make_digits as ref_make_digits
 from repro.models import lenet as ref_lenet
 from repro_torch import mapper, obs
 from repro_torch.checkpoint import lenet_params_from_reference
-from repro_torch.configs import LENET5
+from repro_torch.configs import LENET5, get_smoke_config
 from repro_torch.data import make_digits
 from repro_torch.models import lenet
 
@@ -145,8 +146,10 @@ def test_unported_options_raise_not_implemented():
     cases = [
         lambda: mapper.map_lenet("serve", partitions=2),
         lambda: mapper.map_lenet("serve", expand_scans=True),
-        lambda: mapper.map_arch("llama3-8b"),
-        lambda: mapper.compile_arch("llama3-8b"),
+        # the train step maps; what it leaves out raises
+        lambda: mapper.map_arch("llama3-8b", smoke=True, seq_len=4096),
+        lambda: mapper.compile_arch("llama3-8b", config=dataclasses.replace(
+            get_smoke_config("llama3-8b"), grad_accum=2), device="cpu"),
     ]
     for case in cases:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
