@@ -195,6 +195,32 @@ Phases, each printing one JSON line:
    each of the step's K3 waves timed on its own operands by events and by
    CUDA graph against its plain version, its library calls and its byte
    bound; the K3 entry of the kernels line carries their sum.
+20. ``pim_llama_pipe`` — llama3-8b's decode step cut into pipeline
+   stages, ``compile_arch("llama3-8b", "serve", partitions=4,
+   expand_scans=True)``. Hold: published width, float32, 2 layers,
+   batch 8, a 512-token cache, fp32 and int8 grids; the expansion
+   unrolls the stack, so the layers' products run on K1 (K5) and their
+   MACs on K3 inside the stages: the partitioned step bit for bit the
+   unpartitioned program of the same schedule and the per-block
+   executor, within 1e-4 of the plain step, its stages' launches summing
+   to the unpartitioned program's; ``run_partitioned`` over 8
+   microbatches (each its own tokens and random cache) and
+   ``run_partitioned_async`` on 4 streams bit for bit their sequential
+   calls; no host sync; the control, one boundary value swapped between
+   two microbatches, failing. Time: the published config as it is
+   (bf16, 32 layers), batch 8, a 2048-token cache, 8 microbatches: 8
+   sequential compiled steps, ``run_partitioned`` and
+   ``run_partitioned_async`` (wall and under the profiler), peak memory.
+21. ``pim_pipe`` — LeNet-5, not cut: ``compile_lenet("serve",
+   batch=256, partitions=2 and 3)`` bit for bit the unpartitioned
+   program and the executor, the GPipe grid over 8 microbatches
+   (synchronous and on streams) bit for bit their sequential calls, with
+   the boundary-swap control; ``Trainer(backend="pim", microbatches=8,
+   partitions=2)`` at batch 64, 20 AdamW steps, losses within rtol 1e-4,
+   atol 1e-5 of the plain and the unpartitioned pim trainers, K1/K3
+   launches per stage forward and backward, ms per step against
+   ``pim_train``'s, and the control that one stage's output cotangent
+   swapped between two microbatches fails the gradients' hold.
 
 Then the card's name and power limit, one line with every kernel's
 numbers, and as the last line ``{"ok": true, "device": {...}}``. Any
@@ -222,10 +248,15 @@ HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # H100 SXM, dense
 ROOT = pathlib.Path(__file__).resolve().parent
 DEVICE = "cuda"
+T0 = time.perf_counter()
 
 
 def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
+    # the seconds since the start, on stderr: where the run's time goes
+    print(f"[{time.perf_counter() - T0:.1f} s] {obj.get('phase', '')} "
+          f"{obj.get('path', obj.get('weight_dtype', ''))}",
+          file=sys.stderr, flush=True)
 
 
 def cuda_ms(fn, iters: int = 40, warmup: int = 3) -> float:
@@ -1168,13 +1199,14 @@ def profile_groups(name: str) -> str:
 def profile_device(fn, calls: int) -> dict:
     """``calls`` calls of ``fn`` under ``torch.profiler`` after a warm
     call: device time by ``profile_groups`` against the host's wall
-    time."""
+    time. The profiler traces the card alone: the host's events are not
+    read, and tracing them would halve the profile's speed and slow the
+    host it measures."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(calls):
             fn()
@@ -1483,14 +1515,16 @@ def pim_bound(nbytes: int, flops: int) -> tuple[float, float]:
 
 
 def pim_timing(kernel, plain, library, nbytes: int, flops: int,
-               iters: int = 40) -> dict:
+               iters: int = 40, plain_iters: int | None = None) -> dict:
     """Kernel, plain version and library call timed (``iters`` calls
-    each), beside the bound of ``nbytes`` moved and ``flops`` float32
+    each; the plain version ``plain_iters`` where one call takes
+    seconds), beside the bound of ``nbytes`` moved and ``flops`` float32
     operations."""
     t_bytes, t_ops = pim_bound(nbytes, flops)
     warm = min(3, iters)
+    plain_iters = plain_iters or iters
     return {"ms": cuda_ms(kernel, iters, warm),
-            "plain_ms": cuda_ms(plain, iters, warm),
+            "plain_ms": cuda_ms(plain, plain_iters, min(3, plain_iters)),
             "library_ms": cuda_ms(library, iters, warm),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -1555,7 +1589,8 @@ def counted(rows) -> list:
 
 
 def phase_kernels_pim(seed: int, shapes: dict, path: str, batch: int,
-                      wave: bool = False, iters: int = 40) -> dict:
+                      wave: bool = False, iters: int = 40,
+                      plain_iters: int | None = None) -> dict:
     """K1, K2 and K3 at the ``shapes`` of one of ``path``'s main-path runs,
     each distinct shape once with its number of launches (``counted``), on
     seeded random data, against their plain versions on the card, and
@@ -1574,7 +1609,8 @@ def phase_kernels_pim(seed: int, shapes: dict, path: str, batch: int,
     the phase then also reads K3's SASS (``k3_sass``) and holds two waves
     above the member cap a table passed by value holds
     (``k3_above_cap``). ``iters``: the calls timed of each K1 and K2
-    shape (fewer where a plain version takes seconds)."""
+    shape (fewer where a plain version takes seconds); ``plain_iters``:
+    of their plain versions, where one call takes seconds."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.pim_mac import pim_matmul, pim_matmul_grouped
@@ -1613,7 +1649,7 @@ def phase_kernels_pim(seed: int, shapes: dict, path: str, batch: int,
                                                           col_groups=cg),
                        lambda: torch.bmm(a_rep, b),
                        4 * (a.numel() + b.numel() + g * m * n),
-                       2 * g * m * k * n, iters)})
+                       2 * g * m * k * n, iters, plain_iters)})
         del a, b, a_rep, out
     k2 = []
     for name, m, k, n, count in shapes["k2"]:
@@ -1631,7 +1667,7 @@ def phase_kernels_pim(seed: int, shapes: dict, path: str, batch: int,
                        lambda: ref.pim_matmul_ref(a, b),
                        lambda: torch.mm(a, b),
                        4 * (a.numel() + b.numel() + m * n),
-                       2 * m * k * n, iters)})
+                       2 * m * k * n, iters, plain_iters)})
         del a, b
     k3 = [hold_k3(f"K3 {path} {name}", form, count, randn)
           for name, form, count in shapes["k3"]]
@@ -2274,15 +2310,16 @@ def phase_pim_train(seed: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def backward_nodes(loss) -> dict:
-    """The kernel nodes of ``loss``'s autograd graph, each by its saved
+def backward_nodes(*roots) -> dict:
+    """The kernel nodes of the autograd graph behind ``roots`` (a loss, or
+    a stage's outputs), each by its saved
     operands and the cotangents autograd will ask of it: K1 (A's shape,
     B's shape, tiles, (dA, dB) wanted), K2 (as K1), K5 (A's shape, Q's
     shape, tiles, (dA, dq, ds) wanted), K3 (a wave's elements, (da, db,
     dacc) asked by some member). Fails if a native matrix product or
     convolution is in the graph."""
     nodes = {"k1": [], "k2": [], "k3": [], "k5": []}
-    seen, stack = set(), [loss.grad_fn]
+    seen, stack = set(), [r.grad_fn for r in roots]
     while stack:
         fn = stack.pop()
         if fn is None or fn in seen:
@@ -2796,16 +2833,18 @@ Q_LOSS_RTOL = 0.02         # the reference's test_trainer_int8_losses_...
 
 
 def phase_kernels_pim_q(seed: int, shapes: list, path: str,
-                        batch: int) -> list:
+                        batch: int, iters: int = 40,
+                        plain_iters: int | None = None) -> list:
     """K5 at the ``shapes`` (``(name, G, col_groups, M, K, N, count)``) of
     one of ``path``'s runs, on seeded random activations and weights
     quantized to the int8 grid (``quantize_axis``, as the lowering
     quantizes them), against its plain version per output row to
     ``mm_limit`` (with the dropped-K-tile control) and against K1 on
-    ``q * s`` bit for bit; timed beside its bound (each operand read once
-    — Q as float32 — the output written once; 2 MKN operations per group
-    and the KN dequantizing multiplies) and the library call: ``q * s``
-    then ``torch.bmm`` (TF32 off)."""
+    ``q * s`` bit for bit; timed (``iters`` calls each, the plain version
+    ``plain_iters``) beside its bound
+    (each operand read once — Q as float32 — the output written once; 2
+    MKN operations per group and the KN dequantizing multiplies) and the
+    library call: ``q * s`` then ``torch.bmm`` (TF32 off)."""
     import torch
     from repro_torch.core import quant
     from repro_torch.kernels import ref
@@ -2846,7 +2885,8 @@ def phase_kernels_pim_q(seed: int, shapes: list, path: str,
                          lambda: torch.bmm(a_rep, q * s),
                          4 * (a.numel() + q.numel() + s.numel()
                               + g * m * n),
-                         2 * g * m * k * n + g * k * n)})
+                         2 * g * m * k * n + g * k * n, iters,
+                         plain_iters)})
         del a, q, s, a_rep
     torch.cuda.empty_cache()
     emit({"phase": "kernels_pim", "path": path, "batch": batch,
@@ -4134,6 +4174,664 @@ def phase_pim_llama_train(seed: int) -> dict:
             "time": timing["row"]}
 
 
+# ---------------------------------------------------------------------------
+# 20. pim_llama_pipe: llama3-8b's decode step cut into pipeline stages
+# ---------------------------------------------------------------------------
+
+PIPE_PARTITIONS = 4
+PIPE_MICRO = 8             # GPipe microbatches
+PIPE_STREAMS = 4           # the asynchronous driver's ring of streams
+LLAMA_PIPE_POS = 5         # the hold's position: the caches' rows 0..5 read
+# the timed run: the published config as it is (bf16, 32 layers)
+LLAMA_PIPE_TIME = dict(batch=8, seq_len=2048, pos=1024)
+
+
+def leaves_equal(a, b) -> bool:
+    """Two pytrees (or lists) of tensors bit for bit."""
+    import torch
+    la, lb = (torch.utils._pytree.tree_leaves(x) for x in (a, b))
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y)
+        for x, y in zip(la, lb))
+
+
+def stage_launches(prog) -> list:
+    """Each stage's launches in its last call: (K1 or K5, K3)."""
+    return [[st.matmul_launches, st.eltwise_launches] for st in prog.stages]
+
+
+def stage_vjps(prog, flat, n_wanted: int) -> list:
+    """Each stage's backward launches for one microbatch (``flat``),
+    derived from the autograd graph of its forward (``backward_nodes``,
+    ``asked``) run as ``gpipe_value_and_grad`` runs it: on detached inputs
+    that require grad where they are floating and cross a cut or are one
+    of the first ``n_wanted`` arguments."""
+    import torch
+    from repro_torch.parallel.pipeline import _resolve
+    outs, want = [], []
+    for st in prog.stages:
+        ins = [x.detach().requires_grad_(True)
+               if isinstance(x, torch.Tensor) and x.is_floating_point()
+               and (r[0] == "stage" or r[1] < n_wanted) else x
+               for r, x in ((r, _resolve(r, flat, outs))
+                            for r in st.in_refs)]
+        with torch.enable_grad():
+            outs.append(st.fn(*ins))
+        want.append(asked(backward_nodes(*(
+            y for y in outs[-1] if isinstance(y, torch.Tensor)
+            and y.grad_fn is not None))))
+    return want
+
+
+def swapped_boundary(prog, mbs, m_a: int, m_b: int):
+    """Microbatch ``m_a``'s outputs with one boundary value swapped: the
+    first stage that reads an earlier stage's value reads microbatch
+    ``m_b``'s instead (a control: the hold must see it)."""
+    from repro_torch.parallel.pipeline import _resolve
+    outs = {m_a: [], m_b: []}
+    swapped = False
+    for st in prog.stages:
+        for m in (m_b, m_a):
+            ins = [_resolve(r, mbs[m], outs[m]) for r in st.in_refs]
+            if m == m_a and not swapped:
+                for j, r in enumerate(st.in_refs):
+                    if r[0] == "stage":
+                        ins[j] = _resolve(r, mbs[m_b], outs[m_b])
+                        swapped = True
+                        break
+            outs[m].append(st.fn(*ins))
+    if not swapped:
+        raise AssertionError("swapped_boundary: no stage reads another")
+    return [_resolve(r, mbs[m_a], outs[m_a]) for r in prog.out_refs]
+
+
+def llama_pipe_hold(seed: int, weight_dtype: str) -> dict:
+    """``compile_arch("llama3-8b", "serve", partitions=4,
+    expand_scans=True)`` at ``LLAMA_HOLD`` (published width, float32, 2
+    layers): the expansion unrolls the stack (one chunk a layer), so the
+    layers' products run on K1 (K5) and their MACs on K3 inside the
+    stages. The main path — every count set to 0 just before it and read
+    just after — is one partitioned step and ``run_partitioned`` over
+    ``PIPE_MICRO`` microbatches (each its own tokens and random cache).
+    Held: the partitioned step bit for bit the unpartitioned compiled
+    program of the same schedule and the per-block executor, within
+    ``LLAMA_TOL`` of the plain step; its stages' launches summing to the
+    unpartitioned program's; ``run_partitioned`` and
+    ``run_partitioned_async`` (``PIPE_STREAMS`` streams) bit for bit the
+    microbatches' sequential calls, and ``run_async`` the step; no host
+    sync in a partitioned step, ``run_async`` or an asynchronous grid; and the control — one boundary value swapped
+    between two microbatches — failing the hold. The partitioned step's
+    launch shapes are logged (``recording_launches``) for
+    ``phase_kernels_pim`` / ``phase_kernels_pim_q``."""
+    import torch
+    from repro_torch import mapper
+    from repro_torch.configs import get_config
+    from repro_torch.launch import make_serve_step
+    from repro_torch.mapper.executor import (full_float32, max_deviation,
+                                             run_fake_quant_plain)
+    from repro_torch.parallel import pipeline as pipe
+    cfg = dataclasses.replace(get_config("llama3-8b"),
+                              n_layers=LLAMA_HOLD["n_layers"],
+                              dtype="float32")
+    b, s = LLAMA_HOLD["batch"], LLAMA_HOLD["seq_len"]
+    params = llama_params(cfg, seed)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 80)
+    toks = [torch.randint(0, cfg.vocab_size, (b,), generator=gen,
+                          device=DEVICE, dtype=torch.int32)
+            for _ in range(PIPE_MICRO)]
+    caches = []
+    for _ in range(PIPE_MICRO):
+        c = llama_cache(cfg, b, s)
+        for t in c["layers"]["block0"].values():
+            t.normal_(generator=gen)
+        caches.append(c)
+    pos = torch.tensor(LLAMA_PIPE_POS, dtype=torch.int32, device=DEVICE)
+    t0 = time.perf_counter()
+    prog = mapper.compile_arch("llama3-8b", "serve", batch=b, seq_len=s,
+                               weight_dtype=weight_dtype, config=cfg,
+                               partitions=PIPE_PARTITIONS, expand_scans=True)
+    compile_s = time.perf_counter() - t0
+    sched = prog.schedule
+    if sched.graph.groups != {"layers": 1}:
+        raise AssertionError(f"pim_llama_pipe: expansion "
+                             f"{sched.graph.groups}, want a full unroll")
+    base = mapper.compile_schedule(sched, use_cache=False)
+    ex = mapper.ScheduleExecutor(sched)
+    ring = [torch.cuda.Stream() for _ in range(PIPE_STREAMS)]
+    aprog = mapper.compile_partitioned(sched, use_cache=False,
+                                       streams=ring)
+    mbs = [prog.flatten_args(params, caches[m], toks[m], pos)
+           for m in range(PIPE_MICRO)]
+    args0 = (params, caches[0], toks[0], pos)
+    step = make_serve_step(cfg)
+    with torch.no_grad(), full_float32():
+        reset_counts()
+        with recording_launches() as log:
+            out = prog(*args0)
+        step_counts = read_counts()
+        per_stage = stage_launches(prog)
+        pipe_outs = pipe.run_partitioned(prog.stages, prog.out_refs, mbs)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        reset_counts()
+        base_out = base(*args0)
+        torch.cuda.synchronize()
+        base_counts = read_counts()
+        if step_counts != base_counts or [
+                sum(col) for col in zip(*per_stage)] != [
+                base.matmul_launches, base.eltwise_launches]:
+            raise AssertionError(
+                f"pim_llama_pipe {weight_dtype}: launches {step_counts} "
+                f"(stages {per_stage}) vs unpartitioned {base_counts}")
+        if {k: v for k, v in counts.items()} != {
+                k: v * (1 + PIPE_MICRO) for k, v in step_counts.items()}:
+            raise AssertionError(f"pim_llama_pipe {weight_dtype}: the "
+                                 f"grid launched {counts}")
+        if not leaves_equal(out, base_out):
+            raise AssertionError(f"pim_llama_pipe {weight_dtype}: "
+                                 f"partitioned != unpartitioned")
+        ex_out = ex.run(*args0)
+        if not leaves_equal(out, ex_out):
+            raise AssertionError(f"pim_llama_pipe {weight_dtype}: "
+                                 f"partitioned != per-block executor")
+        del ex_out
+        if weight_dtype == "fp32":
+            want = step(*args0)
+        else:
+            want = run_fake_quant_plain(sched, *args0)
+        vs_plain = max_deviation(out, want, **LLAMA_TOL)
+        del want
+        seq = [base(params, caches[m], toks[m], pos)
+               for m in range(PIPE_MICRO)]
+        grid_equal = all(leaves_equal(o, q) for o, q in zip(
+            pipe_outs, seq))
+        asy = pipe.run_partitioned_async(aprog.stages, aprog.out_refs, mbs)
+        one_async = aprog.run_async(*args0)
+        torch.cuda.synchronize()
+        async_equal = all(leaves_equal(o, q) for o, q in zip(asy, pipe_outs))
+        if not (grid_equal and async_equal and leaves_equal(one_async, out)):
+            raise AssertionError(f"pim_llama_pipe {weight_dtype}: grid == "
+                                 f"sequential {grid_equal}, async == grid "
+                                 f"{async_equal}, run_async == the step "
+                                 f"{leaves_equal(one_async, out)}")
+        del one_async
+        del asy, pipe_outs
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            prog(*args0)
+            aprog.run_async(*args0)
+            pipe.run_partitioned_async(aprog.stages, aprog.out_refs, mbs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        bad = swapped_boundary(prog, mbs, 0, 1)
+        want0 = torch.utils._pytree.tree_leaves(seq[0])
+        if leaves_equal(bad, want0):
+            raise AssertionError(f"pim_llama_pipe {weight_dtype}: a "
+                                 f"boundary value swapped passes the hold")
+        control = max(float((x.float() - y.float()).abs().max())
+                      for x, y in zip(bad, want0))
+    r = {"weight_dtype": weight_dtype,
+         "expansion": sched.graph.groups,
+         "partitions": [{"nodes": len(p.nodes), "units":
+                         [p.unit_start, p.unit_end], "out_bits": p.out_bits}
+                        for p in prog.partitions],
+         "stage_in_out": [[len(st.in_refs), st.n_outs]
+                          for st in prog.stages],
+         "subarrays": sched.placement.n_subarrays,
+         "nodes": len(sched.graph.nodes), "compile_s": compile_s,
+         "launches_per_step": step_counts,
+         "launches_by_stage": per_stage,
+         "partitioned_bit_equal_unpartitioned": True,
+         "partitioned_bit_equal_executor": True,
+         "max_abs_err_vs_plain": vs_plain,
+         "plain": ("decode_step" if weight_dtype == "fp32" else
+                   "run_fake_quant_plain"),
+         "microbatches": PIPE_MICRO, "grid_bit_equal_sequential": True,
+         "async_streams": PIPE_STREAMS, "async_bit_equal_grid": True,
+         "run_async_bit_equal_step": True,
+         "host_syncs": 0,
+         "control_boundary_swapped_max_abs_err": control,
+         "modeled": dataclasses.asdict(sched.pipeline(PIPE_MICRO))}
+    del params, caches, mbs, prog, aprog, base, ex, seq, out, base_out, bad
+    torch.cuda.empty_cache()
+    return {"row": r, "launches": counts,
+            "shapes": {"k1": log["k1"], "k2": [], "k3": log["k3_forms"],
+                       "k5": log["k5"]}}
+
+
+def llama_pipe_time(seed: int) -> dict:
+    """The published config as it is (bf16, 32 layers) at
+    ``LLAMA_PIPE_TIME`` with ``PIPE_MICRO`` microbatches (each its own
+    tokens and cache), ``partitions=4, expand_scans=True``: the expansion
+    (chunks of the stack, each a folded loop), the cut, ms of
+    ``PIPE_MICRO`` sequential compiled steps, of ``run_partitioned`` and
+    of ``run_partitioned_async`` on ``PIPE_STREAMS`` streams (wall, and
+    device time under the profiler: kernels per microbatch, busy share),
+    the three bit for bit on the logits, and ``max_memory_allocated``."""
+    import torch
+    from repro_torch import mapper
+    from repro_torch.configs import get_config
+    from repro_torch.mapper.executor import full_float32
+    from repro_torch.parallel import pipeline as pipe
+    cfg = get_config("llama3-8b")
+    b, s = LLAMA_PIPE_TIME["batch"], LLAMA_PIPE_TIME["seq_len"]
+    clock = [time.perf_counter()]
+    seconds = {}
+
+    def lap(name):
+        now = time.perf_counter()
+        seconds[name] = now - clock[0]
+        clock[0] = now
+
+    params = llama_params(cfg, seed)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 81)
+    toks = [torch.randint(0, cfg.vocab_size, (b,), generator=gen,
+                          device=DEVICE, dtype=torch.int32)
+            for _ in range(PIPE_MICRO)]
+    caches = [llama_cache(cfg, b, s) for _ in range(PIPE_MICRO)]
+    pos = torch.tensor(LLAMA_PIPE_TIME["pos"], dtype=torch.int32,
+                       device=DEVICE)
+    # the peak of the runs, from the weights and the caches they read
+    torch.cuda.reset_peak_memory_stats()
+    lap("weights_and_caches")
+    prog = mapper.compile_arch("llama3-8b", "serve", batch=b, seq_len=s,
+                               partitions=PIPE_PARTITIONS, expand_scans=True)
+    lap("compile")
+    sched = prog.schedule
+    base = mapper.compile_schedule(sched, use_cache=False)
+    aprog = mapper.compile_partitioned(
+        sched, use_cache=False,
+        streams=[torch.cuda.Stream() for _ in range(PIPE_STREAMS)])
+    mbs = [prog.flatten_args(params, caches[m], toks[m], pos)
+           for m in range(PIPE_MICRO)]
+
+    def sequential():
+        return [base(params, caches[m], toks[m], pos)[0]
+                for m in range(PIPE_MICRO)]
+
+    def grid():
+        return [o[0] for o in pipe.run_partitioned(prog.stages,
+                                                   prog.out_refs, mbs)]
+
+    def grid_async():
+        return [o[0] for o in pipe.run_partitioned_async(
+            aprog.stages, aprog.out_refs, mbs)]
+
+    with torch.no_grad(), full_float32():
+        reset_counts()
+        prog(params, caches[0], toks[0], pos)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        if counts != {"k1": 1, "k2": 0, "k3": LLAMA_K3, "k5": 0}:
+            raise AssertionError(f"pim_llama_pipe time: launches {counts}")
+        a, g, y = sequential(), grid(), grid_async()
+        torch.cuda.synchronize()
+        if not (leaves_equal(a, g) and leaves_equal(g, y)):
+            raise AssertionError("pim_llama_pipe time: sequential, grid "
+                                 "and async logits differ")
+        if not all(bool(torch.isfinite(x.float()).all()) for x in a):
+            raise AssertionError("pim_llama_pipe time: logits not finite")
+        del a, g, y
+        lap("checks")
+        rows = {}
+        for name, fn in (("sequential", sequential),
+                         ("run_partitioned", grid),
+                         ("run_partitioned_async", grid_async)):
+            stats0 = torch.cuda.memory_stats()
+            # the checks above made each driver's first call
+            ms = wall_ms(fn, iters=3, warmup=0)
+            stats1 = torch.cuda.memory_stats()
+            lap(f"{name}_wall")
+            prof = profile_device(fn, 1)
+            lap(f"{name}_profile")
+            rows[name] = {"wall_ms": ms,
+                          # the caching allocator over the timed calls:
+                          # cudaMalloc / cudaFree calls and retries (a
+                          # retry frees the cache, with a device sync)
+                          "allocator": {k: stats1.get(k, 0) - stats0.get(
+                              k, 0) for k in ("num_device_alloc",
+                                              "num_device_free",
+                                              "num_alloc_retries")},
+                          "wall_ms_per_microbatch": ms / PIPE_MICRO,
+                          "device_ms": prof["device_ms_per_call"],
+                          "kernels_per_microbatch":
+                              prof["kernels_per_call"] / PIPE_MICRO,
+                          "device_busy_share_under_profiler":
+                              prof["device_busy_share_under_profiler"],
+                          "device_ms_by_group":
+                              prof["device_ms_per_call_by_group"]}
+        peak = torch.cuda.max_memory_allocated()
+    r = {"config": "llama3-8b published (configs/llama3_8b.py), bf16, 32 "
+                   "layers, not cut", **LLAMA_PIPE_TIME,
+         "microbatches": PIPE_MICRO, "streams": PIPE_STREAMS,
+         "expansion": sched.graph.groups,
+         "partitions": [{"nodes": len(p.nodes), "out_bits": p.out_bits}
+                        for p in prog.partitions],
+         "stage_in_out": [[len(st.in_refs), st.n_outs]
+                          for st in prog.stages],
+         "subarrays": sched.placement.n_subarrays,
+         "compile_s": seconds["compile"], "seconds": seconds,
+         "launches_per_microbatch": counts, "bit_equal": True, **rows,
+         "max_memory_allocated_gb": peak / 1e9,
+         "modeled": dataclasses.asdict(sched.pipeline(PIPE_MICRO))}
+    if peak >= 80e9:
+        raise AssertionError(f"pim_llama_pipe time: {peak / 1e9} GB")
+    del params, caches, mbs, prog, aprog, base
+    torch.cuda.empty_cache()
+    return r
+
+
+def phase_pim_llama_pipe(seed: int) -> dict:
+    """llama3-8b's decode step cut into pipeline stages inside its layer
+    stack (``partitions=4, expand_scans=True``): ``llama_pipe_hold`` on
+    the fp32 and int8 grids, then ``llama_pipe_time``. Emitted as one
+    ``pim_llama_pipe`` line."""
+    t0 = time.perf_counter()
+    fp32 = llama_pipe_hold(seed, "fp32")
+    int8 = llama_pipe_hold(seed, "int8")
+    t1 = time.perf_counter()
+    timing = llama_pipe_time(seed)
+    emit({"phase": "pim_llama_pipe",
+          "seconds": {"hold": t1 - t0, "time": time.perf_counter() - t1},
+          "config": "llama3-8b at its published width (configs/"
+                    "llama3_8b.py), float32, cut to "
+                    f"{LLAMA_HOLD['n_layers']} layers",
+          **{k: LLAMA_HOLD[k] for k in ("batch", "seq_len")},
+          "pos": LLAMA_PIPE_POS, "partitions": PIPE_PARTITIONS,
+          "reduced": {"n_layers": [32, LLAMA_HOLD["n_layers"]],
+                      "dtype": ["bfloat16", "float32"]},
+          "tol": LLAMA_TOL, "fp32": fp32["row"], "int8": int8["row"],
+          "time": timing})
+    return {"fp32": fp32, "int8": int8,
+            "launches": {k: fp32["launches"][k] + int8["launches"][k]
+                         for k in PIM_KEYS}}
+
+
+# ---------------------------------------------------------------------------
+# 21. pim_pipe: LeNet-5 through pipeline partitions and GPipe training
+# ---------------------------------------------------------------------------
+
+PIPE_SERVE_BATCH = 256
+PIPE_SERVE_PARTS = (2, 3)
+PIPE_TRAIN_BATCH = 64
+PIPE_TRAIN_STEPS = 20
+PIPE_TRAIN_PARTS = 2
+
+
+@contextlib.contextmanager
+def cotangent_swapped():
+    """A control: ``torch.autograd.grad`` with the output cotangents of
+    the second stage call that takes non-scalar ones replaced by the
+    first such call's (one stage's output cotangent swapped between two
+    microbatches). Yields a list that holds True once swapped."""
+    import torch
+    real = torch.autograd.grad
+    seen: list = []
+    done = [False]
+
+    def grad(outputs, inputs, grad_outputs=None, **kw):
+        gos = list(grad_outputs)
+        if any(g.dim() for g in gos):
+            if seen and not done[0] and [g.shape for g in gos] == [
+                    g.shape for g in seen[0]]:
+                gos = [g.clone() for g in seen[0]]
+                done[0] = True
+            elif not seen:
+                seen.append([g.clone() for g in gos])
+        return real(outputs, inputs, gos, **kw)
+
+    torch.autograd.grad = grad
+    try:
+        yield done
+    finally:
+        torch.autograd.grad = real
+
+
+def phase_pim_pipe(seed: int, pim_train_ms: float) -> dict:
+    """The paper's LeNet-5, not cut, through pipeline partitions.
+    Serve: ``compile_lenet("serve", batch=256, partitions=2 and 3)`` bit
+    for bit the unpartitioned program and the per-block executor, its
+    stages' launches summing to the unpartitioned program's;
+    ``run_partitioned`` over ``PIPE_MICRO`` microbatches of 256 images bit
+    for bit their sequential calls, ``run_partitioned_async`` on the
+    stages' streams bit for bit the grid, both timed, and ``run_async``
+    the partitioned call; the control, one
+    boundary value swapped between two microbatches, failing. Train:
+    ``Trainer(backend="pim", microbatches=8, partitions=2)`` at batch 64,
+    AdamW lr 2e-3, ``DigitsDataset(seed=0)``, ``PIPE_TRAIN_STEPS`` steps —
+    the main path, every count set to 0 just before and read just after
+    — its losses within ``LOSS_TOL`` of ``Trainer(backend="jit")`` and of
+    the unpartitioned pim trainer; its K1/K3 launches per step and stage,
+    forward and backward, each equal to its derived count (forward: M x
+    the stage program's; backward: M x the cotangents its autograd graph
+    asks, ``stage_vjps``); ms per step against ``pim_train``'s. The
+    asynchronous variant, ``pim_compile={"streams": ring}`` (each stage's
+    cells on its own stream), driven the same way: its losses, launches
+    and gradients bit for bit the one-stream run's, its ms per step. The
+    control, one stage's output cotangent swapped between two
+    microbatches, failing the gradients' hold (a control that swaps
+    nothing fails the phase)."""
+    import tempfile
+
+    import torch
+    from repro_torch import mapper, obs
+    from repro_torch.data import DigitsDataset
+    from repro_torch.mapper.executor import full_float32, max_deviation
+    from repro_torch.models import lenet
+    from repro_torch.optim import make_optimizer
+    from repro_torch.parallel import pipeline as pipe
+    params = seeded_params(seed, seed + 1)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 90)
+    images = [torch.randn((PIPE_SERVE_BATCH, 28, 28, 1), generator=gen,
+                          device=DEVICE) for _ in range(PIPE_MICRO)]
+    total = dict.fromkeys(PIM_KEYS, 0)
+    serve_rows = []
+    with torch.no_grad(), full_float32():
+        base = mapper.compile_lenet("serve", batch=PIPE_SERVE_BATCH)
+        for k in PIPE_SERVE_PARTS:
+            prog = mapper.compile_lenet("serve", batch=PIPE_SERVE_BATCH,
+                                        partitions=k)
+            ring = [torch.cuda.Stream() for _ in range(k)]
+            aprog = mapper.compile_partitioned(prog.schedule,
+                                               use_cache=False, streams=ring)
+            mbs = [prog.flatten_args(params, x) for x in images]
+            reset_counts()
+            out = prog(params, images[0])
+            per_stage = stage_launches(prog)
+            grid = pipe.run_partitioned(prog.stages, prog.out_refs, mbs)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            for key in PIM_KEYS:
+                total[key] += counts[key]
+            want = base(params, images[0])
+            ex_out = mapper.ScheduleExecutor(prog.schedule).run(params,
+                                                                images[0])
+            seq = [base(params, x) for x in images]
+            asy = pipe.run_partitioned_async(aprog.stages, aprog.out_refs,
+                                             mbs)
+            one_async = aprog.run_async(params, images[0])
+            torch.cuda.synchronize()
+            if not (torch.equal(out, want) and torch.equal(out, ex_out)
+                    and torch.equal(one_async, out)
+                    and all(torch.equal(g[0], q) for g, q in zip(grid, seq))
+                    and all(torch.equal(a[0], g[0])
+                            for a, g in zip(asy, grid))):
+                raise AssertionError(f"pim_pipe serve k={k}: partitioned, "
+                                     f"unpartitioned, executor, run_async, "
+                                     f"grid and async differ")
+            if [sum(c) for c in zip(*per_stage)] != [
+                    base.matmul_launches, base.eltwise_launches]:
+                raise AssertionError(f"pim_pipe serve k={k}: stage "
+                                     f"launches {per_stage}")
+            vs_plain = max_deviation(out, lenet.lenet_apply(params,
+                                                            images[0]),
+                                     **PIM_TOL)
+            bad = swapped_boundary(prog, mbs, 0, 1)[0]
+            if torch.equal(bad, seq[0]):
+                raise AssertionError(f"pim_pipe serve k={k}: a boundary "
+                                     f"value swapped passes the hold")
+            serve_rows.append({
+                "partitions": k,
+                "nodes": [len(p.nodes) for p in prog.partitions],
+                "out_bits": [p.out_bits for p in prog.partitions],
+                "launches_by_stage": per_stage,
+                "launches_per_call": {kk: v // (1 + PIPE_MICRO)
+                                      for kk, v in counts.items()},
+                "bit_equal": True, "max_abs_err_vs_plain": vs_plain,
+                "control_boundary_swapped_max_abs_err": float(
+                    (bad - seq[0]).abs().max()),
+                "sequential_ms": wall_ms(
+                    lambda: [base(params, x) for x in images], iters=10),
+                "run_partitioned_ms": wall_ms(
+                    lambda: pipe.run_partitioned(prog.stages, prog.out_refs,
+                                                 mbs), iters=10),
+                "run_partitioned_async_ms": wall_ms(
+                    lambda: pipe.run_partitioned_async(
+                        aprog.stages, aprog.out_refs, mbs), iters=10),
+                "modeled": dataclasses.asdict(
+                    prog.schedule.pipeline(PIPE_MICRO))})
+            del prog, aprog, grid, asy, seq, mbs
+
+    # GPipe training: the main path
+    opt = make_optimizer("adamw", lr=TRAIN_LR)
+    batches = digit_batches(PIPE_TRAIN_BATCH, PIPE_TRAIN_STEPS)
+    params0 = lenet.init_lenet(seed, device=DEVICE)
+    with tempfile.TemporaryDirectory() as tmp, full_float32():
+        tmp = pathlib.Path(tmp)
+        pipe_tr = make_trainer(
+            "pim", params0, batches, PIPE_TRAIN_STEPS, tmp / "g",
+            microbatches=PIPE_MICRO, partitions=PIPE_TRAIN_PARTS,
+            loss_fn=lenet.lenet_loss, optimizer=opt)
+        prog = pipe_tr.pim_program
+        obs.metrics().reset()
+        reset_counts()
+        res = pipe_tr.run()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        for key in PIM_KEYS:
+            total[key] += counts[key]
+        wall = step_wall_s()
+        stats = pipe_tr.pipeline_stats
+        losses = res["losses"]
+        # the asynchronous variant: each stage's cells on its own stream
+        ring = [torch.cuda.Stream() for _ in range(PIPE_TRAIN_PARTS)]
+        async_tr = make_trainer(
+            "pim", params0, batches, PIPE_TRAIN_STEPS, tmp / "a",
+            microbatches=PIPE_MICRO, partitions=PIPE_TRAIN_PARTS,
+            loss_fn=lenet.lenet_loss, optimizer=opt,
+            pim_compile={"streams": ring})
+        obs.metrics().reset()
+        reset_counts()
+        async_losses = async_tr.run()["losses"]
+        torch.cuda.synchronize()
+        async_counts = read_counts()
+        async_wall = step_wall_s()
+        for key in PIM_KEYS:
+            total[key] += async_counts[key]
+        if async_losses != losses or async_counts != counts:
+            raise AssertionError(f"pim_pipe train: on {len(ring)} streams "
+                                 f"losses {async_losses}, launches "
+                                 f"{async_counts}; on one {losses}, "
+                                 f"{counts}")
+        jit_losses = make_trainer("jit", params0, batches, PIPE_TRAIN_STEPS,
+                                  tmp / "j").run()["losses"]
+        pim_losses = make_trainer("pim", params0, batches, PIPE_TRAIN_STEPS,
+                                  tmp / "p").run()["losses"]
+        np.testing.assert_allclose(losses, jit_losses, **LOSS_TOL)
+        np.testing.assert_allclose(losses, pim_losses, **LOSS_TOL)
+        # every stage's launches a step, derived: forward M x its
+        # program's launches, backward M x the cotangents its forward's
+        # autograd graph asks (``stage_vjps``); the update runs natively
+        mb = PIPE_TRAIN_BATCH // PIPE_MICRO
+        imgs, labels = batches[0]
+        flat = [prog.flatten_args(params0, imgs[m * mb:(m + 1) * mb],
+                                  labels[m * mb:(m + 1) * mb])
+                for m in range(PIPE_MICRO)]
+        n_param = len(torch.utils._pytree.tree_leaves(params0))
+        per_stage = stage_launches(prog)
+        vjps = stage_vjps(prog, flat[0], n_param)
+        fwd = {s: stats["fwd"][s] for s in range(len(prog.stages))}
+        bwd = {s: stats["bwd"][s] for s in range(len(prog.stages))}
+        want_fwd = {s: {"K1": PIPE_MICRO * k1, "K2": 0,
+                        "K3": PIPE_MICRO * k3, "K5": 0}
+                    for s, (k1, k3) in enumerate(per_stage)}
+        want_bwd = {s: {"K1": PIPE_MICRO * v["k1"], "K2": 0,
+                        "K3": PIPE_MICRO * v["k3"], "K5": 0}
+                    for s, v in enumerate(vjps)}
+        want_step = {k: sum(r[k.upper()] for r in (*want_fwd.values(),
+                                                   *want_bwd.values()))
+                     for k in PIM_KEYS}
+        if (fwd != want_fwd or bwd != want_bwd or counts != {
+                k: PIPE_TRAIN_STEPS * v for k, v in want_step.items()}
+                or not want_step["k1"] or not want_step["k3"]):
+            raise AssertionError(f"pim_pipe train: launches {counts}, "
+                                 f"stats {stats}; derived forward "
+                                 f"{want_fwd}, backward {want_bwd}")
+        # the control: one stage's output cotangent swapped between two
+        # microbatches fails the gradients' hold
+        want = torch.utils._pytree.tree_leaves(torch.func.grad(
+            lenet.lenet_loss)(params0, imgs, labels))
+        _, good = pipe.gpipe_value_and_grad(prog.stages, prog.out_refs[0],
+                                            flat, list(range(n_param)))
+        grad_dev = max_deviation(good, want, **LOSS_TOL)
+        aprog = async_tr.pim_program
+        _, on_ring = pipe.gpipe_value_and_grad(
+            aprog.stages, aprog.out_refs[0],
+            [aprog.flatten_args(params0, imgs[m * mb:(m + 1) * mb],
+                                labels[m * mb:(m + 1) * mb])
+             for m in range(PIPE_MICRO)], list(range(n_param)))
+        torch.cuda.synchronize()
+        if not leaves_equal(on_ring, good):
+            raise AssertionError("pim_pipe train: gradients on the ring of "
+                                 "streams differ from one stream's")
+        with cotangent_swapped() as swapped:
+            _, bad = pipe.gpipe_value_and_grad(
+                prog.stages, prog.out_refs[0], flat, list(range(n_param)))
+        if not swapped[0]:
+            raise AssertionError("pim_pipe train: the control swapped no "
+                                 "cotangent")
+        try:
+            max_deviation(bad, want, **LOSS_TOL)
+        except AssertionError:
+            control = max(float((x - y).abs().max())
+                          for x, y in zip(bad, want))
+        else:
+            raise AssertionError("pim_pipe train: a cotangent swapped "
+                                 "passes the hold")
+    emit({"phase": "pim_pipe",
+          "config": "lenet5 (paper, 21655 params), float32, not cut",
+          "serve": serve_rows,
+          "train": {"batch": PIPE_TRAIN_BATCH, "steps": PIPE_TRAIN_STEPS,
+                    "microbatches": PIPE_MICRO,
+                    "partitions": PIPE_TRAIN_PARTS,
+                    "nodes": [len(p.nodes) for p in prog.partitions],
+                    "losses": losses, "plain_losses": jit_losses,
+                    "pim_unpartitioned_losses": pim_losses,
+                    "max_loss_dev_vs_plain": float(np.max(np.abs(
+                        np.subtract(losses, jit_losses)))),
+                    "launches_per_step": {k: v / PIPE_TRAIN_STEPS
+                                          for k, v in counts.items()},
+                    "launches_by_stage_last_step": {"fwd": fwd,
+                                                    "bwd": bwd},
+                    "cotangents_asked_by_stage_per_microbatch": vjps,
+                    "grad_max_abs_err_vs_plain": grad_dev,
+                    "control_cotangent_swapped_max_abs_err": control,
+                    "ms_per_step": wall["steady_mean"] * 1e3,
+                    "pim_train_ms_per_step": pim_train_ms,
+                    "train.step_wall_s": wall,
+                    "gpipe_driver": "one stream (the caller's)",
+                    "async": {
+                        "streams": len(ring),
+                        "losses_bit_equal_one_stream": True,
+                        "grads_bit_equal_one_stream": True,
+                        "launches_equal_one_stream": True,
+                        "ms_per_step": async_wall["steady_mean"] * 1e3,
+                        "train.step_wall_s": async_wall}}})
+    return {"launches": total}
+
+
 def sums(rows) -> dict:
     """Times and bounds of one run's launches: each distinct shape's
     numbers times its count, summed (each shape's bound the larger of its
@@ -4161,7 +4859,11 @@ def pim_entry(ids, key, by_path, rows) -> dict:
     those of one batch-64 train step (K2: one executor step), of
     ``pim_grad``'s backward (K2: the executor's backward there), of one
     llama3-8b decode step (K2: one executor step) and of one llama3-8b
-    train step (bf16, 4 layers, seq 2048; K3 alone launches there)."""
+    train step (bf16, 4 layers, seq 2048; K3 alone launches there); under
+    ``pim_llama_pipe``, those of one partitioned decode step of the hold
+    (f32, 2 layers unrolled: the layers' products and waves). ``pim_pipe``
+    (LeNet-5 through the partitions) adds launches only: its stages run
+    the shapes ``pim_lenet``, ``pim_train`` and ``backward`` time."""
     launches = {path: counts[key] for path, counts in by_path.items()
                 if path != "pim_grad_backward"}
     backward = rows["pim_grad_backward"].get(key)
@@ -4174,7 +4876,10 @@ def pim_entry(ids, key, by_path, rows) -> dict:
             "pim_llama": sums(rows["pim_llama"][key]),
             "pim_llama_train": (sums(rows["pim_llama_train"][key])
                                 if rows["pim_llama_train"].get(key)
-                                else None)}
+                                else None),
+            "pim_llama_pipe": (sums(rows["pim_llama_pipe"][key])
+                               if rows["pim_llama_pipe"].get(key)
+                               else None)}
 
 
 def with_counts(shapes: dict) -> dict:
@@ -4185,6 +4890,17 @@ def with_counts(shapes: dict) -> dict:
         collections.Counter(rows).items())] if key == "k3" else
             [("x".join(map(str, row[:-1])), *row) for row in counted(rows)]
             for key, rows in shapes.items()}
+
+
+def timed_elsewhere(shapes: list, timed: list) -> tuple:
+    """``shapes`` (``with_counts`` K1 or K5 rows) split into the rows of
+    ``timed`` (another path's timed rows) at the same launch shape, each
+    with this path's count, and the shapes left to time."""
+    done = {(r["G"], r["col_groups"], r["M"], r["K"], r["N"]): r
+            for r in timed}
+    return ([{**done[tuple(row[1:6])], "count": row[6]}
+             for row in shapes if tuple(row[1:6]) in done],
+            [row for row in shapes if tuple(row[1:6]) not in done])
 
 
 def gpu_name_and_power_limit() -> str:
@@ -4231,12 +4947,31 @@ def main() -> int:
     llama = phase_pim_llama(args.seed)
     llama_train = phase_pim_llama_train(args.seed)
     rows["pim_llama_train"] = {"k3": llama_train["k3_rows"]}
+    llama_pipe = phase_pim_llama_pipe(args.seed)
+    pipe_run = phase_pim_pipe(args.seed, train["ms_per_step"])
     rows["pim_llama"] = phase_kernels_pim(
         args.seed, with_counts(llama["fp32"]["shapes"]), "pim_llama",
-        LLAMA_HOLD["batch"], iters=3)
+        LLAMA_HOLD["batch"], iters=3, plain_iters=1)
     rows["pim_llama_q"] = phase_kernels_pim_q(
         args.seed, with_counts({"k5": llama["int8"]["shapes"]["k5"]})["k5"],
-        "pim_llama_q", LLAMA_HOLD["batch"])
+        "pim_llama_q", LLAMA_HOLD["batch"], iters=3, plain_iters=1)
+    # the partitioned decode step's own launch shapes: the layers'
+    # products (K1, K5) and the waves the expansion brings to top level;
+    # the LM head's launch is pim_llama's shape, timed there
+    pipe_shapes = with_counts({key: llama_pipe["fp32"]["shapes"][key]
+                               for key in ("k1", "k2", "k3")})
+    head, pipe_shapes["k1"] = timed_elsewhere(pipe_shapes["k1"],
+                                              rows["pim_llama"]["k1"])
+    rows["pim_llama_pipe"] = phase_kernels_pim(
+        args.seed, pipe_shapes, "pim_llama_pipe", LLAMA_HOLD["batch"],
+        iters=3, plain_iters=1)
+    rows["pim_llama_pipe"]["k1"] += head
+    head, pipe_q = timed_elsewhere(
+        with_counts({"k5": llama_pipe["int8"]["shapes"]["k5"]})["k5"],
+        rows["pim_llama_q"])
+    rows["pim_llama_pipe_q"] = phase_kernels_pim_q(
+        args.seed, pipe_q, "pim_llama_pipe_q", LLAMA_HOLD["batch"],
+        iters=3, plain_iters=1) + head
     by_path = {"pim_lenet": lenet_run["launches"],
                "pim_train": {k: train["launches"][k]
                              + train["executor_launches"][k]
@@ -4254,6 +4989,8 @@ def main() -> int:
                "pim_llama": llama["fp32"]["launches"],
                "pim_llama_q": llama["int8"]["launches"],
                "pim_llama_train": llama_train["launches"],
+               "pim_llama_pipe": llama_pipe["launches"],
+               "pim_pipe": pipe_run["launches"],
                "pim_grad_backward": {
                    k: grad["backward"][k]
                    + grad["executor"]["launches_backward"][k]
@@ -4288,7 +5025,7 @@ def main() -> int:
                      and r["shape"]["S"] == ATTN_LLAMA_SHAPES[-1][1])
     k5_launches = {path: by_path[path]["k5"]
                    for path in ("pim_lenet_q", "pim_train_q", "pim_grad_q",
-                                "pim_llama_q")}
+                                "pim_llama_q", "pim_llama_pipe")}
     k4_bf16 = k4["bfloat16"]
     k6_serve = k6[(SERVE_KV_DTYPE, "bfloat16")]
     emit({"kernels": [
@@ -4311,7 +5048,8 @@ def main() -> int:
         {**K5, "launches": sum(k5_launches.values()),
          **sums(rows["pim_lenet_q"]), "launches_by_path": k5_launches,
          "pim_train": sums(rows["pim_train_q"]),
-         "pim_llama": sums(rows["pim_llama_q"])},
+         "pim_llama": sums(rows["pim_llama_q"]),
+         "pim_llama_pipe": sums(rows["pim_llama_pipe_q"])},
         {**K7, "launches": attn["launches"],
          "max_abs_err": long_bf16["max_err"],
          **{k: long_bf16[k] for k in ("ms", "plain_ms", "bound_ms",

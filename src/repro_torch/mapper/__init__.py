@@ -21,43 +21,55 @@ Ported so far: the paper's LeNet, its forward pass and its training step
 any step ``build_schedule`` is given, such as the trainer's AdamW step),
 on the fp32 grid or a quantized weight grid (``weight_dtype``, with
 ``act_dtype`` and ``ideal_provision``); a compiled program and the
-per-block executor are differentiable; and a registered architecture's
-decode step (``map_arch`` / ``compile_arch``, ``kind="serve"``), its layer
-stack folded into the reference's scanned nodes. Not yet (ROADMAP.md,
-queue item 3): the train step of an architecture, pipeline partitions,
-scan expansion and paged-KV placement.
+per-block executor are differentiable; a registered architecture's
+decode and train steps (``map_arch`` / ``compile_arch``), the layer stack
+folded into the reference's scanned nodes; and pipeline partitions
+(``partition``, ``Schedule.pipeline``, ``compile_partitioned``, driven by
+``repro_torch.parallel.pipeline``) with scan expansion
+(``expand_graph``), so the cuts can land inside a layer stack. Not yet
+(ROADMAP.md, queue item 3.5): paged-KV placement.
 """
 
 from repro_torch.mapper.api import (abstract_like, compile_arch,
                                     compile_lenet, map_arch, map_lenet)
-from repro_torch.mapper.compile import (CompiledProgram, clear_program_cache,
+from repro_torch.mapper.compile import (CompiledProgram, PartitionedProgram,
+                                        StageProgram, clear_program_cache,
+                                        compile_partitioned,
                                         compile_schedule,
                                         program_cache_stats)
 from repro_torch.mapper.executor import ScheduleExecutor, run_schedule
 from repro_torch.mapper.graph import (ConvNode, EltwiseNode, MatmulNode,
-                                      OpGraph, OpNode, build_graph)
+                                      OpGraph, OpNode, Unit, build_graph,
+                                      expand_graph, plan_scan_expansion,
+                                      scan_lengths)
 from repro_torch.mapper.hardware import (ChipSpec, PIMHierarchy,
                                          SubarraySpec, TileSpec,
                                          curve_candidates, default_hierarchy,
                                          make_subarray, tile_curve)
 from repro_torch.mapper.lowering import LoweringContext, eval_placed
-from repro_torch.mapper.placement import (NodePlacement, PlacedBlock,
-                                          Placement, PlacementPolicy,
-                                          node_homes, place,
+from repro_torch.mapper.placement import (GraphPartition, NodePlacement,
+                                          PlacedBlock, Placement,
+                                          PlacementPolicy, node_homes,
+                                          partition, place,
                                           total_transfer_hops)
-from repro_torch.mapper.schedule import (Schedule, ScheduleReport, StageCost,
+from repro_torch.mapper.schedule import (EXPAND_BUDGET_CHIPS, PartitionCost,
+                                         PipelineTimeline, Schedule,
+                                         ScheduleReport, StageCost,
                                          build_schedule,
                                          build_schedule_from_graph)
 
 __all__ = [
-    "ChipSpec", "CompiledProgram", "ConvNode", "EltwiseNode",
-    "LoweringContext", "MatmulNode", "NodePlacement", "OpGraph", "OpNode",
-    "PIMHierarchy", "PlacedBlock", "Placement", "PlacementPolicy",
-    "Schedule", "ScheduleExecutor", "ScheduleReport", "StageCost",
-    "SubarraySpec", "TileSpec", "abstract_like", "build_graph",
-    "build_schedule", "build_schedule_from_graph", "clear_program_cache",
-    "compile_arch", "compile_lenet", "compile_schedule", "curve_candidates",
-    "default_hierarchy", "eval_placed", "make_subarray", "map_arch",
-    "map_lenet", "node_homes", "place", "program_cache_stats",
-    "run_schedule", "tile_curve", "total_transfer_hops",
+    "ChipSpec", "CompiledProgram", "ConvNode", "EXPAND_BUDGET_CHIPS",
+    "EltwiseNode", "GraphPartition", "LoweringContext", "MatmulNode",
+    "NodePlacement", "OpGraph", "OpNode", "PIMHierarchy", "PartitionCost",
+    "PartitionedProgram", "PipelineTimeline", "PlacedBlock", "Placement",
+    "PlacementPolicy", "Schedule", "ScheduleExecutor", "ScheduleReport",
+    "StageCost", "StageProgram", "SubarraySpec", "TileSpec", "Unit",
+    "abstract_like", "build_graph", "build_schedule",
+    "build_schedule_from_graph", "clear_program_cache", "compile_arch",
+    "compile_lenet", "compile_partitioned", "compile_schedule",
+    "curve_candidates", "default_hierarchy", "eval_placed", "expand_graph",
+    "make_subarray", "map_arch", "map_lenet", "node_homes", "partition",
+    "place", "plan_scan_expansion", "program_cache_stats", "run_schedule",
+    "scan_lengths", "tile_curve", "total_transfer_hops",
 ]

@@ -23,8 +23,14 @@ compiled program), ``act_dtype`` prices activation transfers at a grid's
 width, and ``ideal_provision`` picks the ideal bound's footprint (see
 ``build_schedule``).
 
-Not ported yet, and raising ``NotImplementedError`` with their ROADMAP
-item: ``partitions`` and ``expand_scans=True`` (item 3.3).
+``partitions=K`` cuts the step into K pipeline partitions
+(``placement.partition``) and ``expand_scans=True`` first expands the
+folded layer stack into resident per-layer copies where the subarray
+budget allows (``graph.expand_graph``), so the cuts can land inside it;
+``compile_*`` with ``partitions`` returns a ``PartitionedProgram``, one
+stage program per partition (``compile.compile_partitioned``), with
+``streams`` the ring of CUDA streams its asynchronous drivers run the
+stages on.
 """
 
 from __future__ import annotations
@@ -87,23 +93,33 @@ def map_lenet(kind: str = "serve", *, batch: int = 4, lr: float = 0.05,
                                        **common)
 
 
+def _compile(sched: schedule_mod.Schedule, device, streams):
+    """A program of ``sched``: partitioned where it has partitions."""
+    if sched.partitions:
+        return compile_mod.compile_partitioned(sched, device=device,
+                                               streams=streams)
+    return compile_mod.compile_schedule(sched, device=device)
+
+
 def compile_lenet(kind: str = "serve", *, batch: int = 4, lr: float = 0.05,
                   hierarchy: PIMHierarchy | None = None,
                   policy: placement_mod.PlacementPolicy | None = None,
                   tech: str = "proposed", weight_dtype: str = "fp32",
                   act_dtype: str = "fp32", ideal_provision: str = "fp32",
                   partitions: int | None = None,
-                  device: str | torch.device | None = None
-                  ) -> compile_mod.CompiledProgram:
+                  expand_scans: bool = False,
+                  device: str | torch.device | None = None, streams=None):
     """Map the paper's LeNet and compile it to a program that runs on
     ``device`` (CUDA by default): ``prog(params, images)`` -> logits, or
-    for ``train`` ``prog(params, images, labels)`` -> (params, loss)."""
+    for ``train`` ``prog(params, images, labels)`` -> (params, loss). A
+    ``CompiledProgram``, or with ``partitions`` a ``PartitionedProgram``
+    (its stages on ``streams``)."""
     dev = resolve_device(device)
     sched = map_lenet(kind, batch=batch, lr=lr, hierarchy=hierarchy,
                       policy=policy, tech=tech, weight_dtype=weight_dtype,
                       act_dtype=act_dtype, ideal_provision=ideal_provision,
-                      partitions=partitions)
-    return compile_mod.compile_schedule(sched, device=dev)
+                      partitions=partitions, expand_scans=expand_scans)
+    return _compile(sched, dev, streams)
 
 
 def map_arch(name: str, kind: str = "train", *, seq_len: int = 128,
@@ -123,9 +139,8 @@ def map_arch(name: str, kind: str = "train", *, seq_len: int = 128,
     ``batch`` sequences of ``seq_len`` tokens; ``kind="serve"`` one decode
     step against a ``seq_len`` cache at ``batch``. ``smoke=True`` uses
     the reduced config; ``config``, where given, is mapped instead of the
-    registered one (the architecture cut in depth, say). ``partitions``
-    and ``expand_scans`` raise ``NotImplementedError`` (not ported
-    yet)."""
+    registered one (the architecture cut in depth, say);
+    ``partitions`` and ``expand_scans`` as in ``build_schedule``."""
     if kind not in ("train", "serve"):
         raise ValueError(f"kind must be 'train' or 'serve', got {kind!r}")
     from repro_torch.launch import steps as steps_mod
@@ -156,18 +171,20 @@ def compile_arch(name: str, kind: str = "train", *, seq_len: int = 128,
                  tech: str = "proposed", weight_dtype: str = "fp32",
                  act_dtype: str = "fp32", ideal_provision: str = "fp32",
                  partitions: int | None = None,
+                 expand_scans: bool = False,
                  config: ArchConfig | None = None,
-                 device: str | torch.device | None = None
-                 ) -> compile_mod.CompiledProgram:
+                 device: str | torch.device | None = None, streams=None):
     """Map one architecture's step and compile it to a program that runs
     on ``device`` (CUDA by default), ``params`` the reference's tree
     (``DecoderLM.stacked_params``): for ``train``, ``prog(params,
     opt_state, batch)`` -> (params, opt_state, loss), ``batch`` a
     ``TokenStream`` batch (``{"tokens", "labels"}``) as tensors; for
-    ``serve``, ``prog(params, cache, token, pos)`` -> (logits, cache)."""
+    ``serve``, ``prog(params, cache, token, pos)`` -> (logits, cache). A
+    ``CompiledProgram``, or with ``partitions`` a ``PartitionedProgram``
+    (its stages on ``streams``)."""
     sched = map_arch(name, kind, seq_len=seq_len, batch=batch, smoke=smoke,
                      hierarchy=hierarchy, policy=policy, tech=tech,
                      weight_dtype=weight_dtype, act_dtype=act_dtype,
                      ideal_provision=ideal_provision, partitions=partitions,
-                     config=config)
-    return compile_mod.compile_schedule(sched, device=device)
+                     expand_scans=expand_scans, config=config)
+    return _compile(sched, resolve_device(device), streams)

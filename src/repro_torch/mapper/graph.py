@@ -46,14 +46,44 @@ Each iteration of a ``"scan"`` region must repeat the first op for op
 edges); the graph keeps the first iteration's nodes, marked ``scanned``,
 with ``repeat`` the number of iterations and their op totals multiplied
 by it, drops the others, and numbers the nodes afresh — the reference's
-node list. Scan expansion (``expand_graph``, ``plan_scan_expansion``,
-which let partition cuts land inside the stack) is not ported yet
-(ROADMAP.md, queue item 3.3).
+node list.
+
+Top-level units: the reference cuts pipeline partitions on its top-level
+jaxpr equations (``OpNode.top_eqn``). The port's counterpart is the
+:class:`Unit`, in graph order: one outermost region (a ``"call"`` such as
+``rms_norm``, or a whole scanned stack, each one equation of the
+reference) or one aten op outside any region, its ``getitem`` outputs
+with it. Three spellings of the two frameworks differ, and the units and
+their values (``OpGraph.values``, the activations a cut between two
+units moves) follow the reference's:
+
+* a layout view (``permute``, ``t``, ``transpose``) is the value it
+  views: the reference reads operands in any layout through a
+  contraction's or a convolution's dimension numbers;
+* a binary elementwise op over operands of two different nonzero ranks
+  reads its lower-rank operand through a rank promotion — jnp's
+  ``broadcast_in_dim`` equation, an operation of its own with a value of
+  its own — so a unit with no ops (``Unit.fx == ()``) stands before the
+  op for each promoted operand;
+* a function input is not a value: weights are resident per partition
+  and batch inputs enter at the stage that first reads them.
+
+Scan expansion (``plan_scan_expansion``, ``expand_graph``): a scanned
+stack is one unit, so no cut lands inside it. Expanding it folds its
+iterations per chunk instead of whole: a chunk length ``g = 1`` leaves
+every iteration's nodes at top level (each its own layer's resident
+copy, placed and run on the kernels like any node outside a loop, its
+ops and regions units of their own), ``g > 1`` makes ``ceil(R / g)``
+folded loops of length at most ``g``, each one unit, as the reference
+replays the stack as ``ceil(R / g)`` scans. The aten graph is the same:
+``make_fx`` unrolled the stack already.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
+import operator
 from typing import Any, Callable
 
 import torch
@@ -79,6 +109,9 @@ class OpNode:
                               # node, the first iteration's
     scanned: bool = False     # inside a scanned layer stack: runs natively
                               # (the reference binds it as its primitive)
+    top_unit: int = 0         # index of the owning top-level unit
+                              # (OpGraph.units): partition cuts land on
+                              # unit boundaries
 
     @property
     def weight_shape(self) -> tuple[int, int] | None:
@@ -122,6 +155,18 @@ class EltwiseNode(OpNode):
     op: str = "add"           # add | sub | mul | div
 
 
+@dataclasses.dataclass(frozen=True)
+class Unit:
+    """One top-level unit of the aten graph: the reference's top-level
+    equation (module docstring)."""
+
+    idx: int
+    fx: tuple[str, ...]       # its fx nodes' names, in graph order; ()
+                              # for a rank promotion
+    loop: str = ""            # a folded loop: the stack it folds
+    length: int = 1           # ... and its iterations
+
+
 @dataclasses.dataclass
 class OpGraph:
     """Cost-relevant operator graph of one traced function."""
@@ -131,6 +176,15 @@ class OpGraph:
     in_spec: Any                            # place); pytree specs of the
     out_spec: Any                           # arguments and the output
     fn: Callable | None = None
+    units: list[Unit] = dataclasses.field(default_factory=list)
+    # (producing unit, last reading unit — len(units) for an output —,
+    # elements) of every value a unit makes: the activations partition
+    # cuts move
+    values: list[tuple[int, int, int]] = dataclasses.field(
+        default_factory=list)
+    groups: dict[str, int] = dataclasses.field(default_factory=dict)
+                                            # stack -> chunk length of the
+                                            # expansion applied
 
     def totals(self) -> OpCounts:
         c = OpCounts()
@@ -211,15 +265,49 @@ def _stack_of(scope: tuple):
     return None
 
 
+def _iterations(gm: torch.fx.GraphModule) -> tuple[dict, dict]:
+    """(``(stack, iteration id)`` -> the iteration's ordinal, stack ->
+    its iterations), in trace order."""
+    ordinal: dict[tuple, int] = {}
+    count: dict[str, int] = {}
+    for fx in gm.graph.nodes:
+        at = _stack_of(estimator.scope_of(fx))
+        if at is not None and at not in ordinal:
+            ordinal[at] = count.get(at[0], 0)
+            count[at[0]] = ordinal[at] + 1
+    return ordinal, count
+
+
+def _top_scope(scope: tuple, count: dict, groups: dict) -> tuple:
+    """A scope as the expanded graph sees it: a fully unrolled stack's
+    iteration is no region (its body's ops are top level, and edges
+    into, out of and between its iterations are kept, as in the
+    reference's re-traced jaxpr)."""
+    if (scope and scope[0][0] == "scan"
+            and not _chunks(count[scope[0][1]], groups.get(scope[0][1]))):
+        return scope[1:]
+    return scope
+
+
 def build_graph_from_capture(cap: estimator.Capture,
-                             fn: Callable | None = None) -> OpGraph:
+                             fn: Callable | None = None,
+                             groups: dict[str, int] | None = None
+                             ) -> OpGraph:
+    """The operator graph of a capture; ``groups`` (stack name -> chunk
+    length) expands those stacks (module docstring)."""
+    groups = dict(groups or {})
+    _, count = _iterations(cap.gm)
+
+    def scope(v) -> tuple:
+        return _top_scope(estimator.scope_of(v), count, groups)
+
     nodes: list[OpNode] = []
     origin: dict[torch.fx.Node, frozenset[int]] = {}  # -> producing nodes
     for fx, scale in estimator.iter_nodes(cap.gm):
-        here = estimator.scope_of(fx)
+        here = scope(fx)
         src = frozenset().union(*[origin.get(v, frozenset())
                                   for v in _data_inputs(fx)
-                                  if estimator.scope_of(v) == here])
+                                  if scope(v) == here])
         kind = estimator.node_kind(fx.target)
         if kind is None:
             origin[fx] = src
@@ -261,9 +349,13 @@ def build_graph_from_capture(cap: estimator.Capture,
                                op=name, **common)
         nodes.append(node)
         origin[fx] = frozenset({node.idx})
-    nodes = _fold_stacks(nodes, cap.gm)
+    nodes = _fold_stacks(nodes, cap.gm, groups)
+    units, unit_of, values = _units(cap.gm, groups)
+    for nd in nodes:
+        nd.top_unit = unit_of[nd.fx_node]
     return OpGraph(nodes=nodes, gm=cap.gm, in_spec=cap.in_spec,
-                   out_spec=cap.out_spec, fn=fn)
+                   out_spec=cap.out_spec, fn=fn, units=units,
+                   values=values, groups=groups)
 
 
 def _iteration_row(nd: OpNode, first: int) -> tuple:
@@ -274,14 +366,27 @@ def _iteration_row(nd: OpNode, first: int) -> tuple:
     for key in ("idx", "name", "fx_node", "deps"):
         del row[key]
     return (type(nd).__name__, tuple(sorted(row.items())),
-            tuple(d - first for d in nd.deps))
+            tuple(d - first for d in nd.deps if d >= first))
 
 
-def _fold_stacks(nodes: list[OpNode],
-                 gm: torch.fx.GraphModule) -> list[OpNode]:
+def _chunks(n: int, group: int | None) -> list[range]:
+    """A stack's ``n`` iterations as the folded loops of its expansion:
+    one of all (not expanded), none (``group`` <= 1 or >= n: a full
+    unroll, the reference's rule) or runs of ``group``, the last
+    shorter."""
+    if group is None:
+        return [range(n)]
+    if group <= 1 or group >= n:
+        return []
+    return [range(lo, min(n, lo + group)) for lo in range(0, n, group)]
+
+
+def _fold_stacks(nodes: list[OpNode], gm: torch.fx.GraphModule,
+                 groups: dict[str, int]) -> list[OpNode]:
     """Fold each scanned layer stack back into its first iteration's
-    nodes (module docstring); renumber every node. Raises ``ValueError``
-    where an iteration does not repeat the first."""
+    nodes, or each chunk of an expanded one into its chunk's first
+    (module docstring); renumber every node. Raises ``ValueError`` where
+    an iteration does not repeat the first."""
     by_fx = {nd.fx_node: nd for nd in nodes}
     # stack -> iteration id -> (its aten ops, its nodes), in trace order
     stacks: dict[str, dict[int, tuple[list, list]]] = {}
@@ -299,7 +404,6 @@ def _fold_stacks(nodes: list[OpNode],
     drop: set[int] = set()
     for stack, iterations in stacks.items():
         (ops0, first), *rest = iterations.values()
-        count = len(iterations)
         rows0 = [_iteration_row(nd, first[0].idx if first else 0)
                  for nd in first]
         for i, (ops, its) in enumerate(rest, start=1):
@@ -311,13 +415,17 @@ def _fold_stacks(nodes: list[OpNode],
                     f"repeat iteration 0 op for op ({len(ops)} vs "
                     f"{len(ops0)} aten ops, {len(its)} vs {len(first)} "
                     f"nodes); the reference scans only identical layers")
-            drop.update(nd.idx for nd in its)
-        for nd in first:
-            nd.repeat *= count
-            nd.macs *= count
-            nd.adds *= count
-            nd.muls *= count
-            nd.scanned = True
+        its_nodes = [its for _, its in iterations.values()]
+        for chunk in _chunks(len(its_nodes), groups.get(stack)):
+            count = len(chunk)
+            for nd in its_nodes[chunk[0]]:
+                nd.repeat *= count
+                nd.macs *= count
+                nd.adds *= count
+                nd.muls *= count
+                nd.scanned = True
+            for i in chunk[1:]:
+                drop.update(nd.idx for nd in its_nodes[i])
     kept = [nd for nd in nodes if nd.idx not in drop]
     new_idx = {nd.idx: i for i, nd in enumerate(kept)}
     return [dataclasses.replace(
@@ -325,6 +433,213 @@ def _fold_stacks(nodes: list[OpNode],
                                       f"{new_idx[nd.idx]}",
         deps=[new_idx[d] for d in nd.deps if d in new_idx])
         for nd in kept]
+
+
+# ---------------------------------------------------------------------------
+# top-level units and the values that cross them
+# ---------------------------------------------------------------------------
+
+# views that only relayout a value (module docstring): the value they view
+LAYOUT_VIEWS = {aten.permute.default, aten.t.default, aten.transpose.int}
+
+# binary elementwise ops the reference spells with jnp's rank promotion
+PROMOTING = {aten.add.Tensor, aten.sub.Tensor, aten.mul.Tensor,
+             aten.div.Tensor, aten.where.self, aten.maximum.default,
+             aten.minimum.default, aten.pow.Tensor_Tensor, aten.lt.Tensor,
+             aten.le.Tensor, aten.gt.Tensor, aten.ge.Tensor,
+             aten.eq.Tensor, aten.ne.Tensor}
+
+
+def _promoted(fx: torch.fx.Node) -> list[torch.fx.Node]:
+    """The operands of ``fx`` that jnp would promote in rank: where the
+    tensor operands have two or more distinct nonzero ranks, each of
+    lower rank than the highest (scalars broadcast inside the op)."""
+    if fx.target not in PROMOTING:
+        return []
+    ops = [a for a in fx.args if isinstance(a, torch.fx.Node)
+           and isinstance(a.meta.get("val"), torch.Tensor)]
+    ranks = {a.meta["val"].dim() for a in ops} - {0}
+    if len(ranks) < 2:
+        return []
+    top = max(ranks)
+    return [a for a in ops if 0 < a.meta["val"].dim() < top]
+
+
+def _unit_keys(gm: torch.fx.GraphModule, groups: dict[str, int]) -> dict:
+    """Each op's unit key: consecutive ops with one key form one unit."""
+    ordinal, count = _iterations(gm)
+    keys: dict[torch.fx.Node, tuple] = {}
+    for fx in gm.graph.nodes:
+        if fx.op != "call_function":
+            continue
+        if fx.target is operator.getitem:
+            keys[fx] = keys[fx.args[0]]
+            continue
+        scope = _top_scope(estimator.scope_of(fx), count, groups)
+        if scope and scope[0][0] == "scan":        # a folded loop
+            _, stack, rid = scope[0]
+            chunks = _chunks(count[stack], groups.get(stack))
+            c = next(j for j, ch in enumerate(chunks)
+                     if ordinal[(stack, rid)] in ch)
+            keys[fx] = ("loop", stack, c, len(chunks[c]))
+        else:
+            keys[fx] = ("region", scope[0][2]) if scope else ("op", fx.name)
+    return keys
+
+
+def _units(gm: torch.fx.GraphModule, groups: dict[str, int]):
+    """(units, fx name -> unit index, values) of the aten graph (module
+    docstring)."""
+    keys = _unit_keys(gm, groups)
+    members: list[list[str]] = []            # each unit's fx names
+    loops: list[tuple[str, int]] = []        # each unit's (loop, length)
+    unit_of: dict[str, int] = {}
+    base: dict[Any, Any] = {}                # fx -> the value it is
+    produced: dict[Any, int] = {}
+    last: dict[Any, int] = {}
+    elems: dict[Any, int] = {}
+
+    def read(v, at: int) -> None:
+        v = base.get(v)
+        if v is not None:
+            last[v] = at
+
+    def make(v, at: int, n: int) -> None:
+        base[v] = v
+        produced[v] = last[v] = at
+        elems[v] = n
+
+    def new_unit(loop: str = "", length: int = 1) -> int:
+        members.append([])
+        loops.append((loop, length))
+        return len(members) - 1
+
+    prev = None
+    pending: list[torch.fx.Node] = []    # top-level layout views
+    for fx in gm.graph.nodes:
+        if fx.op == "placeholder":
+            continue
+        if fx.op == "output":
+            if pending:                  # trailing views: the last unit's
+                at = len(members) - 1 if members else new_unit()
+                members[at] += [v.name for v in pending]
+                unit_of.update((v.name, at) for v in pending)
+            torch.fx.node.map_arg(fx.args, lambda v: read(v, len(members)))
+            break
+        key = keys[fx]
+        if fx.target in LAYOUT_VIEWS:
+            base[fx] = base.get(fx.args[0])
+            if key[0] == "op":
+                # no unit of its own: it runs with the next op, whose
+                # dimension numbers it is in the reference
+                pending.append(fx)
+                continue
+        promote = _promoted(fx) if key[0] == "op" else []
+        for a in promote:                    # jnp's broadcast_in_dim
+            at = new_unit()
+            read(a, at)
+            make(("promote", fx.name, a.name), at, a.meta["val"].numel())
+        if key != prev or promote:
+            if key[0] == "loop":                 # ("loop", stack, c, length)
+                new_unit(key[1], key[3])
+            else:
+                new_unit()
+            prev = key
+        at = len(members) - 1
+        for v in (*pending, fx):
+            members[at].append(v.name)
+            unit_of[v.name] = at
+        pending = []
+        if fx.target in LAYOUT_VIEWS:
+            continue
+        for v in _data_inputs(fx):
+            read(("promote", fx.name, v.name) if v in promote else v, at)
+        val = fx.meta.get("val")
+        if isinstance(val, torch.Tensor):
+            make(fx, at, val.numel())
+    units = [Unit(idx=i, fx=tuple(m), loop=loop, length=length)
+             for i, (m, (loop, length)) in enumerate(zip(members, loops))]
+    values = [(produced[v], last[v], elems[v]) for v in produced]
+    return units, unit_of, values
+
+
+# ---------------------------------------------------------------------------
+# scan residency: expand a scanned stack into resident per-layer copies
+# ---------------------------------------------------------------------------
+
+
+def scan_lengths(graph: OpGraph) -> dict[int, int]:
+    """Folded loops by unit index -> static trip count (the reference's
+    top-level ``scan`` equations of length > 1)."""
+    return {u.idx: u.length for u in graph.units
+            if u.loop and u.length > 1}
+
+
+def _node_blocks(node: OpNode, weight_rows: int, weight_cols: int) -> int:
+    """Subarray blocks one resident copy of this node's weight grid takes
+    (0 for eltwise — peripheral units, no placement)."""
+    ws = node.weight_shape
+    if not ws:
+        return 0
+    return (max(1, math.ceil(ws[0] / weight_rows))
+            * max(1, math.ceil(ws[1] / weight_cols)))
+
+
+def plan_scan_expansion(graph: OpGraph, *, weight_rows: int,
+                        weight_cols: int,
+                        budget: int) -> dict[int, int]:
+    """Capacity-bucketed expansion plan: for each folded loop owning
+    placed weights, the largest copy count the subarray ``budget``
+    allows.
+
+    Returns ``{unit_idx: g}`` for :func:`expand_graph` — ``g=1`` when
+    the full R-copy unroll fits, ``g>1`` (``ceil(R/g)`` resident copies)
+    when it must bucket, and the site omitted entirely (refused) when
+    even two resident copies would blow the budget. The budget is counted
+    in subarray blocks against every node's weight grid, so un-expanded
+    nodes' residency is charged too."""
+    lengths = scan_lengths(graph)
+    if not lengths:
+        return {}
+    base = sum(_node_blocks(nd, weight_rows, weight_cols)
+               for nd in graph.nodes)
+    free = budget - base
+    plan: dict[int, int] = {}
+    for unit, length in lengths.items():
+        copy_blocks = sum(_node_blocks(nd, weight_rows, weight_cols)
+                          for nd in graph.nodes if nd.top_unit == unit)
+        if copy_blocks == 0:
+            continue                       # no resident weights inside
+        if (length - 1) * copy_blocks <= free:
+            plan[unit] = 1                 # full unroll fits
+            free -= (length - 1) * copy_blocks
+            continue
+        n_copies = 1 + free // copy_blocks
+        if n_copies < 2:
+            continue                       # refuse: cannot afford a 2nd copy
+        g = math.ceil(length / n_copies)
+        plan[unit] = g
+        free -= (math.ceil(length / g) - 1) * copy_blocks
+    return plan
+
+
+def expand_graph(graph: OpGraph, *, weight_rows: int, weight_cols: int,
+                 budget: int) -> OpGraph:
+    """Expand ``graph``'s folded layer stacks into resident per-layer
+    copies where the subarray ``budget`` allows (see
+    :func:`plan_scan_expansion`); returns ``graph`` itself when no stack
+    can be expanded. The rebuilt graph keeps the aten graph, ``fn`` and
+    the pytree specs — the plain function remains the numerical
+    oracle."""
+    plan = plan_scan_expansion(graph, weight_rows=weight_rows,
+                               weight_cols=weight_cols, budget=budget)
+    if not plan:
+        return graph
+    groups = {**graph.groups,
+              **{graph.units[u].loop: g for u, g in plan.items()}}
+    cap = estimator.Capture(gm=graph.gm, in_spec=graph.in_spec,
+                            out_spec=graph.out_spec)
+    return build_graph_from_capture(cap, fn=graph.fn, groups=groups)
 
 
 def build_graph(fn: Callable, *args, **kwargs) -> OpGraph:

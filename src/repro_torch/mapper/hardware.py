@@ -2,9 +2,8 @@
 
 A copy of the reference's ``repro/mapper/hardware.py`` (pure Python, over
 the port's ``core`` copies), so every placement and schedule prices on
-the same machine to the bit. The shared-link routing of the pipeline
-contention model (``route_links``, ``link_time``) is not ported yet
-(ROADMAP.md, queue item 3.3).
+the same machine to the bit, the shared-link routing of the pipeline
+contention model (``route_links``, ``link_time``) included.
 
 The paper prices a single MAC (§3.3) and the Fig. 6 training comparison
 aggregates op counts; neither says *where* a layer's weights live. This
@@ -330,6 +329,54 @@ class PIMHierarchy:
         t = bits / self.chip.noc_bits_per_s + hops * self.chip.t_hop_s
         e = bits * hops * self.chip.e_hop_bit_j
         return t, e
+
+    # -- shared-resource routing (pipeline contention model) ----------------
+
+    def _mesh_edges(self, chip: int, t_a: int, t_b: int) -> list[tuple]:
+        """Directed NoC edges of the XY route t_a -> t_b on one chip."""
+        ax, ay = self.chip.tile_xy(t_a)
+        bx, by = self.chip.tile_xy(t_b)
+        d = self.chip.mesh_dim
+        edges = []
+        x, y = ax, ay
+        while x != bx:
+            nx = x + (1 if bx > x else -1)
+            edges.append(("noc", chip, y * d + x, y * d + nx))
+            x = nx
+        while y != by:
+            ny = y + (1 if by > y else -1)
+            edges.append(("noc", chip, y * d + x, ny * d + x))
+            y = ny
+        return edges
+
+    def route_links(self, src_sub: int, dst_sub: int) -> list[tuple]:
+        """Shared-resource ids a transfer occupies, for per-link contention
+        accounting: ``("bus", chip, tile)`` same-tile bus transactions,
+        ``("noc", chip, t_from, t_to)`` directed mesh edges (XY routing),
+        ``("serdes", chip_a, chip_b)`` the off-package link."""
+        if src_sub == dst_sub:
+            return []
+        c_a, t_a, _ = self.locate(src_sub)
+        c_b, t_b, _ = self.locate(dst_sub)
+        if c_a == c_b:
+            if t_a == t_b:
+                return [("bus", c_a, t_a)]
+            return self._mesh_edges(c_a, t_a, t_b)
+        links = self._mesh_edges(c_a, t_a, self.IO_TILE)
+        links.append(("serdes", min(c_a, c_b), max(c_a, c_b)))
+        links += self._mesh_edges(c_b, self.IO_TILE, t_b)
+        return links
+
+    def link_time(self, link: tuple, bits: int) -> float:
+        """Seconds ``bits`` occupy one shared resource from route_links."""
+        kind = link[0]
+        if kind == "bus":
+            return bits / self.tile.bus_bits_per_s
+        if kind == "noc":
+            return bits / self.chip.noc_bits_per_s
+        if kind == "serdes":
+            return bits / self.interchip_bits_per_s
+        raise ValueError(f"unknown link kind {link!r}")
 
     def fingerprint(self) -> tuple:
         """Hashable identity of every geometry/cost knob — two hierarchies

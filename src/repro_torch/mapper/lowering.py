@@ -60,7 +60,14 @@ placed node.
 A node inside a scanned layer stack (``OpNode.scanned``) runs its own
 aten op in every iteration, as the reference's lowering binds the placed
 ops of a scan body as their primitives: only the nodes outside the stack
-reach the kernels.
+reach the kernels. An expanded stack's layers (``graph.expand_graph``
+with a chunk length of 1) are nodes outside any loop and reach them too.
+
+A partitioned program (``boundaries``, the stages' unit ranges) plans
+the same walk with one restriction: no fused launch takes a node from
+another stage. :func:`stage_steps` then splits the plan into the stages'
+own walks, each over the values crossing its boundaries
+(``repro_torch.mapper.compile.compile_partitioned``).
 
 Rules decline — and the node runs its own aten op, numerically exact,
 just not routed through the PIM kernels — for: batched matmuls (``bmm``),
@@ -149,6 +156,8 @@ class LoweringContext:
 
     schedule: Any                 # repro_torch.mapper.schedule.Schedule
     grouped: bool = True          # grouped + fused (False = per-block)
+    boundaries: tuple = ()        # ((unit_start, unit_end), ...) of the
+                                  # stages of a partitioned program
     weight_dtype: str = dataclasses.field(init=False)
     placed_blocks: int = 0
     eltwise_calls: int = 0
@@ -156,8 +165,13 @@ class LoweringContext:
     eltwise_launches: int = 0
 
     def __post_init__(self):
-        self.node_by_fx = {nd.fx_node: nd
-                           for nd in self.schedule.graph.nodes}
+        graph = self.schedule.graph
+        self.node_by_fx = {nd.fx_node: nd for nd in graph.nodes}
+        self.unit_of = {name: u.idx for u in graph.units for name in u.fx}
+        stage_of_unit = {u: i for i, (a, b) in enumerate(self.boundaries)
+                         for u in range(a, b)}
+        self.stage_of = {name: stage_of_unit.get(u, 0)
+                         for name, u in self.unit_of.items()}
         self.weight_dtype = self.schedule.hierarchy.subarray.weight_dtype
         self.steps = plan(self)
 
@@ -484,17 +498,18 @@ def plan(ctx: LoweringContext) -> list[Step]:
     computed by then) and matches it (matmul: same operand shapes and
     block grid; eltwise: add/sub/mul of the same dtype); those nodes are
     computed early, at the lead's step, and skip their own slot. A launch
-    takes no node from past the next folded loop (an op in a ``"scan"``
-    region): a value pulled across a loop would be held through it — at
-    llama3-8b's full width AdamW's first products, 17.8 GB, through the
-    whole forward and backward."""
-    gm = ctx.schedule.graph.gm
-    fx_nodes = list(gm.graph.nodes)
+    takes no node from past the next folded loop (an op of a loop unit,
+    ``graph.Unit.loop``): a value pulled across a loop would be held
+    through it — at llama3-8b's full width AdamW's first products, 17.8
+    GB, through the whole forward and backward — nor from another stage
+    of a partitioned program."""
+    graph = ctx.schedule.graph
+    fx_nodes = list(graph.gm.graph.nodes)
     # the position of the first op of a loop at or after each position
     barrier = [len(fx_nodes)] * (len(fx_nodes) + 1)
     for i in range(len(fx_nodes) - 1, -1, -1):
-        in_loop = any(kind == "scan" for kind, _, _ in
-                      estimator.scope_of(fx_nodes[i]))
+        u = ctx.unit_of.get(fx_nodes[i].name)
+        in_loop = u is not None and bool(graph.units[u].loop)
         barrier[i] = i if in_loop else barrier[i + 1]
     at = {fx: i for i, fx in enumerate(fx_nodes)}
     lowered = {}
@@ -536,7 +551,8 @@ def plan(ctx: LoweringContext) -> list[Step]:
                        else _traced(fx).dtype)
                 lst = cands[node.kind]
                 for fx2 in lst[lst.index(fx) + 1:]:
-                    if at[fx2] > barrier[at[fx]]:
+                    if (at[fx2] > barrier[at[fx]] or ctx.stage_of[fx2.name]
+                            != ctx.stage_of[fx.name]):
                         break
                     nd2 = lowered[fx2]
                     if (fx2 in done or not all(
@@ -555,11 +571,12 @@ def plan(ctx: LoweringContext) -> list[Step]:
     return _with_frees(steps)
 
 
-def _with_frees(steps: list[Step]) -> list[Step]:
+def _with_frees(steps: list[Step], keep=frozenset()) -> list[Step]:
     """Each step with the values it reads last: the replay drops them
     after it, so a step's peak memory is what is still to be read (a
     train step at full width holds parameters, optimizer state and their
-    updates, not every intermediate of the update)."""
+    updates, not every intermediate of the update). Values in ``keep`` (a
+    stage's outputs) are never dropped."""
     last: dict[torch.fx.Node, int] = {}
     made: dict[torch.fx.Node, int] = {}
     for i, step in enumerate(steps):
@@ -570,7 +587,8 @@ def _with_frees(steps: list[Step]) -> list[Step]:
                     last[v] = i
     frees: dict[int, list] = {}
     for fx, i in made.items():
-        frees.setdefault(last.get(fx, i), []).append(fx)
+        if fx not in keep:
+            frees.setdefault(last.get(fx, i), []).append(fx)
     return [dataclasses.replace(step, free=tuple(frees.get(i, ())))
             for i, step in enumerate(steps)]
 
@@ -597,15 +615,75 @@ def native_kwargs(fx: torch.fx.Node, read, device) -> dict:
     return kwargs
 
 
-def eval_placed(ctx: LoweringContext, flat_args) -> list:
-    """Replay the plan on the flat argument leaves; returns the flat
-    output leaves. Placed nodes run through the rules (their kernels),
-    everything else its own aten op on the arguments' device."""
+@dataclasses.dataclass(frozen=True)
+class StagePlan:
+    """One stage's walk: its steps (its inputs as ``"input"`` steps over
+    ``ins``), the values it reads from outside (``ins``: placeholders or
+    earlier stages' values) and those it hands on (``outs``: read by a
+    later stage or returned), each in graph order."""
+
+    steps: tuple
+    ins: tuple
+    outs: tuple
+
+
+def stage_steps(ctx: LoweringContext) -> list[StagePlan]:
+    """Split the plan of a partitioned context into its stages' walks
+    (module docstring): every step goes to the stage of its lead's unit,
+    and every value one stage reads from another (or the program's
+    output) crosses as one of its outputs."""
+    n = max(1, len(ctx.boundaries))
+    bodies: list[list[Step]] = [[] for _ in range(n)]
+    where: dict[torch.fx.Node, int] = {}
+    output = None
+    for step in ctx.steps:
+        if step.kind == "output":
+            output = step.fx
+        elif step.kind != "input":
+            s = ctx.stage_of[step.fx.name]
+            bodies[s].append(step)
+            for fx in (step.fx, *(fx for fx, _ in step.peers)):
+                where[fx] = s
+    ins: list[list] = [[] for _ in range(n)]
+    outs: list[list] = [[] for _ in range(n)]
+
+    def need(v, s: int) -> None:
+        """Stage ``s`` (``n``: the output) reads ``v``."""
+        src = where.get(v, -1)
+        if s < n and src != s and v not in ins[s]:
+            ins[s].append(v)
+        if 0 <= src < s and v not in outs[src]:
+            outs[src].append(v)
+
+    for s, body in enumerate(bodies):
+        for step in body:
+            for fx in (step.fx, *(fx for fx, _ in step.peers)):
+                for v in _inputs_of(fx):
+                    need(v, s)
+    if output is not None:
+        torch.fx.node.map_arg(output.args, lambda v: need(v, n))
+    order = {fx: i for i, fx in
+             enumerate(ctx.schedule.graph.gm.graph.nodes)}
+    plans = []
+    for s in range(n):
+        outs[s].sort(key=order.__getitem__)
+        steps = [Step("input", v, index=j) for j, v in enumerate(ins[s])]
+        plans.append(StagePlan(
+            steps=tuple(_with_frees(steps + bodies[s], keep=set(outs[s]))),
+            ins=tuple(ins[s]), outs=tuple(outs[s])))
+    return plans
+
+
+def eval_steps(ctx: LoweringContext, steps, flat_args, device,
+               results=()) -> list:
+    """Replay ``steps`` on ``flat_args`` (the values of their input
+    steps); returns the output step's leaves, or the values ``results`` when
+    the steps have none (a stage). Placed nodes run through the rules
+    (their kernels), everything else its own aten op on ``device``."""
     env: dict[torch.fx.Node, Any] = {}
     read = env.__getitem__
-    device = flat_args[0].device if flat_args else None
     tr = obs.tracer()
-    for step in ctx.steps:
+    for step in steps:
         fx = step.fx
         if step.kind == "input":
             env[fx] = flat_args[step.index]
@@ -632,4 +710,11 @@ def eval_placed(ctx: LoweringContext, flat_args) -> list:
             return [read(v) for v in fx.args[0]]
         for v in step.free:
             env.pop(v, None)
-    raise AssertionError("the plan has no output step")
+    return [read(v) for v in results]
+
+
+def eval_placed(ctx: LoweringContext, flat_args) -> list:
+    """Replay the plan on the flat argument leaves; returns the flat
+    output leaves, computed on the arguments' device."""
+    device = flat_args[0].device if flat_args else None
+    return eval_steps(ctx, ctx.steps, flat_args, device)

@@ -25,7 +25,15 @@ order. Refinements over naive one-block-per-subarray:
     subarrays. The packer evaluates the candidate curves against the
     graph's actual edges and keeps the cheapest (never worse than the
     flat row-major order, which ``PlacementPolicy(topology="flat")``
-    forces).
+    forces);
+  * **pipeline partitions** — ``partition()`` cuts the op graph into K
+    balanced partitions on top-level unit boundaries
+    (``repro_torch.mapper.graph.Unit``, the reference's top-level
+    equations: the only places an executable program split can land),
+    preferring boundaries where few activation bits cross. Passing the
+    partitions to ``place`` aligns each partition's first block to a tile
+    boundary so consecutive pipeline stages occupy disjoint, mesh-adjacent
+    tile runs.
 
 Placements are stored aggregately (``NodePlacement`` holds the block grid,
 not per-block objects); ``Placement.iter_blocks`` materializes
@@ -33,9 +41,16 @@ not per-block objects); ``Placement.iter_blocks`` materializes
 demand. Eltwise nodes run in the shared peripheral FP units and take no
 placement.
 
-Not ported yet: pipeline partitions (``partition``, ``GraphPartition``,
-the policy's ``align_partitions``) and paged-KV placement (``place_kv``);
-see ROADMAP.md, queue items 3.3 and 3.5.
+Nodes inside a folded layer stack (``repeat > 1``) are placed once and
+time-multiplexed: successive iterations stream their weight slice into
+the same block grid. Partition cuts never land inside a folded stack — it
+is one unit — unless the graph was first expanded with
+``repro_torch.mapper.graph.expand_graph`` (``build_schedule(...,
+expand_scans=True)``), which leaves resident per-layer copies at top
+level where subarray capacity allows.
+
+Not ported yet: paged-KV placement (``place_kv``; ROADMAP.md, queue item
+3.5).
 """
 
 from __future__ import annotations
@@ -58,6 +73,7 @@ class PlacementPolicy:
     max_replicas: int = 8
     share_subarrays: bool = True      # co-locate whole small nodes
     topology: str = "affinity"        # "affinity" (curve search) | "flat"
+    align_partitions: bool = True     # partition starts on tile boundaries
     # quantized datapath: grant extra replicas of the hottest nodes from
     # the subarrays a sub-32-bit weight grid frees at fp32-equivalent area
     # (a switch kept for parity with the reference's policy)
@@ -132,6 +148,145 @@ class NodePlacement:
                                   else self.first_subarray + flat))
 
 
+# ---------------------------------------------------------------------------
+# pipeline partitions
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class GraphPartition:
+    """One contiguous pipeline partition: top-level units [unit_start,
+    unit_end) and every graph node they own. ``in_bits``/``out_bits`` are
+    the activation bits crossing the upstream/downstream boundary per
+    activation set (the microbatch transfer the pipeline streams)."""
+
+    idx: int
+    unit_start: int
+    unit_end: int
+    nodes: tuple[int, ...]
+    macs: int
+    adds: int
+    muls: int
+    in_bits: int
+    out_bits: int
+
+    @property
+    def work(self) -> int:
+        return self.macs + self.adds + self.muls
+
+
+def _boundary_cut_bits(graph: OpGraph, n_bits: int) -> list[int]:
+    """cut[b] = activation bits that must cross a pipeline boundary placed
+    before unit ``b`` — every value produced by an earlier unit and still
+    read at or after ``b`` (or returned). Function inputs are not
+    counted: weights are resident per partition and batch inputs enter at
+    the stage that first reads them (``OpGraph.values``)."""
+    n_units = len(graph.units)
+    diff = [0] * (n_units + 2)
+    for p, last, elems in graph.values:
+        live_to = min(last, n_units)
+        if live_to > p:
+            bits = elems * n_bits
+            diff[p + 1] += bits
+            diff[live_to + 1] -= bits
+    cut = [0] * (n_units + 1)
+    acc = 0
+    for b in range(n_units + 1):
+        acc += diff[b]
+        cut[b] = acc
+    cut[0] = 0
+    if n_units:
+        cut[n_units] = 0
+    return cut
+
+
+def partition(graph: OpGraph, k: int, *, n_bits: int = 32,
+              balance_slack: float = 0.25) -> list[GraphPartition]:
+    """Cut ``graph`` into ``k`` balanced pipeline partitions.
+
+    Boundaries land on top-level unit boundaries (the only executable
+    split points — a folded layer stack is one uncuttable unit unless
+    ``expand_graph`` left its layers at top level first). A first DP
+    finds the best achievable bottleneck (minimal max partition work); a
+    second DP then picks, among all boundary sets whose bottleneck stays
+    within ``1 + balance_slack`` of that optimum, the one moving the
+    fewest activation bits across boundaries. ``k`` is clamped to the
+    number of units. The reference's two programs, over units.
+    """
+    if k < 1:
+        raise ValueError(f"need k >= 1 partitions, got {k}")
+    n_units = len(graph.units)
+    if n_units == 0:
+        return [GraphPartition(idx=0, unit_start=0, unit_end=0, nodes=(),
+                               macs=0, adds=0, muls=0, in_bits=0,
+                               out_bits=0)]
+    k = min(k, n_units)
+
+    work = [0] * n_units
+    for nd in graph.nodes:
+        work[nd.top_unit] += nd.macs + nd.adds + nd.muls
+    prefix = [0]
+    for w in work:
+        prefix.append(prefix[-1] + w)
+
+    def span(a: int, b: int) -> int:
+        return prefix[b] - prefix[a]
+
+    cut = _boundary_cut_bits(graph, n_bits)
+
+    # DP 1: minimal achievable bottleneck over contiguous k-partitions
+    inf = float("inf")
+    best = [[inf] * (n_units + 1) for _ in range(k + 1)]
+    best[0][0] = 0.0
+    for parts in range(1, k + 1):
+        for end in range(parts, n_units - (k - parts) + 1):
+            b = inf
+            for start in range(parts - 1, end):
+                if math.isinf(best[parts - 1][start]):
+                    continue
+                b = min(b, max(best[parts - 1][start], span(start, end)))
+            best[parts][end] = b
+    cap = best[k][n_units] * (1.0 + balance_slack)
+
+    # DP 2: among <=cap partitionings, minimize total boundary cut bits
+    cost = [[inf] * (n_units + 1) for _ in range(k + 1)]
+    back: list[list[int]] = [[-1] * (n_units + 1) for _ in range(k + 1)]
+    cost[0][0] = 0.0
+    for parts in range(1, k + 1):
+        for end in range(parts, n_units - (k - parts) + 1):
+            for start in range(parts - 1, end):
+                if (math.isinf(cost[parts - 1][start])
+                        or span(start, end) > cap):
+                    continue
+                c = cost[parts - 1][start] + (cut[start] if start else 0)
+                if c < cost[parts][end]:
+                    cost[parts][end] = c
+                    back[parts][end] = start
+    bounds = [n_units]
+    for parts in range(k, 0, -1):
+        bounds.append(back[parts][bounds[-1]])
+    bounds = bounds[::-1]
+    assert bounds[0] == 0 and bounds[-1] == n_units, bounds
+
+    parts_out: list[GraphPartition] = []
+    for i in range(k):
+        s, e = bounds[i], bounds[i + 1]
+        nodes = tuple(nd.idx for nd in graph.nodes if s <= nd.top_unit < e)
+        parts_out.append(GraphPartition(
+            idx=i, unit_start=s, unit_end=e, nodes=nodes,
+            macs=sum(graph.nodes[j].macs for j in nodes),
+            adds=sum(graph.nodes[j].adds for j in nodes),
+            muls=sum(graph.nodes[j].muls for j in nodes),
+            in_bits=cut[s] if i else 0,
+            out_bits=cut[e] if i < k - 1 else 0))
+    return parts_out
+
+
+# ---------------------------------------------------------------------------
+# the placement
+# ---------------------------------------------------------------------------
+
+
 @dataclasses.dataclass
 class Placement:
     hierarchy: PIMHierarchy
@@ -140,6 +295,7 @@ class Placement:
     n_subarrays: int
     curve: str = "rowmajor"                  # chosen tile enumeration
     tile_order: tuple[int, ...] | None = None  # None == identity
+    partitions: list[GraphPartition] | None = None
 
     @property
     def n_tiles(self) -> int:
@@ -240,7 +396,8 @@ def _replicas_for(node: OpNode, blocks: int, lanes_per_sub: int,
 
 
 def _fp32_area_budget(graph: OpGraph, hierarchy: PIMHierarchy,
-                      policy: PlacementPolicy) -> int:
+                      policy: PlacementPolicy,
+                      partitions: list[GraphPartition] | None) -> int:
     """Subarrays the same graph would occupy under fp32 weight storage —
     the *equal-area* envelope a quantized placement may spend."""
     ref_sub = dataclasses.replace(hierarchy.subarray, n_bits=32,
@@ -248,11 +405,13 @@ def _fp32_area_budget(graph: OpGraph, hierarchy: PIMHierarchy,
     ref_h = dataclasses.replace(hierarchy, subarray=ref_sub)
     # flat topology: the curve search doesn't change n_subarrays
     ref_policy = dataclasses.replace(policy, topology="flat")
-    return place(graph, ref_h, ref_policy).n_subarrays
+    return place(graph, ref_h, ref_policy,
+                 partitions=partitions).n_subarrays
 
 
 def _grant_extra_replicas(graph: OpGraph, hierarchy: PIMHierarchy,
                           policy: PlacementPolicy,
+                          partitions: list[GraphPartition] | None,
                           grids: dict[int, list]) -> None:
     """Spend the subarrays a sub-32-bit grid frees (vs the fp32 placement
     of the same graph) on extra replicas of the hottest placed nodes.
@@ -262,7 +421,7 @@ def _grant_extra_replicas(graph: OpGraph, hierarchy: PIMHierarchy,
     remaining budget, until the fp32-equivalent area is spent or every
     node hits ``policy.max_replicas``. Mutates ``grids`` in place."""
     sub = hierarchy.subarray
-    budget = _fp32_area_budget(graph, hierarchy, policy)
+    budget = _fp32_area_budget(graph, hierarchy, policy, partitions)
     nodes = {nd.idx: nd for nd in graph.matmul_like()}
     used = sum(rb * cb * rep for rb, cb, rep in grids.values())
     while True:
@@ -284,11 +443,14 @@ def _grant_extra_replicas(graph: OpGraph, hierarchy: PIMHierarchy,
 
 
 def place(graph: OpGraph, hierarchy: PIMHierarchy,
-          policy: PlacementPolicy | None = None) -> Placement:
+          policy: PlacementPolicy | None = None,
+          partitions: list[GraphPartition] | None = None) -> Placement:
     """Greedy weight-stationary packing in topological node order.
 
-    With ``policy.topology == "affinity"`` the packer evaluates the
-    hierarchy's candidate tile curves against the graph's
+    With ``partitions``, each partition's first block is aligned to a tile
+    boundary (and the sharing shelf reset), so pipeline stages occupy
+    disjoint tile runs. With ``policy.topology == "affinity"`` the packer
+    evaluates the hierarchy's candidate tile curves against the graph's
     producer->consumer edges and keeps the one with the fewest total mesh
     hops (ties go to flat row-major).
 
@@ -315,14 +477,30 @@ def place(graph: OpGraph, hierarchy: PIMHierarchy,
                                          sub.mac_lanes, policy)]
     # pass 2 (quantized grids only): replication from the area dividend
     if policy.spend_saved_area and sub.n_bits < 32 and grids:
-        _grant_extra_replicas(graph, hierarchy, policy, grids)
+        _grant_extra_replicas(graph, hierarchy, policy, partitions, grids)
 
     placements: dict[int, NodePlacement] = {}
     next_free = 0                     # next unallocated subarray (alloc idx)
     open_sub = -1                     # partially-filled shared subarray
     open_free_rows = 0                # whole row-bands left on the shelf
 
+    node_part: dict[int, int] = {}    # node idx -> partition idx
+    if partitions:
+        node_part = {n: p.idx for p in partitions for n in p.nodes}
+    cur_part = -1                     # partition of the last placed node
+
     for node in graph.matmul_like():
+        part = node_part.get(node.idx, cur_part)
+        if (policy.align_partitions and part != cur_part
+                and cur_part >= 0 and next_free > 0):
+            # new pipeline stage: start on a fresh tile, close the shelf
+            # (keyed on the partition transition between *placed* nodes —
+            # a partition whose first graph node is eltwise still aligns
+            # at its first matmul/conv)
+            per_tile = hierarchy.tile.subarrays
+            next_free = math.ceil(next_free / per_tile) * per_tile
+            open_sub, open_free_rows = -1, 0
+        cur_part = part
         k, n = node.weight_shape
         row_blocks, col_blocks, replicas = grids[node.idx]
         blocks = row_blocks * col_blocks
@@ -349,7 +527,8 @@ def place(graph: OpGraph, hierarchy: PIMHierarchy,
 
     placement = Placement(hierarchy=hierarchy, policy=policy,
                           node_placements=placements,
-                          n_subarrays=max(1, next_free))
+                          n_subarrays=max(1, next_free),
+                          partitions=list(partitions) if partitions else None)
     if policy.topology == "affinity" and placement.n_tiles > 1:
         best_name, best_order, best_hops = "rowmajor", None, None
         for name, order in curve_candidates(hierarchy.chip).items():

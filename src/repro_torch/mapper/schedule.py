@@ -27,10 +27,21 @@ inter-subarray transfer at the grid's width (``Schedule.act_bits``).
 ``ideal_provision`` picks the weight footprint the ideal bound
 provisions lanes from (``_provision_bits``).
 
-The arithmetic is the reference's, in the same order, so reports are its
-numbers to the bit. Not ported yet: the microbatch pipeline timeline
-(``Schedule.pipeline``, ``PartitionCost``, ``PipelineTimeline``) and paged
-KV traffic (``attach_kv``, ``KVTraffic``); see ROADMAP.md, queue item 3.
+``ScheduleReport.latency_s`` remains the end-to-end time of ONE activation
+set — the quantity ``reconcile()`` bounds against ``pim_estimate``. The
+steady-state story the architecture exists for (weights resident,
+activations streaming) lives in :meth:`Schedule.pipeline`: a microbatch
+timeline over K pipeline partitions with explicit fill/drain, a
+steady-state interval bounded below by both the slowest partition and the
+busiest shared link (per-link contention over the bus/NoC/SerDes edges
+each boundary transfer crosses), and the pipelined-vs-sequential speedup.
+``build_schedule(..., partitions=K, expand_scans=True)`` cuts the graph
+(``placement.partition``), first expanding its folded layer stacks where
+the subarray budget allows (``graph.expand_graph``).
+
+The arithmetic is the reference's, in the same order, so reports and
+timelines are its numbers to the bit. Not ported yet: paged KV traffic
+(``attach_kv``, ``KVTraffic``; ROADMAP.md, queue item 3.5).
 """
 
 from __future__ import annotations
@@ -99,6 +110,70 @@ class ScheduleReport:
                 f"area={self.area_m2 * 1e6:.2f} mm^2")
 
 
+@dataclasses.dataclass(frozen=True)
+class PartitionCost:
+    """Rolled-up cost of one pipeline partition (contiguous stage run)."""
+
+    idx: int
+    n_stages: int
+    macs: int
+    adds: int
+    muls: int
+    t_compute_s: float            # sum of member stage latencies
+    t_boundary_s: float           # handoff to the next partition
+                                  # (diagnostic: already overlapped inside
+                                  # the consumer stages' t_stage_s)
+    out_bits: int
+
+    @property
+    def work(self) -> int:
+        return self.macs + self.adds + self.muls
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineTimeline:
+    """Microbatch fill/steady/drain timeline over pipeline partitions.
+
+    ``interval_s`` is the steady-state initiation interval: a new
+    microbatch completes every interval once the pipe is full, bounded
+    below by the slowest partition's occupancy AND by the busiest shared
+    link's per-microbatch busy time (several boundary streams crossing the
+    same bus/NoC edge/SerDes link serialize there). ``makespan_s`` is the
+    full M-microbatch time including fill and drain; ``sequential_s`` is
+    the same M activation sets run unpipelined back to back.
+    """
+
+    microbatches: int
+    partitions: tuple[PartitionCost, ...]
+    interval_s: float
+    fill_s: float                 # first microbatch end-to-end
+    makespan_s: float
+    sequential_s: float
+    link_busy_s: float            # busiest shared link, per microbatch
+    bottleneck: str               # "partition:<idx>" or "link:<repr>"
+
+    @property
+    def n_partitions(self) -> int:
+        return len(self.partitions)
+
+    @property
+    def speedup(self) -> float:
+        return (self.sequential_s / self.makespan_s
+                if self.makespan_s else 1.0)
+
+    @property
+    def steady_sets_per_s(self) -> float:
+        """Activation sets (microbatches) retired per second, steady state."""
+        return 1.0 / self.interval_s if self.interval_s else math.inf
+
+    def summary(self) -> str:
+        return (f"{self.n_partitions} partitions x "
+                f"{self.microbatches} microbatches: interval="
+                f"{self.interval_s:.3e} s (bottleneck {self.bottleneck}) "
+                f"fill={self.fill_s:.3e} s makespan={self.makespan_s:.3e} s "
+                f"speedup={self.speedup:.2f}x vs sequential")
+
+
 @dataclasses.dataclass
 class Schedule:
     graph: graph_mod.OpGraph
@@ -109,6 +184,10 @@ class Schedule:
     ideal_provision: str = "fp32"   # lane-provisioning basis of the ideal
     act_bits: int = 32              # activation transfer width (ACT_BITS
                                     # resolved per schedule via act_dtype)
+
+    @property
+    def partitions(self) -> list[placement_mod.GraphPartition] | None:
+        return self.placement.partitions
 
     def reconcile(self) -> dict:
         """Check the ScheduleReport against ``pim_estimate`` on the same fn:
@@ -134,6 +213,86 @@ class Schedule:
             "structural_overhead": (rep.latency_s / ideal.latency_s
                                     if ideal.latency_s else math.inf),
         }
+
+    def pipeline(self, microbatches: int = 8,
+                 partitions: int | None = None) -> PipelineTimeline:
+        """Microbatch pipeline timeline over this schedule's partitions.
+
+        Uses the partitions the schedule was built with; pass
+        ``partitions=K`` to (re)cut on the fly. With one partition the
+        timeline degenerates to sequential execution (speedup 1.0)."""
+        parts = self.partitions
+        if partitions is not None:
+            parts = placement_mod.partition(self.graph, partitions)
+        if not parts:
+            parts = placement_mod.partition(self.graph, 1)
+        if microbatches < 1:
+            raise ValueError(f"need >= 1 microbatches, got {microbatches}")
+        node_part = {n: p.idx for p in parts for n in p.nodes}
+        # roll stages up per partition (stages of unassigned nodes — when
+        # the schedule was cut differently — fall into partition 0)
+        agg = {p.idx: dict(n=0, macs=0, adds=0, muls=0, t=0.0)
+               for p in parts}
+        for s in self.stages:
+            a = agg[node_part.get(s.node, 0)]
+            a["n"] += 1
+            a["macs"] += s.macs
+            a["adds"] += s.adds
+            a["muls"] += s.muls
+            a["t"] += s.t_stage_s
+
+        homes = placement_mod.node_homes(self.graph, self.placement)
+        link_busy: dict[tuple, float] = {}
+
+        # per-microbatch link occupancy: every stage's input transfers.
+        # These ARE the activation streams (boundary-crossing edges
+        # included), and each consumer stage's t_stage_s already absorbs
+        # its own transfer double-buffered — so the explicit boundary
+        # stream below is diagnostic only, never charged a second time.
+        for s in self.stages:
+            node = self.graph.nodes[s.node]
+            for d in node.deps:
+                dep = self.graph.nodes[d]
+                bits = dep.out_elems * dep.repeat * self.act_bits
+                if bits:
+                    for link in self.hierarchy.route_links(homes[d],
+                                                           homes[s.node]):
+                        link_busy[link] = (
+                            link_busy.get(link, 0.0)
+                            + self.hierarchy.link_time(link, bits))
+        pcosts: list[PartitionCost] = []
+        for i, p in enumerate(parts):
+            t_boundary = 0.0
+            if i < len(parts) - 1 and p.out_bits:
+                nxt = parts[i + 1]
+                src = homes[p.nodes[-1]] if p.nodes else 0
+                dst = homes[nxt.nodes[0]] if nxt.nodes else 0
+                t_boundary, _ = self.hierarchy.transfer_cost(
+                    p.out_bits, src, dst)
+            a = agg[p.idx]
+            pcosts.append(PartitionCost(
+                idx=p.idx, n_stages=a["n"], macs=a["macs"], adds=a["adds"],
+                muls=a["muls"], t_compute_s=a["t"],
+                t_boundary_s=t_boundary, out_bits=p.out_bits))
+
+        busiest_link = max(link_busy.items(), key=lambda kv: kv[1],
+                           default=(None, 0.0))
+        slowest = max(pcosts, key=lambda p: p.t_compute_s)
+        interval = max(slowest.t_compute_s, busiest_link[1])
+        bottleneck = (f"partition:{slowest.idx}"
+                      if slowest.t_compute_s >= busiest_link[1]
+                      else f"link:{busiest_link[0]}")
+        # first microbatch end-to-end == the one-activation-set latency
+        # (partition handoffs are the stages' own double-buffered input
+        # transfers, already inside t_stage_s)
+        fill = self.report.latency_s
+        makespan = fill + (microbatches - 1) * interval
+        sequential = microbatches * self.report.latency_s
+        return PipelineTimeline(
+            microbatches=microbatches, partitions=tuple(pcosts),
+            interval_s=interval, fill_s=fill, makespan_s=makespan,
+            sequential_s=sequential, link_busy_s=busiest_link[1],
+            bottleneck=bottleneck)
 
 
 # Default activation stream width between subarrays. A schedule built
@@ -182,15 +341,12 @@ def _chip_lanes(ideal) -> int:
     return ideal.n_subarrays * acc_mod.SUBARRAY_COLS
 
 
-def _not_ported(partitions, expand_scans: bool) -> None:
-    if partitions:
-        raise NotImplementedError(
-            "pipeline partitions are not ported yet (ROADMAP.md, queue "
-            "item 3.3)")
-    if expand_scans:
-        raise NotImplementedError(
-            "scan expansion is not ported yet (ROADMAP.md, queue item "
-            "3.3, with the pipeline partitions it lets cut the stack)")
+# Default subarray budget for scan expansion, in chips: expanding a
+# folded stack into resident per-layer copies may only grow the weight
+# footprint up to this many chips' worth of subarrays before the planner
+# buckets (ceil(R/g) copies) or refuses (see
+# ``graph.plan_scan_expansion``). Override per call via ``expand_budget``.
+EXPAND_BUDGET_CHIPS = 64
 
 
 def build_schedule_from_graph(
@@ -198,11 +354,23 @@ def build_schedule_from_graph(
         hierarchy: PIMHierarchy | None = None,
         policy: placement_mod.PlacementPolicy | None = None,
         tech: str = "proposed",
+        partitions: int | None = None,
+        expand_scans: bool = False,
+        expand_budget: int | None = None,
         ideal_provision: str = "fp32",
         act_dtype: str = "fp32") -> Schedule:
     hierarchy = hierarchy or default_hierarchy(tech)
     act_bits = quant.spec(act_dtype).n_bits
-    place = placement_mod.place(graph, hierarchy, policy)
+    if expand_scans:
+        sub_ = hierarchy.subarray
+        budget = (expand_budget if expand_budget is not None
+                  else EXPAND_BUDGET_CHIPS * hierarchy.subarrays_per_chip)
+        graph = graph_mod.expand_graph(graph, weight_rows=sub_.weight_rows,
+                                       weight_cols=sub_.weight_cols,
+                                       budget=budget)
+    parts = (placement_mod.partition(graph, partitions)
+             if partitions else None)
+    place = placement_mod.place(graph, hierarchy, policy, partitions=parts)
     sub = hierarchy.subarray
     counts = graph.totals()
     ideal = _ideal_report(counts, hierarchy.tech,
@@ -211,6 +379,8 @@ def build_schedule_from_graph(
     chip_lanes = _chip_lanes(ideal)
     t_elem = max(sub.t_add_s, sub.t_mul_s)
 
+    node_part = ({n: p.idx for p in parts for n in p.nodes}
+                 if parts else {})
     homes = placement_mod.node_homes(graph, place)
     stages: list[StageCost] = []
     for node in graph.nodes:
@@ -239,7 +409,8 @@ def build_schedule_from_graph(
             macs=node.macs, adds=node.adds, muls=node.muls, lanes=lanes,
             t_compute_s=t_compute, t_transfer_s=t_xfer,
             t_stage_s=max(t_compute, t_xfer),
-            e_compute_j=e_compute, e_transfer_j=e_xfer, hops=hops))
+            e_compute_j=e_compute, e_transfer_j=e_xfer, hops=hops,
+            partition=node_part.get(node.idx, 0)))
 
     latency = sum(s.t_stage_s for s in stages)
     stall = sum(max(0.0, s.t_transfer_s - s.t_compute_s) for s in stages)
@@ -274,6 +445,7 @@ def build_schedule(fn: Callable, *args,
                    act_dtype: str = "fp32",
                    partitions: int | None = None,
                    expand_scans: bool = False,
+                   expand_budget: int | None = None,
                    ideal_provision: str = "fp32", **kwargs) -> Schedule:
     """Compile ``fn(*args, **kwargs)`` into a placed, cost-rolled static
     schedule (args may be meta tensors; nothing is allocated).
@@ -288,10 +460,13 @@ def build_schedule(fn: Callable, *args,
     ``ideal_provision`` picks the footprint the *ideal* bound provisions
     lanes from: ``"fp32"`` (default) or ``"quantized"`` (the stored
     dtype's denser footprint); ``latency >= ideal`` holds at either.
-
-    Not ported yet, and raising ``NotImplementedError``: ``partitions``
-    and ``expand_scans=True``."""
-    _not_ported(partitions, expand_scans)
+    ``partitions=K`` additionally cuts the graph into K pipeline
+    partitions, aligns their placements to tile boundaries, and enables
+    :meth:`Schedule.pipeline` / ``compile_partitioned``.
+    ``expand_scans=True`` first expands folded layer stacks into resident
+    per-layer copies where subarray capacity allows (budget
+    ``expand_budget`` subarrays, default ``EXPAND_BUDGET_CHIPS`` chips'
+    worth), so partition cuts can land *inside* the stacks."""
     if hierarchy is None:
         hierarchy = default_hierarchy(tech, weight_dtype)
     elif (weight_dtype != "fp32"
@@ -305,6 +480,9 @@ def build_schedule(fn: Callable, *args,
         g = graph_mod.build_graph(fn, *args, **kwargs)
         sched = build_schedule_from_graph(g, hierarchy=hierarchy,
                                           policy=policy, tech=tech,
+                                          partitions=partitions,
+                                          expand_scans=expand_scans,
+                                          expand_budget=expand_budget,
                                           ideal_provision=ideal_provision,
                                           act_dtype=act_dtype)
     m = obs.metrics()

@@ -100,19 +100,25 @@ def decode_step(cfg: ArchConfig, params: dict, cache: dict,
     x = layers.embed(token[:, None], params["embed"]["table"])
     lp = params["layers"]["block0"]
     lc = cache["layers"]["block0"]
+    leaves = [lp[group][name] for group, name in
+              (key.split("/") for key in STACK_LEAVES)]
     ks, vs = [], []
     for i in range(cfg.n_layers):
         with estimator.region("scan", "layers"):
-            h = layers.rms_norm(x, lp["norm1"]["scale"][i], cfg.norm_eps)
+            # the iteration's slices first, as the reference's scan body
+            # takes its xs: the leaves in sorted key order, then the cache
+            w = _layer(leaves, i)
+            site = {"k": lc["k"][i], "v": lc["v"][i]}
+            h = layers.rms_norm(x, w["norm1/scale"], cfg.norm_eps)
             att, kv = attention.decode_attention(
-                h, {name: w[i] for name, w in lp["attn"].items()}, cfg,
-                {"k": lc["k"][i], "v": lc["v"][i]}, pos)
+                h, {name: w[f"attn/{name}"] for name in lp["attn"]}, cfg,
+                site, pos)
             x = x + att
             ks.append(kv["k"])
             vs.append(kv["v"])
-            h = layers.rms_norm(x, lp["norm2"]["scale"][i], cfg.norm_eps)
-            x = x + layers.mlp(h, lp["mlp"]["w_gate"][i],
-                               lp["mlp"]["w_up"][i], lp["mlp"]["w_down"][i])
+            h = layers.rms_norm(x, w["norm2/scale"], cfg.norm_eps)
+            x = x + layers.mlp(h, w["mlp/w_gate"], w["mlp/w_up"],
+                               w["mlp/w_down"])
     x = layers.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
     logits = layers.lm_head(x, params["lm_head"]["w"])
     return logits[:, 0], {"layers": {"block0": {"k": torch.stack(ks),

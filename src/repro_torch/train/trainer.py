@@ -26,6 +26,7 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from repro_torch import obs
 from repro_torch._device import resolve_device
@@ -51,7 +52,9 @@ class Trainer:
                  backend: str = "jit", pim_tech: str = "proposed",
                  weight_dtype: str = "fp32", act_dtype: str = "fp32",
                  microbatches: int = 1, partitions: int = 1,
-                 device: str | torch.device | None = None):
+                 loss_fn: Callable | None = None, optimizer=None,
+                 device: str | torch.device | None = None,
+                 pim_compile: dict | None = None):
         """``train_step(params, opt_state, batch) -> (params, opt, loss)``;
         ``init_state()`` builds fresh (params, opt_state) on ``device``
         (CUDA by default); ``batch_fn(step)`` is the stateless data
@@ -74,21 +77,33 @@ class Trainer:
         transfers on the modeled NoC at the grid's width; compute stays
         float32.
 
-        Not ported yet: ``microbatches`` / ``partitions`` > 1 (the
-        partitioned pipeline plan; ROADMAP.md, queue item 3.3)."""
+        ``microbatches=M`` / ``partitions=K`` (pim backend only) run the
+        *partitioned pipeline plan*: the loss graph is cut into K pipeline
+        partitions compiled one program each, the batch is split into M
+        equal microbatches, and each step streams them through the stage
+        programs with GPipe fill-drain, differentiating per stage
+        (``repro_torch.parallel.pipeline.gpipe_value_and_grad``) and
+        applying one optimizer update on the microbatch-mean gradients.
+        Requires ``loss_fn(params, *batch) -> scalar mean loss`` and an
+        ``optimizer`` with ``update(grads, opt_state, params)`` (the
+        opaque ``train_step`` cannot be split); losses match the plain
+        step to fp32 tolerance because a mean over equal microbatch means
+        is the full-batch mean. ``pipeline_stats`` holds the last step's
+        kernel launches per stage, forward and backward.
+
+        ``pim_compile`` forwards knobs to the schedule compiler (e.g.
+        ``{"streams": [...]}`` with partitions: each stage's cells on its
+        own CUDA stream, the reference's pinned devices)."""
         if microbatches < 1 or partitions < 1:
             raise ValueError("microbatches and partitions must be >= 1")
         if backend not in ("jit", "pim"):
             raise ValueError(f"backend must be 'jit' or 'pim', "
                              f"got {backend!r}")
-        if microbatches > 1 or partitions > 1:
-            if backend != "pim":
-                raise ValueError(
-                    "microbatches/partitions require backend='pim' (the "
-                    "jit backend has no partitioned plan to pipeline)")
-            raise NotImplementedError(
-                "microbatches/partitions > 1 are not ported yet (ROADMAP.md, "
-                "queue item 3.3: partition and pipeline)")
+        pipelined = microbatches > 1 or partitions > 1
+        if pipelined and backend != "pim":
+            raise ValueError(
+                "microbatches/partitions require backend='pim' (the jit "
+                "backend has no partitioned plan to pipeline)")
         if backend != "pim" and weight_dtype != "fp32":
             raise ValueError(
                 "weight_dtype only applies to backend='pim' (the jit "
@@ -97,6 +112,8 @@ class Trainer:
             raise ValueError(
                 "act_dtype only applies to backend='pim' (the jit "
                 "backend has no modeled NoC to narrow transfers on)")
+        if backend == "jit" and pim_compile:
+            raise ValueError("pim_compile only applies to backend='pim'")
         self.cfg = cfg
         self.batch_fn = batch_fn
         self.backend = backend
@@ -106,10 +123,18 @@ class Trainer:
         self.straggler = StragglerPolicy()
         self.heartbeat = HeartbeatMonitor()
         self.pim_program = None
+        self.microbatches = microbatches
+        self.partitions = partitions
+        self.pipeline_stats: dict = {}
+        self._pim_compile = dict(pim_compile or {})
 
         params, opt_state = init_state()
         if backend == "jit":
             self._step_fn = train_step
+        elif pipelined:
+            self._step_fn = self._build_pipelined_step(
+                params, loss_fn, optimizer, pim_tech, weight_dtype,
+                act_dtype)
         else:
             from repro_torch import mapper
             abstract = mapper.abstract_like
@@ -121,7 +146,8 @@ class Trainer:
             # this per-instance train_step would never hit but would be
             # pinned forever
             self.pim_program = mapper.compile_schedule(
-                sched, use_cache=False, device=self.device)
+                sched, use_cache=False, device=self.device,
+                **self._pim_compile)
             self._step_fn = self.pim_program
         restored, step = self.ckpt.restore({"params": params,
                                             "opt": opt_state})
@@ -135,6 +161,68 @@ class Trainer:
         self.params = params
         self.opt_state = opt_state
         self.losses: list[float] = []
+
+    def _build_pipelined_step(self, params, loss_fn, optimizer,
+                              pim_tech: str, weight_dtype: str,
+                              act_dtype: str) -> Callable:
+        """The partitioned microbatch-pipeline step (see ``__init__``):
+        ``loss_fn`` mapped at microbatch shape, cut into
+        ``self.partitions`` stage programs; the step GPipe-streams the
+        microbatches and applies one update on the mean gradients, run
+        natively as the reference runs it."""
+        if loss_fn is None or optimizer is None:
+            raise ValueError(
+                "microbatches/partitions need loss_fn and optimizer: an "
+                "opaque train_step cannot be cut into pipeline stages")
+        from repro_torch import mapper
+        from repro_torch.parallel import pipeline as pipe_mod
+
+        n_micro = self.microbatches
+        batch0 = self._batch(0)
+        leaves = pytree.tree_leaves(batch0)
+        if not leaves:
+            raise ValueError("batch_fn(0) returned an empty batch")
+        batch_dim = leaves[0].shape[0]
+        if any(x.shape[0] != batch_dim for x in leaves):
+            raise ValueError("all batch leaves must share the leading "
+                             "(batch) axis to be microbatched")
+        if batch_dim % n_micro:
+            raise ValueError(f"batch size {batch_dim} is not divisible "
+                             f"into {n_micro} microbatches")
+        mb = batch_dim // n_micro
+
+        def slice_mb(batch, m):
+            return pytree.tree_map(lambda a: a[m * mb:(m + 1) * mb], batch)
+
+        sched = mapper.build_schedule(
+            loss_fn, mapper.abstract_like(params),
+            *mapper.abstract_like(slice_mb(batch0, 0)), tech=pim_tech,
+            weight_dtype=weight_dtype, act_dtype=act_dtype,
+            partitions=self.partitions)
+        # use_cache=False: the program cache keys on fn identity, and
+        # per-instance programs would be pinned forever
+        prog = mapper.compile_partitioned(sched, use_cache=False,
+                                          device=self.device,
+                                          **self._pim_compile)
+        self.pim_program = prog
+        loss_ref = prog.out_refs[0]
+        param_leaves, param_spec = pytree.tree_flatten(params)
+        grad_argnums = list(range(len(param_leaves)))
+
+        def step(params, opt_state, batch):
+            flat_per_mb = [prog.flatten_args(params, *slice_mb(batch, m))
+                           for m in range(n_micro)]
+            self.pipeline_stats = {}
+            loss, grad_flat = pipe_mod.gpipe_value_and_grad(
+                prog.stages, loss_ref, flat_per_mb, grad_argnums,
+                stats=self.pipeline_stats)
+            grads = pytree.tree_unflatten(grad_flat, param_spec)
+            with torch.no_grad():
+                params, opt_state = optimizer.update(grads, opt_state,
+                                                     params)
+            return params, opt_state, loss
+
+        return step
 
     def _batch(self, step: int):
         """``batch_fn(step)`` with its numpy leaves as tensors on the

@@ -9,8 +9,9 @@ stage costs and ``reconcile()``; then the published config at batch 1,
 traced on meta tensors (nothing allocated): its subarrays, replicas and
 report. The reference scans the layer stack; the port unrolls it and
 folds it back (``mapper.graph``), which a stack of differing layers
-refuses. ``partitions`` and ``expand_scans`` are not ported yet and
-raise, naming their ROADMAP item.
+refuses. ``partitions`` and ``expand_scans`` map
+(``tests/test_torch_partition.py`` and ``test_torch_expand.py`` hold them
+to the reference).
 """
 
 import dataclasses
@@ -166,14 +167,21 @@ def test_a_stack_of_differing_layers_refuses_to_fold():
 
 def test_train_kind_and_unported_options_raise():
     """``kind="train"`` maps (``tests/test_torch_arch_train.py`` holds it
-    to the reference); partitions, scan expansion and other kinds
-    raise."""
+    to the reference); so do partitions and scan expansion, on both
+    kinds; other kinds raise."""
     assert mapper.map_arch("llama3-8b", "train", smoke=True,
                            seq_len=8).reconcile()["counts_match"]
-    with pytest.raises(NotImplementedError, match="3.3"):
-        mapper.map_arch("llama3-8b", "serve", smoke=True, partitions=2)
-    with pytest.raises(NotImplementedError, match="3.3"):
-        mapper.map_arch("llama3-8b", "serve", smoke=True, expand_scans=True)
+    cut = mapper.map_arch("llama3-8b", "serve", smoke=True, partitions=2)
+    assert len(cut.partitions) == 2
+    assert sum(len(p.nodes) for p in cut.partitions) == N_NODES
+    expanded = mapper.map_arch("llama3-8b", "serve", smoke=True,
+                               expand_scans=True)
+    assert expanded.graph.groups == {"layers": 1}
+    assert expanded.reconcile()["counts_match"]
+    train = mapper.map_arch("llama3-8b", "train", smoke=True, seq_len=8,
+                            partitions=3, expand_scans=True)
+    assert len(train.partitions) == 3
+    assert train.reconcile()["counts_match"]
     with pytest.raises(ValueError, match="kind"):
         mapper.map_arch("llama3-8b", "prefill", smoke=True)
 

@@ -143,9 +143,10 @@ def test_second_compile_hits_the_program_cache():
 
 
 def test_unported_options_raise_not_implemented():
+    # partitions and scan expansion map (tests/test_torch_partition.py)
+    assert len(mapper.map_lenet("serve", partitions=2).partitions) == 2
+    assert mapper.map_lenet("serve", expand_scans=True).graph.groups == {}
     cases = [
-        lambda: mapper.map_lenet("serve", partitions=2),
-        lambda: mapper.map_lenet("serve", expand_scans=True),
         # the train step maps; what it leaves out raises
         lambda: mapper.map_arch("llama3-8b", smoke=True, seq_len=4096),
         lambda: mapper.compile_arch("llama3-8b", config=dataclasses.replace(

@@ -362,8 +362,10 @@ def test_grad_through_compiled_loss_matches_plain_autograd(ref_params,
 
 
 def test_unported_trainer_options_raise(ref_params, tmp_path):
+    # the pipelined plan is ported (tests/test_torch_pipeline.py); it
+    # needs a loss and an optimizer, as the reference's does
     for kw in (dict(microbatches=2), dict(partitions=2)):
-        with pytest.raises(NotImplementedError, match="item 3.3"):
+        with pytest.raises(ValueError, match="loss_fn and optimizer"):
             _trainer(ref_params, tmp_path, "pim", **kw)
         with pytest.raises(ValueError, match="backend='pim'"):
             _trainer(ref_params, tmp_path, "jit", **kw)
