@@ -221,6 +221,24 @@ Phases, each printing one JSON line:
    launches per stage forward and backward, ms per step against
    ``pim_train``'s, and the control that one stage's output cotangent
    swapped between two microbatches fails the gradients' hold.
+22. ``serve_pim`` — ``ServeEngine(backend="pim")``: the paged tick
+   (``models.transformer.decode_step_paged``) mapped, its KV pool placed
+   and priced, and compiled. Hold: published width, float32, 2 layers,
+   batch 8, ``max_len`` 512, blocks of 8, ``attn_kernel=True``, 12
+   seeded requests (prompts 16–200 tokens, 16 output tokens, slots
+   recycling): each pim run's tokens identical to the jit engine's with
+   batched and replayed prefill, a tight pool that preempts, an int8 pool
+   at blocks of 16 (K6) and an int8 weight grid (K5; the jit engine over
+   the LM head the grid stores); launches a tick K4 2 (or K6 2), K1 1 (or
+   K5 1), K3 3; one mid-run tick's logits within rtol = atol = 1e-4 x
+   max|logit| of ``decode_step_paged``'s gather path on a copy of the
+   pool, the control (two slots' table rows swapped) failing; no host
+   sync in a program call; 4 partitions of the expanded stack on one
+   stream and on a ring of 4 token-identical to the unpartitioned pim
+   engine. Time: the serve phase's bf16 model (32 layers), batch 8,
+   ``max_len`` 1024, blocks of 8, its 16 requests: the pim and the jit
+   engine — tok/s, TTFT, ms a tick, device ms and kernels a tick under
+   the profiler, peak memory, the pim tick's drift ratio (recorded).
 
 Then the card's name and power limit, one line with every kernel's
 numbers, and as the last line ``{"ok": true, "device": {...}}``. Any
@@ -257,6 +275,25 @@ def emit(obj: dict) -> None:
     print(f"[{time.perf_counter() - T0:.1f} s] {obj.get('phase', '')} "
           f"{obj.get('path', obj.get('weight_dtype', ''))}",
           file=sys.stderr, flush=True)
+
+
+# host sleep inside each end of a profiler window (``device_profile``)
+PROFILE_PAD_S = 0.01
+
+
+@contextlib.contextmanager
+def device_profile(cpu: bool = True, pad: float = PROFILE_PAD_S):
+    """``torch.profiler.profile`` of the card, and of the host when
+    ``cpu``, with ``pad`` seconds of host sleep inside each end of its
+    window; the body synchronizes before it ends. Unpadded, a window that
+    holds one short kernel sometimes comes back with no device event at
+    all (``scripts/profile_window_probe.py`` counts how often)."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        time.sleep(pad)
+        yield prof
+        time.sleep(pad)
 
 
 def cuda_ms(fn, iters: int = 40, warmup: int = 3) -> float:
@@ -497,11 +534,9 @@ def kernel_ms_by_name(fn, calls: int) -> dict:
     """Mean device time (ms) of each kernel that ``calls`` calls of ``fn``
     launch, by the profiler's kernel name, after a warm call."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with device_profile() as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
@@ -983,7 +1018,6 @@ def phase_profile(eng, seed: int, phase: str = "profile",
     K4 (its split and combine kernels), K6, matrix products and the
     rest, against the host's wall time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve import Request
     prompts = make_prompts(np.random.default_rng(seed + 2), 8, prompt_len,
                            prompt_len, eng.cfg.vocab_size)
@@ -993,8 +1027,7 @@ def phase_profile(eng, seed: int, phase: str = "profile",
         eng.tick_once()
     torch.cuda.synchronize()
     ticks0 = eng._tick
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with device_profile() as prof:
         t0 = time.perf_counter()
         eng.run()
         torch.cuda.synchronize()
@@ -1203,10 +1236,9 @@ def profile_device(fn, calls: int) -> dict:
     read, and tracing them would halve the profile's speed and slow the
     host it measures."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with device_profile(cpu=False) as prof:
         t0 = time.perf_counter()
         for _ in range(calls):
             fn()
@@ -3087,7 +3119,6 @@ def phase_kernels_attn(seed: int) -> dict:
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                     flash_head_dim)
     from repro_torch.mapper.executor import full_float32
-    from torch.profiler import ProfilerActivity, profile
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 60)
     cases = [(name, shape, chunk) for name in ("float32", "bfloat16")
              for shapes, chunk in ((ATTN_TEST_SHAPES, 64),
@@ -3104,8 +3135,7 @@ def phase_kernels_attn(seed: int) -> dict:
                                                 (b, s, g, d)))
             label = f"K7 {name} {(b, s, h, g, d)}"
             flash_attention.launches = 0
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
+            with device_profile() as prof:
                 out = ops.attention(q, k, v, q_chunk=chunk, kv_chunk=chunk)
                 torch.cuda.synchronize()
             if flash_attention.launches != 1:
@@ -4832,6 +4862,363 @@ def phase_pim_pipe(seed: int, pim_train_ms: float) -> dict:
     return {"launches": total}
 
 
+# ---------------------------------------------------------------------------
+# 22. serve_pim: ServeEngine(backend="pim"), the paged tick through the mapper
+# ---------------------------------------------------------------------------
+
+# the hold: llama3-8b at its published width, float32, cut to 2 layers
+SERVE_PIM_HOLD = dict(batch=8, max_len=512, kv_block_size=8, n_layers=2)
+SERVE_PIM_REQUESTS = dict(n=12, lo=16, hi=200, max_tokens=16)
+# the tight pool: 60 allocatable blocks for 8 slots of up to 27 blocks;
+# admitted slots outgrow it and one is swapped out (the allocator does
+# not depend on the tokens: one preemption at this seed, as on the CPU)
+SERVE_PIM_TIGHT = dict(kv_blocks=61, prefill="batch")
+SERVE_PIM_Q = dict(kv_dtype="int8", kv_block_size=16)   # K6
+SERVE_PIM_TOL = 1e-4       # x max|logit|, rtol and atol
+SERVE_PIM_CHECK_TICK = 6   # the tick whose logits are held
+# the K3 launches of one tick: the final norm's three MACs, the CPU's
+# count (tests/test_torch_serve_pim.py); the stack runs natively
+SERVE_PIM_K3 = 3
+# the timed run: the published config (bf16, 32 layers), the serve phase's
+# load at block size 8 (an fp32 16-token block exceeds a subarray there)
+SERVE_PIM_TIME = dict(batch=8, max_len=1024, kv_block_size=8)
+
+
+def decode_kernels():
+    from repro_torch.kernels.flash_attention import (
+        paged_decode_attention_grouped, paged_decode_attention_grouped_q)
+    return {"k4": paged_decode_attention_grouped,
+            "k6": paged_decode_attention_grouped_q}
+
+
+def serve_counts_reset() -> None:
+    reset_counts()
+    for k in decode_kernels().values():
+        k.launches = 0
+
+
+def serve_counts() -> dict:
+    return {**read_counts(), **{key: k.launches
+                                for key, k in decode_kernels().items()}}
+
+
+def serve_engine(cfg, model, prompts, max_tokens, *, count=False, **opts):
+    """One engine over ``prompts`` (``attn_kernel=True`` on ``DEVICE``),
+    run to the end; with ``count`` every kernel's count set to 0 just
+    before the run and read just after. Returns (engine, {rid: tokens},
+    counts or None)."""
+    from repro_torch.serve import Request, ServeEngine
+    eng = ServeEngine(cfg, model, paged=True, attn_kernel=True,
+                      device=DEVICE, **opts)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=p, max_tokens=max_tokens))
+    if count:
+        serve_counts_reset()
+    out = {r.rid: r.out for r in eng.run()}
+    counts = serve_counts() if count else None
+    return eng, out, counts
+
+
+def per_tick(counts: dict, ticks: int) -> dict:
+    return {k: v / ticks for k, v in counts.items()}
+
+
+def serve_pim_logits(eng, cfg) -> dict:
+    """One tick of ``eng`` (mid-run) on copies of its pool: the program's
+    logits against ``decode_step_paged``'s gather path (float32, TF32
+    off) at ``SERVE_PIM_TOL`` x max|logit|, and the control — the same
+    program with two slots' block-table rows swapped — failing it."""
+    import torch
+    from repro_torch.mapper.executor import full_float32
+    from repro_torch.models import transformer
+    active = [s for s in range(eng.batch) if eng.slots[s] is not None]
+    params, cache, tok, table, pos = eng._pim_args(eng._feed(active))
+    pool = cache["layers"]["block0"]
+
+    def copy():
+        return {"layers": {"block0": {k: v.clone() for k, v in pool.items()}}}
+
+    with torch.no_grad(), full_float32():
+        got = eng.pim_program(params, copy(), tok, table, pos)[0]
+        want = transformer.decode_step_paged(
+            cfg, params, copy(), tok, table, pos, kernel=False,
+            kv_dtype=eng.kv_dtype)[0]
+        swapped = table.clone()
+        swapped[[0, 1]] = table[[1, 0]]
+        bad = eng.pim_program(params, copy(), tok, swapped, pos)[0]
+    limit = SERVE_PIM_TOL * float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=SERVE_PIM_TOL, atol=limit)
+    try:
+        torch.testing.assert_close(bad, want, rtol=SERVE_PIM_TOL,
+                                   atol=limit)
+    except AssertionError:
+        control = float((bad - want).abs().max())
+    else:
+        raise AssertionError("serve_pim: two slots' table rows swapped "
+                             "pass the logits hold")
+    err = float((got - want).abs().max())
+    return {"active_slots": len(active), "positions": pos.tolist(),
+            "max_abs_err": err, "limit": limit,
+            "control_rows_swapped_max_abs_err": control}
+
+
+def serve_pim_no_sync(eng) -> int:
+    """One program call under ``set_sync_debug_mode("error")``, its
+    arguments made before: 0 host syncs, or it raises."""
+    import torch
+    active = [s for s in range(eng.batch) if eng.slots[s] is not None]
+    args = eng._pim_args(eng._feed(active))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng._pim_call(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return 0
+
+
+def serve_pim_hold(seed: int) -> dict:
+    """``SERVE_PIM_HOLD``: the pim engine against the jit engine on the
+    same seeded requests, token for token — with batched and replayed
+    prefill (and one tick's logits and a sync-free call checked mid-run),
+    a tight pool that preempts, an int8 pool (K6), an int8 weight grid
+    (K5; the jit engine over the LM head the grid stores) and 4
+    partitions on one stream and on a ring of 4 — with each pim run's
+    launches a tick."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.mapper.executor import fake_quant_stationary
+    from repro_torch.models import DecoderLM
+    from repro_torch.serve import Request, ServeEngine, map_paged_tick
+    h, rq = SERVE_PIM_HOLD, SERVE_PIM_REQUESTS
+    cfg = dataclasses.replace(get_config("llama3-8b"),
+                              n_layers=h["n_layers"], dtype="float32")
+    model = DecoderLM(cfg, device=DEVICE).init(seed)
+    prompts = make_prompts(np.random.default_rng(seed + 80), rq["n"],
+                           rq["lo"], rq["hi"], cfg.vocab_size)
+    base = {k: h[k] for k in ("batch", "max_len", "kv_block_size")}
+    n, total = rq["max_tokens"], {k: 0 for k in (*PIM_KEYS, "k4", "k6")}
+    rows = {}
+
+    def run(name, opts, want_tick, jit_model=None, jit_opts=None):
+        eng, got, counts = serve_engine(cfg, model, prompts, n, count=True,
+                                        backend="pim", **{**base, **opts})
+        _, want, _ = serve_engine(cfg, jit_model or model, prompts, n,
+                                  **{**base, **(jit_opts or opts)})
+        if got != want:
+            raise AssertionError(f"serve_pim {name}: tokens differ from "
+                                 f"the jit engine's")
+        tick = per_tick(counts, eng._tick)
+        if tick != {**dict.fromkeys(tick, 0), **want_tick}:
+            raise AssertionError(f"serve_pim {name}: launches a tick "
+                                 f"{tick}, want {want_tick}")
+        for k in total:
+            total[k] += counts[k]
+        rows[name] = {"ticks": eng._tick, "tokens_identical_to_jit": True,
+                      "launches_per_tick": {k: v for k, v in tick.items()
+                                            if v},
+                      "preemptions": eng.preemptions,
+                      "nodes": len(eng.schedule.graph.nodes),
+                      "subarrays": eng.schedule.placement.n_subarrays,
+                      "kv_subarrays": eng.kv_placement.n_subarrays,
+                      "kv_t_s": eng.schedule.kv.t_s}
+        return eng, got
+
+    layers = cfg.n_layers
+    fp32_tick = {"k1": 1, "k3": SERVE_PIM_K3, "k4": layers}
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        # batched prefill, with one tick's logits and a sync-free call
+        eng = ServeEngine(cfg, model, paged=True, attn_kernel=True,
+                          device=DEVICE, backend="pim", prefill="batch",
+                          **base)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p, max_tokens=n))
+        for _ in range(SERVE_PIM_CHECK_TICK):
+            eng.tick_once()
+        logits = serve_pim_logits(eng, cfg)
+        syncs = serve_pim_no_sync(eng)
+        del eng
+        _, tokens = run("batch", dict(prefill="batch"), fp32_tick)
+        run("replay", dict(prefill="replay"), fp32_tick)
+        tight, _ = run("tight_pool", SERVE_PIM_TIGHT, fp32_tick)
+        if tight.preemptions == 0 or tight.resumes == 0:
+            raise AssertionError("serve_pim: the tight pool preempted "
+                                 "nothing")
+        run("int8_pool", dict(SERVE_PIM_Q, prefill="batch"),
+            {"k1": 1, "k3": SERVE_PIM_K3, "k6": layers})
+        # the int8 weight grid: the jit engine over the stored LM head
+        sched = map_paged_tick(cfg, attn_kernel=True, weight_dtype="int8",
+                               **base)
+        head = next(nd for nd in sched.graph.nodes
+                    if nd.kind == "matmul" and not nd.scanned)
+        stored = DecoderLM(cfg, device=DEVICE).init(seed)
+        stored.lm_head.w.copy_(fake_quant_stationary(sched, head,
+                                                     model.lm_head.w))
+        run("int8_weights", dict(weight_dtype="int8", prefill="batch"),
+            {"k5": 1, "k3": SERVE_PIM_K3, "k4": layers}, jit_model=stored,
+            jit_opts=dict(prefill="batch"))
+        del stored, sched
+        # 4 partitions over the expanded stack, on one stream and a ring
+        parts = dict(partitions=PIPE_PARTITIONS, expand_scans=True,
+                     microbatches=PIPE_MICRO, prefill="batch")
+        for name, extra in (("partitions", {}), ("partitions_ring", {
+                "pim_compile": {"streams": [torch.cuda.Stream() for _ in
+                                            range(PIPE_STREAMS)]}})):
+            eng, got, counts = serve_engine(cfg, model, prompts, n,
+                                            count=True, backend="pim",
+                                            **base, **parts, **extra)
+            if got != tokens:
+                raise AssertionError(f"serve_pim {name}: tokens differ "
+                                     f"from the unpartitioned pim engine's")
+            if counts["k4"] != layers * eng._tick:
+                raise AssertionError(f"serve_pim {name}: K4 ran "
+                                     f"{counts['k4']} times")
+            for k in total:
+                total[k] += counts[k]
+            rows[name] = {"ticks": eng._tick,
+                          "tokens_identical_to_unpartitioned": True,
+                          "launches_per_tick": {
+                              k: v for k, v in per_tick(counts,
+                                                        eng._tick).items()
+                              if v},
+                          "nodes": len(eng.schedule.graph.nodes),
+                          "partition_nodes": [len(p.nodes) for p in
+                                              eng.schedule.partitions],
+                          "pipeline_speedup": eng.pipeline_timeline.speedup}
+            del eng
+    del model
+    torch.cuda.empty_cache()
+    return {"rows": rows, "logits": logits, "host_syncs_in_call": syncs,
+            "launches": total, "seconds": time.perf_counter() - t0}
+
+
+def serve_pim_profile(eng, seed: int) -> dict:
+    """A second load on a time engine (8 requests of 64 prompt tokens, 8
+    output tokens): after the admitting tick, 3 ticks under the profiler
+    (``profile_device``: device ms and kernels a tick) and one traced
+    tick joined against the schedule (``drift_report``, pim only), then
+    drained."""
+    from repro_torch import obs
+    from repro_torch.serve import Request
+    prompts = make_prompts(np.random.default_rng(seed + 81), 8, 64, 64,
+                           eng.cfg.vocab_size)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=200 + i, prompt=p, max_tokens=8))
+    eng.tick_once()
+    prof = profile_device(eng.tick_once, 3)
+    r = {"profile": prof}
+    if eng.backend == "pim":
+        with obs.scoped() as tr:
+            eng.tick_once()
+        rep = eng.drift_report(tr)
+        r["drift"] = {"ratio": rep.ratio, "clock": rep.clock,
+                      "measured_s": rep.measured_total_s,
+                      "modeled_s": rep.modeled_total_s,
+                      "kv_modeled_s": rep.kv_modeled_s,
+                      "nodes_measured": rep.n_measured}
+    eng.run()
+    return r
+
+
+def serve_pim_time(model, seed: int) -> dict:
+    """The published config (the serve phase's bf16 model, 32 layers) at
+    ``SERVE_PIM_TIME`` over the serve phase's 16 requests, 32 output
+    tokens each: the pim engine and the jit engine in turn — tok/s, TTFT,
+    ms a tick, device ms and kernels a tick under the profiler, peak
+    memory — and the pim tick's drift ratio (recorded, not held)."""
+    import torch
+    from repro_torch import obs
+    from repro_torch.serve import Request, ServeEngine
+    cfg = model.cfg
+    prompts = make_prompts(np.random.default_rng(seed + 1), 16, 64, 512,
+                           cfg.vocab_size)
+    out = {}
+    for backend in ("pim", "jit"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        eng = ServeEngine(cfg, model, paged=True, attn_kernel=True,
+                          prefill="batch", backend=backend, device=DEVICE,
+                          **SERVE_PIM_TIME)
+        build_s = time.perf_counter() - t0
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p, max_tokens=32))
+        serve_counts_reset()
+        tr = obs.enable()
+        t0 = time.perf_counter()
+        done = eng.run()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        obs.disable()
+        counts = serve_counts()
+        if len(done) != len(prompts) or any(
+                len(r.out) != 32 or not all(0 <= t < cfg.vocab_size
+                                            for t in r.out) for r in done):
+            raise AssertionError(f"serve_pim time {backend}: not every "
+                                 f"request finished with 32 valid tokens")
+        if counts["k4"] != cfg.n_layers * eng._tick:
+            raise AssertionError(f"serve_pim time {backend}: K4 ran "
+                                 f"{counts['k4']} times")
+        decode_s = sum(e.dur_s for e in tr.spans(name="decode:tick"))
+        generated = sum(len(r.out) for r in done)
+        row = {"build_s": build_s, "ticks": eng._tick,
+               "generated_tokens": generated, "wall_s": wall_s,
+               "decode_s": decode_s,
+               "decode_tok_per_s": generated / decode_s,
+               "tick_ms": decode_s / eng._tick * 1e3,
+               "mean_ttft_s": float(np.mean([r.ttft_s for r in done])),
+               "launches_per_tick": {k: v for k, v in per_tick(
+                   counts, eng._tick).items() if v},
+               "tokens_first_request": done[0].out[:8],
+               **serve_pim_profile(eng, seed)}
+        row["max_memory_allocated_gb"] = (torch.cuda.max_memory_allocated()
+                                          / 1e9)
+        if row["max_memory_allocated_gb"] >= 80:
+            raise AssertionError(f"serve_pim time {backend}: "
+                                 f"{row['max_memory_allocated_gb']} GB")
+        if backend == "pim":
+            row["nodes"] = len(eng.schedule.graph.nodes)
+            row["kv_t_s"] = eng.schedule.kv.t_s
+            pim_counts = counts
+        out[backend] = row
+        del eng, done
+        torch.cuda.empty_cache()
+    pim_tokens = out["pim"].pop("tokens_first_request")
+    out["first_request_tokens_agree"] = pim_tokens == out["jit"].pop(
+        "tokens_first_request")
+    return {"rows": out, "launches": pim_counts}
+
+
+def phase_serve_pim(model, seed: int) -> dict:
+    """``ServeEngine(backend="pim")``: ``serve_pim_hold`` at the published
+    width in float32 cut to 2 layers, then ``serve_pim_time`` on
+    ``model`` (the serve phase's). Emitted as one ``serve_pim`` line."""
+    hold = serve_pim_hold(seed)
+    t0 = time.perf_counter()
+    timing = serve_pim_time(model, seed)
+    launches = {k: hold["launches"][k] + timing["launches"][k]
+                for k in hold["launches"]}
+    emit({"phase": "serve_pim",
+          "seconds": {"hold": hold["seconds"],
+                      "time": time.perf_counter() - t0},
+          "config": "llama3-8b at its published width (configs/"
+                    "llama3_8b.py), float32, cut to "
+                    f"{SERVE_PIM_HOLD['n_layers']} layers",
+          **SERVE_PIM_HOLD, "requests": SERVE_PIM_REQUESTS,
+          "reduced": {"n_layers": [32, SERVE_PIM_HOLD["n_layers"]],
+                      "dtype": ["bfloat16", "float32"]},
+          "tol": SERVE_PIM_TOL, "hold": hold["rows"],
+          "logits": hold["logits"],
+          "host_syncs_in_call": hold["host_syncs_in_call"],
+          "time": {**SERVE_PIM_TIME,
+                   "config": "llama3-8b published, bf16, 32 layers",
+                   **timing["rows"]},
+          "launches": launches})
+    return {"launches": launches}
+
+
 def sums(rows) -> dict:
     """Times and bounds of one run's launches: each distinct shape's
     numbers times its count, summed (each shape's bound the larger of its
@@ -5003,6 +5390,8 @@ def main() -> int:
     # generation) run under the profiler
     phase_profile(kvq["engine"], args.seed, "profile_kvq", prompt_len=64,
                   warm_ticks=56)
+    serve_pim = phase_serve_pim(serve["engine"].model, args.seed)
+    by_path["serve_pim"] = {k: serve_pim["launches"][k] for k in PIM_KEYS}
     print(gpu_name_and_power_limit(), flush=True)
 
     def entry(ids, launches, r):
@@ -5025,14 +5414,21 @@ def main() -> int:
                      and r["shape"]["S"] == ATTN_LLAMA_SHAPES[-1][1])
     k5_launches = {path: by_path[path]["k5"]
                    for path in ("pim_lenet_q", "pim_train_q", "pim_grad_q",
-                                "pim_llama_q", "pim_llama_pipe")}
+                                "pim_llama_q", "pim_llama_pipe",
+                                "serve_pim")}
     k4_bf16 = k4["bfloat16"]
     k6_serve = k6[(SERVE_KV_DTYPE, "bfloat16")]
+    k4_launches = {"serve": serve["launches"],
+                   "serve_pim": serve_pim["launches"]["k4"]}
+    k6_launches = {"serve_kvq": kvq["launches"],
+                   "serve_pim": serve_pim["launches"]["k6"]}
     emit({"kernels": [
-        {**entry(K4, serve["launches"], k4_bf16),
+        {**entry(K4, sum(k4_launches.values()), k4_bf16),
+         "launches_by_path": k4_launches,
          "n_split": k4_bf16["n_split"], "split_ms": k4_bf16["split_ms"],
          "combine_ms": k4_bf16["combine_ms"]},
-        {**entry(K6, kvq["launches"], k6_serve),
+        {**entry(K6, sum(k6_launches.values()), k6_serve),
+         "launches_by_path": k6_launches,
          "n_split": k6_serve["n_split"], "split_ms": k6_serve["split_ms"],
          "combine_ms": k6_serve["combine_ms"]},
         *(pim_entry(ids, key, by_path, rows)

@@ -45,7 +45,13 @@ A backward written out by hand (the decoder's layer stack) spells the
 ops the reference's graph does not see as ops of their own, unpriced:
 the cotangent sum :func:`add_any`, ``silu``'s VJP :func:`silu_vjp` (the
 reference's ``silu`` is a jit whose ops it does not walk) and
-``jnp.where``'s outputs :func:`select_parts`.
+``jnp.where``'s outputs :func:`select_parts`. Elsewhere the same holds
+for the paged decode attention kernels K4 and K6 (the reference's graph
+does not enter a ``pallas_call``; ``kernels.flash_attention.paged_decode_op``
+and ``paged_decode_q_op``) and the grid rounding's bit-plane increment
+(``core.quant.round_mantissa``). An in-place write (``index_put_``, the
+paged pool's) is no node, as the reference's ``scatter`` is none; the
+ops that read the written tensor after it draw their edges through it.
 """
 
 from __future__ import annotations

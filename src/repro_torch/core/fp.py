@@ -63,7 +63,9 @@ def pack_f32(sign: torch.Tensor, exp: torch.Tensor,
         return t.to(torch.int64) & _U32
 
     u = ((u32(sign) << 31) | (u32(exp) << N_MANT) | u32(mant)) & _U32
-    u = u - ((u >> 31) << 32)          # the signed int32 of those bits
+    # the signed int32 of those bits: the high word filled with bit 31,
+    # in bit operations alone (the reference's graph prices no op here)
+    u = u | ((-(u >> 31)) << 32)
     return u.to(torch.int32).view(torch.float32)
 
 

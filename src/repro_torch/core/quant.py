@@ -12,11 +12,16 @@ pattern.
 
 ``round_to_grid`` is the same function as the reference's bit-plane
 round-to-nearest-even (``repro/core/quant.py``: 23 mantissa planes and a
-ripple increment), written as one integer add on the pattern: adding
-``2^(drop-1) - 1`` plus the kept LSB and truncating ``drop`` bits is RNE,
-and a carry out of the mantissa lands in the exponent field exactly as
-the reference's ``exp + carry`` does. The results are bit-equal for every
-float32 input (``tests/test_torch_quant.py``).
+ripple increment), written as one integer add on the mantissa
+(:func:`round_mantissa`): adding ``2^(drop-1) - 1`` plus the kept LSB and
+truncating ``drop`` bits is RNE, and the carry out of the mantissa is
+added to the exponent field as the reference's ``exp + carry``. The
+results are bit-equal for every float32 input
+(``tests/test_torch_quant.py``). The reference's graph prices its
+``exp + carry`` and ``e_unb = exp_r - 127`` but none of its bit-plane
+ops, so :func:`round_mantissa` is an op of its own (the mapper's capture
+keeps it whole, unpriced) and the two field sums stay aten adds: the
+mapper traces the reference's nodes here.
 
 Storage: int8 codes for the int grid, uint8 ``sign|exp|mant`` codes for
 the 8-bit float grids. The reference keeps fp16-grid codes in uint16;
@@ -121,6 +126,27 @@ def _f32(x) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+@torch.library.custom_op("repro_torch::round_mantissa", mutates_args=())
+def round_mantissa(mant: torch.Tensor,
+                   drop: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Round a float32 mantissa field (int32, 23 bits) to nearest even at
+    ``drop`` bits: ``(the rounded field, its low drop bits zero; the carry
+    out of it, 0 or 1)``, both int32 — the reference's bit-plane ripple
+    increment ``fp.pim_inc_at`` on the kept planes, whose boolean ops its
+    graph does not price. An op of its own, so the mapper's capture keeps
+    it whole (module docstring)."""
+    m = mant.to(torch.int64)
+    lsb = (m >> drop) & 1
+    m = (m + ((1 << (drop - 1)) - 1) + lsb) >> drop
+    return ((m << drop) & 0x7FFFFF).to(torch.int32), \
+        (m >> (fp.N_MANT - drop)).to(torch.int32)
+
+
+@round_mantissa.register_fake
+def _round_mantissa_fake(mant, drop):
+    return torch.empty_like(mant), torch.empty_like(mant)
+
+
 def round_to_grid(x: torch.Tensor, dtype: str | QuantSpec) -> torch.Tensor:
     """Round float32 values to the dtype's grid (values stay float32).
 
@@ -137,14 +163,11 @@ def round_to_grid(x: torch.Tensor, dtype: str | QuantSpec) -> torch.Tensor:
     if s.kind == "int":
         return torch.clamp(torch.round(x), -s.qmax, s.qmax)
 
-    u, sign, exp, _ = fp.unpack_f32(x)
-    drop = fp.N_MANT - s.n_mant
-    mag = u.to(torch.int64) & 0x7FFFFFFF
-    lsb = (mag >> drop) & 1
-    mag = ((mag + ((1 << (drop - 1)) - 1) + lsb) >> drop) << drop
-    exp_r = mag >> fp.N_MANT                 # 1.11..1 + ulp -> 10.00..0
+    _, sign, exp, mant = fp.unpack_f32(x)
+    mant_r, carry = round_mantissa(mant, fp.N_MANT - s.n_mant)
+    exp_r = exp + carry                      # 1.11..1 + ulp -> 10.00..0
     e_unb = exp_r - fp.BIAS
-    out = fp.pack_f32(sign, exp_r, mag & 0x7FFFFF)
+    out = fp.pack_f32(sign, exp_r, mant_r)
     # scalars, not a tensor made from one: on CUDA that is a host-to-device
     # copy, which waits for the stream
     out = torch.where(e_unb > s.emax,

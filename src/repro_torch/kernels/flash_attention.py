@@ -356,3 +356,49 @@ def paged_decode_attention_grouped_q(q: torch.Tensor, k_store: torch.Tensor,
 
 
 paged_decode_attention_grouped_q.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K4 and K6 as ops the mapper's capture keeps whole
+# ---------------------------------------------------------------------------
+#
+# The reference's graph does not look inside a ``pallas_call``: a decode
+# site's attention on the kernel path is one equation with no priced node,
+# its output drawing edges from every input. The port's capture
+# (``core.estimator.capture``, ``make_fx``) would trace a Python wrapper's
+# plain version op by op, so the traced step reaches K4 and K6 through
+# these custom ops: one opaque node each, whose fake implementation gives
+# the output's shape. Called on real tensors they are the wrappers above —
+# the kernel on a CUDA tensor (counted in the wrapper's ``launches``), the
+# plain version on a CPU tensor — and never fall back.
+
+
+@torch.library.custom_op("repro_torch::paged_decode", mutates_args=())
+def paged_decode_op(q: torch.Tensor, k_store: torch.Tensor,
+                    v_store: torch.Tensor, block_table: torch.Tensor,
+                    pos: torch.Tensor) -> torch.Tensor:
+    """:func:`paged_decode_attention_grouped` (K4) as one op."""
+    return paged_decode_attention_grouped(q.contiguous(), k_store, v_store,
+                                          block_table, pos)
+
+
+@paged_decode_op.register_fake
+def _paged_decode_fake(q, k_store, v_store, block_table, pos):
+    return torch.empty_like(q, memory_format=torch.contiguous_format)
+
+
+@torch.library.custom_op("repro_torch::paged_decode_q", mutates_args=())
+def paged_decode_q_op(q: torch.Tensor, k_store: torch.Tensor,
+                      k_scale: torch.Tensor, v_store: torch.Tensor,
+                      v_scale: torch.Tensor, block_table: torch.Tensor,
+                      pos: torch.Tensor, kv_dtype: str) -> torch.Tensor:
+    """:func:`paged_decode_attention_grouped_q` (K6) as one op."""
+    return paged_decode_attention_grouped_q(
+        q.contiguous(), k_store, k_scale, v_store, v_scale, block_table,
+        pos, kv_dtype=kv_dtype)
+
+
+@paged_decode_q_op.register_fake
+def _paged_decode_q_fake(q, k_store, k_scale, v_store, v_scale, block_table,
+                         pos, kv_dtype):
+    return torch.empty_like(q, memory_format=torch.contiguous_format)

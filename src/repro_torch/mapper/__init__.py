@@ -26,8 +26,9 @@ decode and train steps (``map_arch`` / ``compile_arch``), the layer stack
 folded into the reference's scanned nodes; and pipeline partitions
 (``partition``, ``Schedule.pipeline``, ``compile_partitioned``, driven by
 ``repro_torch.parallel.pipeline``) with scan expansion
-(``expand_graph``), so the cuts can land inside a layer stack. Not yet
-(ROADMAP.md, queue item 3.5): paged-KV placement.
+(``expand_graph``), so the cuts can land inside a layer stack; and a
+paged KV pool placed next to its attention consumers (``place_kv``) with
+its per-step traffic priced into the schedule (``Schedule.attach_kv``).
 """
 
 from repro_torch.mapper.api import (abstract_like, compile_arch,
@@ -47,12 +48,14 @@ from repro_torch.mapper.hardware import (ChipSpec, PIMHierarchy,
                                          curve_candidates, default_hierarchy,
                                          make_subarray, tile_curve)
 from repro_torch.mapper.lowering import LoweringContext, eval_placed
-from repro_torch.mapper.placement import (GraphPartition, NodePlacement,
+from repro_torch.mapper.placement import (GraphPartition, KVBlockSpec,
+                                          KVPlacement, NodePlacement,
                                           PlacedBlock, Placement,
                                           PlacementPolicy, node_homes,
-                                          partition, place,
+                                          partition, place, place_kv,
                                           total_transfer_hops)
-from repro_torch.mapper.schedule import (EXPAND_BUDGET_CHIPS, PartitionCost,
+from repro_torch.mapper.schedule import (EXPAND_BUDGET_CHIPS, KVTraffic,
+                                         PartitionCost,
                                          PipelineTimeline, Schedule,
                                          ScheduleReport, StageCost,
                                          build_schedule,
@@ -60,8 +63,9 @@ from repro_torch.mapper.schedule import (EXPAND_BUDGET_CHIPS, PartitionCost,
 
 __all__ = [
     "ChipSpec", "CompiledProgram", "ConvNode", "EXPAND_BUDGET_CHIPS",
-    "EltwiseNode", "GraphPartition", "LoweringContext", "MatmulNode",
-    "NodePlacement", "OpGraph", "OpNode", "PIMHierarchy", "PartitionCost",
+    "EltwiseNode", "GraphPartition", "KVBlockSpec", "KVPlacement",
+    "KVTraffic", "LoweringContext", "MatmulNode", "NodePlacement",
+    "OpGraph", "OpNode", "PIMHierarchy", "PartitionCost",
     "PartitionedProgram", "PipelineTimeline", "PlacedBlock", "Placement",
     "PlacementPolicy", "Schedule", "ScheduleExecutor", "ScheduleReport",
     "StageCost", "StageProgram", "SubarraySpec", "TileSpec", "Unit",
@@ -70,6 +74,6 @@ __all__ = [
     "compile_lenet", "compile_partitioned", "compile_schedule",
     "curve_candidates", "default_hierarchy", "eval_placed", "expand_graph",
     "make_subarray", "map_arch", "map_lenet", "node_homes", "partition",
-    "place", "plan_scan_expansion", "program_cache_stats", "run_schedule",
-    "scan_lengths", "tile_curve", "total_transfer_hops",
+    "place", "place_kv", "plan_scan_expansion", "program_cache_stats",
+    "run_schedule", "scan_lengths", "tile_curve", "total_transfer_hops",
 ]

@@ -99,7 +99,8 @@ class CompiledProgram:
                 # the whole call as one execute-lane span, synced so dur
                 # covers the device work; the per-node launch spans nest
                 # under it
-                with tr.span("program:call", lane="execute"):
+                with tr.span("program:call", lane="execute",
+                             sync=self.device.type == "cuda"):
                     outs = eval_placed(self.ctx, flat)
                     if self.device.type == "cuda":
                         torch.cuda.synchronize(self.device)
@@ -287,7 +288,8 @@ class PartitionedProgram:
                 outs = self._run(flat)
             else:
                 with tr.span("program:call", lane="execute",
-                             partitions=len(self.stages)):
+                             partitions=len(self.stages),
+                             sync=self.device.type == "cuda"):
                     outs = self._run(flat)
                     if self.device.type == "cuda":
                         torch.cuda.synchronize(self.device)

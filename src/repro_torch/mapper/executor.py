@@ -135,7 +135,8 @@ class ScheduleExecutor:
             if tr.enabled:
                 # depth-0 run span; the per-node launch spans recorded in
                 # eval_placed nest under it
-                with tr.span("run:schedule", lane="execute"):
+                with tr.span("run:schedule", lane="execute",
+                             sync=self.device.type == "cuda"):
                     outs = eval_placed(self._ctx, flat)
                     if self.device.type == "cuda":
                         torch.cuda.synchronize(self.device)
@@ -160,6 +161,19 @@ class ScheduleExecutor:
         return max_deviation(got, want, rtol, atol)
 
 
+def fake_quant_stationary(schedule: Schedule, node, w: torch.Tensor
+                          ) -> torch.Tensor:
+    """What the schedule's weight grid stores of a placed product's
+    stationary operand ``w`` (the (k, n) matrix of ``node.weight_shape``),
+    dequantized: ``quant.fake_quant`` per placed row block and column, as
+    K5 reads it. The identity, in float32, on the fp32 grid."""
+    grid = schedule.hierarchy.subarray.weight_dtype
+    rows = schedule.hierarchy.subarray.weight_rows
+    assert tuple(w.shape) == tuple(node.weight_shape), node.name
+    return torch.cat([quant.fake_quant(w[r:r + rows], grid)
+                      for r in range(0, w.shape[0], rows)])
+
+
 def run_fake_quant_plain(schedule: Schedule, *args, **kwargs):
     """The schedule's aten graph run with native ops on the arguments'
     device (float32, TF32 off), each placed product outside a scanned
@@ -174,17 +188,13 @@ def run_fake_quant_plain(schedule: Schedule, *args, **kwargs):
     if spec != schedule.graph.in_spec:
         raise TypeError(f"argument structure {spec} != traced structure "
                         f"{schedule.graph.in_spec}")
-    grid = schedule.hierarchy.subarray.weight_dtype
     placed = {nd.fx_node: nd for nd in schedule.graph.nodes
               if nd.idx in schedule.placement.node_placements
               and not nd.scanned}
     aten = torch.ops.aten
 
-    def stored(w, node):              # w: the (k, n) stationary operand
-        rows = schedule.hierarchy.subarray.weight_rows
-        assert tuple(w.shape) == tuple(node.weight_shape), node.name
-        return torch.cat([quant.fake_quant(w[r:r + rows], grid)
-                          for r in range(0, w.shape[0], rows)])
+    def stored(w, node):
+        return fake_quant_stationary(schedule, node, w)
 
     def call(fx, node, args, kwargs):
         if node is not None and fx.target is aten.mm.default:

@@ -57,6 +57,11 @@ actual kernel launches — under the per-block oracle they are equal (plus
 eltwise); under grouped execution launches collapse to about one per
 placed node.
 
+An op the capture keeps whole (K4 or K6 inside the paged decode tick,
+``kernels.flash_attention.paged_decode_op``) runs as itself, on its
+kernel, and an in-place write (the tick's pool writes) replays in place
+on the argument it was traced on.
+
 A node inside a scanned layer stack (``OpNode.scanned``) runs its own
 aten op in every iteration, as the reference's lowering binds the placed
 ops of a scan body as their primitives: only the nodes outside the stack
@@ -695,11 +700,12 @@ def eval_steps(ctx: LoweringContext, steps, flat_args, device,
                 # record the launch as an execute-lane span, synced so dur
                 # covers the device work
                 n0 = ctx.kernel_launches
+                cuda = device is not None and device.type == "cuda"
                 with tr.span(f"{step.node.kind}:{step.node.name}",
                              lane="execute", node=step.node.idx,
-                             kind=step.node.kind):
+                             kind=step.node.kind, sync=cuda):
                     outs = _run_placed(ctx, step, read)
-                    if device is not None and device.type == "cuda":
+                    if cuda:
                         torch.cuda.synchronize(device)
                 obs.metrics().counter("pim.kernel_launches").inc(
                     ctx.kernel_launches - n0)

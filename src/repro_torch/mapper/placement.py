@@ -49,8 +49,9 @@ is one unit — unless the graph was first expanded with
 expand_scans=True)``), which leaves resident per-layer copies at top
 level where subarray capacity allows.
 
-Not ported yet: paged-KV placement (``place_kv``; ROADMAP.md, queue item
-3.5).
+A paged KV pool is resident state, not weights: ``place_kv`` packs its
+blocks onto the subarrays after the weight region, next to the attention
+stack that reads them (``KVBlockSpec``, ``KVPlacement``).
 """
 
 from __future__ import annotations
@@ -384,6 +385,110 @@ def total_transfer_hops(graph: OpGraph, placement: Placement) -> int:
     """Total NoC mesh hops on every producer->consumer activation path —
     the locality objective the topology-aware packer minimizes."""
     return _edge_hops(graph, placement)
+
+
+# ---------------------------------------------------------------------------
+# KV page placement (paged serving state, not weights)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class KVBlockSpec:
+    """Geometry of a paged KV pool the mapper places as resident state.
+
+    ``sites`` counts the attention sites that read/write the pool (layer
+    scan units x attention blocks per unit); each site owns its own
+    ``num_blocks`` x ``block_size``-token pool slice. ``token_bits`` is
+    the K+V bits one token occupies at one site."""
+
+    sites: int
+    num_blocks: int
+    block_size: int
+    token_bits: int
+
+    @property
+    def block_bits(self) -> int:
+        return self.block_size * self.token_bits
+
+    @property
+    def total_bits(self) -> int:
+        return self.sites * self.num_blocks * self.block_bits
+
+
+@dataclasses.dataclass
+class KVPlacement:
+    """Where each site's KV blocks live, and which subarray consumes them.
+
+    KV pages get allocation indices *after* the weight region and map
+    through the placement's locality curve, so pages adjacent in
+    allocation order are mesh-adjacent and the pool as a whole sits on
+    the tiles immediately following the weights — near the scanned
+    attention stack that is always packed last. ``site_consumer`` holds
+    each site's attention consumer home (where gathered blocks are
+    streamed to), cycled over the consumer nodes' physical homes."""
+
+    spec: KVBlockSpec
+    placement: Placement
+    site_first: tuple[int, ...]       # allocation index of site's first page
+    blocks_per_subarray: int
+    site_consumer: tuple[int, ...]    # physical consumer subarray per site
+    n_subarrays: int                  # pool subarrays, all sites
+
+    def block_home(self, site: int, block: int) -> int:
+        """Physical subarray holding one (site, block) KV page."""
+        alloc = self.site_first[site] + block // self.blocks_per_subarray
+        return self.placement.physical_subarray(alloc)
+
+    def consumer_home(self, site: int) -> int:
+        return self.site_consumer[site]
+
+    def block_coords(self, site: int, block: int) -> tuple[int, int, int]:
+        return self.placement.hierarchy.locate(self.block_home(site, block))
+
+
+def place_kv(graph: OpGraph, placement: Placement,
+             spec: KVBlockSpec) -> KVPlacement:
+    """Assign a paged KV pool to (chip, tile, subarray) coordinates near
+    its attention consumers.
+
+    Blocks pack into subarrays by capacity (a subarray stores
+    ``capacity_values * n_bits`` bits) and take allocation indices
+    directly after the weight region — the placement's locality curve
+    then lands them on mesh-adjacent tiles next to the last-placed
+    weights. Consumer anchors come from the placed matmul nodes with the
+    highest ``repeat`` (the scanned layer stack the attention sites live
+    in), falling back to all placed nodes; sites cycle over those homes
+    so per-site traffic spreads across the consumer tiles. Raises
+    ``ValueError`` when one block exceeds a subarray's capacity."""
+    if spec.sites < 1 or spec.num_blocks < 1:
+        raise ValueError(f"need >= 1 site and >= 1 block, got "
+                         f"{spec.sites} sites / {spec.num_blocks} blocks")
+    sub = placement.hierarchy.subarray
+    cap_bits = sub.capacity_values * sub.n_bits
+    if spec.block_bits > cap_bits:
+        raise ValueError(
+            f"one KV block ({spec.block_bits} bits) exceeds a subarray's "
+            f"capacity ({cap_bits} bits); shrink block_size")
+    blocks_per_sub = max(1, cap_bits // spec.block_bits)
+    subs_per_site = math.ceil(spec.num_blocks / blocks_per_sub)
+
+    placed = [nd for nd in graph.matmul_like()
+              if nd.idx in placement.node_placements]
+    if placed:
+        max_rep = max(nd.repeat for nd in placed)
+        anchors = [nd for nd in placed if nd.repeat == max_rep] or placed
+        homes = [placement.home_subarray(nd.idx) for nd in anchors]
+    else:
+        homes = [0]
+    base = placement.n_subarrays
+    return KVPlacement(
+        spec=spec, placement=placement,
+        site_first=tuple(base + i * subs_per_site
+                         for i in range(spec.sites)),
+        blocks_per_subarray=blocks_per_sub,
+        site_consumer=tuple(homes[i % len(homes)]
+                            for i in range(spec.sites)),
+        n_subarrays=spec.sites * subs_per_site)
 
 
 def _replicas_for(node: OpNode, blocks: int, lanes_per_sub: int,

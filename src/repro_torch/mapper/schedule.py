@@ -39,9 +39,14 @@ each boundary transfer crosses), and the pipelined-vs-sequential speedup.
 (``placement.partition``), first expanding its folded layer stacks where
 the subarray budget allows (``graph.expand_graph``).
 
+A paged serving step prices its KV pool's traffic with
+:meth:`Schedule.attach_kv` (``KVTraffic``): every attention site gathers
+its slots' resident blocks from where ``placement.place_kv`` put them
+and writes one token back, folded into the report and into the
+pipeline's link contention.
+
 The arithmetic is the reference's, in the same order, so reports and
-timelines are its numbers to the bit. Not ported yet: paged KV traffic
-(``attach_kv``, ``KVTraffic``; ROADMAP.md, queue item 3.5).
+timelines are its numbers to the bit.
 """
 
 from __future__ import annotations
@@ -174,6 +179,27 @@ class PipelineTimeline:
                 f"speedup={self.speedup:.2f}x vs sequential")
 
 
+@dataclasses.dataclass(frozen=True)
+class KVTraffic:
+    """Per-decode-step cost of streaming paged KV blocks (``attach_kv``).
+
+    ``t_s``/``e_j`` are the serialized block-gather + token-writeback
+    time/energy folded into the schedule's report; ``link_busy`` holds
+    the per-shared-link occupancy joined into the pipeline contention
+    model (a KV stream and a boundary activation stream crossing the
+    same NoC edge serialize there)."""
+
+    resident_tokens: int
+    batch: int
+    read_bits: int                # all sites, one decode step
+    write_bits: int
+    t_s: float
+    e_j: float
+    hops: int
+    link_busy: dict = dataclasses.field(repr=False, hash=False,
+                                        compare=False, default_factory=dict)
+
+
 @dataclasses.dataclass
 class Schedule:
     graph: graph_mod.OpGraph
@@ -181,6 +207,8 @@ class Schedule:
     hierarchy: PIMHierarchy
     stages: list[StageCost]
     report: ScheduleReport
+    kv_placement: "placement_mod.KVPlacement | None" = None
+    kv: KVTraffic | None = None
     ideal_provision: str = "fp32"   # lane-provisioning basis of the ideal
     act_bits: int = 32              # activation transfer width (ACT_BITS
                                     # resolved per schedule via act_dtype)
@@ -213,6 +241,66 @@ class Schedule:
             "structural_overhead": (rep.latency_s / ideal.latency_s
                                     if ideal.latency_s else math.inf),
         }
+
+    def attach_kv(self, kvp: placement_mod.KVPlacement, *,
+                  resident_tokens: int, batch: int = 1) -> KVTraffic:
+        """Price paged-KV traffic into this schedule: per decode step,
+        every attention site gathers its slots' resident blocks
+        (``ceil(resident_tokens / block_size)`` blocks x ``batch``
+        streams) from the placed KV pages into its consumer's tile and
+        writes one token per slot back into the tail block.
+
+        The transfer time/energy/hops fold into ``report`` (latency only
+        grows, so ``reconcile()``'s ``latency >= ideal`` invariant is
+        preserved and op counts are untouched), and the per-link busy
+        times join :meth:`pipeline`'s contention model. Raises
+        ``ValueError`` when traffic is already attached."""
+        if resident_tokens < 1 or batch < 1:
+            raise ValueError("resident_tokens and batch must be >= 1")
+        if self.kv is not None:
+            raise ValueError(
+                "KV traffic is already attached to this schedule (the "
+                "report would double-price it); build a fresh schedule "
+                "to re-price a different KV spec")
+        spec = kvp.spec
+        nb = min(spec.num_blocks,
+                 math.ceil(resident_tokens / spec.block_size))
+        t = e = 0.0
+        hops = 0
+        read_bits = write_bits = 0
+        link_busy: dict[tuple, float] = {}
+
+        def charge(bits: int, src: int, dst: int) -> None:
+            nonlocal t, e, hops
+            dt_, de = self.hierarchy.transfer_cost(bits, src, dst)
+            t += dt_
+            e += de
+            hops += self.hierarchy.hop_count(src, dst) if bits else 0
+            for link in self.hierarchy.route_links(src, dst):
+                link_busy[link] = (link_busy.get(link, 0.0)
+                                   + self.hierarchy.link_time(link, bits))
+
+        for site in range(spec.sites):
+            dst = kvp.consumer_home(site)
+            for b in range(nb):
+                bits = batch * spec.block_bits
+                charge(bits, kvp.block_home(site, b), dst)
+                read_bits += bits
+            wbits = batch * spec.token_bits
+            charge(wbits, dst, kvp.block_home(site, nb - 1))
+            write_bits += wbits
+
+        self.kv_placement = kvp
+        self.kv = KVTraffic(resident_tokens=resident_tokens, batch=batch,
+                            read_bits=read_bits, write_bits=write_bits,
+                            t_s=t, e_j=e, hops=hops, link_busy=link_busy)
+        self.report = dataclasses.replace(
+            self.report,
+            latency_s=self.report.latency_s + t,
+            energy_j=self.report.energy_j + e,
+            transfer_energy_j=self.report.transfer_energy_j + e,
+            total_hops=self.report.total_hops + hops)
+        return self.kv
 
     def pipeline(self, microbatches: int = 8,
                  partitions: int | None = None) -> PipelineTimeline:
@@ -260,6 +348,11 @@ class Schedule:
                         link_busy[link] = (
                             link_busy.get(link, 0.0)
                             + self.hierarchy.link_time(link, bits))
+        # attached paged-KV streams contend on the same shared links
+        # (one decode step == one microbatch through the decode pipeline)
+        if self.kv is not None:
+            for link, t_kv in self.kv.link_busy.items():
+                link_busy[link] = link_busy.get(link, 0.0) + t_kv
         pcosts: list[PartitionCost] = []
         for i, p in enumerate(parts):
             t_boundary = 0.0

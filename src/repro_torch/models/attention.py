@@ -39,7 +39,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import quant
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import (
-    paged_decode_attention_grouped, paged_decode_attention_grouped_q)
+    paged_decode_attention_grouped, paged_decode_attention_grouped_q,
+    paged_decode_op, paged_decode_q_op)
 from repro_torch.models import layers
 
 NEG_INF = ref.NEG_INF
@@ -218,19 +219,33 @@ def decode_attention(x: torch.Tensor, p: dict, cfg: ArchConfig,
                                    pos.expand(b, 1))
     k = _updated(cache["k"], k_new, pos)
     v = _updated(cache["v"], v_new, pos)
-    s = k.shape[1]
+    valid = torch.arange(k.shape[1], device=x.device) <= pos
+    return _grouped_decode(q, k, v, valid, cfg) @ p["wo"], {"k": k, "v": v}
+
+
+def _grouped_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    valid: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """One query token's grouped attention over keys ``k``/``v`` [B, S, G,
+    hd], ``valid`` the keys it may read (broadcast against [B, G, R, 1,
+    S]), q [B, 1, H, hd] -> [B, 1, H·hd], before the output projection.
+    The reference's products, spelled as its ``dot_general``s: the scores
+    its ``dot_general(k, q)`` over (b, g) — ``bmm`` of k [B·G, S, hd] by q
+    [B·G, hd, R] — and the values its ``dot_general(v, p)``; the softmax
+    in float32, the probabilities in q's dtype."""
+    b, s = k.shape[0], k.shape[1]
+    hd = cfg.resolved_head_dim
+    g = cfg.n_kv_heads
+    r = cfg.n_heads // g
     qg = q.reshape(b, 1, g, r, hd)                      # [B, 1, G, R, hd]
     scores = torch.bmm(k.permute(0, 2, 1, 3).reshape(b * g, s, hd),
                        qg.permute(0, 2, 4, 1, 3).reshape(b * g, hd, r))
     scores = scores.view(b, g, s, 1, r).permute(0, 1, 4, 3, 2)  # b g r q k
     scores = scores.float() / math.sqrt(hd)
-    valid = torch.arange(s, device=x.device) <= pos
     probs = _softmax(torch.where(valid, scores, NEG_INF)).to(q.dtype)
     out = torch.bmm(v.permute(0, 2, 3, 1).reshape(b * g, hd, s),
                     probs.permute(0, 1, 4, 2, 3).reshape(b * g, s, r))
     out = out.view(b, g, hd, r, 1).permute(0, 4, 1, 3, 2)   # b q g r d
-    out = out.reshape(b, 1, cfg.n_heads * hd) @ p["wo"]
-    return out, {"k": k, "v": v}
+    return out.reshape(b, 1, cfg.n_heads * hd)
 
 
 # ---------------------------------------------------------------------------
@@ -326,6 +341,99 @@ def paged_decode_attention(x, attn: Attention, cfg: ArchConfig,
         att = ref.paged_decode_attention_ref(q1, k_store, v_store,
                                              block_table, pos)
     return att.reshape(b, 1, cfg.n_heads * hd) @ attn.wo
+
+
+def _wrapped(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """An index into an axis of ``n`` with a negative entry counted from
+    the end: the normalization the reference's indexing (jnp's gather and
+    ``.at[].set``) applies to every index, whose ``add`` its graph
+    prices."""
+    return torch.where(idx < 0, idx + n, idx)
+
+
+def _put(store: torch.Tensor, blk: torch.Tensor, off: torch.Tensor,
+         new: torch.Tensor) -> torch.Tensor:
+    """``store[blk, off] = new`` in place, the indices normalized as the
+    reference's ``.at[blk, off].set`` does; returns ``store``."""
+    rows = _wrapped(blk, store.shape[0]).long()
+    store[rows, _wrapped(off, store.shape[1]).long()] = new.to(store.dtype)
+    return store
+
+
+def paged_decode_attention_tree(x: torch.Tensor, p: dict, cfg: ArchConfig,
+                                cache: dict, block_table: torch.Tensor,
+                                pos: torch.Tensor, *,
+                                use_kernel: bool = False,
+                                kv_dtype: str = "fp32"):
+    """:func:`paged_decode_attention` on a site's weights from the
+    reference's parameter tree (``p``: ``{"wq", "wk", "wv", "wo"}``) and
+    its pool slice ``cache`` (``{"k", "v"}`` [num_blocks, block_size, G,
+    hd], with ``"k_scale"``/``"v_scale"`` over a quantized pool): the
+    function the mapper traces for a paged decode step
+    (``models.transformer.decode_step_paged``). Returns (out [B, 1, D],
+    ``cache``), the new token's K/V written into it in place.
+
+    The ops are the reference's ``paged_decode_attention``, in its order,
+    so the traced graph is its graph: the tail block and offset with
+    jnp's index normalization (:func:`_wrapped`), both K and V quantized
+    before the four writes (K, its scales, V, its scales), each write and
+    each gather of the pool through the table normalizing its own
+    indices. The kernel path reaches K4 (K6 over a quantized pool)
+    through an op the capture keeps whole
+    (``kernels.flash_attention.paged_decode_op``), as the reference's
+    graph keeps its ``pallas_call``; the gather path is the reference's
+    gather, dequantization and grouped products (:func:`_grouped_decode`).
+    It does not share ``_scatter``, which quantizes each leaf just before
+    writing it; and the jit engine's tick keeps
+    :func:`paged_decode_attention`, which spends no kernels on the index
+    normalization (a no-op on the table's valid indices)."""
+    quantized = quant.spec(kv_dtype).name != "fp32"
+    if quantized and not use_kernel:
+        _require_f32_for_gather(x.dtype, kv_dtype, "the gather decode path")
+    b = x.shape[0]
+    hd = cfg.resolved_head_dim
+    k_store, v_store = cache["k"], cache["v"]
+    nb, bs = k_store.shape[0], k_store.shape[1]
+    w = block_table.shape[1]
+    q, k_new, v_new = _project_qkv(x, p["wq"], p["wk"], p["wv"], cfg,
+                                   pos[:, None])
+    rows = _wrapped(torch.arange(b, dtype=pos.dtype, device=x.device), b)
+    tail = _wrapped(torch.div(pos, bs, rounding_mode="floor"), w)
+    blk = block_table[rows.long(), tail.long()]              # [B] tail blocks
+    off = torch.remainder(pos, bs)
+    if quantized:
+        k_codes, k_sc = quant.quantize_kv(k_new[:, 0], kv_dtype)
+        v_codes, v_sc = quant.quantize_kv(v_new[:, 0], kv_dtype)
+        for name, new in (("k", k_codes), ("k_scale", k_sc),
+                          ("v", v_codes), ("v_scale", v_sc)):
+            _put(cache[name], blk, off, new)
+    else:
+        _put(k_store, blk, off, k_new[:, 0])
+        _put(v_store, blk, off, v_new[:, 0])
+    if use_kernel:
+        if quantized:
+            att = paged_decode_q_op(q[:, 0], k_store, cache["k_scale"],
+                                    v_store, cache["v_scale"], block_table,
+                                    pos, quant.spec(kv_dtype).name)
+        else:
+            att = paged_decode_op(q[:, 0], k_store, v_store, block_table,
+                                  pos)
+        return att.reshape(b, 1, cfg.n_heads * hd) @ p["wo"], cache
+
+    def gathered(name):
+        return cache[name][_wrapped(block_table, nb).long()]
+
+    if quantized:
+        k = quant.dequantize_kv(gathered("k"), gathered("k_scale"), kv_dtype)
+        v = quant.dequantize_kv(gathered("v"), gathered("v_scale"), kv_dtype)
+    else:
+        k, v = gathered("k"), gathered("v")
+    k = k.reshape(b, w * bs, cfg.n_kv_heads, hd)
+    v = v.reshape(b, w * bs, cfg.n_kv_heads, hd)
+    valid = (torch.arange(w * bs, device=x.device)[None]
+             <= pos[:, None])                                 # [B, L]
+    out = _grouped_decode(q, k, v, valid[:, None, None, None, :], cfg)
+    return out @ p["wo"], cache
 
 
 def paged_prefill_attention(x, attn: Attention, cfg: ArchConfig,

@@ -23,6 +23,12 @@ Entry points:
     (``launch.steps.make_serve_step``). Each layer runs in a ``"scan"``
     region (``core.estimator.region``), which the mapper's graph folds
     back into the reference's scanned nodes;
+  * ``decode_step_paged(cfg, params, cache, token, block_table, pos)``
+    -> (logits ``[B, V]``, the written pool slices): the paged tick on the
+    same tree, over the engine's pool written in place, each layer one
+    iteration of the ``"scan"`` region — what ``ServeEngine(backend=
+    "pim")`` maps (``serve.map_paged_tick``); the method of the same name
+    stays the jit engine's tick;
   * ``hidden_states(cfg, params, tokens)`` / ``apply`` -> the final-norm
     hidden states ``[B, S, D]`` / the logits ``[B, S, V]`` over a whole
     sequence (train and prefill), functions of the same tree. The layer
@@ -123,6 +129,53 @@ def decode_step(cfg: ArchConfig, params: dict, cache: dict,
     logits = layers.lm_head(x, params["lm_head"]["w"])
     return logits[:, 0], {"layers": {"block0": {"k": torch.stack(ks),
                                                 "v": torch.stack(vs)}}}
+
+
+def decode_step_paged(cfg: ArchConfig, params: dict, cache: dict,
+                      token: torch.Tensor, block_table: torch.Tensor,
+                      pos: torch.Tensor, *, kernel: bool = False,
+                      kv_dtype: str = "fp32"):
+    """The reference's ``DecoderLM.decode_step_paged`` on its parameter
+    tree (``param_tree``): token [B] int; block_table [B, W] int32; pos
+    [B] int32 per-slot positions. ``cache`` is ``{"layers": {"block0":
+    pool}}``, ``pool`` the engine's KV pool (``DecoderLM.init_paged_cache``:
+    leaves ``[L, num_blocks, block_size, G, hd]``), written in place —
+    never copied: at llama3-8b's width it holds gigabytes. Returns
+    (logits [B, V], ``{"layers": {"block0": {leaf: [layer 0's slice, ...]}}}``),
+    each slice a view of ``cache``'s leaf that its layer wrote: the
+    reference's new cache, a stack of its layers' pools, with nothing
+    stacked.
+
+    Each layer is one iteration of a ``"scan"`` region, its slices taken
+    at the iteration's start in the order the reference's scan takes its
+    xs (the leaves in sorted key order, then the pool's), so the mapper
+    folds it into the reference's scanned nodes; each site is
+    ``attention.paged_decode_attention_tree``. ``kernel=True`` runs every
+    site's attention on K4 (K6 over a quantized ``kv_dtype``)."""
+    x = layers.embed(token[:, None], params["embed"]["table"])
+    lp = params["layers"]["block0"]
+    lc = cache["layers"]["block0"]
+    leaves = [lp[group][name] for group, name in
+              (key.split("/") for key in STACK_LEAVES)]
+    written: dict[str, list] = {name: [] for name in sorted(lc)}
+    for i in range(cfg.n_layers):
+        with estimator.region("scan", "layers"):
+            w = _layer(leaves, i)
+            site = {name: lc[name][i] for name in sorted(lc)}
+            h = layers.rms_norm(x, w["norm1/scale"], cfg.norm_eps)
+            att, site = attention.paged_decode_attention_tree(
+                h, {name: w[f"attn/{name}"] for name in lp["attn"]}, cfg,
+                site, block_table, pos, use_kernel=kernel,
+                kv_dtype=kv_dtype)
+            x = x + att
+            h = layers.rms_norm(x, w["norm2/scale"], cfg.norm_eps)
+            x = x + layers.mlp(h, w["mlp/w_gate"], w["mlp/w_up"],
+                               w["mlp/w_down"])
+        for name, t in site.items():
+            written[name].append(t)
+    x = layers.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
+    logits = layers.lm_head(x, params["lm_head"]["w"])
+    return logits[:, 0], {"layers": {"block0": written}}
 
 
 # sequence length above which the reference attends chunk by chunk
@@ -439,6 +492,29 @@ class DecoderLM(nn.Module):
             flat[f"layers/block0/{key}"] = torch.stack([
                 blk.get_parameter(attr) for blk in self.layers])
         return param_tree({k: flat[k] for k in leaf_shapes(self.cfg)})
+
+    @torch.no_grad()
+    def shared_stacked_params(self) -> dict:
+        """The reference's tree of this module's parameters, built once
+        and shared with the module: each layer's parameters become views
+        of the tree's stacked leaves (values unchanged), so the two never
+        hold the weights twice and later calls return the same tree. What
+        a mapped step runs on for the engine's lifetime
+        (``serve.ServeEngine(backend="pim")``); ``stacked_params`` copies
+        on every call."""
+        tree = getattr(self, "_shared_tree", None)
+        if tree is not None:
+            return tree
+        tree = self.stacked_params()
+        lp = tree["layers"]["block0"]
+        for key, attr in LAYER_LEAVES.items():
+            group, name = key.split("/")
+            owner, pname = attr.rsplit(".", 1)
+            for i, blk in enumerate(self.layers):
+                setattr(blk.get_submodule(owner), pname,
+                        nn.Parameter(lp[group][name][i], requires_grad=False))
+        self._shared_tree = tree
+        return tree
 
     def init_cache(self, batch: int, max_len: int) -> dict:
         """The contiguous KV cache ``decode_step`` takes: ``{"layers":

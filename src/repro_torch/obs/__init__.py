@@ -3,7 +3,8 @@
 A copy of the reference's ``repro.obs`` tracing and metrics layers (pure
 Python, no framework import), so the port's serve engine and KV allocator
 record the same spans, counters, gauges and histograms under the same
-names. The modeled-vs-measured drift layer is not ported yet.
+names, and its drift layer (``repro_torch.obs.drift``): the measured
+launch and pipeline spans joined against the schedule's modeled costs.
 
 Tracing is **opt-in** (:func:`enable`); the metrics registry is always on
 and touched only at program boundaries (per tick / request).
@@ -16,6 +17,7 @@ Usage::
     engine.run()                      # spans recorded
     tr.export_chrome("serve.trace.json")
     obs.metrics().snapshot()          # counters/gauges/histograms
+    engine.drift_report(tr)           # modeled-vs-measured per node
     obs.disable()
 """
 
@@ -23,6 +25,9 @@ from __future__ import annotations
 
 import contextlib
 
+from repro_torch.obs.drift import (DriftReport, NodeDrift, PipelineDrift,
+                                   StageOccupancy, drift_report,
+                                   measure_drift, pipeline_drift)
 from repro_torch.obs.metrics import (DEFAULT_EDGES, Counter, Gauge,
                                      Histogram, MetricsRegistry)
 from repro_torch.obs.trace import (NULL_TRACER, NullTracer, SpanEvent,
@@ -82,8 +87,10 @@ def instant(name: str, lane: str = "main", **args) -> None:
 
 
 __all__ = [
-    "Counter", "DEFAULT_EDGES", "Gauge", "Histogram", "MetricsRegistry",
-    "NULL_TRACER", "NullTracer", "SpanEvent", "Tracer", "disable",
-    "enable", "instant", "is_enabled", "metrics", "scoped", "span",
-    "tracer", "validate_chrome_trace",
+    "Counter", "DEFAULT_EDGES", "DriftReport", "Gauge", "Histogram",
+    "MetricsRegistry", "NULL_TRACER", "NodeDrift", "NullTracer",
+    "PipelineDrift", "SpanEvent", "StageOccupancy", "Tracer", "disable",
+    "drift_report", "enable", "instant", "is_enabled", "measure_drift",
+    "metrics", "pipeline_drift", "scoped", "span", "tracer",
+    "validate_chrome_trace",
 ]

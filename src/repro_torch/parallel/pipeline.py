@@ -83,6 +83,12 @@ def tick_phase(t: int, n_stages: int, n_micro: int) -> str:
     return "steady"
 
 
+def _on_cuda(values) -> bool:
+    """Whether ``values`` hold a CUDA tensor: a cell span over them waits
+    for the device (``_sync``), which its ``sync`` argument records."""
+    return any(isinstance(x, torch.Tensor) and x.is_cuda for x in values)
+
+
 def _sync(values) -> None:
     """Wait for the device work behind ``values`` (a span's end)."""
     for x in values:
@@ -178,7 +184,8 @@ def run_partitioned(stages: Sequence, out_refs: Sequence,
                for r in stages[s].in_refs]
         if tr.enabled:
             with tr.span(f"{tick_phase(t, n_stages, n_micro)}:tick",
-                         lane="pipeline", tick=t, stage=s, micro=m):
+                         lane="pipeline", tick=t, stage=s, micro=m,
+                         sync=_on_cuda(ins)):
                 outs[m][s] = stages[s].fn(*ins)
                 _sync(outs[m][s])
         else:
@@ -222,7 +229,7 @@ def run_partitioned_async(stages: Sequence, out_refs: Sequence,
             if tr.enabled:
                 with tr.span(f"{tick_phase(t, n_stages, n_micro)}:tick",
                              lane=f"pipeline:stage{s}", tick=t, stage=s,
-                             micro=m):
+                             micro=m, sync=_on_cuda(ins)):
                     outs[m][s] = st.fn(*ins)
                     _sync(outs[m][s])
             else:
@@ -307,7 +314,8 @@ def gpipe_value_and_grad(stages: Sequence, loss_ref: tuple,
             with torch.enable_grad():
                 if tr.enabled:
                     with tr.span(f"{tick_phase(t, n_stages, n_micro)}:fwd",
-                                 lane="pipeline", tick=t, stage=s, micro=m):
+                                 lane="pipeline", tick=t, stage=s, micro=m,
+                                 sync=_on_cuda(ins)):
                         outs[m][s] = st.fn(*ins)
                         _sync(outs[m][s])
                 else:
@@ -346,7 +354,8 @@ def gpipe_value_and_grad(stages: Sequence, loss_ref: tuple,
                         [c for _, c in pairs], allow_unused=True)
                 if tr.enabled:
                     with tr.span(f"{tick_phase(t, n_stages, n_micro)}:bwd",
-                                 lane="pipeline", tick=t, stage=s, micro=m):
+                                 lane="pipeline", tick=t, stage=s, micro=m,
+                                 sync=_on_cuda(c for _, c in pairs)):
                         in_cots = pull()
                         _sync(in_cots)
                 else:

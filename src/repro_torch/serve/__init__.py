@@ -1,5 +1,5 @@
-from repro_torch.serve.engine import Request, ServeEngine
+from repro_torch.serve.engine import Request, ServeEngine, map_paged_tick
 from repro_torch.serve.kv import KVCacheOOM, PagedKVCache, SwappedPages
 
 __all__ = ["KVCacheOOM", "PagedKVCache", "Request", "ServeEngine",
-           "SwappedPages"]
+           "SwappedPages", "map_paged_tick"]

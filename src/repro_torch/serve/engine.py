@@ -23,15 +23,30 @@ K6 on the kernel path. A bfloat16 model with a quantized pool runs only
 with ``attn_kernel=True`` and ``prefill="replay"``, as in the reference
 (``models.attention``).
 
-Not ported yet — each raises ``NotImplementedError`` naming its item of
-the port queue in ``ROADMAP.md``: the contiguous lanes (``paged=False``),
-the PIM backend and its partitions, weight/activation quantization and
-``drift_report``.
+``backend="pim"`` maps the decode tick onto the paper's PIM hierarchy
+(``repro_torch.mapper``) and decodes every tick through the compiled
+program: the tick is ``models.transformer.decode_step_paged`` on the
+reference's parameter tree, its layer stack folded into the reference's
+scanned nodes and run natively (each site's attention on K4, or K6 over a
+quantized pool, writing the pool in place), the nodes outside the stack
+on the PIM kernels (the LM head on K1, or K5 on a quantized weight grid;
+the final norm's MACs on K3). The KV pool is placed next to its attention
+consumers (``mapper.place_kv``) and its per-tick traffic priced into the
+schedule (``Schedule.attach_kv``); ``partitions`` compiles the tick as
+pipeline stages, ``drift_report`` joins a traced run against the
+schedule. Preemption, swap, copy-on-write, prefix sharing and batched
+prefill (plain PyTorch, as in the reference) are the same on both
+backends.
+
+Not ported yet: the contiguous lanes (``paged=False`` raises
+``NotImplementedError`` naming its item of the port queue in
+``ROADMAP.md``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import time
 from collections import deque
@@ -46,11 +61,9 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import quant
 from repro_torch.models import attention
 from repro_torch.models.transformer import DecoderLM
-from repro_torch.serve.kv import KVCacheOOM, PagedKVCache, kv_token_bytes
+from repro_torch.serve.kv import (KVCacheOOM, PagedKVCache, kv_token_bits,
+                                  kv_token_bytes)
 
-_PIM = "ROADMAP.md, port queue item 3: the mapper and the PIM backend"
-_PIM_SERVE = ("ROADMAP.md, port queue item 3.5: ServeEngine(backend='pim'), "
-              "whose placed weights the quantized grids would store")
 _CONTIGUOUS = ("ROADMAP.md, port queue item 6: contiguous lanes, router, "
                "workload")
 
@@ -92,13 +105,68 @@ class Request:
         return (self.t_done - self.t_first) / (len(self.out) - 1)
 
 
+def map_paged_tick(cfg: ArchConfig, *, batch: int, max_len: int,
+                   kv_block_size: int = 16, kv_blocks: int | None = None,
+                   attn_kernel: bool = False, kv_dtype: str = "fp32",
+                   pim_tech: str = "proposed", weight_dtype: str = "fp32",
+                   act_dtype: str = "fp32", partitions: int = 1,
+                   expand_scans: bool = False):
+    """The schedule ``ServeEngine(backend="pim")`` decodes through, with
+    the engine's options: the paged tick
+    (``models.transformer.decode_step_paged``) traced on meta tensors —
+    nothing is allocated, so the published config maps on any host —
+    and placed, then the KV pool (``kv_blocks``, default scratch + ``batch
+    * ceil(max_len / kv_block_size)``) placed next to the attention
+    consumers (``mapper.place_kv``, at the pool's own storage width:
+    ``kv_token_bits``, codes and scales when quantized, 32 bits a value
+    otherwise whatever the model dtype) and its traffic priced for
+    ``max(1, max_len // 2)`` resident tokens a slot
+    (``Schedule.attach_kv``). Raises ``ValueError`` when one block
+    exceeds a subarray (as the reference does for an unquantized pool at
+    llama3-8b's width and ``kv_block_size=16``)."""
+    from repro_torch import mapper
+    from repro_torch._device import torch_dtype
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    max_blocks = math.ceil(max_len / kv_block_size)
+    if kv_blocks is None:
+        kv_blocks = 1 + batch * max_blocks
+    pool = attention.init_paged_kv_cache(
+        cfg.n_layers, kv_blocks, kv_block_size, cfg.n_kv_heads,
+        cfg.resolved_head_dim, torch_dtype(cfg.dtype), "meta",
+        kv_dtype=kv_dtype)
+
+    def ints(*shape):
+        return torch.empty(shape, dtype=torch.int32, device="meta")
+
+    step = functools.partial(transformer.decode_step_paged, cfg,
+                             kernel=attn_kernel, kv_dtype=kv_dtype)
+    sched = mapper.build_schedule(
+        step, steps.abstract_params(cfg), {"layers": {"block0": pool}},
+        ints(batch), ints(batch, max_blocks), ints(batch), tech=pim_tech,
+        weight_dtype=weight_dtype, act_dtype=act_dtype,
+        partitions=partitions if partitions > 1 else None,
+        expand_scans=expand_scans)
+    spec = mapper.KVBlockSpec(
+        sites=cfg.n_layers, num_blocks=kv_blocks, block_size=kv_block_size,
+        token_bits=kv_token_bits(cfg.n_kv_heads, cfg.resolved_head_dim,
+                                 kv_dtype))
+    sched.attach_kv(mapper.place_kv(sched.graph, sched.placement, spec),
+                    resident_tokens=max(1, max_len // 2), batch=batch)
+    return sched
+
+
 class ServeEngine:
     def __init__(self, cfg: ArchConfig, params: DecoderLM, *, batch: int = 4,
                  max_len: int = 128, sample: Callable | None = None,
-                 backend: str = "jit", weight_dtype: str = "fp32",
-                 partitions: int = 1, paged: bool = False,
+                 backend: str = "jit", pim_tech: str = "proposed",
+                 weight_dtype: str = "fp32",
+                 partitions: int = 1, microbatches: int = 8,
+                 paged: bool = False,
                  kv_blocks: int | None = None, kv_block_size: int = 16,
                  prefill: str = "replay", attn_kernel: bool = False,
+                 pim_compile: dict | None = None,
+                 expand_scans: bool = False,
                  scheduler: str = "continuous",
                  admission: str = "kv", preempt: bool = True,
                  kv_dtype: str = "fp32", act_dtype: str = "fp32",
@@ -122,6 +190,24 @@ class ServeEngine:
         needs ``attn_kernel=True`` and ``prefill="replay"``: the gather
         paths raise ``TypeError`` on it, as the reference does.
 
+        ``backend="pim"`` maps the decode tick onto the PIM hierarchy
+        (``pim_tech``: ``"proposed"``, ``"ultrafast"`` or ``"floatpim"``)
+        and decodes through the compiled schedule (module docstring); the
+        pool is placed and its traffic priced into ``self.schedule``
+        (``self.kv_placement``, ``self.schedule.kv``). ``weight_dtype``
+        (pim only) stores the placed weights on a reduced grid (``int8``,
+        ``fp8_e4m3``, ``fp8_e5m2``, ``fp16``: K5 dequantizes on load);
+        ``act_dtype`` (pim only) prices the schedule's activation
+        transfers at a reduced width. ``partitions=K`` (pim only) compiles
+        the tick as K pipeline stages, token-identical to the whole
+        program; ``expand_scans=True`` first expands the layer stack into
+        resident per-layer copies so the cuts can land inside it;
+        ``microbatches`` sets the depth of the modeled timeline
+        ``self.pipeline_timeline`` (``Schedule.pipeline``).
+        ``pim_compile={"streams": ring}`` (a sequence of CUDA streams; the
+        reference's ``devices``) runs each stage on its stream of the
+        ring and decodes through ``PartitionedProgram.run_async``.
+
         ``sample`` maps the logits ``[B, V]`` to token ids ``[B]`` (greedy
         argmax by default).
 
@@ -137,25 +223,39 @@ class ServeEngine:
             raise ValueError(
                 "kv_dtype only applies to paged=True (the contiguous "
                 "lanes have no block pool to quantize)")
-        unported = []
-        if backend == "pim" or partitions > 1:
-            unported.append(f"backend='pim' / partitions ({_PIM})")
-        if weight_dtype != "fp32" or act_dtype != "fp32":
-            unported.append(f"weight_dtype / act_dtype ({_PIM_SERVE})")
         if not paged:
-            unported.append(f"paged=False, the contiguous lanes "
-                            f"({_CONTIGUOUS})")
-        if unported:
             raise NotImplementedError(
-                "not ported yet: " + "; ".join(unported))
-        if backend != "jit":
+                f"not ported yet: paged=False, the contiguous lanes "
+                f"({_CONTIGUOUS})")
+        if backend not in ("jit", "pim"):
             raise ValueError(f"backend must be 'jit' or 'pim', "
                              f"got {backend!r}")
-        if partitions < 1:
-            raise ValueError("partitions must be >= 1")
+        if partitions < 1 or microbatches < 1:
+            raise ValueError("partitions and microbatches must be >= 1")
+        if partitions > 1 and backend != "pim":
+            raise ValueError("partitions require backend='pim' (the jit "
+                             "backend has no partitioned plan)")
         if prefill not in ("replay", "batch"):
             raise ValueError(f"prefill must be 'replay' or 'batch', "
                              f"got {prefill!r}")
+        if pim_compile and backend != "pim":
+            raise ValueError("pim_compile only applies to backend='pim'")
+        if set(pim_compile or {}) - {"streams"}:
+            raise ValueError(f"pim_compile takes 'streams' only, got "
+                             f"{sorted(pim_compile)}")
+        if (pim_compile or {}).get("streams") and partitions < 2:
+            raise ValueError("pim_compile['streams'] runs pipeline stages "
+                             "on a ring of streams: it needs partitions > 1")
+        if weight_dtype != "fp32" and backend != "pim":
+            raise ValueError(
+                "weight_dtype only applies to backend='pim' (the jit "
+                "backend has no placed weight grid to quantize)")
+        self.act_dtype = quant.spec(act_dtype).name
+        if self.act_dtype != "fp32" and backend != "pim":
+            raise ValueError(
+                "act_dtype only applies to backend='pim' (it prices the "
+                "schedule's inter-subarray transfers; the jit backend "
+                "has no modeled NoC)")
         if scheduler not in ("continuous", "static"):
             raise ValueError(f"scheduler must be 'continuous' or "
                              f"'static', got {scheduler!r}")
@@ -182,6 +282,15 @@ class ServeEngine:
         self.prefill = prefill
         self.attn_kernel = attn_kernel
         self.prefill_batched_tokens = 0
+        self.backend = backend
+        self.weight_dtype = quant.spec(weight_dtype).name
+        self.expand_scans = expand_scans
+        self._pim_compile = dict(pim_compile or {})
+        self.params = None            # the reference's tree (pim backend)
+        self.schedule = None
+        self.kv_placement = None
+        self.pim_program = None
+        self.pipeline_timeline = None
 
         self.block_size = kv_block_size
         self.max_blocks = math.ceil(max_len / kv_block_size)
@@ -223,8 +332,58 @@ class ServeEngine:
         # incrementally maintained total remaining work (see
         # ``pending_work``): O(1) per tick instead of O(queue)
         self._work = 0
+        if backend == "pim":
+            self._build_pim(pim_tech, partitions, microbatches)
+
+    def _pim_args(self, tokens: np.ndarray) -> tuple:
+        """The mapped tick's arguments: (the reference's tree, the pool as
+        its tree, token [B] int32, block_table [B, W] int32, pos [B]
+        int32)."""
+        return (self.params, {"layers": {"block0": self.cache}},
+                torch.from_numpy(tokens.astype(np.int32)).to(self.device),
+                self.kv.device_table(),
+                torch.from_numpy(self._pos).to(self.device))
+
+    def _build_pim(self, pim_tech: str, partitions: int,
+                   microbatches: int) -> None:
+        """Map the paged tick, place the pool and price its traffic
+        (:func:`map_paged_tick`), then compile: the reference's
+        ``ServeEngine._build_pim``. The parameter tree is built once, here,
+        with the module's parameters made views of it
+        (``DecoderLM.shared_stacked_params``): no tick copies a weight."""
+        from repro_torch import mapper
+        self.params = self.model.shared_stacked_params()
+        sched = map_paged_tick(
+            self.cfg, batch=self.batch, max_len=self.max_len,
+            kv_block_size=self.block_size, kv_blocks=self.kv.num_blocks,
+            attn_kernel=self.attn_kernel, kv_dtype=self.kv_dtype,
+            pim_tech=pim_tech, weight_dtype=self.weight_dtype,
+            act_dtype=self.act_dtype, partitions=partitions,
+            expand_scans=self.expand_scans)
+        self.kv_placement = sched.kv_placement
+        self.schedule = sched
+        # use_cache=False: the key holds the step's identity, a closure
+        # per engine, which would never hit but would pin the engine
+        streams = self._pim_compile.get("streams")
+        if partitions > 1:
+            self.pim_program = mapper.compile_partitioned(
+                sched, use_cache=False, device=self.device, streams=streams)
+            self.pipeline_timeline = sched.pipeline(microbatches)
+        else:
+            self.pim_program = mapper.compile_schedule(
+                sched, use_cache=False, device=self.device)
+        # stages on a ring of streams: decode through the asynchronous
+        # chain (token-identical; the tick reads the ids back on the
+        # caller's stream)
+        self._pim_call = (self.pim_program.run_async if streams
+                          else self.pim_program)
 
     def _decode(self, tokens: np.ndarray) -> torch.Tensor:
+        if self.backend == "pim":
+            # the program writes the pool in place; the cache it returns
+            # is views of it
+            logits, _ = self._pim_call(*self._pim_args(tokens))
+            return logits
         logits, self.cache = self.model.decode_step_paged(
             self.cache, torch.from_numpy(tokens).to(self.device),
             self.kv.device_table(), torch.from_numpy(self._pos).to(
@@ -449,6 +608,17 @@ class ServeEngine:
         self.kv.free_slot(s)
         self._pos[s] = 0
 
+    def _feed(self, active: list[int]) -> np.ndarray:
+        """The tokens a tick feeds: each active slot's next prompt token,
+        or its last sampled token once its prompt is in; 0 elsewhere."""
+        feed = np.zeros(self.batch, np.int64)
+        for s in active:
+            req = self.slots[s]
+            k = int(self._prompt_idx[s])
+            feed[s] = (req.prompt[k] if k < len(req.prompt)
+                       else self._last_tok[s])
+        return feed
+
     def tick_once(self) -> bool:
         """Advance every active slot one token. Any slot that finishes is
         refilled from the queue *within this same tick* (see the trailing
@@ -460,12 +630,7 @@ class ServeEngine:
         # writability first: this may preempt (swap out) victims, so the
         # feed is built only from the survivors
         active = self._ensure_active(active)
-        feed = np.zeros(self.batch, np.int64)
-        for s in active:
-            req = self.slots[s]
-            k = int(self._prompt_idx[s])
-            feed[s] = (req.prompt[k] if k < len(req.prompt)
-                       else self._last_tok[s])
+        feed = self._feed(active)
         with obs.span("decode:tick", lane="serve", tick=self._tick,
                       active=len(active)):
             logits = self._decode(feed)
@@ -564,5 +729,12 @@ class ServeEngine:
         return out
 
     def drift_report(self, tracer=None):
-        """Not ported yet: it joins spans against the PIM schedule."""
-        raise NotImplementedError(f"drift_report is not ported yet ({_PIM})")
+        """Join recorded execute-lane spans against the pim schedule's
+        modeled stage costs (``repro_torch.obs.drift``). Requires
+        ``backend='pim'`` and a run made with observability enabled; the
+        report's ``clock`` says what the spans timed."""
+        if self.schedule is None:
+            raise ValueError(
+                "drift_report requires backend='pim' (the jit backend "
+                "has no modeled schedule to drift against)")
+        return obs.drift_report(self.schedule, tracer)

@@ -117,19 +117,29 @@ def test_kernel_and_gather_paths_agree(models):
     assert paged_decode_attention_grouped.launches == before
 
 
-@pytest.mark.parametrize("option,value", [
-    ("backend", "pim"), ("partitions", 2), ("weight_dtype", "int8"),
-    ("act_dtype", "fp8_e4m3"), ("paged", False)])
-def test_unported_options_raise_naming_the_roadmap(models, option, value):
+@pytest.mark.parametrize("option,value,error,match", [
+    ("pim_compile", {"streams": ()}, ValueError, "pim_compile only"),
+    ("partitions", 2, ValueError, "partitions require"),
+    ("weight_dtype", "int8", ValueError, "weight_dtype only"),
+    ("act_dtype", "fp8_e4m3", ValueError, "act_dtype only"),
+    ("paged", False, NotImplementedError, "ROADMAP")])
+def test_unported_options_raise_naming_the_roadmap(models, option, value,
+                                                   error, match):
+    """The contiguous lanes are not ported and say where they stand; the
+    PIM backend's options on the jit backend raise the reference's
+    ``ValueError`` (``backend="pim"`` itself serves:
+    ``tests/test_torch_serve_pim.py``)."""
     _, _, tcfg, model = models
     opts = dict(paged=True, device="cpu")
     opts[option] = value
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(error, match=match):
         ServeEngine(tcfg, model, **opts)
 
 
 def test_unported_methods_raise(models):
+    """``drift_report`` on the jit backend raises the reference's
+    ``ValueError``: there is no schedule to drift against."""
     _, _, tcfg, model = models
     eng = ServeEngine(tcfg, model, paged=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="backend='pim'"):
         eng.drift_report()
