@@ -239,6 +239,27 @@ Phases, each printing one JSON line:
    ``max_len`` 1024, blocks of 8, its 16 requests: the pim and the jit
    engine — tok/s, TTFT, ms a tick, device ms and kernels a tick under
    the profiler, peak memory, the pim tick's drift ratio (recorded).
+23. ``pim_llama_long`` — llama3-8b's train step above seq 2048 and with
+   ``grad_accum``, and its prefill. Holds, each on seeded parameters,
+   AdamW state and one ``TokenStream`` batch, as ``pim_llama_train``'s
+   (``train_hold``: K3 alone at the CPU's counts, compiled == executor
+   bit for bit, within rtol = atol = 1e-4 of the plain step, no host
+   sync, the last wave one ulp off must break the bit equality, peak
+   memory; the waves themselves held in ``pim_llama_train``): the
+   chunked attention at published width, float32, 2 layers, remat,
+   batch 1, seq 4096 (the pair scan: 36 causal pairs of 512-token chunks
+   a layer; K3 84 / 148); ``grad_accum=2`` at published width, float32,
+   cut to 1 layer, batch 2, seq 128 (K3 74 / 134), its plain step's
+   gradients and loss also within 1e-4 of the one-microbatch step's;
+   ``make_prefill_step`` at float32, 2 layers, seq 4096, its last
+   position's logits within rtol 1e-4 and atol 1e-4 x max|logit| of a
+   plain forward over the full causal attention, the control (the last
+   diagonal pair dropped from ``attention._pair_indices``) failing it.
+   Time: the bf16 step at 2 layers, seq 4096 (ms per compiled and plain
+   step, wall and under the profiler, the pair scan's and the LM head's
+   shares of the plain step's device time, peak memory) and the
+   published config's prefill (bf16, 32 layers) at seq 8192 (ms a call,
+   tokens/s, peak memory; 32768 left out, minutes of eager launches).
 
 Then the card's name and power limit, one line with every kernel's
 numbers, and as the last line ``{"ok": true, "device": {...}}``. Any
@@ -1229,14 +1250,16 @@ def profile_groups(name: str) -> str:
     return "other"
 
 
-def profile_device(fn, calls: int) -> dict:
+def profile_device(fn, calls: int, warm: bool = True) -> dict:
     """``calls`` calls of ``fn`` under ``torch.profiler`` after a warm
-    call: device time by ``profile_groups`` against the host's wall
+    call (none where ``warm`` is false: the caller's last call was
+    ``fn``'s): device time by ``profile_groups`` against the host's wall
     time. The profiler traces the card alone: the host's events are not
     read, and tracing them would halve the profile's speed and slow the
     host it measures."""
     import torch
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with device_profile(cpu=False) as prof:
         t0 = time.perf_counter()
@@ -3913,29 +3936,42 @@ def timing_waves():
 
 
 def llama_train_hold(seed: int) -> dict:
-    """``compile_arch("llama3-8b", "train")`` at ``LLAMA_TRAIN_HOLD``
-    (published width, float32, 2 layers, batch 1, seq 128) on seeded
-    parameters and AdamW state and one ``TokenStream`` batch. The main
-    path — every count set to 0 just before one compiled step and one
-    executor step, read just after — must launch K3 alone, at the CPU's
-    counts (``LLAMA_TRAIN_K3``). One run on the card at a time, its
-    outputs moved to host memory: the compiled step bit-equal to the
-    per-block executor's; within ``LLAMA_TRAIN_TOL`` of the plain step
-    (loss, and every leaf of params, m and v; TF32 off); no host sync in
-    a compiled step (``set_sync_debug_mode("error")``); the control — the
-    step's last K3 wave (the last leaf's ``p - lr·upd``) one ulp off in
-    one element of each output — must break the bit equality; and every
-    K3 wave of a step held against its plain version member by member
-    (``holding_waves``). ``max_memory_allocated`` over the hold."""
-    import torch
-    from repro_torch import mapper
+    """``train_hold`` at ``LLAMA_TRAIN_HOLD`` (published width, float32,
+    2 layers, batch 1, seq 128) at the CPU's counts ``LLAMA_TRAIN_K3``."""
     from repro_torch.configs import get_config
-    from repro_torch.launch import make_train_step
-    from repro_torch.mapper.executor import full_float32
     cfg = dataclasses.replace(get_config("llama3-8b"),
                               n_layers=LLAMA_TRAIN_HOLD["n_layers"],
                               dtype="float32")
-    b, s = LLAMA_TRAIN_HOLD["batch"], LLAMA_TRAIN_HOLD["seq_len"]
+    return train_hold(seed, cfg, LLAMA_TRAIN_HOLD["batch"],
+                      LLAMA_TRAIN_HOLD["seq_len"], LLAMA_TRAIN_K3,
+                      "pim_llama_train hold")
+
+
+def train_hold(seed: int, cfg, b: int, s: int, k3: dict, label: str,
+               hold_waves: bool = True, on_host: bool = True) -> dict:
+    """``compile_arch("llama3-8b", "train", config=cfg)`` at batch ``b``,
+    seq ``s`` on seeded parameters and AdamW state and one
+    ``TokenStream`` batch. The main path — every count set to 0 just
+    before one compiled step and one executor step, read just after —
+    must launch K3 alone, at the CPU's counts ``k3`` (``"compiled"`` and
+    ``"per_block"``). One run on the card at a time, its outputs moved
+    to host memory: the compiled step bit-equal to the per-block
+    executor's; within ``LLAMA_TRAIN_TOL`` of the plain step (loss, and
+    every leaf of params, m and v; TF32 off); no host sync in a compiled
+    step (``set_sync_debug_mode("error")``); the control — the step's
+    last K3 wave (the last leaf's ``p - lr·upd``) one ulp off in one
+    element of each output — must break the bit equality; and every K3
+    wave of a step held against its plain version member by member
+    (``holding_waves``; ``hold_waves=False`` leaves that to
+    ``pim_llama_train``, whose AdamW waves are the same).
+    ``on_host=False`` keeps the first run's outputs on the card, where
+    they fit beside the others (moving 17.8 GB to pageable host memory
+    and back takes ~10 s a pass). ``max_memory_allocated`` over the
+    hold."""
+    import torch
+    from repro_torch import mapper
+    from repro_torch.launch import make_train_step
+    from repro_torch.mapper.executor import full_float32
     torch.cuda.reset_peak_memory_stats()
     params, opt = llama_train_state(cfg, seed)
     batch = token_batch(cfg, b, s, seed)
@@ -3945,7 +3981,14 @@ def llama_train_hold(seed: int) -> dict:
     compile_s = time.perf_counter() - t0
     ex = mapper.ScheduleExecutor(prog.schedule)
     step = make_train_step(cfg)
-    label = "pim_llama_train hold"
+    seconds = {}
+
+    def lap(name):
+        nonlocal t0
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
     with full_float32():
         reset_counts()
         with recording_launches() as log:
@@ -3956,20 +3999,20 @@ def llama_train_hold(seed: int) -> dict:
         if not all(bool(torch.isfinite(x).all())
                    for x in torch.utils._pytree.tree_leaves(out)[:-1]):
             raise AssertionError(f"{label}: a leaf is not finite")
-        got = host_copy(out)
+        lap("compiled_step")
+        got = host_copy(out) if on_host else out
         del out
+        lap("host_copy")
         ex_out = ex.run(params, opt, batch)
         torch.cuda.synchronize()
         counts = read_counts()
         ex_counts = {k: counts[k] - prog_counts[k] for k in counts}
-        want = ({"k1": 0, "k2": 0, "k3": LLAMA_TRAIN_K3["compiled"],
-                 "k5": 0},
-                {"k1": 0, "k2": 0, "k3": LLAMA_TRAIN_K3["per_block"],
-                 "k5": 0})
+        want = ({"k1": 0, "k2": 0, "k3": k3["compiled"], "k5": 0},
+                {"k1": 0, "k2": 0, "k3": k3["per_block"], "k5": 0})
         if (prog_counts, ex_counts) != want or (
                 prog.eltwise_launches, prog.matmul_launches,
-                ex.eltwise_launches) != (LLAMA_TRAIN_K3["compiled"], 0,
-                                         LLAMA_TRAIN_K3["per_block"]):
+                ex.eltwise_launches) != (k3["compiled"], 0,
+                                         k3["per_block"]):
             raise AssertionError(f"{label}: launches {prog_counts} "
                                  f"compiled, {ex_counts} per-block; want "
                                  f"{want}")
@@ -3979,17 +4022,20 @@ def llama_train_hold(seed: int) -> dict:
                 raise AssertionError(f"{label}: {path} differs from the "
                                      f"per-block executor's")
 
+        lap("executor_step")
         compared_leafwise(got, ex_out, bit_equal)
         del ex_out
+        lap("compared_executor")
 
         def close(path, h, d):
             torch.testing.assert_close(h, d, **LLAMA_TRAIN_TOL,
                                        msg=lambda m: f"{label} {path}: {m}")
 
         plain = step(params, opt, batch)
+        lap("plain_step")
         vs_plain = compared_leafwise(got, plain, close)
         del plain
-        torch.cuda.synchronize()
+        lap("compared_plain")
         torch.cuda.set_sync_debug_mode("error")
         try:
             again = prog(params, opt, batch)
@@ -3999,7 +4045,7 @@ def llama_train_hold(seed: int) -> dict:
         del again
         # the control: the last wave one ulp off
         with recording_helpers(fault=ulp_up, key="k3",
-                               index=LLAMA_TRAIN_K3["compiled"] - 1):
+                               index=k3["compiled"] - 1):
             bad = prog(params, opt, batch)
         differing = {}
 
@@ -4007,26 +4053,32 @@ def llama_train_hold(seed: int) -> dict:
             if not torch.equal(h, d):
                 differing[path] = int((h != d).sum())
 
+        lap("no_sync_and_control_steps")
         compared_leafwise(got, bad, count)
         del bad
+        lap("compared_control")
         if not differing:
             raise AssertionError(f"{label}: the last K3 wave one ulp off "
                                  f"passes the bit-for-bit hold")
-        with holding_waves(label) as waves:
-            again = prog(params, opt, batch)
-        del again
+        waves = []
+        if hold_waves:
+            with holding_waves(label) as waves:
+                again = prog(params, opt, batch)
+            del again
+            lap("waves_held")
     peak = torch.cuda.max_memory_allocated()
     if peak >= 80e9:
         raise AssertionError(f"{label}: {peak / 1e9} GB allocated")
-    largest = max(waves, key=lambda w: w["n"])
+    largest = max(waves, key=lambda w: w["n"], default=None)
     r = {"launches": counts,
          "launches_per_step": {"compiled": prog_counts,
                                "per_block": ex_counts},
          "nodes": len(prog.schedule.graph.nodes),
+         "aten_ops": len(prog.schedule.graph.gm.graph.nodes),
          "subarrays": prog.schedule.placement.n_subarrays,
          "parameters": sum(x.numel() for x in
                            torch.utils._pytree.tree_leaves(params)),
-         "compile_s": compile_s, "loss": loss,
+         "compile_s": compile_s, "seconds": seconds, "loss": loss,
          "compiled_bit_equal_executor": True,
          "max_abs_err_vs_plain": vs_plain, "host_syncs_in_step": 0,
          "control_last_wave_one_ulp_elements_differing": differing,
@@ -5219,6 +5271,394 @@ def phase_serve_pim(model, seed: int) -> dict:
     return {"launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# 23. pim_llama_long: llama3-8b above seq 2048 and with grad_accum
+# ---------------------------------------------------------------------------
+
+# the chunked hold: published width, float32, 2 layers, remat as published
+# (the pair scan's forward recomputed inside the transposed stack), one
+# sequence of 4096 tokens: 8 chunks of 512, 36 causal pairs a layer
+LONG_HOLD = dict(batch=1, seq_len=4096, n_layers=2)
+# the grad_accum hold: 2 microbatches of one sequence of 128 tokens, cut
+# to 1 layer at full width: its float32 accumulator adds 5.9 GB at 2
+# layers, which would take the seq-128 train hold's 69.4 GB past ~76 GB
+LONG_ACCUM_HOLD = dict(batch=2, seq_len=128, n_layers=1, grad_accum=2)
+# K3 launches of one compiled and one per-block step at each hold (the
+# CPU's plans of the same configs, tests/test_torch_long_train.py at the
+# smoke width): the add/sub/mul nodes outside the folded loops
+LONG_K3 = {"chunked": {"compiled": 84, "per_block": 148},
+           "accum": {"compiled": 74, "per_block": 134}}
+ACCUM_TOL = 1e-4           # accumulated vs one-step gradients and loss
+# the prefill hold: make_prefill_step (the chunked pair scan) against a
+# plain forward over the full causal attention at the same length
+LONG_PREFILL_HOLD = dict(batch=1, seq_len=4096, n_layers=2)
+LONG_PREFILL_TOL = 1e-4    # rtol, and atol x max|logit|
+# the timed runs: the published dtype (bf16), the reference's train_4k
+# length, cut to 2 layers (AdamW's state for 32 does not fit one card; at
+# 4 layers, 47,552 aten ops to trace, the whole script took 709 s, past
+# its 702.8 s budget); the published config's prefill as it is at 8192
+# tokens (32768 would take ~66,560 pair iterations of eager launches a
+# call, minutes)
+LONG_TRAIN_TIME = dict(batch=1, seq_len=4096, n_layers=2)
+LONG_PREFILL_TIME = dict(batch=1, seq_len=8192)
+
+
+def accum_against_one(seed: int, cfg, b: int, s: int) -> dict:
+    """The plain ``grad_accum`` step's loss and gradients against the
+    plain ``grad_accum=1`` step's on the same batch and seeded parameters
+    (TF32 off): the microbatches are of equal size, so the mean of their
+    means is the batch mean. Each step takes SGD with momentum at lr 1
+    from zeros, whose new state is the step's float32 gradient, bit for
+    bit (an AdamW update divides by √v̂, which turns float32 rounding
+    into large differences where a seeded v is near 0). Each leaf within
+    ``ACCUM_TOL`` × its largest |gradient|, the loss within
+    ``ACCUM_TOL``."""
+    import torch
+    from repro_torch._tree import leaves_with_path
+    from repro_torch.launch import make_train_step
+    from repro_torch.mapper.executor import full_float32
+    from repro_torch.optim import make_optimizer
+    params = llama_params(cfg, seed)
+    state = make_optimizer("sgdm", lr=1.0).init(params)
+    batch = token_batch(cfg, b, s, seed)
+
+    def grads(c):
+        _, new, loss = make_train_step(c, optimizer_name="sgdm", lr=1.0)(
+            params, state, batch)
+        return new["mu"], float(loss)
+
+    with full_float32():
+        got, loss = grads(cfg)
+        want, one_loss = grads(dataclasses.replace(cfg, grad_accum=1))
+    worst = max(float((g - w).abs().max() / w.abs().max())
+                for (_, g), (_, w) in zip(leaves_with_path(got),
+                                          leaves_with_path(want),
+                                          strict=True))
+    if not (worst <= ACCUM_TOL and abs(loss - one_loss) <= ACCUM_TOL):
+        raise AssertionError(f"pim_llama_long accum vs one step: gradients "
+                             f"{worst} of their largest, loss {loss} vs "
+                             f"{one_loss}")
+    del params, state, got, want
+    torch.cuda.empty_cache()
+    return {"loss_abs_diff": abs(loss - one_loss),
+            "grad_max_diff_of_largest": worst}
+
+
+def full_attention_last_logits(cfg, params, tokens):
+    """The last position's logits of a plain forward over the full causal
+    attention at the sequence's length (``attention.full_causal_attention``
+    and ``layers``, each layer's scores whole): what ``make_prefill_step``
+    computes chunk pair by chunk pair above seq 2048."""
+    import torch
+    from repro_torch.models import attention, layers
+    b, s = tokens.shape
+    hd = cfg.resolved_head_dim
+    lp = params["layers"]["block0"]
+    with torch.no_grad():
+        x = layers.embed(tokens, params["embed"]["table"])
+        pos = torch.arange(s, device=x.device)[None].expand(b, s)
+        for i in range(cfg.n_layers):
+            w = {f"{g}/{n}": lp[g][n][i] for g in lp for n in lp[g]}
+            h = layers.rms_norm(x, w["norm1/scale"], cfg.norm_eps)
+
+            def heads(name, n):
+                return (h @ w[f"attn/{name}"]).reshape(b, s, n, hd)
+
+            q = layers.apply_rope(heads("wq", cfg.n_heads), pos,
+                                  theta=cfg.rope_theta, style=cfg.rope_style)
+            k = layers.apply_rope(heads("wk", cfg.n_kv_heads), pos,
+                                  theta=cfg.rope_theta, style=cfg.rope_style)
+            o = attention.full_causal_attention(q, k, heads("wv",
+                                                            cfg.n_kv_heads))
+            x = x + o.reshape(b, s, -1) @ w["attn/wo"]
+            x = x + layers.mlp(layers.rms_norm(x, w["norm2/scale"],
+                                               cfg.norm_eps),
+                               w["mlp/w_gate"], w["mlp/w_up"],
+                               w["mlp/w_down"])
+            del h, q, k, o
+        x = layers.rms_norm(x[:, -1:], params["final_norm"]["scale"],
+                            cfg.norm_eps)
+        return layers.lm_head(x, params["lm_head"]["w"])[:, 0]
+
+
+def prefill_ratio(got, want) -> float:
+    """The largest ``|got - want|`` over its limit ``rtol·|want| + atol ×
+    max|want|`` (``LONG_PREFILL_TOL`` both): above 1 fails."""
+    limit = LONG_PREFILL_TOL * (want.abs() + want.abs().max())
+    return float(((got - want).abs() / limit).max())
+
+
+def long_prefill_hold(seed: int) -> dict:
+    """``make_prefill_step`` at ``LONG_PREFILL_HOLD`` (published width,
+    float32, 2 layers, batch 1, seq 4096: the chunked attention's pair
+    scan, 36 pairs a layer) against ``full_attention_last_logits`` on the
+    same seeded parameters and tokens (TF32 off); the control — one chunk
+    pair, the last q chunk's diagonal, dropped from the pair list
+    (``attention._pair_indices`` patched) — must fail the hold."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import make_prefill_step
+    from repro_torch.mapper.executor import full_float32
+    from repro_torch.models import attention
+    cfg = dataclasses.replace(get_config("llama3-8b"),
+                              n_layers=LONG_PREFILL_HOLD["n_layers"],
+                              dtype="float32")
+    b, s = LONG_PREFILL_HOLD["batch"], LONG_PREFILL_HOLD["seq_len"]
+    params = llama_params(cfg, seed)
+    batch = {"tokens": token_batch(cfg, b, s, seed)["tokens"]}
+    step = make_prefill_step(cfg)
+    pairs = attention._pair_indices
+    with full_float32():
+        got = step(params, batch)
+        want = full_attention_last_logits(cfg, params, batch["tokens"])
+        ratio = prefill_ratio(got, want)
+        if got.shape != (b, cfg.vocab_size) or not ratio <= 1.0:
+            raise AssertionError(f"pim_llama_long prefill: {tuple(got.shape)}"
+                                 f", {ratio} of the limit")
+        attention._pair_indices = lambda n: tuple(p[:-1] for p in pairs(n))
+        try:
+            bad = prefill_ratio(step(params, batch), want)
+        finally:
+            attention._pair_indices = pairs
+    if not bad > 1.0:
+        raise AssertionError("pim_llama_long prefill: the last diagonal "
+                             "pair dropped passes the hold")
+    r = {**LONG_PREFILL_HOLD, "max_abs_err": float((got - want).abs().max()),
+         "max_abs_logit": float(want.abs().max()), "ratio_of_limit": ratio,
+         "control_pair_dropped_ratio": bad}
+    del params, got, want
+    torch.cuda.empty_cache()
+    return r
+
+
+def pair_share(cfg, b: int, s: int, seed: int, step_ms: float) -> dict:
+    """The pair scan's device ms in one step of ``cfg`` at batch ``b``,
+    seq ``s``: its forward and its backward (``attention.chunked_forward``
+    / ``chunked_backward``) at the step's shapes and dtype, on seeded
+    q, k, v, each profiled once on the card (``profile_device``), times
+    their calls a step (a layer's forward, again under remat inside the
+    transposed stack, and its backward), against the step's device ms
+    ``step_ms``."""
+    import torch
+    from repro_torch.models import attention
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 90)
+    hd, dtype = cfg.resolved_head_dim, getattr(torch, cfg.dtype)
+
+    def draw(heads):
+        return torch.randn((b, s, heads, hd), generator=gen,
+                           device=DEVICE).to(dtype)
+
+    q, k, v = draw(cfg.n_heads), draw(cfg.n_kv_heads), draw(cfg.n_kv_heads)
+    dout = draw(cfg.n_heads)
+    with torch.no_grad():
+        out, lse = attention.chunked_forward(q, k, v)
+        fwd = profile_device(lambda: attention.chunked_forward(q, k, v), 1)
+        bwd = profile_device(lambda: attention.chunked_backward(
+            q, k, v, out, lse, dout), 1)
+    calls = {"forward": cfg.n_layers * (2 if cfg.remat else 1),
+             "backward": cfg.n_layers}
+    ms = (calls["forward"] * fwd["device_ms_per_call"]
+          + calls["backward"] * bwd["device_ms_per_call"])
+    del q, k, v, dout, out, lse
+    torch.cuda.empty_cache()
+    return {"forward_device_ms": fwd["device_ms_per_call"],
+            "backward_device_ms": bwd["device_ms_per_call"],
+            "forward_kernels": fwd["kernels_per_call"],
+            "backward_kernels": bwd["kernels_per_call"],
+            "calls_per_step": calls, "device_ms_per_step": ms,
+            "share_of_plain_step_device_ms": ms / step_ms}
+
+
+def head_share(cfg, b: int, s: int, seed: int, step_ms: float) -> dict:
+    """The fused LM head and cross entropy's device ms in one step of
+    ``cfg`` at batch ``b``, seq ``s`` (``layers.fused_xent_head``, its
+    forward and its VJP, once a step; its products on bf16 operands
+    widened to f32, ``layers._chunk_logits``), on seeded inputs at the
+    step's shapes and dtype, profiled once on the card, against the
+    step's device ms ``step_ms``."""
+    import torch
+    from repro_torch.models import layers
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 91)
+    dtype = getattr(torch, cfg.dtype)
+    x = torch.randn((b, s, cfg.d_model), generator=gen,
+                    device=DEVICE).to(dtype).requires_grad_()
+    w = (0.02 * torch.randn((cfg.d_model, cfg.vocab_size), generator=gen,
+                            device=DEVICE)).to(dtype).requires_grad_()
+    labels = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                           device=DEVICE)
+
+    def head():
+        loss = layers.fused_xent_head(x, w, labels, max(1, s // 512))
+        return torch.autograd.grad(loss, (x, w))
+
+    prof = profile_device(head, 1)
+    del x, w, labels
+    torch.cuda.empty_cache()
+    return {"device_ms_per_step": prof["device_ms_per_call"],
+            "kernels": prof["kernels_per_call"],
+            "share_of_plain_step_device_ms":
+                prof["device_ms_per_call"] / step_ms}
+
+
+def long_train_time(seed: int) -> dict:
+    """llama3-8b at its published dtype (bf16), remat as published, cut
+    to ``LONG_TRAIN_TIME``'s 2 layers, batch 1, seq 4096, on seeded
+    parameters and AdamW state: one warm compiled step counted (K3 at the
+    plan's waves, no K1, K2 or K5; the loss finite and against the plain
+    step's), then ms per compiled and plain step (wall, 2 steps each,
+    both warm), device time, kernels a step and the busy share under the
+    profiler, the pair scan's and the LM head's shares of the plain
+    step's device time (``pair_share``, ``head_share``),
+    ``max_memory_allocated`` (before those)."""
+    import torch
+    from repro_torch import mapper
+    from repro_torch.configs import get_config
+    from repro_torch.launch import make_train_step
+    cfg = dataclasses.replace(get_config("llama3-8b"),
+                              n_layers=LONG_TRAIN_TIME["n_layers"])
+    b, s = LONG_TRAIN_TIME["batch"], LONG_TRAIN_TIME["seq_len"]
+    torch.cuda.reset_peak_memory_stats()
+    params, opt = llama_train_state(cfg, seed)
+    batch = token_batch(cfg, b, s, seed)
+    t0 = time.perf_counter()
+    prog = mapper.compile_arch("llama3-8b", "train", batch=b, seq_len=s,
+                               config=cfg)
+    compile_s = time.perf_counter() - t0
+    waves = sum(st.kind == "placed" for st in prog.ctx.steps)
+    step = make_train_step(cfg)
+    reset_counts()
+    out = prog(params, opt, batch)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if counts != {"k1": 0, "k2": 0, "k3": waves, "k5": 0}:
+        raise AssertionError(f"pim_llama_long time: launches {counts}, "
+                             f"want {waves} K3")
+    loss = float(out[2])
+    del out
+    plain_loss = float(step(params, opt, batch)[2])
+    if not np.isfinite(loss):
+        raise AssertionError("pim_llama_long time: loss not finite")
+    # both warm: the counted step and the plain loss's
+    ms = wall_ms(lambda: prog(params, opt, batch), iters=2, warmup=0)
+    prof = profile_device(lambda: prog(params, opt, batch), 1, warm=False)
+    plain_ms = wall_ms(lambda: step(params, opt, batch), iters=2, warmup=0)
+    plain_prof = profile_device(lambda: step(params, opt, batch), 1,
+                                warm=False)
+    peak = torch.cuda.max_memory_allocated()
+    aten_ops = len(prog.schedule.graph.gm.graph.nodes)
+    del params, opt, prog
+    torch.cuda.empty_cache()
+    pairs = pair_share(cfg, b, s, seed, plain_prof["device_ms_per_call"])
+    head = head_share(cfg, b, s, seed, plain_prof["device_ms_per_call"])
+    if peak >= 80e9:
+        raise AssertionError(f"pim_llama_long time: {peak / 1e9} GB "
+                             f"allocated")
+    r = {"config": "llama3-8b at its published width (configs/"
+                   "llama3_8b.py), bf16, remat, cut to "
+                   f"{LONG_TRAIN_TIME['n_layers']} layers",
+         **LONG_TRAIN_TIME,
+         "reduced": {"n_layers": [32, LONG_TRAIN_TIME["n_layers"]]},
+         "compile_s": compile_s,
+         "aten_ops": aten_ops, "launches_per_step": counts, "loss": loss,
+         "plain_loss": plain_loss, "loss_abs_diff": abs(loss - plain_loss),
+         "ms_per_step": ms, "plain_ms_per_step": plain_ms,
+         "profile": prof, "plain_profile": plain_prof,
+         "pair_scan": pairs, "lm_head": head,
+         "max_memory_allocated_gb": peak / 1e9}
+    return r
+
+
+def long_prefill_time(seed: int) -> dict:
+    """``make_prefill_step`` at the published config as it is (bf16, 32
+    layers), ``LONG_PREFILL_TIME``'s batch 1 and 8192 tokens (16 chunks,
+    136 pairs a layer) on seeded parameters: the last position's logits
+    finite, ms of that one call (wall; its kernels warm from
+    ``long_train_time``'s bf16 pairs), tokens/s,
+    ``max_memory_allocated``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import make_prefill_step
+    cfg = get_config("llama3-8b")
+    b, s = LONG_PREFILL_TIME["batch"], LONG_PREFILL_TIME["seq_len"]
+    torch.cuda.reset_peak_memory_stats()
+    params = llama_params(cfg, seed)
+    batch = {"tokens": token_batch(cfg, b, s, seed)["tokens"]}
+    step = make_prefill_step(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = step(params, batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    if out.shape != (b, cfg.vocab_size) or not bool(
+            torch.isfinite(out).all()):
+        raise AssertionError(f"pim_llama_long prefill time: "
+                             f"{tuple(out.shape)} or not finite")
+    peak = torch.cuda.max_memory_allocated()
+    if peak >= 80e9:
+        raise AssertionError(f"pim_llama_long prefill time: {peak / 1e9} "
+                             f"GB allocated")
+    del params, out
+    torch.cuda.empty_cache()
+    return {"config": "llama3-8b published (configs/llama3_8b.py), bf16, "
+                      "32 layers", **LONG_PREFILL_TIME, "ms_per_call": ms,
+            "tokens_per_s": b * s / (ms / 1e3),
+            "max_memory_allocated_gb": peak / 1e9,
+            "left_out": {"seq_len": 32768, "why": "~66,560 pair iterations "
+                         "of eager launches a call: minutes, past the "
+                         "script's budget"}}
+
+
+def phase_pim_llama_long(seed: int) -> dict:
+    """llama3-8b above seq 2048 and with ``grad_accum``: ``train_hold`` at
+    ``LONG_HOLD`` (the chunked attention) and at ``LONG_ACCUM_HOLD``
+    (two microbatches; ``accum_against_one``), ``long_prefill_hold``,
+    ``long_train_time`` and ``long_prefill_time``. Emitted as one
+    ``pim_llama_long`` line."""
+    from repro_torch.configs import get_config
+    seconds = {}
+    base = get_config("llama3-8b")
+    accum_cfg = dataclasses.replace(
+        base, n_layers=LONG_ACCUM_HOLD["n_layers"], dtype="float32",
+        grad_accum=LONG_ACCUM_HOLD["grad_accum"])
+    ab, as_ = LONG_ACCUM_HOLD["batch"], LONG_ACCUM_HOLD["seq_len"]
+
+    def part(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        seconds[name] = time.perf_counter() - t0
+        print(f"[{time.perf_counter() - T0:.1f} s] pim_llama_long {name} "
+              f"{seconds[name]:.1f} s", file=sys.stderr, flush=True)
+        return out
+
+    chunked = part("chunked_hold", lambda: train_hold(
+        seed, dataclasses.replace(base, n_layers=LONG_HOLD["n_layers"],
+                                  dtype="float32"),
+        LONG_HOLD["batch"], LONG_HOLD["seq_len"], LONG_K3["chunked"],
+        "pim_llama_long chunked hold", hold_waves=False, on_host=False))
+    accum = part("accum_hold", lambda: train_hold(
+        seed, accum_cfg, ab, as_, LONG_K3["accum"],
+        "pim_llama_long accum hold", hold_waves=False, on_host=False))
+    accum["plain_vs_one_step"] = part(
+        "accum_vs_one", lambda: accum_against_one(seed, accum_cfg, ab, as_))
+    prefill = part("prefill_hold", lambda: long_prefill_hold(seed))
+    timing = part("train_time", lambda: long_train_time(seed))
+    prefill_time = part("prefill_time", lambda: long_prefill_time(seed))
+    launches = {k: chunked["launches"][k] + accum["launches"][k]
+                for k in PIM_KEYS}
+    emit({"phase": "pim_llama_long", "seconds": seconds,
+          "config": "llama3-8b at its published width (configs/"
+                    "llama3_8b.py), float32",
+          "reduced": {"n_layers": [32, LONG_HOLD["n_layers"]],
+                      "accum_n_layers": [32, LONG_ACCUM_HOLD["n_layers"]],
+                      "dtype": ["bfloat16", "float32"]},
+          "tol": LLAMA_TRAIN_TOL, "launches": launches,
+          "chunked_hold": {**LONG_HOLD, **chunked},
+          "accum_hold": {**LONG_ACCUM_HOLD, **accum},
+          "prefill_hold": prefill, "time": timing,
+          "prefill_time": prefill_time})
+    return {"launches": launches, "time": timing}
+
+
 def sums(rows) -> dict:
     """Times and bounds of one run's launches: each distinct shape's
     numbers times its count, summed (each shape's bound the larger of its
@@ -5334,6 +5774,7 @@ def main() -> int:
     llama = phase_pim_llama(args.seed)
     llama_train = phase_pim_llama_train(args.seed)
     rows["pim_llama_train"] = {"k3": llama_train["k3_rows"]}
+    llama_long = phase_pim_llama_long(args.seed)
     llama_pipe = phase_pim_llama_pipe(args.seed)
     pipe_run = phase_pim_pipe(args.seed, train["ms_per_step"])
     rows["pim_llama"] = phase_kernels_pim(
@@ -5376,6 +5817,7 @@ def main() -> int:
                "pim_llama": llama["fp32"]["launches"],
                "pim_llama_q": llama["int8"]["launches"],
                "pim_llama_train": llama_train["launches"],
+               "pim_llama_long": llama_long["launches"],
                "pim_llama_pipe": llama_pipe["launches"],
                "pim_pipe": pipe_run["launches"],
                "pim_grad_backward": {
@@ -5409,7 +5851,8 @@ def main() -> int:
     # the PIM paths' kernels per call under the profiler: one batch-256
     # serve forward, one batch-64 train step, one pim_grad step
     paths = {"pim_lenet": lenet_run, "pim_train": train, "pim_grad": grad,
-             "pim_llama_train": llama_train["time"]}
+             "pim_llama_train": llama_train["time"],
+             "pim_llama_long": llama_long["time"]}
     long_bf16 = next(r for r in attn["results"] if r["dtype"] == "bfloat16"
                      and r["shape"]["S"] == ATTN_LLAMA_SHAPES[-1][1])
     k5_launches = {path: by_path[path]["k5"]

@@ -45,7 +45,10 @@ A backward written out by hand (the decoder's layer stack) spells the
 ops the reference's graph does not see as ops of their own, unpriced:
 the cotangent sum :func:`add_any`, ``silu``'s VJP :func:`silu_vjp` (the
 reference's ``silu`` is a jit whose ops it does not walk) and
-``jnp.where``'s outputs :func:`select_parts`. Elsewhere the same holds
+``jnp.where``'s outputs :func:`select_parts`. A chunk's slice and a
+loop carry's update by a traced index are :func:`dynamic_slice` and
+:func:`dynamic_update_slice_`, the reference's ``dynamic_slice`` and
+``dynamic_update_slice`` (unpriced there too). Elsewhere the same holds
 for the paged decode attention kernels K4 and K6 (the reference's graph
 does not enter a ``pallas_call``; ``kernels.flash_attention.paged_decode_op``
 and ``paged_decode_q_op``) and the grid rounding's bit-plane increment
@@ -162,6 +165,50 @@ def _silu_vjp_fake(g, x):
     return torch.empty_like(g)
 
 
+def _window(x: torch.Tensor, start: torch.Tensor, size: int,
+            dim: int) -> torch.Tensor:
+    """The ``size`` indices along ``dim`` of ``x`` from ``start`` (a 0-d
+    integer tensor), the start clamped into the axis as XLA clamps a
+    dynamic slice's; computed on the device, no host read."""
+    at = start.clamp(0, x.shape[dim] - size).long()
+    return at + torch.arange(size, device=x.device)
+
+
+@torch.library.custom_op("repro_torch::dynamic_slice", mutates_args=())
+def dynamic_slice(x: torch.Tensor, start: torch.Tensor, size: int,
+                  dim: int) -> torch.Tensor:
+    """``lax.dynamic_slice_in_dim(x, start, size, dim)``: ``size`` entries
+    of ``x`` along ``dim`` from the traced index ``start``, a copy. A
+    primitive of its own, unpriced, as the reference's ``dynamic_slice``;
+    its result draws edges from ``x`` and ``start``."""
+    return x.index_select(dim, _window(x, start, size, dim))
+
+
+@dynamic_slice.register_fake
+def _dynamic_slice_fake(x, start, size, dim):
+    shape = list(x.shape)
+    shape[dim] = size
+    return x.new_empty(shape)
+
+
+@torch.library.custom_op("repro_torch::dynamic_update_slice_",
+                         mutates_args=("x",))
+def dynamic_update_slice_(x: torch.Tensor, update: torch.Tensor,
+                          start: torch.Tensor, dim: int) -> None:
+    """``x = lax.dynamic_update_slice_in_dim(x, update, start, dim)``,
+    written in place: a loop's carry updated one chunk at a time, where the
+    reference's XLA buffer is reused (a copy of the whole carry per
+    iteration would move ~0.5 TB in a 32-layer prefill at seq 8192).
+    Unpriced, as the reference's ``dynamic_update_slice``."""
+    x.index_copy_(dim, _window(x, start, update.shape[dim], dim),
+                  update.to(x.dtype))
+
+
+@dynamic_update_slice_.register_fake
+def _dynamic_update_slice_fake(x, update, start, dim):
+    return None
+
+
 # where a traced node's regions live: node.meta["custom"][SCOPE_KEY]
 SCOPE_KEY = "repro_torch.region"
 _REGION_IDS = itertools.count()
@@ -193,6 +240,23 @@ def scope_of(node) -> tuple:
     """The regions an fx node was traced in, outermost first: frames
     ``(kind, name, id)``; () outside any."""
     return node.meta.get("custom", {}).get(SCOPE_KEY, ())
+
+
+def set_scope(node, scope: tuple) -> None:
+    """Record ``scope`` as the regions of fx ``node`` (a copied node)."""
+    node.meta["custom"] = {**node.meta.get("custom", {}), SCOPE_KEY: scope}
+
+
+def renumbered(scope: tuple, depth: int, ids: dict) -> tuple:
+    """``scope`` with its frames from ``depth`` on given fresh ids, one
+    for each id they held (``ids`` keeps the pairing across the nodes of
+    one copy): the regions of a copy of a traced loop iteration."""
+    out = list(scope[:depth])
+    for kind, name, rid in scope[depth:]:
+        if rid not in ids:
+            ids[rid] = next(_REGION_IDS)
+        out.append((kind, name, ids[rid]))
+    return tuple(out)
 
 
 @dataclasses.dataclass
@@ -370,12 +434,16 @@ DECOMPOSITIONS = {
 def _hoist_residuals(gm: torch.fx.GraphModule) -> None:
     """Move each ``1 - y`` of a respelled ``tanh_backward`` to right after
     its ``tanh``: JAX's linearization evaluates that residual in the
-    forward pass, so the reference's graph holds it there."""
+    forward pass, so the reference's graph holds it there. The module's
+    code is regenerated only where a node moved (seconds at 10^5 nodes)."""
+    moved = False
     for node in list(gm.graph.nodes):
         y = node.args[0] if node.target is aten.rsub.Scalar else None
         if isinstance(y, torch.fx.Node) and y.target is aten.tanh.default:
             y.append(node)
-    gm.recompile()
+            moved = True
+    if moved:
+        gm.recompile()
 
 
 def capture(fn: Callable, *args, **kwargs) -> Capture:

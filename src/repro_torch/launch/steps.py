@@ -4,17 +4,21 @@
 ``make_train_step(cfg)`` is one optimizer step, ``(params, opt_state,
 batch) -> (params, opt_state, loss)``: the fused LM-head cross-entropy
 of ``make_loss_fn``, its gradient by ``torch.func.grad_and_value`` (the
-reference's ``jax.value_and_grad``) and the AdamW update.
+reference's ``jax.value_and_grad``) and the AdamW update; with
+``cfg.grad_accum > 1`` the batch is split into that many microbatches,
+one iteration of the ``"scan"`` region ``"microbatches"`` each, their
+gradients summed in float32 and divided by their number (the reference's
+``lax.scan`` over microbatches). ``make_prefill_step(cfg)`` is the
+inference prefill, ``(params, batch) -> the last position's logits``.
 ``make_serve_step(cfg)`` is one decode step against a contiguous cache,
-``(params, cache, token, pos) -> (logits, cache)``. Both run on the
+``(params, cache, token, pos) -> (logits, cache)``. All run on the
 reference's parameter tree; ``abstract_params``, ``abstract_opt_state``,
 ``input_specs``, ``abstract_cache`` and ``decode_input_specs`` are their
 arguments on the meta device (shapes and dtypes, nothing allocated),
 which the mapper traces (``mapper.map_arch``).
 
-Not ported yet: ``grad_accum > 1`` (a scan over microbatches; ROADMAP.md,
-queue item 3.8), ``make_prefill_step`` (item 3.9), embedding inputs and
-position grids (item 5) and the sharding rules (item 7).
+Not ported yet: embedding inputs and position grids (ROADMAP.md, queue
+item 5) and the sharding rules (item 7).
 """
 
 from __future__ import annotations
@@ -24,8 +28,10 @@ from typing import Callable
 import torch
 
 from repro_torch._device import torch_dtype
+from repro_torch._tree import tree_map
 from repro_torch.configs.base import ArchConfig, ShapeSpec
-from repro_torch.models import layers, transformer
+from repro_torch.core import estimator
+from repro_torch.models import attention, layers, transformer
 from repro_torch.optim import make_optimizer
 
 
@@ -51,10 +57,7 @@ def make_loss_fn(cfg: ArchConfig) -> Callable:
     """(params, batch) -> loss: the hidden states, then the fused LM head
     and cross entropy over chunks of 512 tokens (``layers.fused_xent_head``;
     the float32 logits never exist whole)."""
-    if cfg.input_embed_stub or cfg.needs_position_grid:
-        raise NotImplementedError(
-            "embedding inputs and position grids are not ported yet "
-            "(ROADMAP.md, queue item 5: remaining model families)")
+    transformer.check_ported(cfg)
 
     def loss_fn(params, batch):
         x = transformer.hidden_states(cfg, params, batch["tokens"])
@@ -65,25 +68,78 @@ def make_loss_fn(cfg: ArchConfig) -> Callable:
     return loss_fn
 
 
+def _microbatches(batch: dict, accum: int) -> dict:
+    """Each leaf split along the batch axis into ``accum`` microbatches,
+    stacked on a new leading axis (``positions`` [3, B, S] ->
+    [A, 3, B/A, S], as the reference splits it)."""
+    def split(key, x):
+        if key == "positions":
+            return x.reshape(3, accum, x.shape[1] // accum, -1).movedim(1, 0)
+        return x.reshape(accum, x.shape[0] // accum, *x.shape[1:])
+
+    return {k: split(k, v) for k, v in batch.items()}
+
+
 def make_train_step(cfg: ArchConfig, *, optimizer_name: str = "adamw",
                     lr: float = 3e-4) -> Callable:
     """(params, opt_state, batch) -> (params, opt_state, loss): one step
     of ``optimizer_name`` on the loss of ``make_loss_fn``. ``grad_accum
-    > 1`` raises."""
-    if cfg.grad_accum > 1:
-        raise NotImplementedError(
-            "grad_accum > 1 (a scan over microbatches) is not ported yet "
-            "(ROADMAP.md, queue item 3.8)")
+    > 1`` splits the batch into microbatches run one after another, the
+    gradients accumulated in float32 (activations shrink with the
+    microbatch; the module docstring)."""
     opt = make_optimizer(optimizer_name, lr=lr,
                          state_dtype=cfg.opt_state_dtype)
     loss_fn = make_loss_fn(cfg)
+    accum = max(cfg.grad_accum, 1)
 
     def train_step(params, opt_state, batch):
-        grads, loss = torch.func.grad_and_value(loss_fn)(params, batch)
+        if accum == 1:
+            grads, loss = torch.func.grad_and_value(loss_fn)(params, batch)
+        else:
+            n = batch["labels"].shape[0]
+            assert n % accum == 0, (
+                f"global batch {n} not divisible by grad_accum={accum}")
+            micro = _microbatches(batch, accum)
+            g_acc = tree_map(lambda p: torch.zeros(
+                p.shape, dtype=torch.float32, device=p.device), params)
+            loss = torch.zeros((), dtype=torch.float32,
+                               device=batch["labels"].device)
+            for i in range(accum):
+                with estimator.region("scan", "microbatches"):
+                    mb = {k: v[i] for k, v in micro.items()}
+                    g, l = torch.func.grad_and_value(loss_fn)(params, mb)
+                    g_acc = tree_map(lambda a, b: a + b.float(), g_acc, g)
+                    loss = loss + l
+            loss = loss / accum
+            grads = tree_map(lambda g, p: (g / accum).to(p.dtype), g_acc,
+                             params)
         params, opt_state = opt.update(grads, opt_state, params)
         return params, opt_state, loss
 
     return train_step
+
+
+def _last_position(logits: torch.Tensor) -> torch.Tensor:
+    """``logits[:, -1]`` as the reference indexes it: the index -1
+    normalized by jnp (the add its graph prices), then a dynamic slice."""
+    at = attention._wrapped(torch.full((), -1, dtype=torch.int32,
+                                       device=logits.device),
+                            logits.shape[1])
+    return estimator.dynamic_slice(logits, at, 1, 1)[:, 0]
+
+
+def make_prefill_step(cfg: ArchConfig) -> Callable:
+    """(params, batch) -> the last position's logits [B, V] (inference
+    prefill): ``transformer.apply`` on ``batch["tokens"]``, its stack the
+    undifferentiated one, under ``torch.no_grad``."""
+    transformer.check_ported(cfg)
+
+    def prefill_step(params, batch):
+        with torch.no_grad():
+            return _last_position(transformer.apply(cfg, params,
+                                                   batch["tokens"]))
+
+    return prefill_step
 
 
 def make_serve_step(cfg: ArchConfig) -> Callable:
@@ -96,8 +152,8 @@ def make_serve_step(cfg: ArchConfig) -> Callable:
 
 
 def input_specs(cfg: ArchConfig, shape: ShapeSpec) -> dict:
-    """The batch of a train step of ``shape`` on the meta device:
-    ``{"tokens", "labels"}``, each [B, S] int32 (the keys in
+    """The batch of a train (or prefill) step of ``shape`` on the meta
+    device: ``{"tokens", "labels"}``, each [B, S] int32 (the keys in
     ``data.pipeline.TokenStream``'s order, which a traced step's batch
     must keep)."""
     b, s = shape.global_batch, shape.seq_len

@@ -136,7 +136,8 @@ def map_arch(name: str, kind: str = "train", *, seq_len: int = 128,
     """Map one registered architecture's step, traced on meta tensors
     (the full configs map without allocating): ``kind="train"`` schedules
     one AdamW step (forward, backward and update) over a batch of
-    ``batch`` sequences of ``seq_len`` tokens; ``kind="serve"`` one decode
+    ``batch`` sequences of ``seq_len`` tokens (rounded up to a multiple of
+    ``grad_accum``); ``kind="serve"`` one decode
     step against a ``seq_len`` cache at ``batch``. ``smoke=True`` uses
     the reduced config; ``config``, where given, is mapped instead of the
     registered one (the architecture cut in depth, say);
@@ -147,6 +148,9 @@ def map_arch(name: str, kind: str = "train", *, seq_len: int = 128,
 
     cfg = config or (configs.get_smoke_config(name) if smoke
                      else configs.get_config(name))
+    if kind == "train" and cfg.grad_accum > 1:
+        # the step scans grad_accum microbatches: keep the batch divisible
+        batch = max(1, -(-batch // cfg.grad_accum)) * cfg.grad_accum
     shape = ShapeSpec(f"map_{kind}", seq_len, batch, kind)
     params = steps_mod.abstract_params(cfg)
     if kind == "train":

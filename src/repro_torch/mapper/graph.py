@@ -46,7 +46,12 @@ Each iteration of a ``"scan"`` region must repeat the first op for op
 edges); the graph keeps the first iteration's nodes, marked ``scanned``,
 with ``repeat`` the number of iterations and their op totals multiplied
 by it, drops the others, and numbers the nodes afresh — the reference's
-node list.
+node list. A loop inside a loop (the chunked attention's pair scan inside
+the layer stack, the stack inside ``grad_accum``'s microbatch scan) is a
+loop of its own in each iteration of the enclosing one; the innermost
+loops fold first, and the enclosing iteration is then compared op for op
+and folded in turn, so the repeats multiply as the reference's
+``iter_eqn`` multiplies its scan lengths.
 
 Top-level units: the reference cuts pipeline partitions on its top-level
 jaxpr equations (``OpNode.top_eqn``). The port's counterpart is the
@@ -256,33 +261,56 @@ def _product_shape(fx: torch.fx.Node) -> tuple[int, ...]:
     return estimator.shape_of(fx)
 
 
-def _stack_of(scope: tuple):
-    """The outermost scan region of a scope: ``(stack name, iteration
-    id)``, or None."""
-    for kind, name, rid in scope:
-        if kind == "scan":
-            return name, rid
+def _top_loop(scope: tuple):
+    """The top-level loop a scope lies in: ``(stack name, iteration id)``
+    of its outermost frame where that is a scan, else None."""
+    if scope and scope[0][0] == "scan":
+        return scope[0][1], scope[0][2]
     return None
 
 
-def _iterations(gm: torch.fx.GraphModule) -> tuple[dict, dict]:
-    """(``(stack, iteration id)`` -> the iteration's ordinal, stack ->
-    its iterations), in trace order."""
-    ordinal: dict[tuple, int] = {}
+def _stack_lengths(gm: torch.fx.GraphModule) -> dict[str, int]:
+    """Each top-level loop's stack -> its number of iterations."""
+    seen: set[tuple] = set()
     count: dict[str, int] = {}
     for fx in gm.graph.nodes:
-        at = _stack_of(estimator.scope_of(fx))
-        if at is not None and at not in ordinal:
-            ordinal[at] = count.get(at[0], 0)
-            count[at[0]] = ordinal[at] + 1
-    return ordinal, count
+        at = _top_loop(estimator.scope_of(fx))
+        if at is not None and at not in seen:
+            seen.add(at)
+            count[at[0]] = count.get(at[0], 0) + 1
+    return count
+
+
+def _loops(gm: torch.fx.GraphModule):
+    """Every loop of the aten graph, nested ones included: ``(enclosing
+    frames, stack name)`` -> iteration id -> (its aten ops' (target,
+    shape, dtype), its fx nodes), in trace order. The enclosing frames
+    keep their ids, so one stack inside each iteration of an enclosing
+    loop is a loop of its own per iteration, as the reference's inner
+    scan runs once per outer iteration."""
+    loops: dict[tuple, dict[int, tuple[list, list]]] = {}
+    for fx in gm.graph.nodes:
+        scope = estimator.scope_of(fx)
+        if not scope:
+            continue
+        val = fx.meta.get("val")
+        op = (fx.target, tuple(getattr(val, "shape", ())),
+              getattr(val, "dtype", None))
+        for j, (kind, name, rid) in enumerate(scope):
+            if kind == "scan":
+                ops, members = loops.setdefault(
+                    (scope[:j], name), {}).setdefault(rid, ([], []))
+                ops.append(op)
+                members.append(fx)
+    return loops
 
 
 def _top_scope(scope: tuple, count: dict, groups: dict) -> tuple:
     """A scope as the expanded graph sees it: a fully unrolled stack's
     iteration is no region (its body's ops are top level, and edges
     into, out of and between its iterations are kept, as in the
-    reference's re-traced jaxpr)."""
+    reference's re-traced jaxpr; a loop inside it becomes a top-level
+    loop of its own)."""
     if (scope and scope[0][0] == "scan"
             and not _chunks(count[scope[0][1]], groups.get(scope[0][1]))):
         return scope[1:]
@@ -296,7 +324,7 @@ def build_graph_from_capture(cap: estimator.Capture,
     """The operator graph of a capture; ``groups`` (stack name -> chunk
     length) expands those stacks (module docstring)."""
     groups = dict(groups or {})
-    _, count = _iterations(cap.gm)
+    count = _stack_lengths(cap.gm)
 
     def scope(v) -> tuple:
         return _top_scope(estimator.scope_of(v), count, groups)
@@ -383,30 +411,27 @@ def _chunks(n: int, group: int | None) -> list[range]:
 
 def _fold_stacks(nodes: list[OpNode], gm: torch.fx.GraphModule,
                  groups: dict[str, int]) -> list[OpNode]:
-    """Fold each scanned layer stack back into its first iteration's
-    nodes, or each chunk of an expanded one into its chunk's first
-    (module docstring); renumber every node. Raises ``ValueError`` where
-    an iteration does not repeat the first."""
+    """Fold each loop back into its first iteration's nodes, innermost
+    loops first, so that a loop inside a loop multiplies its ``repeat``
+    by every enclosing length, as the reference's ``iter_eqn`` does; a
+    top-level stack that is expanded folds each chunk into its chunk's
+    first iteration instead (module docstring). Renumber every node.
+    Raises ``ValueError`` where an iteration does not repeat the first
+    (after the loops inside both are folded)."""
     by_fx = {nd.fx_node: nd for nd in nodes}
-    # stack -> iteration id -> (its aten ops, its nodes), in trace order
-    stacks: dict[str, dict[int, tuple[list, list]]] = {}
-    for fx in gm.graph.nodes:
-        at = _stack_of(estimator.scope_of(fx))
-        if at is None:
-            continue
-        ops, its_nodes = stacks.setdefault(at[0], {}).setdefault(
-            at[1], ([], []))
-        val = fx.meta.get("val")
-        ops.append((fx.target, tuple(getattr(val, "shape", ())),
-                    getattr(val, "dtype", None)))
-        if fx.name in by_fx:
-            its_nodes.append(by_fx[fx.name])
+    loops = _loops(gm)
     drop: set[int] = set()
-    for stack, iterations in stacks.items():
-        (ops0, first), *rest = iterations.values()
+    for (outer, stack), iterations in sorted(
+            loops.items(), key=lambda kv: -len(kv[0][0])):
+        its_nodes = [[by_fx[fx.name] for fx in members
+                      if fx.name in by_fx and by_fx[fx.name].idx not in drop]
+                     for _, members in iterations.values()]
+        (ops0, _), *rest = iterations.values()
+        first = its_nodes[0]
         rows0 = [_iteration_row(nd, first[0].idx if first else 0)
                  for nd in first]
-        for i, (ops, its) in enumerate(rest, start=1):
+        for i, ((ops, _), its) in enumerate(zip(rest, its_nodes[1:]),
+                                            start=1):
             rows = [_iteration_row(nd, its[0].idx if its else 0)
                     for nd in its]
             if ops != ops0 or rows != rows0:
@@ -415,8 +440,8 @@ def _fold_stacks(nodes: list[OpNode], gm: torch.fx.GraphModule,
                     f"repeat iteration 0 op for op ({len(ops)} vs "
                     f"{len(ops0)} aten ops, {len(its)} vs {len(first)} "
                     f"nodes); the reference scans only identical layers")
-        its_nodes = [its for _, its in iterations.values()]
-        for chunk in _chunks(len(its_nodes), groups.get(stack)):
+        group = None if outer else groups.get(stack)
+        for chunk in _chunks(len(its_nodes), group):
             count = len(chunk)
             for nd in its_nodes[chunk[0]]:
                 nd.repeat *= count
@@ -466,8 +491,13 @@ def _promoted(fx: torch.fx.Node) -> list[torch.fx.Node]:
 
 
 def _unit_keys(gm: torch.fx.GraphModule, groups: dict[str, int]) -> dict:
-    """Each op's unit key: consecutive ops with one key form one unit."""
-    ordinal, count = _iterations(gm)
+    """Each op's unit key: consecutive ops with one key form one unit. A
+    folded loop's key names its loop (enclosing frames and stack) and
+    chunk, so the loops inside two unrolled iterations of an expanded
+    stack stay two units."""
+    count = _stack_lengths(gm)
+    ordinals = {key: {rid: i for i, rid in enumerate(its)}
+                for key, its in _loops(gm).items()}
     keys: dict[torch.fx.Node, tuple] = {}
     for fx in gm.graph.nodes:
         if fx.op != "call_function":
@@ -475,13 +505,16 @@ def _unit_keys(gm: torch.fx.GraphModule, groups: dict[str, int]) -> dict:
         if fx.target is operator.getitem:
             keys[fx] = keys[fx.args[0]]
             continue
-        scope = _top_scope(estimator.scope_of(fx), count, groups)
+        full = estimator.scope_of(fx)
+        scope = _top_scope(full, count, groups)
         if scope and scope[0][0] == "scan":        # a folded loop
             _, stack, rid = scope[0]
-            chunks = _chunks(count[stack], groups.get(stack))
-            c = next(j for j, ch in enumerate(chunks)
-                     if ordinal[(stack, rid)] in ch)
-            keys[fx] = ("loop", stack, c, len(chunks[c]))
+            outer = full[:len(full) - len(scope)]
+            its = ordinals[(outer, stack)]
+            chunks = _chunks(len(its), None if outer
+                             else groups.get(stack))
+            c = next(j for j, ch in enumerate(chunks) if its[rid] in ch)
+            keys[fx] = ("loop", (outer, stack), c, len(chunks[c]))
         else:
             keys[fx] = ("region", scope[0][2]) if scope else ("op", fx.name)
     return keys
@@ -540,8 +573,8 @@ def _units(gm: torch.fx.GraphModule, groups: dict[str, int]):
             read(a, at)
             make(("promote", fx.name, a.name), at, a.meta["val"].numel())
         if key != prev or promote:
-            if key[0] == "loop":                 # ("loop", stack, c, length)
-                new_unit(key[1], key[3])
+            if key[0] == "loop":   # ("loop", (outer, stack), c, length)
+                new_unit(key[1][1], key[3])
             else:
                 new_unit()
             prev = key

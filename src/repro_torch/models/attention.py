@@ -1,5 +1,12 @@
-"""GQA attention: decode against a contiguous KV cache, and decode and
+"""GQA attention: full and chunked (flash) causal attention over a
+sequence, decode against a contiguous KV cache, and decode and
 whole-prompt prefill over a paged KV pool.
+
+``full_causal_attention`` and the chunked path above seq 2048
+(``chunked_causal_attention``: the pair scan ``flash_attention_pair`` and
+the rectangular ``flash_attention_xla``, each an ``autograd.Function``
+whose backward is the reference's custom VJP written out) are the
+reference's train and prefill attention; see the chunked section below.
 
 ``decode_attention`` is the port of the reference's decode path against
 a contiguous cache ``[B, max_len, G, head_dim]``, a function of the
@@ -30,13 +37,15 @@ the reference does not.
 
 from __future__ import annotations
 
+import itertools
 import math
 
 import torch
 from torch import nn
+from torch.fx.experimental.proxy_tensor import get_proxy_mode
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core import quant
+from repro_torch.core import estimator, quant
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import (
     paged_decode_attention_grouped, paged_decode_attention_grouped_q,
@@ -154,20 +163,508 @@ def full_causal_attention(q: torch.Tensor, k: torch.Tensor,
     return grouped_values(softmax_parts(masked)[0].to(q.dtype), v)
 
 
+# ---------------------------------------------------------------------------
+# chunked causal attention (flash, online softmax, written-out VJP)
+# ---------------------------------------------------------------------------
+# The reference's XLA flash paths (``attention.py:115-277``, ``:571-709``),
+# what makes its train_4k and prefill_32k shapes fit memory: the scores
+# exist one (q chunk, kv chunk) tile at a time and the backward recomputes
+# them from the saved (out, lse). Plain PyTorch, as the reference's is
+# plain JAX: no Pallas kernel of the reference lies on this path.
+#
+# Spelled as the reference's jaxpr has it, so the mapper folds the same
+# nodes: each scan body is one iteration of a "scan" region and, where the
+# reference wraps the body in ``jax.checkpoint``, one "call" region inside
+# it; a chunk's index is a 0-d int tensor, multiplied by the chunk and
+# normalized as jnp normalizes a dynamic index (``_wrapped``: the add its
+# graph prices); slices and carry updates are ``estimator.dynamic_slice``
+# and ``estimator.dynamic_update_slice_``. The products are the
+# reference's ``dot_general``s as ``bmm``s (which operand is stationary,
+# the output's layout); the products in the input dtype, the scores and
+# accumulators in float32.
+
+Q_CHUNK = 512
+KV_CHUNK = 512
+
+# the model path takes the pair-scan variant (the reference's default);
+# the rectangular variant stays for ablation
+USE_PAIR_SCAN = True
+
+
+def _n_chunks(s: int, c: int) -> int:
+    if s % c:
+        raise ValueError(
+            f"sequence length {s} is not a multiple of the attention chunk "
+            f"{c}: the reference's reshape into chunks fails there (pad the "
+            f"sequence to a multiple of {c})")
+    return s // c
+
+
+def _index(i: int, like: torch.Tensor) -> torch.Tensor:
+    """Chunk index ``i`` as the traced int32 scalar a scan body reads."""
+    return torch.full((), i, dtype=torch.int32, device=like.device)
+
+
+def _slice(x: torch.Tensor, i: torch.Tensor, c: int, dim: int):
+    """``lax.dynamic_slice_in_dim(x, i * c, c, axis=dim)``."""
+    return estimator.dynamic_slice(x, _wrapped(i * c, x.shape[dim]), c, dim)
+
+
+def _update_slice_(x: torch.Tensor, new: torch.Tensor, i: torch.Tensor,
+                   c: int, dim: int) -> None:
+    """``x = lax.dynamic_update_slice_in_dim(x, new, i * c, axis=dim)``,
+    in place."""
+    estimator.dynamic_update_slice_(x, new, _wrapped(i * c, x.shape[dim]),
+                                    dim)
+
+
+def _at_index(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """``lax.dynamic_index_in_dim(x, i, 0)[0]``."""
+    return estimator.dynamic_slice(x, _wrapped(i, x.shape[0]), 1, 0)[0]
+
+
+def _update_index_(x: torch.Tensor, new: torch.Tensor,
+                   i: torch.Tensor) -> None:
+    """``x = lax.dynamic_update_index_in_dim(x, new, i, 0)``, in place."""
+    estimator.dynamic_update_slice_(x, new[None], _wrapped(i, x.shape[0]), 0)
+
+
+def _repeat_chunk(kc: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """[B, c, G, D] -> [B, c, G·R, D]: a chunk's K/V repeated to the query
+    heads (a transient of one chunk)."""
+    if n_rep == 1:
+        return kc
+    b, c, g, d = kc.shape
+    return kc[:, :, :, None, :].expand(b, c, g, n_rep, d).reshape(
+        b, c, g * n_rep, d)
+
+
+def _mask_penalty(qi, ki, iota_q, iota_k) -> torch.Tensor:
+    """The (q chunk, kv chunk) tile's causal mask as an additive float32
+    penalty (0 or ``NEG_INF``)."""
+    causal = ((qi * iota_q.shape[0] + iota_q)[:, None]
+              >= (ki * iota_k.shape[0] + iota_k)[None])
+    return torch.where(causal, 0.0, NEG_INF)
+
+
+def _pair_indices(n: int) -> tuple[list[int], list[int]]:
+    """The n(n+1)/2 causal (q chunk, kv chunk) pairs, q-major."""
+    qs, ks = [], []
+    for qi in range(n):
+        for ki in range(qi + 1):
+            qs.append(qi)
+            ks.append(ki)
+    return qs, ks
+
+
+# Tracing a pair costs make_fx ~0.1 s (~100 aten ops at ~1 ms each on a
+# CPU core), and a 32-layer step at seq 4096 has 3,456 of them. Every
+# pair issues the same ops on the same shapes, its indices the only
+# difference, and a pair's results are its in-place carry updates: so a
+# traced scan records its first pair and copies that pair's nodes for the
+# others, each copy with its own indices and regions. The graph is the
+# one tracing every pair gives (tests/test_torch_long_schedules.py).
+COPY_TRACED_PAIRS = True
+
+
+def _scan_pairs(n: int, name: str, like: torch.Tensor, body) -> None:
+    """``body(qi, ki)`` for each causal chunk pair (``_pair_indices``),
+    each call one iteration of the ``"scan"`` region ``name`` with a
+    ``"call"`` region inside it (the reference's ``jax.checkpoint``-ed scan
+    body); ``qi``, ``ki`` the pair's indices as int32 scalars on ``like``'s
+    device. Under ``make_fx`` only the first pair is traced
+    (``COPY_TRACED_PAIRS``, ``_copy_pairs``)."""
+    pairs = list(zip(*_pair_indices(n)))
+    graph = _traced_graph() if COPY_TRACED_PAIRS else None
+    before = len(graph.nodes) if graph is not None else 0
+    for i, j in pairs:
+        with estimator.region("scan", name), \
+                estimator.region("call", "checkpoint"):
+            body(_index(i, like), _index(j, like))
+        if graph is not None:
+            _copy_pairs(graph, len(graph.nodes) - before, pairs[1:])
+            return
+
+
+def _traced_graph():
+    """The ``torch.fx`` graph ``make_fx`` is recording into, else None."""
+    mode = get_proxy_mode()
+    return None if mode is None else mode.tracer.graph
+
+
+def _copy_pairs(graph, size: int, pairs) -> None:
+    """Append to ``graph`` a copy of its last ``size`` nodes (one traced
+    pair, opening with its two indices' ``full`` nodes) for each further
+    pair: each index filled with the pair's, each node's regions given
+    ids of the copy's own."""
+    body = list(itertools.islice(reversed(graph.nodes), size))[::-1]
+    index = body[:2]
+    if not all(nd.target is torch.ops.aten.full.default for nd in index):
+        raise AssertionError("a pair's trace opens with its two indices")
+    depth = len(estimator.scope_of(body[0])) - 2
+    for pair in pairs:
+        env: dict = {}
+        ids: dict = {}
+        for nd in body:
+            new = graph.node_copy(nd, lambda a: env.get(a, a))
+            estimator.set_scope(new, estimator.renumbered(
+                estimator.scope_of(nd), depth, ids))
+            if nd in index:
+                new.args = (nd.args[0], pair[index.index(nd)])
+            env[nd] = new
+
+
+def _heads_first(x: torch.Tensor, trans: bool = False) -> torch.Tensor:
+    """[B, c, H, D] -> [B·H, c, D], or with ``trans`` [B·H, D, c]."""
+    b, c, h, d = x.shape
+    if trans:
+        return x.permute(0, 2, 3, 1).reshape(b * h, d, c)
+    return x.permute(0, 2, 1, 3).reshape(b * h, c, d)
+
+
+def _scores(qc: torch.Tensor, kc: torch.Tensor) -> torch.Tensor:
+    """``einsum("bqhd,bkhd->bhqk")``: [B, H, c_q, c_k]."""
+    b, cq, h, _ = qc.shape
+    return torch.bmm(_heads_first(qc), _heads_first(kc, True)).view(
+        b, h, cq, kc.shape[1])
+
+
+def _values(p: torch.Tensor, vc: torch.Tensor) -> torch.Tensor:
+    """``einsum("bhqk,bkhd->bhqd")``: [B, H, c_q, D]."""
+    b, h, cq, ck = p.shape
+    return torch.bmm(p.reshape(b * h, cq, ck), _heads_first(vc)).view(
+        b, h, cq, vc.shape[-1])
+
+
+def _key_grad(t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``einsum("bhqk,bqhd->bkhd", t, x)``, the reference's
+    ``dot_general(x, t)``: [B, c_k, H, D]."""
+    b, h, cq, ck = t.shape
+    return torch.bmm(_heads_first(x, True), t.reshape(b * h, cq, ck)).view(
+        b, h, x.shape[-1], ck).permute(0, 3, 1, 2)
+
+
+def _query_grad(ds: torch.Tensor, kc: torch.Tensor) -> torch.Tensor:
+    """``einsum("bhqk,bkhd->bqhd", ds, kc)``, the reference's
+    ``dot_general(kc, ds)``: [B, c_q, H, D]."""
+    b, h, cq, ck = ds.shape
+    return torch.bmm(_heads_first(kc, True),
+                     ds.transpose(2, 3).reshape(b * h, ck, cq)).view(
+        b, h, kc.shape[-1], cq).permute(0, 3, 1, 2)
+
+
+def _fold_heads(x: torch.Tensor, g: int) -> torch.Tensor:
+    """[B, c, G·R, D] -> [B, c, G, D]: the repeated heads' cotangents
+    summed back onto their KV head."""
+    b, c, h, d = x.shape
+    return x.reshape(b, c, g, h // g, d).sum(3)
+
+
+def _delta(dout: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """``einsum("bshd,bshd->bhs", dout, out)`` contracted in float32 (the
+    reference's ``preferred_element_type``): [B, H, S]."""
+    b, s, h, d = out.shape
+    return torch.bmm(dout.float().permute(0, 2, 1, 3).reshape(b * h * s, 1, d),
+                     out.float().permute(0, 2, 1, 3).reshape(b * h * s, d, 1)
+                     ).view(b, h, s)
+
+
+def _flash_fwd_impl(q, k, v, q_chunk: int, kv_chunk: int,
+                    with_lse: bool = True):
+    """The rectangular forward: q [B, S, H, D], k/v [B, S, G, D] -> (out
+    [B, S, H, D], lse [B, H, S]); every (q chunk, kv chunk) tile, the
+    future ones masked. The reference's ``lax.map`` over q chunks is a
+    ``"scan"`` region around the kv chunks' ``"scan"``."""
+    b, s, h, d = q.shape
+    g = k.shape[2]
+    n_rep = h // g
+    scale = 1.0 / math.sqrt(d)
+    qc, kc = min(q_chunk, s), min(kv_chunk, s)
+    nq, nk = _n_chunks(s, qc), _n_chunks(s, kc)
+    iota_q = torch.arange(qc, device=q.device)
+    iota_k = torch.arange(kc, device=q.device)
+    kr = k.reshape(b, nk, kc, g, d).movedim(1, 0)
+    vr = v.reshape(b, nk, kc, g, d).movedim(1, 0)
+    outs, lses = [], []
+    for i in range(nq):
+        with estimator.region("scan", "q_chunks"):
+            qi = _index(i, q)
+            qck = _slice(q, qi, qc, 1)
+            acc = torch.zeros((b, h, qc, d), dtype=torch.float32,
+                              device=q.device)
+            m = torch.full((b, h, qc), NEG_INF, dtype=torch.float32,
+                           device=q.device)
+            l = torch.zeros((b, h, qc), dtype=torch.float32,
+                            device=q.device)
+            for j in range(nk):
+                with estimator.region("scan", "kv_chunks"):
+                    kck = _repeat_chunk(kr[j], n_rep)
+                    vck = _repeat_chunk(vr[j], n_rep)
+                    ki = _index(j, q)
+                    sc = _scores(qck, kck).float() * scale
+                    sc = sc + _mask_penalty(qi, ki, iota_q, iota_k)[None, None]
+                    m_new = torch.maximum(m, sc.amax(-1))
+                    p = torch.exp(sc - m_new[..., None])
+                    alpha = torch.exp(m - m_new)
+                    l = l * alpha + p.sum(-1)
+                    acc = (acc * alpha[..., None]
+                           + _values(p.to(qck.dtype), vck).float())
+                    m = m_new
+            out_c = acc / torch.clamp_min(l[..., None], 1e-20)
+            if with_lse:
+                lses.append(m + torch.log(torch.clamp_min(l, 1e-20)))
+            outs.append(out_c.movedim(2, 1).to(q.dtype))
+    out = torch.stack(outs, 1).reshape(b, s, h, d)
+    return out, torch.cat(lses, -1) if with_lse else None
+
+
+def _flash_bwd_impl(q, k, v, out, lse, dout, q_chunk: int, kv_chunk: int):
+    """The rectangular forward's VJP (the reference's ``_flash_bwd_impl``):
+    (dq, dk, dv), each tile's scores recomputed from ``lse``; dk and dv
+    accumulated in float32."""
+    b, s, h, d = q.shape
+    g = k.shape[2]
+    n_rep = h // g
+    scale = 1.0 / math.sqrt(d)
+    qc, kc = min(q_chunk, s), min(kv_chunk, s)
+    nq, nk = _n_chunks(s, qc), _n_chunks(s, kc)
+    iota_q = torch.arange(qc, device=q.device)
+    iota_k = torch.arange(kc, device=q.device)
+    delta = _delta(dout, out)
+    kr = k.reshape(b, nk, kc, g, d).movedim(1, 0)
+    vr = v.reshape(b, nk, kc, g, d).movedim(1, 0)
+    dk = torch.zeros((b, s, g, d), dtype=torch.float32, device=q.device)
+    dv = torch.zeros((b, s, g, d), dtype=torch.float32, device=q.device)
+    dqs = []
+    for i in range(nq):
+        with estimator.region("scan", "q_chunks.T"):
+            qi = _index(i, q)
+            qck = _slice(q, qi, qc, 1)
+            do_c = _slice(dout, qi, qc, 1)
+            lse_c = _slice(lse, qi, qc, 2)
+            dl_c = _slice(delta, qi, qc, 2)
+            dq = torch.zeros((b, qc, h, d), dtype=torch.float32,
+                             device=q.device)
+            for j in range(nk):
+                with estimator.region("scan", "kv_chunks.T"):
+                    kck, vck = kr[j], vr[j]
+                    ki = _index(j, q)
+                    kck_r = _repeat_chunk(kck, n_rep)
+                    vck_r = _repeat_chunk(vck, n_rep)
+                    sc = _scores(qck, kck_r).float() * scale
+                    sc = sc + _mask_penalty(qi, ki, iota_q, iota_k)[None, None]
+                    p = torch.exp(sc - lse_c[..., None])
+                    dv_blk = _key_grad(p, do_c.float())
+                    dp = _scores(do_c, vck_r).float()
+                    ds = p * (dp - dl_c[..., None]) * scale
+                    dq_blk = _query_grad(ds, kck_r.float())
+                    dk_blk = _key_grad(ds, qck.float())
+                    dk_blk = _fold_heads(dk_blk, g)
+                    dv_blk = _fold_heads(dv_blk, g)
+                    _update_slice_(dk, _slice(dk, ki, kc, 1) + dk_blk, ki,
+                                   kc, 1)
+                    _update_slice_(dv, _slice(dv, ki, kc, 1) + dv_blk, ki,
+                                   kc, 1)
+                    dq = dq + dq_blk
+            dqs.append(dq.to(q.dtype))
+    dq = torch.stack(dqs, 1).reshape(b, s, h, d)
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _flash_fwd_pair_impl(q, k, v, chunk: int, with_lse: bool = True):
+    """The pair-scan forward: q [B, S, H, D], k/v [B, S, G, D] -> (out
+    [B, S, H, D], lse [B, H, S]); only the n(n+1)/2 causal chunk pairs,
+    carrying every q chunk's online-softmax state ``[n, B, H, c, ...]``
+    and updating the pair's q chunk in place. ``with_lse=False`` returns
+    None for lse, as the reference's checkpointed forward drops it."""
+    b, s, h, d = q.shape
+    g = k.shape[2]
+    n_rep = h // g
+    scale = 1.0 / math.sqrt(d)
+    c = min(chunk, s)
+    n = _n_chunks(s, c)
+    diag = torch.where(causal_mask(c, q.device), 0.0, NEG_INF)
+    acc = torch.zeros((n, b, h, c, d), dtype=torch.float32, device=q.device)
+    m = torch.full((n, b, h, c), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((n, b, h, c), dtype=torch.float32, device=q.device)
+
+    def pair(qi, ki):
+        qck = _slice(q, qi, c, 1)
+        kck = _repeat_chunk(_slice(k, ki, c, 1), n_rep)
+        vck = _repeat_chunk(_slice(v, ki, c, 1), n_rep)
+        sc = _scores(qck, kck).float() * scale
+        sc = sc + torch.where(qi == ki, 1.0, 0.0) * diag[None, None]
+        m_prev = _at_index(m, qi)
+        l_prev = _at_index(l, qi)
+        a_prev = _at_index(acc, qi)
+        m_new = torch.maximum(m_prev, sc.amax(-1))
+        p = torch.exp(sc - m_new[..., None])
+        alpha = torch.exp(m_prev - m_new)
+        l_new = l_prev * alpha + p.sum(-1)
+        a_new = (a_prev * alpha[..., None]
+                 + _values(p.to(q.dtype), vck).float())
+        _update_index_(acc, a_new, qi)
+        _update_index_(m, m_new, qi)
+        _update_index_(l, l_new, qi)
+
+    _scan_pairs(n, "pairs", q, pair)
+    out = acc / torch.clamp_min(l[..., None], 1e-20)
+    out = out.permute(1, 0, 3, 2, 4).reshape(b, s, h, d).to(q.dtype)
+    if not with_lse:
+        return out, None
+    lse = m + torch.log(torch.clamp_min(l, 1e-20))
+    return out, lse.permute(1, 2, 0, 3).reshape(b, h, s)
+
+
+def _flash_bwd_pair_impl(q, k, v, out, lse, dout, chunk: int):
+    """The pair-scan forward's VJP (the reference's
+    ``_flash_bwd_pair_impl``): (dq, dk, dv) in q's and k's dtypes, each
+    causal pair's scores recomputed from ``lse``; dq accumulated in q's
+    dtype, dk and dv in k's."""
+    b, s, h, d = q.shape
+    g = k.shape[2]
+    n_rep = h // g
+    scale = 1.0 / math.sqrt(d)
+    c = min(chunk, s)
+    n = _n_chunks(s, c)
+    diag = torch.where(causal_mask(c, q.device), 0.0, NEG_INF)
+    delta = _delta(dout, out)
+    dq = torch.zeros(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.zeros(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.zeros(v.shape, dtype=v.dtype, device=v.device)
+
+    def pair(qi, ki):
+        qck = _slice(q, qi, c, 1)
+        do_c = _slice(dout, qi, c, 1)
+        lse_c = _slice(lse, qi, c, 2)
+        dl_c = _slice(delta, qi, c, 2)
+        kck_r = _repeat_chunk(_slice(k, ki, c, 1), n_rep)
+        vck_r = _repeat_chunk(_slice(v, ki, c, 1), n_rep)
+        sc = _scores(qck, kck_r).float() * scale
+        sc = sc + torch.where(qi == ki, 1.0, 0.0) * diag[None, None]
+        p = torch.exp(sc - lse_c[..., None])
+        dv_blk = _key_grad(p, do_c.float())
+        dp = _scores(do_c, vck_r).float()
+        ds = p * (dp - dl_c[..., None]) * scale
+        dq_blk = _query_grad(ds, kck_r.float()).to(q.dtype)
+        dk_blk = _fold_heads(_key_grad(ds, qck.float()), g)
+        dv_blk = _fold_heads(dv_blk, g)
+        _update_slice_(dq, _slice(dq, qi, c, 1) + dq_blk, qi, c, 1)
+        _update_slice_(dk, _slice(dk, ki, c, 1) + dk_blk.to(k.dtype), ki,
+                       c, 1)
+        _update_slice_(dv, _slice(dv, ki, c, 1) + dv_blk.to(v.dtype), ki,
+                       c, 1)
+
+    _scan_pairs(n, "pairs.T", q, pair)
+    return dq, dk, dv
+
+
+class _FlashXla(torch.autograd.Function):
+    """``flash_attention_xla`` with the reference's custom VJP: outputs
+    (out, lse), lse saved for the backward and not differentiable."""
+
+    @staticmethod
+    def forward(q, k, v, q_chunk, kv_chunk):
+        return _flash_fwd_impl(q, k, v, q_chunk, kv_chunk)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, ctx.q_chunk, ctx.kv_chunk = inputs
+        ctx.mark_non_differentiable(output[1])
+        ctx.save_for_backward(q, k, v, *output)
+
+    @staticmethod
+    def backward(ctx, dout, _):
+        with torch.no_grad():
+            return (*_flash_bwd_impl(*ctx.saved_tensors, dout, ctx.q_chunk,
+                                     ctx.kv_chunk), None, None)
+
+
+class _FlashPair(torch.autograd.Function):
+    """``flash_attention_pair`` with the reference's custom VJP: outputs
+    (out, lse), lse saved for the backward and not differentiable."""
+
+    @staticmethod
+    def forward(q, k, v, chunk):
+        return _flash_fwd_pair_impl(q, k, v, chunk)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, ctx.chunk = inputs
+        ctx.mark_non_differentiable(output[1])
+        ctx.save_for_backward(q, k, v, *output)
+
+    @staticmethod
+    def backward(ctx, dout, _):
+        with torch.no_grad():
+            return (*_flash_bwd_pair_impl(*ctx.saved_tensors, dout,
+                                          ctx.chunk), None)
+
+
+def flash_attention_xla(q, k, v, q_chunk: int = Q_CHUNK,
+                        kv_chunk: int = KV_CHUNK) -> torch.Tensor:
+    """q [B, S, H, D], k/v [B, S, G, D] -> out [B, S, H, D]: the
+    rectangular flash path. A ``"call"`` region, as the reference's
+    custom-VJP call."""
+    with estimator.region("call", "flash_attention_xla"):
+        return _FlashXla.apply(q, k, v, q_chunk, kv_chunk)[0]
+
+
+def flash_attention_pair(q, k, v, chunk: int = 512) -> torch.Tensor:
+    """q [B, S, H, D], k/v [B, S, G, D] -> out [B, S, H, D]: the pair-scan
+    flash path. A ``"call"`` region, as the reference's custom-VJP
+    call."""
+    with estimator.region("call", "flash_attention_pair"):
+        return _FlashPair.apply(q, k, v, chunk)[0]
+
+
+def chunked_causal_attention(q, k, v, *, q_chunk: int = Q_CHUNK,
+                             kv_chunk: int = KV_CHUNK) -> torch.Tensor:
+    """[B, S, H, D] over the flash path (memory O(S · chunk)): the pair
+    variant under ``USE_PAIR_SCAN``."""
+    s = q.shape[1]
+    if USE_PAIR_SCAN:
+        return flash_attention_pair(q, k, v, min(q_chunk, s))
+    return flash_attention_xla(q, k, v, min(q_chunk, s), min(kv_chunk, s))
+
+
+def chunked_forward(q, k, v, *, with_lse: bool = True,
+                    q_chunk: int = Q_CHUNK, kv_chunk: int = KV_CHUNK):
+    """``chunked_causal_attention``'s (out, lse), its forward rule inline
+    (no call region): what a differentiated layer runs, as the reference's
+    linearization inlines the custom VJP's forward; lse None without
+    ``with_lse``."""
+    s = q.shape[1]
+    if USE_PAIR_SCAN:
+        return _flash_fwd_pair_impl(q, k, v, min(q_chunk, s), with_lse)
+    return _flash_fwd_impl(q, k, v, min(q_chunk, s), min(kv_chunk, s),
+                           with_lse)
+
+
+def chunked_backward(q, k, v, out, lse, dout, *, q_chunk: int = Q_CHUNK,
+                     kv_chunk: int = KV_CHUNK):
+    """The VJP of :func:`chunked_forward`: (dq, dk, dv)."""
+    s = q.shape[1]
+    if USE_PAIR_SCAN:
+        return _flash_bwd_pair_impl(q, k, v, out, lse, dout,
+                                    min(q_chunk, s))
+    return _flash_bwd_impl(q, k, v, out, lse, dout, min(q_chunk, s),
+                           min(kv_chunk, s))
+
+
 def attention_block(x: torch.Tensor, p: dict, cfg: ArchConfig,
                     positions: torch.Tensor, *,
                     chunked: bool = False) -> torch.Tensor:
-    """The reference's ``attention_block`` on its full-attention branch:
-    x [B, S, D] -> [B, S, D]. The chunked branch (sequences above
-    ``transformer.CHUNKED_ATTN_THRESHOLD``) raises."""
-    if chunked:
-        raise NotImplementedError(
-            "chunked attention (flash_attention_pair / flash_attention_xla, "
-            "sequences above 2048) is not ported yet (ROADMAP.md, queue "
-            "item 3.7: training above seq 2048)")
+    """The reference's ``attention_block``: x [B, S, D] -> [B, S, D],
+    full attention or (``chunked``, sequences above
+    ``transformer.CHUNKED_ATTN_THRESHOLD``) the chunked flash path."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(x, p["wq"], p["wk"], p["wv"], cfg, positions)
-    out = full_causal_attention(q, k, v)
+    if chunked:
+        out = chunked_causal_attention(q, k, v)
+    else:
+        out = full_causal_attention(q, k, v)
     return out.reshape(b, s, -1) @ p["wo"]
 
 

@@ -31,8 +31,12 @@ Entry points:
     stays the jit engine's tick;
   * ``hidden_states(cfg, params, tokens)`` / ``apply`` -> the final-norm
     hidden states ``[B, S, D]`` / the logits ``[B, S, V]`` over a whole
-    sequence (train and prefill), functions of the same tree. The layer
-    stack is one ``autograd.Function`` (``_LayerStack``): its forward runs
+    sequence (train and prefill), functions of the same tree; above
+    ``CHUNKED_ATTN_THRESHOLD`` tokens the attention is the chunked flash
+    path (``attention.chunked_causal_attention``). Undifferentiated (a
+    prefill), the stack is ``_forward_stack``, the reference's plain
+    scan. Differentiated, it is one ``autograd.Function``
+    (``_LayerStack``): its forward runs
     each layer as one iteration of the ``"scan"`` region ``"layers"``,
     its backward each layer's VJP, last layer first, as one iteration of
     ``"layers.T"`` — the reference's scan and its transpose. The VJP is
@@ -80,6 +84,22 @@ def leaf_shapes(cfg: ArchConfig) -> dict[str, tuple[int, ...]]:
             "lm_head/w": (d, v),
             **{f"layers/block0/{k}": (cfg.n_layers, *shape)
                for k, shape in per_layer.items()}}
+
+
+def check_ported(cfg: ArchConfig) -> None:
+    """Raise ``NotImplementedError`` naming what of ``cfg`` the port does
+    not run yet: the model families of ROADMAP.md's port queue item 5."""
+    unported = [what for what, on in (
+        (f"block_pattern={cfg.block_pattern!r}", cfg.block_pattern != "attn"),
+        ("MoE layers", cfg.n_experts),
+        ("tied embeddings", cfg.tie_embeddings),
+        ("embedding inputs", cfg.input_embed_stub),
+        ("position grids", cfg.needs_position_grid),
+        ("qkv_bias / qk_norm attention", cfg.qkv_bias or cfg.qk_norm)) if on]
+    if unported:
+        raise NotImplementedError(
+            f"{', '.join(unported)} not ported yet (ROADMAP.md, port queue "
+            f"item 5: remaining model families)")
 
 
 def param_tree(flat: dict) -> dict:
@@ -179,7 +199,7 @@ def decode_step_paged(cfg: ArchConfig, params: dict, cache: dict,
 
 
 # sequence length above which the reference attends chunk by chunk
-# (flash_attention_xla / flash_attention_pair), not ported yet
+# (attention.chunked_causal_attention: the pair-scan flash path)
 CHUNKED_ATTN_THRESHOLD = 2048
 
 # the stack's per-layer leaves in the reference's (sorted) key order
@@ -198,17 +218,28 @@ def _weight_grad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 
 def _unit_forward(x, w: dict, cfg: ArchConfig, positions, mask,
-                  tables=None, *, full: bool = True) -> dict:
+                  tables=None, *, full: bool = True, chunked: bool = False,
+                  infer: bool = False, residuals: bool = True) -> dict:
     """One layer's forward over a sequence, returning what its VJP reads.
 
     ``tables``: the (q, k) rope tables made once outside the stack, as
     the reference's linearization hoists them out of its scan; ``None``
     makes them here, before each rotation, as its recomputing (remat)
-    body does, and takes the masked scores through
-    ``estimator.select_parts`` (the mask and the zero the selection's VJP
-    reads then come from the scores, as in the reference's graph).
-    ``full=False`` stops where the VJP stops reading: before the down
-    projection."""
+    body and its undifferentiated forward do. The recomputing body takes
+    the masked scores through ``estimator.select_parts`` (the mask and
+    the zero the selection's VJP reads then come from the scores, as in
+    the reference's graph); ``infer=True``, the forward of a step that
+    takes no gradient, selects them plainly.
+
+    ``chunked``: the attention is the chunked flash path (``mask`` unused)
+    and the layer keeps its output and log-sum-exp for the VJP; inlined
+    (``attention.chunked_forward``) where the layer is differentiated, as
+    the reference's linearization inlines the custom VJP's forward, a
+    call of its own (``attention.chunked_causal_attention``) under
+    ``infer``. ``full=False`` stops where the VJP stops reading: before
+    the down projection; ``residuals=False`` (the forward of a remat
+    stack, whose VJP recomputes the layer) computes no chunked lse, as
+    the reference's checkpointed forward drops it."""
     eps, hd = cfg.norm_eps, cfg.resolved_head_dim
     b, s, _ = x.shape
     h1 = layers.rms_norm_fwd(x, w["norm1/scale"], eps)
@@ -224,25 +255,34 @@ def _unit_forward(x, w: dict, cfg: ArchConfig, positions, mask,
     qr = layers.rotate(q, *tq)
     tk = table(1)
     kr = layers.rotate(k, *tk)
-    scores = (attention.grouped_scores(qr, kr) / math.sqrt(hd)).float()
-    if tables is not None:
-        masked = torch.where(mask, scores, attention.NEG_INF)
-        select = (mask, 0.0)
+    if chunked:
+        if infer:
+            o, lse = attention.chunked_causal_attention(qr, kr, v), None
+        else:
+            o, lse = attention.chunked_forward(qr, kr, v,
+                                               with_lse=residuals)
+        att = dict(o=o.reshape(b, s, -1), lse=lse)
     else:
-        masked, *select = estimator.select_parts(mask, scores,
-                                                 attention.NEG_INF)
-    p, e, ssum = attention.softmax_parts(masked)
-    p = p.to(x.dtype)
-    o = attention.grouped_values(p, v).reshape(b, s, -1)
+        scores = (attention.grouped_scores(qr, kr) / math.sqrt(hd)).float()
+        if tables is not None or infer:
+            masked = torch.where(mask, scores, attention.NEG_INF)
+            select = (mask, 0.0)
+        else:
+            masked, *select = estimator.select_parts(mask, scores,
+                                                     attention.NEG_INF)
+        p, e, ssum = attention.softmax_parts(masked)
+        p = p.to(x.dtype)
+        att = dict(p=p, e=e, ssum=ssum, select=select,
+                   o=attention.grouped_values(p, v).reshape(b, s, -1))
+    o = att["o"]
     xm = x + o @ w["attn/wo"]
     h2 = layers.rms_norm_fwd(xm, w["norm2/scale"], eps)
     gate = h2 @ w["mlp/w_gate"]
     up = h2 @ w["mlp/w_up"]
     sg = F.silu(gate)
     hm = sg * up
-    r = dict(x=x, h1=h1, tq=tq, tk=tk, qr=qr, kr=kr, v=v, p=p, e=e,
-             ssum=ssum, select=select, o=o, xm=xm, h2=h2, gate=gate, up=up,
-             sg=sg, hm=hm)
+    r = dict(x=x, h1=h1, tq=tq, tk=tk, qr=qr, kr=kr, v=v, **att, xm=xm,
+             h2=h2, gate=gate, up=up, sg=sg, hm=hm)
     if full:
         r["out"] = xm + hm @ w["mlp/w_down"]
     return r
@@ -269,8 +309,7 @@ def _unit_backward(ct: torch.Tensor, r: dict, w: dict,
     order are the reference's transpose of the layer: the down projection
     first, the weight's cotangent before the input's, the cotangent sums
     unpriced (``estimator.add_any``)."""
-    eps, hd = cfg.norm_eps, cfg.resolved_head_dim
-    g, rep = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    eps = cfg.norm_eps
     b, s, _ = ct.shape
     add = estimator.add_any
     grads = {}
@@ -289,7 +328,45 @@ def _unit_backward(ct: torch.Tensor, r: dict, w: dict,
     ct = add(ct, dxm)
     # attention: xm = x + o @ wo
     grads["attn/wo"] = _weight_grad(r["o"], ct)
-    do = (ct @ w["attn/wo"].t()).reshape(b, s, g, rep, hd)
+    if "lse" in r:
+        dq, dk, dv = _chunked_backward(ct @ w["attn/wo"].t(), r, cfg)
+    else:
+        dq, dk, dv = _full_backward(ct @ w["attn/wo"].t(), r, cfg)
+    dk = _rotate_bwd(dk, *r["tk"]).reshape(b, s, -1)
+    dq = _rotate_bwd(dq, *r["tq"]).reshape(b, s, -1)
+    dv = dv.reshape(b, s, -1)
+    grads["attn/wv"] = _weight_grad(r["h1"], dv)
+    dx_v = dv @ w["attn/wv"].t()
+    grads["attn/wk"] = _weight_grad(r["h1"], dk)
+    dx_k = dk @ w["attn/wk"].t()
+    grads["attn/wq"] = _weight_grad(r["h1"], dq)
+    dx_q = dq @ w["attn/wq"].t()
+    dx, grads["norm1/scale"] = layers.rms_norm_bwd(
+        r["x"], w["norm1/scale"], add(add(dx_v, dx_k), dx_q), eps)
+    return add(ct, dx), grads
+
+
+def _chunked_backward(do: torch.Tensor, r: dict, cfg: ArchConfig):
+    """The chunked attention's VJP from the output's cotangent ``do`` [B,
+    S, H·hd]: (dq [B, S, H, hd], dk, dv [B, S, G, hd]) of the rotated q, k
+    and of v (``attention.chunked_backward``, the reference's custom VJP
+    inlined in its transpose)."""
+    b, s, _ = do.shape
+    hd = cfg.resolved_head_dim
+    return attention.chunked_backward(
+        r["qr"], r["kr"], r["v"], r["o"].reshape(b, s, -1, hd), r["lse"],
+        do.reshape(b, s, -1, hd))
+
+
+def _full_backward(do: torch.Tensor, r: dict, cfg: ArchConfig):
+    """The full attention's VJP from the output's cotangent ``do`` [B, S,
+    H·hd], as the reference's transpose spells it: (dq [B, S, H, hd], dk,
+    dv [B, S, G, hd])."""
+    hd = cfg.resolved_head_dim
+    g, rep = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    b, s, _ = do.shape
+    add = estimator.add_any
+    do = do.reshape(b, s, g, rep, hd)
     v, p = r["v"], r["p"]
     ct_p = torch.bmm(
         do.permute(0, 2, 3, 1, 4).reshape(b * g, rep * s, hd),
@@ -306,53 +383,48 @@ def _unit_backward(ct: torch.Tensor, r: dict, w: dict,
     neg = t.sum(-1, keepdim=True).neg()
     ct_e = add(ct_p / ssum, neg) * e
     mask, zero = r["select"]
-    ct_s = torch.where(mask, ct_e, zero).to(ct.dtype) / math.sqrt(hd)
+    ct_s = torch.where(mask, ct_e, zero).to(do.dtype) / math.sqrt(hd)
     dq = torch.bmm(ct_s.permute(0, 1, 3, 2, 4).reshape(b * g, s * rep, s),
                    r["kr"].permute(0, 2, 1, 3).reshape(b * g, s, hd)
                    ).view(b, g, s, rep, hd)
     dk = torch.bmm(ct_s.permute(0, 1, 4, 3, 2).reshape(b * g, s, s * rep),
                    r["qr"].reshape(b, s, g, rep, hd).permute(0, 2, 1, 3, 4)
                    .reshape(b * g, s * rep, hd)).view(b, g, s, hd)
-    dk = _rotate_bwd(dk.permute(0, 2, 1, 3), *r["tk"]).reshape(b, s, -1)
-    dq = _rotate_bwd(dq.permute(0, 2, 1, 3, 4).reshape(b, s, g * rep, hd),
-                     *r["tq"]).reshape(b, s, -1)
-    dv = dv.reshape(b, s, -1)
-    grads["attn/wv"] = _weight_grad(r["h1"], dv)
-    dx_v = dv @ w["attn/wv"].t()
-    grads["attn/wk"] = _weight_grad(r["h1"], dk)
-    dx_k = dk @ w["attn/wk"].t()
-    grads["attn/wq"] = _weight_grad(r["h1"], dq)
-    dx_q = dq @ w["attn/wq"].t()
-    dx, grads["norm1/scale"] = layers.rms_norm_bwd(
-        r["x"], w["norm1/scale"], add(add(dx_v, dx_k), dx_q), eps)
-    return add(ct, dx), grads
+    return (dq.permute(0, 2, 1, 3, 4).reshape(b, s, g * rep, hd),
+            dk.permute(0, 2, 1, 3), dv)
 
 
-# what the backward keeps of a layer's forward without remat
+# what the backward keeps of a layer's forward without remat: full
+# attention, chunked attention
 _RESIDUALS = ("h1", "qr", "kr", "v", "p", "e", "ssum", "o", "xm", "h2",
               "gate", "up", "sg", "hm")
+_RESIDUALS_CHUNKED = ("h1", "qr", "kr", "v", "o", "lse", "xm", "h2", "gate",
+                      "up", "sg", "hm")
 
 
 class _LayerStack(torch.autograd.Function):
     """The layer stack, ``x`` through every layer (module docstring).
-    Inputs: the config, x, positions, the causal mask, the (q, k) rope
-    tables (cos, sin each) and the stacked leaves (``STACK_LEAVES``).
-    Outputs: x and what the backward reads (the layers' inputs after the
-    first; without remat also each layer's ``_RESIDUALS``), the latter
-    not differentiable."""
+    Inputs: the config, x, positions, the causal mask (None: the
+    attention is chunked), the (q, k) rope tables (cos, sin each) and the
+    stacked leaves (``STACK_LEAVES``). Outputs: x and what the backward
+    reads (the layers' inputs after the first; without remat also each
+    layer's residuals), the latter not differentiable."""
 
     @staticmethod
     def forward(cfg, x, positions, mask, qc, qs, kc, ks, *leaves):
         tables = ((qc, qs), (kc, ks))
+        chunked = mask is None
+        keys = _RESIDUALS_CHUNKED if chunked else _RESIDUALS
         saved = []
         for i in range(cfg.n_layers):
             with estimator.region("scan", "layers"):
                 r = _unit_forward(x, _layer(leaves, i), cfg, positions,
-                                  mask, tables)
+                                  mask, tables, chunked=chunked,
+                                  residuals=not cfg.remat)
             if i:
                 saved.append(x)
             if not cfg.remat:
-                saved.extend(r[key] for key in _RESIDUALS)
+                saved.extend(r[key] for key in keys)
             x = r["out"]
         return (x, *saved)
 
@@ -369,7 +441,9 @@ class _LayerStack(torch.autograd.Function):
         x, positions, mask, qc, qs, kc, ks, *rest = ctx.saved_tensors
         n = len(STACK_LEAVES)
         leaves, saved = rest[:n], rest[n:]
-        per = 0 if cfg.remat else len(_RESIDUALS)
+        chunked = mask is None
+        keys = _RESIDUALS_CHUNKED if chunked else _RESIDUALS
+        per = 0 if cfg.remat else len(keys)
         grads = [[None] * cfg.n_layers for _ in leaves]
         # no_grad: the VJP is written out and never differentiated, and
         # its unpriced ops (estimator.add_any, silu_vjp, select_parts)
@@ -384,9 +458,9 @@ class _LayerStack(torch.autograd.Function):
                     w = _layer(leaves, i)
                     if cfg.remat:
                         r = _unit_forward(xi, w, cfg, positions, mask,
-                                          full=False)
+                                          full=False, chunked=chunked)
                     else:
-                        r = dict(zip(_RESIDUALS, saved[at:at + per]), x=xi,
+                        r = dict(zip(keys, saved[at:at + per]), x=xi,
                                  tq=(qc, qs), tk=(kc, ks),
                                  select=(mask, 0.0))
                     ct, g = _unit_backward(ct, r, w, cfg)
@@ -396,29 +470,52 @@ class _LayerStack(torch.autograd.Function):
         return (None, ct, None, None, None, None, None, None, *grads)
 
 
+def _differentiated(*xs: torch.Tensor) -> bool:
+    """Whether autograd (or a ``torch.func`` transform) records a VJP of
+    ``xs``: the differentiated stack spells the reference's linearized
+    forward and its transpose, the other its plain forward."""
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+
+
+def _forward_stack(cfg: ArchConfig, x, positions, mask,
+                   leaves) -> torch.Tensor:
+    """The layer stack of a step that takes no gradient (prefill): each
+    layer one iteration of the ``"scan"`` region ``"layers"``, making its
+    rope tables itself and the chunked attention (``mask`` None) a call
+    of its own, as the reference's undifferentiated scan body does."""
+    for i in range(cfg.n_layers):
+        with estimator.region("scan", "layers"):
+            x = _unit_forward(x, _layer(leaves, i), cfg, positions, mask,
+                              chunked=mask is None, infer=True)["out"]
+    return x
+
+
 def hidden_states(cfg: ArchConfig, params: dict,
                   tokens: torch.Tensor) -> torch.Tensor:
     """The reference's ``DecoderLM.hidden_states`` for token inputs:
     tokens [B, S] int -> the final norm's output [B, S, D], on the
-    reference's parameter tree. Full attention only: above
-    ``CHUNKED_ATTN_THRESHOLD`` it raises."""
+    reference's parameter tree. Above ``CHUNKED_ATTN_THRESHOLD`` tokens
+    the attention is the chunked flash path (the sequence a multiple of
+    ``attention.Q_CHUNK``). Differentiated, the stack is ``_LayerStack``
+    (the rope tables made once outside it); otherwise ``_forward_stack``."""
     x = layers.embed(tokens, params["embed"]["table"])
     b, s, _ = x.shape
-    if s > CHUNKED_ATTN_THRESHOLD:
-        raise NotImplementedError(
-            f"seq {s} > {CHUNKED_ATTN_THRESHOLD} takes the reference's "
-            f"chunked attention, not ported yet (ROADMAP.md, queue item "
-            f"3.7: training above seq 2048)")
+    chunked = s > CHUNKED_ATTN_THRESHOLD
     hd = cfg.resolved_head_dim
     pos = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(
         b, s)
-    tq = layers.rope_table(hd, cfg.rope_theta, pos, x.dtype)
-    tk = layers.rope_table(hd, cfg.rope_theta, pos, x.dtype)
-    mask = attention.causal_mask(s, x.device)
     lp = params["layers"]["block0"]
     leaves = [lp[group][name] for group, name in
               (key.split("/") for key in STACK_LEAVES)]
-    x = _LayerStack.apply(cfg, x, pos, mask, *tq, *tk, *leaves)[0]
+    differentiated = _differentiated(x, *leaves)
+    if differentiated:
+        tq = layers.rope_table(hd, cfg.rope_theta, pos, x.dtype)
+        tk = layers.rope_table(hd, cfg.rope_theta, pos, x.dtype)
+    mask = None if chunked else attention.causal_mask(s, x.device)
+    if differentiated:
+        x = _LayerStack.apply(cfg, x, pos, mask, *tq, *tk, *leaves)[0]
+    else:
+        x = _forward_stack(cfg, x, pos, mask, leaves)
     return layers.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
 
 
@@ -445,19 +542,7 @@ class DecoderLM(nn.Module):
     def __init__(self, cfg: ArchConfig, *,
                  device: str | torch.device | None = None):
         super().__init__()
-        unported = []
-        if cfg.block_pattern != "attn":
-            unported.append(f"block_pattern={cfg.block_pattern!r}")
-        if cfg.n_experts:
-            unported.append("MoE layers")
-        if cfg.tie_embeddings:
-            unported.append("tied embeddings")
-        if cfg.input_embed_stub:
-            unported.append("embedding inputs")
-        if unported:
-            raise NotImplementedError(
-                f"{', '.join(unported)} not ported yet (ROADMAP.md, port "
-                f"queue item 5: remaining model families)")
+        check_ported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = torch_dtype(cfg.dtype)

@@ -431,9 +431,19 @@ def test_one_step_from_the_reference_state(ref_params, state_dtype):
 
 def test_unported_train_options_raise():
     cfg = get_smoke_config("llama3-8b")
-    with pytest.raises(NotImplementedError, match="3.8"):
-        steps.make_train_step(dataclasses.replace(cfg, grad_accum=2))
+    # grad_accum > 1 steps (port queue item 3.8; held against the
+    # reference in tests/test_torch_long_train.py)
+    accum = dataclasses.replace(cfg, grad_accum=2)
+    params = transformer.DecoderLM(accum, device="cpu").init(
+        0).stacked_params()
+    _, opt, loss = steps.make_train_step(accum)(
+        params, make_optimizer("adamw", lr=3e-4).init(params),
+        _tensors(TokenStream(cfg.vocab_size, 8, 2).batch(0)))
+    assert torch.isfinite(loss) and int(opt["step"]) == 1
     with pytest.raises(NotImplementedError, match="item 5"):
         steps.make_loss_fn(dataclasses.replace(cfg, input_embed_stub=True))
-    with pytest.raises(NotImplementedError, match="3.7"):
-        mapper.map_arch("llama3-8b", "train", smoke=True, seq_len=4096)
+    # a sequence above 2048 maps (item 3.7): the chunked attention's pair
+    # scan folds inside the stack and its transpose
+    sched = mapper.map_arch("llama3-8b", "train", smoke=True, seq_len=4096)
+    assert len(sched.graph.nodes) == 347
+    assert max(nd.repeat for nd in sched.graph.nodes) == 72

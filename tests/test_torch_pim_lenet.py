@@ -146,11 +146,19 @@ def test_unported_options_raise_not_implemented():
     # partitions and scan expansion map (tests/test_torch_partition.py)
     assert len(mapper.map_lenet("serve", partitions=2).partitions) == 2
     assert mapper.map_lenet("serve", expand_scans=True).graph.groups == {}
+    # the train step maps with grad_accum > 1 and above seq 2048
+    # (tests/test_torch_long_train.py holds both against the reference);
+    # what it leaves out raises
+    prog = mapper.compile_arch("llama3-8b", config=dataclasses.replace(
+        get_smoke_config("llama3-8b"), grad_accum=2), batch=1, seq_len=8,
+        device="cpu")
+    assert sum(nd.kind == "eltwise" and not nd.scanned
+               for nd in prog.schedule.graph.nodes) == 184
     cases = [
-        # the train step maps; what it leaves out raises
-        lambda: mapper.map_arch("llama3-8b", smoke=True, seq_len=4096),
+        lambda: mapper.map_arch("llama3-8b", config=dataclasses.replace(
+            get_smoke_config("llama3-8b"), input_embed_stub=True)),
         lambda: mapper.compile_arch("llama3-8b", config=dataclasses.replace(
-            get_smoke_config("llama3-8b"), grad_accum=2), device="cpu"),
+            get_smoke_config("llama3-8b"), qkv_bias=True), device="cpu"),
     ]
     for case in cases:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
