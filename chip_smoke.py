@@ -260,6 +260,31 @@ Phases, each printing one JSON line:
    shares of the plain step's device time, peak memory) and the
    published config's prefill (bf16, 32 layers) at seq 8192 (ms a call,
    tokens/s, peak memory; 32768 left out, minutes of eager launches).
+24. ``dense_variants`` — the dense attention variants, after the serve
+   phases' model is freed: qwen2.5-32b (q/k/v biases), qwen3-32b
+   (per-head q/k norm; H·hd 8192 ≠ d_model 5120) and chatglm3-6b (half
+   RoPE, 32 q heads over 2 kv heads), their biases and norm scales
+   seeded away from their init. Holds at the published width in float32:
+   (a) each config cut to 2 layers, 8 requests: the kernel and the
+   gather path token-identical, logits within 1e-4 x max|logit| over an
+   fp32 pool (K4) and 1e-3 over an int8 pool (K6), the int8 pool's logits
+   against the fp32 pool's as the control, launches = layers x ticks (one
+   ``parity`` line each); K4 (f32, bf16 q) and K6 (int8, f32 q) at rep
+   5, 8 and 16 at the serve shapes, held and timed as in ``kernels``;
+   (b) qwen3-32b's decode step through ``compile_arch(...,
+   expand_scans=True)`` at ``pim_llama``'s hold on the fp32 and int8
+   grids, as ``pim_llama`` holds llama3-8b's, bit for bit the executor,
+   its launches the CPU's plan; (c) chatglm3-6b through
+   ``ServeEngine(backend="pim")`` at ``serve_pim``'s hold,
+   token-identical to the jit engine, K4 at rep 16 in the program; (d)
+   qwen3-32b's train step at 1 layer, batch 2 (``grad_accum`` 2), seq
+   128, as ``pim_llama_train`` holds llama3-8b's. Time (bf16):
+   chatglm3-6b at 28 layers and qwen2.5-32b at the most layers that fit
+   ~76 GB (64, reckoned 73.9 GB) serve the serve phase's load — tok/s,
+   TTFT, ms a tick, K4 a tick, busy share, peak memory. Then
+   ``kernels_pim`` at (b)'s launches (``"path": "dense_variants"``:
+   K1 on the layers' products and the 151,936-column head, K2, K3;
+   ``dense_variants_q``: K5).
 
 Then the card's name and power limit, one line with every kernel's
 numbers, and as the last line ``{"ok": true, "device": {...}}``. Any
@@ -274,6 +299,7 @@ import collections
 import contextlib
 import ctypes
 import dataclasses
+import gc
 import importlib
 import json
 import pathlib
@@ -425,14 +451,13 @@ def k4_inputs(dtype, rng, device, s=K4_SHAPES, positions=K4_POS,
             torch.from_numpy(pos).to(device))
 
 
-def k4_bound(q, pos, dtype_name) -> tuple[float, str]:
+def k4_bound(q, pos, dtype_name, s=K4_SHAPES) -> tuple[float, str]:
     """Least time for this call: the bytes the function must move (q and
     pos read once, the K and V rows at positions 0..pos[b] of each slot
     read once with the table entries they sit in, the output written
     once) over HBM rate, against its flops over the peak rate of its
     type. Whole blocks and the table's tail are the kernel's tiling, not
     the function's, and are not counted."""
-    s = K4_SHAPES
     item = q.element_size()
     p = pos.cpu().numpy().astype(np.int64)
     rows = int((p + 1).sum())               # K/V rows the function reads
@@ -470,7 +495,8 @@ def off_by_one_control(label, plain, want, pos, length, tol) -> float:
     return control
 
 
-def hold_and_time(label, q, pos, pools, kernel, plain, heads) -> dict:
+def hold_and_time(label, q, pos, pools, kernel, plain, heads,
+                  s=K4_SHAPES) -> dict:
     """Hold ``kernel(pool, pos)`` against ``plain(pool, pos)`` on the
     first pool within ``K4_TOL`` x max|out| of each (slot, head), then
     time kernel and plain version over the rotated pools, and the library
@@ -498,7 +524,6 @@ def hold_and_time(label, q, pos, pools, kernel, plain, heads) -> dict:
     if not ratio <= 1:
         raise AssertionError(f"{label}: error {ratio} x the limit {tol} x "
                              f"max|out| of a (slot, head)")
-    s = K4_SHAPES
     length = s["W"] * s["bs"]
     control = off_by_one_control(label, lambda at: plain(pools[0], at),
                                  want, pos, length, tol)
@@ -541,10 +566,9 @@ def hold_and_time(label, q, pos, pools, kernel, plain, heads) -> dict:
             "library_max_err_over_limit": lib_ratio}
 
 
-def to_heads(k, v, table, dtype):
+def to_heads(k, v, table, dtype, s=K4_SHAPES):
     """K/V [N, bs, G, D] gathered through the table and repeated to every
     query head: [B, H, L, D] each, in ``dtype``."""
-    s = K4_SHAPES
     length, rep = s["W"] * s["bs"], s["H"] // s["G"]
     return tuple(x[table.long()].reshape(s["B"], length, s["G"], s["D"])
                  .repeat_interleave(rep, dim=2).transpose(1, 2)
@@ -721,14 +745,13 @@ def k6_inputs(kv_dtype, dtype, rng, device, s=K4_SHAPES, positions=K4_POS,
             torch.from_numpy(pos).to(device))
 
 
-def k6_bound(q, codes, pos) -> tuple[float, str]:
+def k6_bound(q, codes, pos, s=K4_SHAPES) -> tuple[float, str]:
     """Least time for this K6 call: the bytes the function must move (q
     and pos read once; the codes and the float32 scales of the K and V
     rows at positions 0..pos[b] read once with the table entries they sit
     in; the output written once) over HBM rate, against its float32
     operations (q.k and p.v per query head, one dequantizing multiply per
     K/V element) over the float32 peak."""
-    s = K4_SHAPES
     p = pos.cpu().numpy().astype(np.int64)
     rows = int((p + 1).sum())
     entries = int((p // s["bs"] + 1).sum())
@@ -877,19 +900,21 @@ def quantization_reading(ticks, fp32_ticks, tol) -> float:
     return worst
 
 
-def phase_parity(seed: int) -> None:
+def parity_runs(cfg, model, prompts, kv_dtypes, config: str,
+                batch: int = 4) -> dict:
+    """The kernel path against the gather path of ``ServeEngine`` on
+    ``model`` over ``prompts`` (8 new tokens each, batched prefill, blocks
+    of 16), for each pool of ``kv_dtypes`` (the first "fp32"): identical
+    tokens, each tick's logits within ``PARITY_TOL`` x max|logit|, K4 (K6
+    over a quantized pool) launched ``cfg.n_layers`` times a tick — its
+    count set to 0 just before the kernel path's run, read just after —
+    and over a quantized pool the control (``quantization_reading``) and
+    the codes that differ (``pool_flips``). Emits one ``parity`` line per
+    pool; returns each pool's kernel launches."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import (
         paged_decode_attention_grouped, paged_decode_attention_grouped_q)
-    from repro_torch.models import DecoderLM
     from repro_torch.serve import Request, ServeEngine
-    torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = dataclasses.replace(get_config("llama3-8b"), n_layers=2,
-                              dtype="float32")
-    model = DecoderLM(cfg, device=DEVICE).init(seed)
-    prompts = make_prompts(np.random.default_rng(seed), 4, 17, 40,
-                           cfg.vocab_size)
 
     def drive(attn_kernel, kv_dtype):
         ticks = []
@@ -898,7 +923,7 @@ def phase_parity(seed: int) -> None:
             ticks.append(logits.clone())
             return torch.argmax(logits, -1)
 
-        eng = ServeEngine(cfg, model, batch=4, max_len=64, paged=True,
+        eng = ServeEngine(cfg, model, batch=batch, max_len=64, paged=True,
                           kv_block_size=16, prefill="batch",
                           attn_kernel=attn_kernel, sample=sample,
                           kv_dtype=kv_dtype, device=DEVICE)
@@ -907,23 +932,25 @@ def phase_parity(seed: int) -> None:
         return {r.rid: r.out for r in eng.run()}, ticks, eng.cache
 
     fp32_ticks = None
-    for kv_dtype, kernel in (("fp32", paged_decode_attention_grouped),
-                             ("int8", paged_decode_attention_grouped_q),
-                             ("fp8_e4m3", paged_decode_attention_grouped_q)):
+    launched = {}
+    for kv_dtype in kv_dtypes:
+        kernel = (paged_decode_attention_grouped if kv_dtype == "fp32"
+                  else paged_decode_attention_grouped_q)
         kernel.launches = 0
         got, lk, pool_k = drive(True, kv_dtype)
         fp32_ticks = lk if fp32_ticks is None else fp32_ticks
-        launches = kernel.launches
+        launches = launched[kv_dtype] = kernel.launches
         want, lg, pool_g = drive(False, kv_dtype)
         if got != want:
-            raise AssertionError(f"parity {kv_dtype}: tokens differ: kernel "
-                                 f"{got} vs gather {want}")
+            raise AssertionError(f"parity {config} {kv_dtype}: tokens "
+                                 f"differ: kernel {got} vs gather {want}")
         if len(lk) != len(lg):
-            raise AssertionError(f"parity {kv_dtype}: tick counts differ")
+            raise AssertionError(f"parity {config} {kv_dtype}: tick counts "
+                                 f"differ")
         if launches != cfg.n_layers * len(lk):
-            raise AssertionError(f"parity {kv_dtype}: {kernel.__name__} ran "
-                                 f"{launches} times, want {cfg.n_layers} x "
-                                 f"{len(lk)} ticks")
+            raise AssertionError(f"parity {config} {kv_dtype}: "
+                                 f"{kernel.__name__} ran {launches} times, "
+                                 f"want {cfg.n_layers} x {len(lk)} ticks")
         worst = 0.0
         tol = PARITY_TOL[kv_dtype != "fp32"]
         for a, b in zip(lk, lg):
@@ -931,9 +958,9 @@ def phase_parity(seed: int) -> None:
             lim = tol * float(b.abs().max())
             worst = max(worst, err / lim)
             if not err <= lim:
-                raise AssertionError(f"parity {kv_dtype}: logits differ by "
-                                     f"{err} > {lim}")
-        line = {"phase": "parity", "config": "llama3-8b n_layers=2 float32",
+                raise AssertionError(f"parity {config} {kv_dtype}: logits "
+                                     f"differ by {err} > {lim}")
+        line = {"phase": "parity", "config": config,
                 "requests": len(prompts), "ticks": len(lk),
                 "tokens_identical": True, "max_err_over_limit": worst}
         if kv_dtype != "fp32":
@@ -942,7 +969,24 @@ def phase_parity(seed: int) -> None:
                         quantization_over_limit=quantization_reading(
                             lk, fp32_ticks, tol),
                         **pool_flips(pool_k, pool_g, kv_dtype))
+        else:
+            line.update(launches=launches)
         emit(line)
+    return launched
+
+
+def phase_parity(seed: int) -> None:
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import DecoderLM
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("llama3-8b"), n_layers=2,
+                              dtype="float32")
+    model = DecoderLM(cfg, device=DEVICE).init(seed)
+    prompts = make_prompts(np.random.default_rng(seed), 4, 17, 40,
+                           cfg.vocab_size)
+    parity_runs(cfg, model, prompts, ("fp32", "int8", "fp8_e4m3"),
+                "llama3-8b n_layers=2 float32")
 
 
 # ---------------------------------------------------------------------------
@@ -1570,16 +1614,20 @@ def pim_bound(nbytes: int, flops: int) -> tuple[float, float]:
 
 
 def pim_timing(kernel, plain, library, nbytes: int, flops: int,
-               iters: int = 40, plain_iters: int | None = None) -> dict:
+               iters: int = 40, plain_iters: int | None = None,
+               plain_ms: float | None = None) -> dict:
     """Kernel, plain version and library call timed (``iters`` calls
     each; the plain version ``plain_iters`` where one call takes
-    seconds), beside the bound of ``nbytes`` moved and ``flops`` float32
+    seconds, or ``plain_ms``, one call's time measured by the hold),
+    beside the bound of ``nbytes`` moved and ``flops`` float32
     operations."""
     t_bytes, t_ops = pim_bound(nbytes, flops)
     warm = min(3, iters)
     plain_iters = plain_iters or iters
+    if plain_ms is None:
+        plain_ms = cuda_ms(plain, plain_iters, min(3, plain_iters))
     return {"ms": cuda_ms(kernel, iters, warm),
-            "plain_ms": cuda_ms(plain, plain_iters, min(3, plain_iters)),
+            "plain_ms": plain_ms,
             "library_ms": cuda_ms(library, iters, warm),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -1617,9 +1665,15 @@ def split_of(g: int, m: int, k: int, n: int) -> dict:
 def hold_matmul(label, kernel, plain, dropped, tol=PIM_MM_TOL) -> dict:
     """Hold ``kernel()`` against ``plain()`` per output row, to ``tol`` x
     the row's max|out|; the control ``dropped()`` (the plain product
-    without its last K tile) must exceed the limit."""
+    without its last K tile) must exceed the limit. ``plain_call_ms``:
+    the plain call's time by CUDA events (a loop over groups takes
+    seconds at an LM head's G: the caller may time it by this call)."""
     import torch
-    out, want = kernel(), plain()
+    out = kernel()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    want = plain()
+    end.record()
     torch.cuda.synchronize()
     if not bool(torch.isfinite(out).all()):
         raise AssertionError(f"{label}: non-finite output")
@@ -1633,7 +1687,7 @@ def hold_matmul(label, kernel, plain, dropped, tol=PIM_MM_TOL) -> dict:
                              f"{control} x the limit")
     return {"max_err": float((out - want).abs().max()), "tol": tol,
             "max_err_over_limit": ratio, "control_over_limit": control,
-            "out": out}
+            "out": out, "plain_call_ms": start.elapsed_time(end)}
 
 
 def counted(rows) -> list:
@@ -1688,6 +1742,7 @@ def phase_kernels_pim(seed: int, shapes: dict, path: str, batch: int,
                                                col_groups=cg),
             mm_limit(k))
         out = r.pop("out")
+        plain_ms = r.pop("plain_call_ms") if plain_iters == 1 else None
         for i in range(g):              # K1 == K2 on the same blocks
             if not torch.equal(out[i], pim_matmul(a[i // cg], b[i])):
                 raise AssertionError(f"K1 {path} {name}: group {i} differs "
@@ -1704,7 +1759,7 @@ def phase_kernels_pim(seed: int, shapes: dict, path: str, batch: int,
                                                           col_groups=cg),
                        lambda: torch.bmm(a_rep, b),
                        4 * (a.numel() + b.numel() + g * m * n),
-                       2 * g * m * k * n, iters, plain_iters)})
+                       2 * g * m * k * n, iters, plain_iters, plain_ms)})
         del a, b, a_rep, out
     k2 = []
     for name, m, k, n, count in shapes["k2"]:
@@ -1715,6 +1770,7 @@ def phase_kernels_pim(seed: int, shapes: dict, path: str, batch: int,
                                                    b[:k - 128]),
                         mm_limit(k))
         r.pop("out")
+        plain_ms = r.pop("plain_call_ms") if plain_iters == 1 else None
         k2.append({"block": name, "M": m, "K": k, "N": n, "count": count,
                    **r, **split_of(1, m, k, n),
                    **pim_timing(
@@ -1722,7 +1778,7 @@ def phase_kernels_pim(seed: int, shapes: dict, path: str, batch: int,
                        lambda: ref.pim_matmul_ref(a, b),
                        lambda: torch.mm(a, b),
                        4 * (a.numel() + b.numel() + m * n),
-                       2 * m * k * n, iters, plain_iters)})
+                       2 * m * k * n, iters, plain_iters, plain_ms)})
         del a, b
     k3 = [hold_k3(f"K3 {path} {name}", form, count, randn)
           for name, form, count in shapes["k3"]]
@@ -1764,9 +1820,11 @@ def same_bits(x, y) -> bool:
     import torch
     if x.shape != y.shape:
         return False
+    # elementwise, with no masked copy: a boolean index of a 778 M-element
+    # member (qwen3-32b's tables) would build 12 GB of int64 indices
     nan = torch.isnan(x)
-    return bool((nan == torch.isnan(y)).all()) and torch.equal(
-        x[~nan].view(torch.int32), y[~nan].view(torch.int32))
+    return bool((nan == torch.isnan(y)).all()) and bool(
+        ((x.view(torch.int32) == y.view(torch.int32)) | nan).all())
 
 
 def k3_library(member):
@@ -2923,6 +2981,7 @@ def phase_kernels_pim_q(seed: int, shapes: list, path: str,
                                                  q[:, :k - 128], s,
                                                  col_groups=cg),
             mm_limit(k))
+        plain_ms = r.pop("plain_call_ms") if plain_iters == 1 else None
         if not torch.equal(r.pop("out"),
                            pim_matmul_grouped(a, q * s, col_groups=cg)):
             raise AssertionError(f"K5 {path} {name}: differs from K1 on "
@@ -2941,7 +3000,7 @@ def phase_kernels_pim_q(seed: int, shapes: list, path: str,
                          4 * (a.numel() + q.numel() + s.numel()
                               + g * m * n),
                          2 * g * m * k * n + g * k * n, iters,
-                         plain_iters)})
+                         plain_iters, plain_ms)})
         del a, q, s, a_rep
     torch.cuda.empty_cache()
     emit({"phase": "kernels_pim", "path": path, "batch": batch,
@@ -3472,13 +3531,33 @@ LLAMA_K3 = 3
 LLAMA_TIME = dict(batch=8, seq_len=2048, pos=1024)
 
 
+def vary_attention_(model, seed: int):
+    """``model`` with its attention variants' leaves seeded away from their
+    init (which the holds could not tell from a dropped leaf): q/k/v biases
+    0.1 N(0, 1), q/k norm scales 1 + 0.25 N(0, 1). A no-op for llama3-8b,
+    which has none. Returns ``model``."""
+    import torch
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 90)
+    with torch.no_grad():
+        for blk in model.layers:
+            for name in ("q_bias", "k_bias", "v_bias", "q_norm", "k_norm"):
+                if hasattr(blk.attn, name):
+                    leaf = blk.attn[name]
+                    draw = torch.randn(leaf.shape, generator=gen,
+                                       device=DEVICE)
+                    leaf.copy_(0.1 * draw if name.endswith("bias")
+                               else 1 + 0.25 * draw)
+    return model
+
+
 def llama_params(cfg, seed: int):
     """(the reference's parameter tree, seeded, on the card; a zero
     contiguous cache is made by the caller): a ``DecoderLM`` initialised
-    from ``seed`` and its ``stacked_params``, the module dropped."""
+    from ``seed`` (``vary_attention_``) and its ``stacked_params``, the
+    module dropped."""
     import torch
     from repro_torch.models import DecoderLM
-    model = DecoderLM(cfg, device=DEVICE).init(seed)
+    model = vary_attention_(DecoderLM(cfg, device=DEVICE).init(seed), seed)
     params = model.stacked_params()
     del model
     torch.cuda.empty_cache()
@@ -3510,9 +3589,13 @@ def head_column_zeroed(prog):
     return fault
 
 
-def llama_hold(seed: int, weight_dtype: str) -> dict:
-    """``compile_arch("llama3-8b", "serve", weight_dtype=...)`` at
-    ``LLAMA_HOLD`` (published width, float32, 2 layers): the main path —
+def llama_hold(seed: int, weight_dtype: str, arch: str = "llama3-8b",
+               expand: bool = False, plan: tuple | None = None) -> dict:
+    """``compile_arch(arch, "serve", weight_dtype=..., expand_scans=
+    expand)`` at ``LLAMA_HOLD`` (published width, float32, 2 layers;
+    ``plan``: the CPU's (products, K3 launches, K3 members) of a compiled
+    step, which its launches must equal; llama3-8b folded: 1 product,
+    ``LLAMA_K3`` waves of one member): the main path —
     every count set to 0 just before one compiled step and one executor
     run, read just after — with its launches logged; the compiled step
     against the executor and the plain step (``prog.verify``; int8: the
@@ -3527,11 +3610,12 @@ def llama_hold(seed: int, weight_dtype: str) -> dict:
     from repro_torch.launch import make_serve_step
     from repro_torch.mapper.executor import (full_float32, max_deviation,
                                              run_fake_quant_plain)
-    cfg = dataclasses.replace(get_config("llama3-8b"),
+    cfg = dataclasses.replace(get_config(arch),
                               n_layers=LLAMA_HOLD["n_layers"],
                               dtype="float32")
     b, s = LLAMA_HOLD["batch"], LLAMA_HOLD["seq_len"]
     mm = "k1" if weight_dtype == "fp32" else "k5"
+    label = "pim_llama" if arch == "llama3-8b" else f"dense_variants {arch}"
     params = llama_params(cfg, seed)
     cache = llama_cache(cfg, b, s)
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 70)
@@ -3539,9 +3623,11 @@ def llama_hold(seed: int, weight_dtype: str) -> dict:
                         device=DEVICE, dtype=torch.int32)
     pos0 = torch.tensor(0, dtype=torch.int32, device=DEVICE)
     t0 = time.perf_counter()
-    prog = mapper.compile_arch("llama3-8b", "serve", batch=b, seq_len=s,
-                               weight_dtype=weight_dtype, config=cfg)
+    prog = mapper.compile_arch(arch, "serve", batch=b, seq_len=s,
+                               weight_dtype=weight_dtype, config=cfg,
+                               expand_scans=expand)
     compile_s = time.perf_counter() - t0
+    n_mm, n_k3, n_calls = plan or (1, LLAMA_K3, LLAMA_K3)
     ex = mapper.ScheduleExecutor(prog.schedule)
     step = make_serve_step(cfg)
 
@@ -3563,23 +3649,26 @@ def llama_hold(seed: int, weight_dtype: str) -> dict:
         counts = read_counts()
         ex_counts = {k: counts[k] - prog_counts[k] for k in counts}
         blocks = prog.placed_blocks
-        want = ({"k1": 0, "k2": 0, "k3": LLAMA_K3, "k5": 0, mm: 1},
-                {"k1": 0, "k2": blocks, "k3": LLAMA_K3, "k5": 0})
+        want = ({"k1": 0, "k2": 0, "k3": n_k3, "k5": 0, mm: n_mm},
+                {"k1": 0, "k2": blocks, "k3": n_calls, "k5": 0})
         if (prog_counts, ex_counts) != want or (
-                prog.matmul_launches, prog.eltwise_launches) != (1,
-                                                                 LLAMA_K3):
-            raise AssertionError(f"pim_llama {weight_dtype}: launches "
+                prog.matmul_launches, prog.eltwise_launches,
+                prog.eltwise_calls) != (n_mm, n_k3, n_calls):
+            raise AssertionError(f"{label} {weight_dtype}: launches "
                                  f"{prog_counts} compiled, {ex_counts} "
                                  f"per-block; want {want}")
         logits = out[0]
         if logits.shape != (b, cfg.vocab_size) or not bool(
                 torch.isfinite(logits).all()):
-            raise AssertionError(f"pim_llama {weight_dtype}: logits "
+            raise AssertionError(f"{label} {weight_dtype}: logits "
                                  f"{tuple(logits.shape)} not finite")
         vs_executor = max_deviation(out, ex_out, **LLAMA_TOL)
         executor_bit_equal = all(torch.equal(x, y) for x, y in zip(
             torch.utils._pytree.tree_leaves(out),
             torch.utils._pytree.tree_leaves(ex_out)))
+        if plan and not executor_bit_equal:
+            raise AssertionError(f"{label} {weight_dtype}: the compiled step "
+                                 f"differs from the per-block executor's")
         if weight_dtype == "fp32":
             vs_plain = prog.verify(params, cache, tok, pos0, **LLAMA_TOL)
         else:
@@ -3599,7 +3688,7 @@ def llama_hold(seed: int, weight_dtype: str) -> dict:
             c_tok = lc.argmax(-1).to(torch.int32)
             p_tok = lp.argmax(-1).to(torch.int32)
             if not torch.equal(c_tok, p_tok):
-                raise AssertionError(f"pim_llama {weight_dtype}: step {i} "
+                raise AssertionError(f"{label} {weight_dtype}: step {i} "
                                      f"tokens differ")
             tokens.append(c_tok.tolist())
         cache_dev = max_deviation(c_cache, p_cache, **LLAMA_TOL)
@@ -3613,15 +3702,16 @@ def llama_hold(seed: int, weight_dtype: str) -> dict:
             torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
         # the control: the LM head's last block column zeroed fails the hold
-        with recording_launches(fault=head_column_zeroed(prog), index=0,
-                                key=mm):
+        # the head is the step's last product
+        with recording_launches(fault=head_column_zeroed(prog),
+                                index=n_mm - 1, key=mm):
             bad = prog(params, cache, tok, pos0)[0]
         try:
             max_deviation(bad, out[0], **LLAMA_TOL)
         except AssertionError:
             control = float((bad - out[0]).abs().max())
         else:
-            raise AssertionError(f"pim_llama {weight_dtype}: the head's "
+            raise AssertionError(f"{label} {weight_dtype}: the head's "
                                  f"last block column zeroed passes the hold")
     shapes = {mm: prog_log[mm], "k2": ex_log["k2"],
               "k3": prog_log["k3_forms"]}
@@ -3948,8 +4038,9 @@ def llama_train_hold(seed: int) -> dict:
 
 
 def train_hold(seed: int, cfg, b: int, s: int, k3: dict, label: str,
-               hold_waves: bool = True, on_host: bool = True) -> dict:
-    """``compile_arch("llama3-8b", "train", config=cfg)`` at batch ``b``,
+               hold_waves: bool = True, on_host: bool = True,
+               arch: str = "llama3-8b") -> dict:
+    """``compile_arch(arch, "train", config=cfg)`` at batch ``b``,
     seq ``s`` on seeded parameters and AdamW state and one
     ``TokenStream`` batch. The main path — every count set to 0 just
     before one compiled step and one executor step, read just after —
@@ -3976,17 +4067,18 @@ def train_hold(seed: int, cfg, b: int, s: int, k3: dict, label: str,
     params, opt = llama_train_state(cfg, seed)
     batch = token_batch(cfg, b, s, seed)
     t0 = time.perf_counter()
-    prog = mapper.compile_arch("llama3-8b", "train", batch=b, seq_len=s,
+    prog = mapper.compile_arch(arch, "train", batch=b, seq_len=s,
                                config=cfg)
     compile_s = time.perf_counter() - t0
     ex = mapper.ScheduleExecutor(prog.schedule)
     step = make_train_step(cfg)
-    seconds = {}
+    seconds, peaks = {}, {}
 
     def lap(name):
         nonlocal t0
         torch.cuda.synchronize()
         seconds[name] = time.perf_counter() - t0
+        peaks[name] = torch.cuda.max_memory_allocated() / 1e9
         t0 = time.perf_counter()
 
     with full_float32():
@@ -4087,7 +4179,8 @@ def train_hold(seed: int, cfg, b: int, s: int, k3: dict, label: str,
          "k3_largest_member": max(int(np.prod(f[0], dtype=np.int64))
                                   for form in log["k3_forms"]
                                   for f in form),
-         "max_memory_allocated_gb": peak / 1e9}
+         "max_memory_allocated_gb": peak / 1e9,
+         "max_memory_allocated_gb_by_lap": peaks}
     del params, opt, got, prog, ex
     torch.cuda.empty_cache()
     return r
@@ -5659,6 +5752,338 @@ def phase_pim_llama_long(seed: int) -> dict:
     return {"launches": launches, "time": timing}
 
 
+# ---------------------------------------------------------------------------
+# 24. dense_variants: qwen2.5-32b, qwen3-32b, chatglm3-6b (item 5.1)
+# ---------------------------------------------------------------------------
+
+DENSE_ARCHS = ("qwen2.5-32b", "qwen3-32b", "chatglm3-6b")
+# (a) each at its published width, float32, cut to 2 layers: 8 requests of
+# 17-40 prompt tokens, 8 output tokens, through 8 slots
+DENSE_PARITY = dict(n_layers=2, requests=8, lo=17, hi=40, batch=8)
+# K4 (f32 and bf16 q) and K6 (int8, f32 q: the parity runs') at each
+# variant's heads, the serve shapes otherwise: rep 5 (40 q heads over 8
+# kv heads: 8 query rows, 3 idle), rep 8 (64 over 8) and rep 16 (32 over
+# 2: kMaxRep, 16 float accumulators a thread at D 128)
+DENSE_REPS = {"qwen2.5-32b": dict(K4_SHAPES, H=40, G=8),
+              "qwen3-32b": dict(K4_SHAPES, H=64, G=8),
+              "chatglm3-6b": dict(K4_SHAPES, H=32, G=2)}
+# (b) qwen3-32b's decode step, expanded, at LLAMA_HOLD: the CPU's plan of
+# a compiled step (products, K3 launches, K3 members), the same on both
+# grids (tests/test_torch_dense_variants.py counts the smoke config's)
+DENSE_DECODE_PLAN = (15, 47, 63)
+# (d) qwen3-32b's train step: published width, float32, 1 layer, batch 2
+# (grad_accum 2: two microbatches of 1), seq 128; the CPU's K3 counts.
+# Its waves are llama3-8b's forms (AdamW, the rope tables, the final
+# norm: every product and the head norm lie in folded loops), held
+# member by member in pim_llama_train; holding a 778 M-element member's
+# plain output beside the step would pass ~76 GB here.
+# Peak, reckoned: 8.2 GB of params (the two 151,936 x 5,120 tables 6.2,
+# the layer 2.0) and 16.4 of m and v; the compiled step makes 8.2 of
+# gradients (f32 accumulators of both microbatches) and 24.6 of new
+# params, m and v, moved to host memory before the executor's step makes
+# its own: ~24.6 + 8.2 + 24.6 + activations ~ 60 GB, under 76
+DENSE_TRAIN_HOLD = dict(batch=2, seq_len=128, n_layers=1)
+DENSE_TRAIN_K3 = {"compiled": 86, "per_block": 156}
+# (c) chatglm3-6b through ServeEngine(backend="pim") at SERVE_PIM_HOLD
+# (float32, 2 layers), the serve_pim hold's requests: K4 at rep 16 inside
+# the mapped program
+# time runs (bf16): the serve phase's load (batch 8, 16 requests of 64-512
+# prompt tokens, 32 output tokens), blocks of 16
+DENSE_TIME = dict(batch=8, max_len=1024, kv_block_size=16)
+DENSE_TIME_ARCHS = ("chatglm3-6b", "qwen2.5-32b")
+DENSE_MEMORY_LIMIT = 76e9
+
+
+def dense_cfg(arch: str, **changes):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), **changes)
+
+
+def config_file(arch: str) -> str:
+    """The port's config module of ``arch``, as the lines name it."""
+    from repro_torch.configs import _MODULES
+    return f"configs/{_MODULES[arch]}.py"
+
+
+def dense_model(cfg, seed: int):
+    from repro_torch.models import DecoderLM
+    return vary_attention_(DecoderLM(cfg, device=DEVICE).init(seed), seed)
+
+
+def rep_readings(seed: int) -> dict:
+    """K4 and K6 at ``DENSE_REPS``: each held against its plain version per
+    (slot, head) row with the one-row-past-pos control, timed against its
+    bound and SDPA (``hold_and_time``), its splits per slot recorded."""
+    import torch
+    from repro_torch.core import quant
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (
+        paged_decode_attention_grouped, paged_decode_attention_grouped_q,
+        split_policy)
+    rng = np.random.default_rng(seed + 30)
+    out = {}
+    for arch, s in DENSE_REPS.items():
+        rep = s["H"] // s["G"]
+        rows = []
+        for qname in ("float32", "bfloat16"):
+            dtype = getattr(torch, qname)
+            q, pools, table, pos = k4_inputs(dtype, rng, DEVICE, s)
+            r = hold_and_time(
+                f"K4 rep {rep} {qname}", q, pos, pools,
+                lambda p, at: paged_decode_attention_grouped(
+                    q, p[0], p[1], table, at),
+                lambda p, at: ref.paged_decode_attention_ref(
+                    q, p[0], p[1], table, at),
+                lambda p: to_heads(p[0], p[1], table, dtype, s), s)
+            bound_ms, bound_by = k4_bound(q, pos, qname, s)
+            rows.append({"kernel": "K4", "dtype": qname, **r,
+                         "bound_ms": bound_ms, "bound_by": bound_by})
+            del pools
+        q, pools, table, pos = k6_inputs("int8", torch.float32, rng, DEVICE,
+                                         s)
+
+        def args(pool, at):
+            (kc, vc), (ks, vs) = pool
+            return (q, kc, ks, vc, vs, table, at)
+
+        def heads(pool):
+            (kc, vc), (ks, vs) = pool
+            return to_heads(quant.dequantize_kv(kc, ks, "int8"),
+                            quant.dequantize_kv(vc, vs, "int8"), table,
+                            torch.float32, s)
+
+        r = hold_and_time(
+            f"K6 rep {rep} int8/float32", q, pos, pools,
+            lambda p, at: paged_decode_attention_grouped_q(
+                *args(p, at), kv_dtype="int8"),
+            lambda p, at: ref.paged_decode_attention_q_ref(*args(p, at),
+                                                           "int8"),
+            heads, s)
+        bound_ms, bound_by = k6_bound(q, pools[0][0], pos, s)
+        rows.append({"kernel": "K6", "kv_dtype": "int8", "dtype": "float32",
+                     **r, "bound_ms": bound_ms, "bound_by": bound_by})
+        del pools
+        torch.cuda.empty_cache()
+        per, n_split = split_policy(s["W"], s["bs"])
+        out[arch] = {"rep": rep, "shapes": s,
+                     "rows_padded_to": 1 << (rep - 1).bit_length(),
+                     "blocks_per_split": per, "n_split": n_split,
+                     "results": rows}
+    return out
+
+
+def dense_pim_engine(seed: int) -> dict:
+    """(c): chatglm3-6b at ``SERVE_PIM_HOLD`` (published width, float32, 2
+    layers) through ``ServeEngine(backend="pim")`` against the jit engine
+    on the serve_pim hold's requests: tokens identical, launches a tick
+    K1 1, K3 ``SERVE_PIM_K3``, K4 one a layer (rep 16 inside the mapped
+    program), each count set to 0 just before the pim run, read just
+    after."""
+    import torch
+    h, rq = SERVE_PIM_HOLD, SERVE_PIM_REQUESTS
+    cfg = dense_cfg("chatglm3-6b", n_layers=h["n_layers"], dtype="float32")
+    model = dense_model(cfg, seed)
+    prompts = make_prompts(np.random.default_rng(seed + 80), rq["n"],
+                           rq["lo"], rq["hi"], cfg.vocab_size)
+    base = {k: h[k] for k in ("batch", "max_len", "kv_block_size")}
+    with torch.no_grad():
+        eng, got, counts = serve_engine(cfg, model, prompts,
+                                        rq["max_tokens"], count=True,
+                                        backend="pim", prefill="batch",
+                                        **base)
+        _, want, _ = serve_engine(cfg, model, prompts, rq["max_tokens"],
+                                  prefill="batch", **base)
+    if got != want:
+        raise AssertionError("dense_variants chatglm3-6b pim engine: tokens "
+                             "differ from the jit engine's")
+    tick = per_tick(counts, eng._tick)
+    want_tick = {"k1": 1, "k3": SERVE_PIM_K3, "k4": cfg.n_layers}
+    if tick != {**dict.fromkeys(tick, 0), **want_tick}:
+        raise AssertionError(f"dense_variants chatglm3-6b pim engine: "
+                             f"launches a tick {tick}, want {want_tick}")
+    row = {"ticks": eng._tick, "tokens_identical_to_jit": True,
+           "launches_per_tick": {k: v for k, v in tick.items() if v},
+           "nodes": len(eng.schedule.graph.nodes),
+           "subarrays": eng.schedule.placement.n_subarrays,
+           "kv_subarrays": eng.kv_placement.n_subarrays}
+    del eng, model
+    torch.cuda.empty_cache()
+    return {"row": row, "launches": counts}
+
+
+def dense_time_layers(cfg) -> tuple[int, float]:
+    """The most layers (up to the published depth) whose reckoned peak
+    stays under ``DENSE_MEMORY_LIMIT``: the bf16 weights, the KV pool of
+    ``DENSE_TIME`` (every slot's blocks and the scratch block), and the
+    largest transient, init's float32 draw of the largest leaf. Returns
+    (layers, the reckoned peak in bytes)."""
+    from repro_torch.models.transformer import leaf_shapes
+    b, m, bs = (DENSE_TIME[k] for k in ("batch", "max_len", "kv_block_size"))
+    blocks = 1 + b * -(-m // bs)
+    kv = 2 * blocks * bs * cfg.n_kv_heads * cfg.resolved_head_dim * 2
+    largest = 4 * max(int(np.prod(s)) // (s[0] if k.startswith("layers/")
+                                           else 1)
+                      for k, s in leaf_shapes(cfg).items())
+    per_layer = (cfg.param_count() - 2 * cfg.vocab_size * cfg.d_model) \
+        // cfg.n_layers
+    for n in range(cfg.n_layers, 0, -1):
+        params = 2 * (2 * cfg.vocab_size * cfg.d_model + n * per_layer
+                      + cfg.d_model)
+        peak = params + n * kv + largest
+        if peak < DENSE_MEMORY_LIMIT:
+            return n, float(peak)
+    raise AssertionError(f"{cfg.name}: no depth fits {DENSE_MEMORY_LIMIT}")
+
+
+def dense_time(arch: str, seed: int) -> dict:
+    """One bf16 config at the most layers that fit (``dense_time_layers``;
+    the published depth where it fits) serving the serve phase's load at
+    ``DENSE_TIME`` on the kernel path: tok/s, TTFT, ms a tick, K4 launches
+    (one a layer a tick, its count set to 0 just before the run and read
+    just after), then a second short load with 3 ticks under the profiler
+    (device ms, kernels and the busy share a tick), peak memory."""
+    import torch
+    from repro_torch import obs
+    from repro_torch.serve import Request, ServeEngine
+    published = dense_cfg(arch)
+    layers, reckoned = dense_time_layers(published)
+    cfg = dataclasses.replace(published, n_layers=layers)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = dense_model(cfg, seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = make_prompts(np.random.default_rng(seed + 1), 16, 64, 512,
+                           cfg.vocab_size)
+    eng = ServeEngine(cfg, model, paged=True, attn_kernel=True,
+                      prefill="batch", device=DEVICE, **DENSE_TIME)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=p, max_tokens=32))
+    serve_counts_reset()
+    tr = obs.enable()
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    obs.disable()
+    counts = serve_counts()
+    if len(done) != len(prompts) or any(
+            len(r.out) != 32 or not all(0 <= t < cfg.vocab_size
+                                        for t in r.out) for r in done):
+        raise AssertionError(f"dense_variants time {arch}: not every request "
+                             f"finished with 32 valid tokens")
+    if counts["k4"] != cfg.n_layers * eng._tick or counts["k4"] == 0:
+        raise AssertionError(f"dense_variants time {arch}: K4 ran "
+                             f"{counts['k4']} times")
+    decode_s = sum(e.dur_s for e in tr.spans(name="decode:tick"))
+    generated = sum(len(r.out) for r in done)
+    row = {"config": f"{arch} published ({config_file(arch)}), bf16, "
+                     f"{layers} of {published.n_layers} layers",
+           **DENSE_TIME, "n_layers": layers, "init_s": init_s,
+           "ticks": eng._tick, "generated_tokens": generated,
+           "wall_s": wall_s, "decode_s": decode_s,
+           "decode_tok_per_s": generated / decode_s,
+           "tick_ms": decode_s / eng._tick * 1e3,
+           "mean_ttft_s": float(np.mean([r.ttft_s for r in done])),
+           "k4_launches": counts["k4"], "preemptions": eng.preemptions,
+           "reckoned_peak_gb": reckoned / 1e9,
+           **serve_pim_profile(eng, seed)}
+    row["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if row["max_memory_allocated_gb"] * 1e9 >= DENSE_MEMORY_LIMIT:
+        raise AssertionError(f"dense_variants time {arch}: "
+                             f"{row['max_memory_allocated_gb']} GB")
+    del eng, done, model
+    torch.cuda.empty_cache()
+    return {"row": row, "launches": counts}
+
+
+def phase_dense_variants(seed: int) -> dict:
+    """The dense attention variants (item 5.1): qwen2.5-32b's q/k/v biases,
+    qwen3-32b's per-head q/k norm, chatglm3-6b's half RoPE, each with
+    seeded biases and norm scales away from their init. Holds at the
+    published width in float32: (a) each config's kernel-vs-gather
+    parity over fp32 and int8 pools (``parity_runs``), K4 and K6 at rep 5,
+    8 and 16 (``rep_readings``); (b) qwen3-32b's decode step expanded
+    through the mapper on both grids (``llama_hold``); (c) chatglm3-6b's
+    pim engine (``dense_pim_engine``); (d) qwen3-32b's train step
+    (``train_hold``). Time: chatglm3-6b and qwen2.5-32b in bf16
+    (``dense_time``). Emitted as one ``dense_variants`` line."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    seconds = {}
+    launches = {k: 0 for k in (*PIM_KEYS, "k4", "k6")}
+
+    def part(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        seconds[name] = time.perf_counter() - t0
+        print(f"[{time.perf_counter() - T0:.1f} s] dense_variants {name} "
+              f"{seconds[name]:.1f} s", file=sys.stderr, flush=True)
+        return out
+
+    def add(counts):
+        for k in launches:
+            launches[k] += counts.get(k, 0)
+
+    parity = {}
+    for arch in DENSE_ARCHS:
+        def run(arch=arch):
+            cfg = dense_cfg(arch, n_layers=DENSE_PARITY["n_layers"],
+                            dtype="float32")
+            model = dense_model(cfg, seed)
+            prompts = make_prompts(np.random.default_rng(seed + 3),
+                                   DENSE_PARITY["requests"],
+                                   DENSE_PARITY["lo"], DENSE_PARITY["hi"],
+                                   cfg.vocab_size)
+            got = parity_runs(cfg, model, prompts, ("fp32", "int8"),
+                              f"{arch} n_layers=2 float32",
+                              DENSE_PARITY["batch"])
+            del model
+            torch.cuda.empty_cache()
+            return got
+        parity[arch] = part(f"parity {arch}", run)
+        add({"k4": parity[arch]["fp32"], "k6": parity[arch]["int8"]})
+    reps = part("reps", lambda: rep_readings(seed))
+    decode = {}
+    for grid in ("fp32", "int8"):
+        decode[grid] = part(f"decode {grid}", lambda grid=grid: llama_hold(
+            seed, grid, "qwen3-32b", expand=True, plan=DENSE_DECODE_PLAN))
+        add(decode[grid]["launches"])
+    engine = part("pim_engine", lambda: dense_pim_engine(seed))
+    add(engine["launches"])
+    train = part("train", lambda: train_hold(
+        seed, dense_cfg("qwen3-32b", n_layers=DENSE_TRAIN_HOLD["n_layers"],
+                        dtype="float32"),
+        DENSE_TRAIN_HOLD["batch"], DENSE_TRAIN_HOLD["seq_len"],
+        DENSE_TRAIN_K3, "dense_variants qwen3-32b train hold",
+        hold_waves=False, arch="qwen3-32b"))
+    add(train["launches"])
+    timing = {}
+    for arch in DENSE_TIME_ARCHS:
+        timing[arch] = part(f"time {arch}", lambda arch=arch: dense_time(
+            arch, seed))
+        add(timing[arch]["launches"])
+    emit({"phase": "dense_variants", "seconds": seconds,
+          "configs": {a: config_file(a) for a in DENSE_ARCHS},
+          "variants": "q/k/v biases 0.1 N(0,1), q/k norm scales "
+                      "1 + 0.25 N(0,1) (vary_attention_)",
+          "reduced": {"holds": {"n_layers": "2 (train hold 1)",
+                                "dtype": ["bfloat16", "float32"]},
+                      "time": {a: [dense_cfg(a).n_layers,
+                                   timing[a]["row"]["n_layers"]]
+                               for a in DENSE_TIME_ARCHS}},
+          "parity_launches": parity, "reps": reps,
+          "decode": {g: {**LLAMA_HOLD, **decode[g]["row"]}
+                     for g in decode},
+          "pim_engine": {**SERVE_PIM_HOLD, **engine["row"]},
+          "train": {**DENSE_TRAIN_HOLD, **train},
+          "time": {a: timing[a]["row"] for a in DENSE_TIME_ARCHS},
+          "launches": launches})
+    return {"launches": launches, "reps": reps,
+            "shapes": {g: decode[g]["shapes"] for g in decode}}
+
+
 def sums(rows) -> dict:
     """Times and bounds of one run's launches: each distinct shape's
     numbers times its count, summed (each shape's bound the larger of its
@@ -5706,6 +6131,9 @@ def pim_entry(ids, key, by_path, rows) -> dict:
                                 else None),
             "pim_llama_pipe": (sums(rows["pim_llama_pipe"][key])
                                if rows["pim_llama_pipe"].get(key)
+                               else None),
+            "dense_variants": (sums(rows["dense_variants"][key])
+                               if rows["dense_variants"].get(key)
                                else None)}
 
 
@@ -5834,6 +6262,19 @@ def main() -> int:
                   warm_ticks=56)
     serve_pim = phase_serve_pim(serve["engine"].model, args.seed)
     by_path["serve_pim"] = {k: serve_pim["launches"][k] for k in PIM_KEYS}
+    # the serve phases' bf16 model (16 GB) goes before the variants' time
+    # runs, which need up to ~74 GB
+    del serve["engine"], kvq["engine"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    dense = phase_dense_variants(args.seed)
+    by_path["dense_variants"] = {k: dense["launches"][k] for k in PIM_KEYS}
+    rows["dense_variants"] = phase_kernels_pim(
+        args.seed, with_counts(dense["shapes"]["fp32"]), "dense_variants",
+        LLAMA_HOLD["batch"], iters=3, plain_iters=1)
+    rows["dense_variants_q"] = phase_kernels_pim_q(
+        args.seed, with_counts({"k5": dense["shapes"]["int8"]["k5"]})["k5"],
+        "dense_variants_q", LLAMA_HOLD["batch"], iters=3, plain_iters=1)
     print(gpu_name_and_power_limit(), flush=True)
 
     def entry(ids, launches, r):
@@ -5858,20 +6299,32 @@ def main() -> int:
     k5_launches = {path: by_path[path]["k5"]
                    for path in ("pim_lenet_q", "pim_train_q", "pim_grad_q",
                                 "pim_llama_q", "pim_llama_pipe",
-                                "serve_pim")}
+                                "serve_pim", "dense_variants")}
     k4_bf16 = k4["bfloat16"]
     k6_serve = k6[(SERVE_KV_DTYPE, "bfloat16")]
     k4_launches = {"serve": serve["launches"],
-                   "serve_pim": serve_pim["launches"]["k4"]}
+                   "serve_pim": serve_pim["launches"]["k4"],
+                   "dense_variants": dense["launches"]["k4"]}
     k6_launches = {"serve_kvq": kvq["launches"],
-                   "serve_pim": serve_pim["launches"]["k6"]}
+                   "serve_pim": serve_pim["launches"]["k6"],
+                   "dense_variants": dense["launches"]["k6"]}
+
+    def by_rep(kernel, dtype):
+        # K4 / K6 at the variants' reps (dense_variants): the event times
+        return {str(r["rep"]): {k: row[k] for k in (
+            "max_err", "kernel_ms", "plain_ms", "bound_ms", "library_ms",
+            "kernel_graph_ms")} for r in dense["reps"].values()
+            for row in r["results"]
+            if row["kernel"] == kernel and row["dtype"] == dtype}
     emit({"kernels": [
         {**entry(K4, sum(k4_launches.values()), k4_bf16),
          "launches_by_path": k4_launches,
+         "by_rep": {q: by_rep("K4", q) for q in ("bfloat16", "float32")},
          "n_split": k4_bf16["n_split"], "split_ms": k4_bf16["split_ms"],
          "combine_ms": k4_bf16["combine_ms"]},
         {**entry(K6, sum(k6_launches.values()), k6_serve),
          "launches_by_path": k6_launches,
+         "by_rep": {"int8/float32": by_rep("K6", "float32")},
          "n_split": k6_serve["n_split"], "split_ms": k6_serve["split_ms"],
          "combine_ms": k6_serve["combine_ms"]},
         *(pim_entry(ids, key, by_path, rows)
@@ -5888,7 +6341,8 @@ def main() -> int:
          **sums(rows["pim_lenet_q"]), "launches_by_path": k5_launches,
          "pim_train": sums(rows["pim_train_q"]),
          "pim_llama": sums(rows["pim_llama_q"]),
-         "pim_llama_pipe": sums(rows["pim_llama_pipe_q"])},
+         "pim_llama_pipe": sums(rows["pim_llama_pipe_q"]),
+         "dense_variants": sums(rows["dense_variants_q"])},
         {**K7, "launches": attn["launches"],
          "max_abs_err": long_bf16["max_err"],
          **{k: long_bf16[k] for k in ("ms", "plain_ms", "bound_ms",

@@ -2,7 +2,8 @@
 
 It mirrors ``repro``'s layout and names and is held against it on the
 same inputs. It imports neither JAX nor ``repro``. Ported so far: the
-paged-KV serving path of the decoder LM (llama3-8b), over an unquantized
+paged-KV serving path of the decoder LM (llama3-8b, and the attention
+variants of qwen2.5-32b, qwen3-32b and chatglm3-6b), over an unquantized
 or a quantized KV pool (``repro_torch.core.quant``), with the two paged
 decode attention kernels written in CUDA for Hopper; and the mapper for
 the paper's LeNet-5 (``repro_torch.mapper``) — its forward pass and its

@@ -31,7 +31,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.configs.lenet5 import CONFIG as LENET5, LeNetConfig
 from repro_torch.core import quant
 from repro_torch.models import lenet
-from repro_torch.models.transformer import (LAYER_LEAVES, DecoderLM,
+from repro_torch.models.transformer import (DecoderLM, layer_leaves,
                                             leaf_shapes, param_tree)
 from repro_torch.optim.optimizers import BLOCK as OPT_BLOCK
 
@@ -60,7 +60,7 @@ def params_from_reference(flat: Mapping[str, np.ndarray], cfg: ArchConfig,
     want["final_norm/scale"] = (model.final_norm.scale,
                                 flat["final_norm/scale"])
     want["lm_head/w"] = (model.lm_head.w, flat["lm_head/w"])
-    for name, attr in LAYER_LEAVES.items():
+    for name, attr in layer_leaves(cfg).items():
         key = f"layers/block0/{name}"
         stacked = flat[key]
         if stacked.shape[0] != cfg.n_layers:
@@ -152,7 +152,7 @@ def model_from_stacked(tree: Mapping, cfg: ArchConfig,
         model.final_norm.scale.copy_(tree["final_norm"]["scale"])
         model.lm_head.w.copy_(tree["lm_head"]["w"])
         lp = tree["layers"]["block0"]
-        for key, attr in LAYER_LEAVES.items():
+        for key, attr in layer_leaves(cfg).items():
             group, name = key.split("/")
             for i, blk in enumerate(model.layers):
                 blk.get_parameter(attr).copy_(lp[group][name][i])

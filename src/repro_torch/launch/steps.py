@@ -110,9 +110,12 @@ def make_train_step(cfg: ArchConfig, *, optimizer_name: str = "adamw",
                     g, l = torch.func.grad_and_value(loss_fn)(params, mb)
                     g_acc = tree_map(lambda a, b: a + b.float(), g_acc, g)
                     loss = loss + l
+                    del g          # not alive beside the next one's
             loss = loss / accum
             grads = tree_map(lambda g, p: (g / accum).to(p.dtype), g_acc,
                              params)
+            # the float32 sums go before the update makes its new state
+            del g_acc
         params, opt_state = opt.update(grads, opt_state, params)
         return params, opt_state, loss
 

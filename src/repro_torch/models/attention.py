@@ -10,7 +10,9 @@ reference's train and prefill attention; see the chunked section below.
 
 ``decode_attention`` is the port of the reference's decode path against
 a contiguous cache ``[B, max_len, G, head_dim]``, a function of the
-reference's attention params (``{"wq", "wk", "wv", "wo"}``) that returns
+reference's attention params (``{"wq", "wk", "wv", "wo"}``, with
+``q_bias``/``k_bias``/``v_bias`` and ``q_norm``/``k_norm`` where the
+config has them: ``_project_qkv``) that returns
 the updated cache, as the reference does; the mapper traces it
 (``launch.steps.make_serve_step``) and its grouped einsums are spelled
 as the reference's ``dot_general`` products (operand order, batch dims,
@@ -70,25 +72,42 @@ def _require_f32_for_gather(dtype: torch.dtype, kv_dtype: str,
 
 class Attention(nn.Module):
     """The q/k/v/o projections of one attention site (``[in, out]``
-    weights, as in the reference's ``init_attention``)."""
+    weights, as in the reference's ``init_attention``), with qwen2.5's
+    q/k/v biases (``qkv_bias``: ``q_bias`` [H·hd], ``k_bias``, ``v_bias``
+    [G·hd], zeros at init) and qwen3's per-head norm scales (``qk_norm``:
+    ``q_norm``, ``k_norm`` [hd], ones at init). ``site["wq"]`` reads a
+    parameter by the reference's leaf name, so the attention functions
+    take this module or the reference's dict alike."""
 
     def __init__(self, d_model: int, n_heads: int, n_kv: int, head_dim: int,
                  dtype, device, *, qkv_bias: bool = False,
                  qk_norm: bool = False):
         super().__init__()
-        if qkv_bias or qk_norm:
-            raise NotImplementedError(
-                "qkv_bias / qk_norm attention is not ported yet (ROADMAP.md, "
-                "port queue item 5: remaining model families)")
         hq, hkv = n_heads * head_dim, n_kv * head_dim
         self.wq = layers.empty_param((d_model, hq), dtype, device)
         self.wk = layers.empty_param((d_model, hkv), dtype, device)
         self.wv = layers.empty_param((d_model, hkv), dtype, device)
         self.wo = layers.empty_param((hq, d_model), dtype, device)
+        if qkv_bias:
+            self.q_bias = layers.empty_param((hq,), dtype, device)
+            self.k_bias = layers.empty_param((hkv,), dtype, device)
+            self.v_bias = layers.empty_param((hkv,), dtype, device)
+        if qk_norm:
+            self.q_norm = layers.empty_param((head_dim,), dtype, device)
+            self.k_norm = layers.empty_param((head_dim,), dtype, device)
 
     def init(self, generator: torch.Generator) -> None:
         for w in (self.wq, self.wk, self.wv, self.wo):
             layers.dense_init_(w, generator)
+        with torch.no_grad():
+            for name, value in (("q_bias", 0.0), ("k_bias", 0.0),
+                                ("v_bias", 0.0), ("q_norm", 1.0),
+                                ("k_norm", 1.0)):
+                if hasattr(self, name):
+                    getattr(self, name).fill_(value)
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        return getattr(self, name)
 
 
 def init_attention(cfg: ArchConfig, dtype, device) -> Attention:
@@ -97,12 +116,26 @@ def init_attention(cfg: ArchConfig, dtype, device) -> Attention:
                      qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm)
 
 
-def _project_qkv(x, wq, wk, wv, cfg: ArchConfig, positions):
+def _project_qkv(x, p, cfg: ArchConfig, positions):
+    """x [B, S, D] -> q [B, S, H, hd], k, v [B, S, G, hd]: the reference's
+    ``_project_qkv`` on the site's params ``p`` (its dict or an
+    ``Attention``), in its order: the products, the biases (``qkv_bias``),
+    the heads split, the per-head norms (``qk_norm``), the rotation."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = (x @ wq).reshape(b, s, cfg.n_heads, hd)
-    k = (x @ wk).reshape(b, s, cfg.n_kv_heads, hd)
-    v = (x @ wv).reshape(b, s, cfg.n_kv_heads, hd)
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if cfg.qkv_bias:
+        q = q + p["q_bias"]
+        k = k + p["k_bias"]
+        v = v + p["v_bias"]
+    q = q.reshape(b, s, cfg.n_heads, hd)
+    k = k.reshape(b, s, cfg.n_kv_heads, hd)
+    v = v.reshape(b, s, cfg.n_kv_heads, hd)
+    if cfg.qk_norm:
+        q = layers.head_rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = layers.head_rms_norm(k, p["k_norm"], cfg.norm_eps)
     q = layers.apply_rope(q, positions, theta=cfg.rope_theta,
                           style=cfg.rope_style)
     k = layers.apply_rope(k, positions, theta=cfg.rope_theta,
@@ -660,7 +693,7 @@ def attention_block(x: torch.Tensor, p: dict, cfg: ArchConfig,
     full attention or (``chunked``, sequences above
     ``transformer.CHUNKED_ATTN_THRESHOLD``) the chunked flash path."""
     b, s, _ = x.shape
-    q, k, v = _project_qkv(x, p["wq"], p["wk"], p["wv"], cfg, positions)
+    q, k, v = _project_qkv(x, p, cfg, positions)
     if chunked:
         out = chunked_causal_attention(q, k, v)
     else:
@@ -712,8 +745,7 @@ def decode_attention(x: torch.Tensor, p: dict, cfg: ArchConfig,
     hd = cfg.resolved_head_dim
     g = cfg.n_kv_heads
     r = cfg.n_heads // g
-    q, k_new, v_new = _project_qkv(x, p["wq"], p["wk"], p["wv"], cfg,
-                                   pos.expand(b, 1))
+    q, k_new, v_new = _project_qkv(x, p, cfg, pos.expand(b, 1))
     k = _updated(cache["k"], k_new, pos)
     v = _updated(cache["v"], v_new, pos)
     valid = torch.arange(k.shape[1], device=x.device) <= pos
@@ -814,8 +846,7 @@ def paged_decode_attention(x, attn: Attention, cfg: ArchConfig,
     b = x.shape[0]
     hd = cfg.resolved_head_dim
     bs = k_store.shape[1]
-    q, k_new, v_new = _project_qkv(x, attn.wq, attn.wk, attn.wv, cfg,
-                                   pos[:, None])
+    q, k_new, v_new = _project_qkv(x, attn, cfg, pos[:, None])
     rows = torch.arange(b, device=x.device)
     blk = block_table[rows, (pos // bs).long()].long()      # [B] tail blocks
     off = (pos % bs).long()
@@ -892,8 +923,7 @@ def paged_decode_attention_tree(x: torch.Tensor, p: dict, cfg: ArchConfig,
     k_store, v_store = cache["k"], cache["v"]
     nb, bs = k_store.shape[0], k_store.shape[1]
     w = block_table.shape[1]
-    q, k_new, v_new = _project_qkv(x, p["wq"], p["wk"], p["wv"], cfg,
-                                   pos[:, None])
+    q, k_new, v_new = _project_qkv(x, p, cfg, pos[:, None])
     rows = _wrapped(torch.arange(b, dtype=pos.dtype, device=x.device), b)
     tail = _wrapped(torch.div(pos, bs, rounding_mode="floor"), w)
     blk = block_table[rows.long(), tail.long()]              # [B] tail blocks
@@ -964,8 +994,7 @@ def paged_prefill_attention(x, attn: Attention, cfg: ArchConfig,
     w = table_row.shape[0]
     g = cfg.n_kv_heads
     gpos = p0 + torch.arange(t, device=x.device)             # [T]
-    q, k_new, v_new = _project_qkv(x, attn.wq, attn.wk, attn.wv, cfg,
-                                   gpos[None])
+    q, k_new, v_new = _project_qkv(x, attn, cfg, gpos[None])
     new_valid = torch.arange(t, device=x.device) < n_new
     tbl = table_row.long()
     blk = torch.where(new_valid, tbl[torch.clamp(gpos // bs, 0, w - 1)], 0)

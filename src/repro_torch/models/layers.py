@@ -117,15 +117,53 @@ class RMSNorm(nn.Module):
         return rms_norm(x, self.scale, self.eps)
 
 
+def head_rms_norm(x: torch.Tensor, scale: torch.Tensor,
+                  eps: float = 1e-5) -> torch.Tensor:
+    """Per-head q/k norm (qwen3) over the last (head_dim) axis, in float32
+    and cast back: the reference's ``head_rms_norm``, which has no custom
+    VJP (its ops are the ones its graph prices: the mean as a sum divided
+    by its length, then the two products)."""
+    return head_rms_norm_parts(x, scale, eps)[0]
+
+
+def head_rms_norm_parts(x: torch.Tensor, scale: torch.Tensor, eps: float,
+                        lin: bool = False) -> tuple[torch.Tensor, dict]:
+    """``head_rms_norm`` and what its VJP reads (the written-out stack's,
+    ``models.transformer._head_norm_bwd``): ``a`` the float32 input, ``j``
+    its rsqrt, ``m = a·j``. ``lin``: the forward of a differentiated
+    layer, spelled as the reference's linearization emits it, with ``e =
+    2·a`` (the square's derivative) and ``l = -0.5·j/i`` (rsqrt's), each
+    where its rule runs, priced; else both None."""
+    a = x.float()
+    sq = a.square()
+    e = a * 2.0 if lin else None
+    i = sq.sum(-1, keepdim=True) / x.shape[-1] + eps
+    j = torch.rsqrt(i)
+    l = (j / i) * -0.5 if lin else None
+    m = a * j
+    return (m * scale.float()).to(x.dtype), dict(a=a, e=e, j=j, l=l, m=m)
+
+
 # ---------------------------------------------------------------------------
 # rotary position embeddings
 # ---------------------------------------------------------------------------
 
 
-def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
-    ar = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device)
-    p = theta ** (ar / head_dim)
-    return torch.full_like(p, 1.0) / p             # [head_dim / 2]
+def rope_freqs(head_dim: int, theta: float, device,
+               rotary_dim: int | None = None) -> torch.Tensor:
+    """The inverse frequencies [rd / 2] of a rotation over the first
+    ``rd = rotary_dim or head_dim`` dims (the exponent divided by ``rd``,
+    as the reference's ``rope_freqs``)."""
+    rd = rotary_dim or head_dim
+    ar = torch.arange(0, rd, 2, dtype=torch.float32, device=device)
+    p = theta ** (ar / rd)
+    return torch.full_like(p, 1.0) / p             # [rd / 2]
+
+
+def rotary_dim(head_dim: int, style: str) -> int:
+    """The dims a ``style`` rotation turns: all of them, or the first half
+    under ``"half"`` (chatglm's 2d RoPE), the rest passed through."""
+    return head_dim // 2 if style == "half" else head_dim
 
 
 def rotate(x, cos, sin):
@@ -135,16 +173,32 @@ def rotate(x, cos, sin):
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
+def rotate_partial(x, cos, sin):
+    """``rotate`` over the first ``rd = 2 * cos.shape[-1]`` dims of x, the
+    rest passed through (the reference's ``"half"`` branch: the rotated
+    dims concatenated with the others); ``rotate`` itself where rd is the
+    whole head."""
+    rd = 2 * cos.shape[-1]
+    if rd == x.shape[-1]:
+        return rotate(x, cos, sin)
+    return torch.cat([rotate(x[..., :rd], cos, sin), x[..., rd:]], dim=-1)
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, *, theta: float,
                style: str = "full") -> torch.Tensor:
-    """x: [B, S, H, D]; positions: [B, S]. Only the ``"full"`` style
-    (llama) is ported; cos and sin are cast to ``x.dtype`` before the
-    rotation, as in the reference."""
-    if style != "full":
+    """x: [B, S, H, D]; positions: [B, S]. ``"full"`` rotates every dim
+    (llama), ``"half"`` the first D/2 (chatglm), ``"none"`` none; cos and
+    sin are cast to ``x.dtype`` before the rotation, as in the reference.
+    ``"mrope"`` (qwen2-vl's position grid) is not ported."""
+    if style == "none":
+        return x
+    if style not in ("full", "half"):
         raise NotImplementedError(
             f"rope_style={style!r} is not ported yet (ROADMAP.md, port "
-            f"queue item 5: remaining model families)")
-    return rotate(x, *rope_table(x.shape[-1], theta, positions, x.dtype))
+            f"queue item 5.2: M-RoPE and the model's inputs and outputs)")
+    d = x.shape[-1]
+    return rotate_partial(x, *rope_table(d, theta, positions, x.dtype,
+                                         rotary_dim(d, style)))
 
 
 # ---------------------------------------------------------------------------
@@ -308,10 +362,11 @@ def fused_xent_head(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
 
 
 def rope_table(head_dim: int, theta: float, positions: torch.Tensor,
-               dtype) -> tuple[torch.Tensor, torch.Tensor]:
-    """``apply_rope``'s (cos, sin), each [B, S, 1, head_dim / 2] in
-    ``dtype``, for the ``"full"`` style."""
-    inv = rope_freqs(head_dim, theta, positions.device)
+               dtype, rotary_dim: int | None = None
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``apply_rope``'s (cos, sin), each [B, S, 1, rd / 2] in ``dtype``,
+    for a rotation over the first ``rd = rotary_dim or head_dim`` dims."""
+    inv = rope_freqs(head_dim, theta, positions.device, rotary_dim)
     ang = positions[..., None].float() * inv
     return (torch.cos(ang)[:, :, None, :].to(dtype),
             torch.sin(ang)[:, :, None, :].to(dtype))

@@ -1,6 +1,8 @@
 """Decoder-only LM: the port of ``repro.models.transformer.DecoderLM``
-for ``block_pattern="attn"`` with dense SwiGLU MLPs (llama3-8b), on a
-paged KV pool and against a contiguous cache.
+for ``block_pattern="attn"`` with dense SwiGLU MLPs (llama3-8b; with
+q/k/v biases, qwen2.5-32b; per-head q/k norms, qwen3-32b; the rotation
+over half the head dims, chatglm3-6b), on a paged KV pool and against a
+contiguous cache.
 
 The reference stacks the layers on a leading axis and scans over them;
 the port keeps one ``nn.Module`` per layer and loops. The KV pool stays
@@ -61,25 +63,48 @@ from repro_torch.core import estimator
 from repro_torch.models import attention, layers
 
 # the reference's per-layer leaves (``layers/block0/<name>``, stacked on a
-# leading axis) and the port's per-layer module attribute of each
+# leading axis) and the port's per-layer module attribute of each, for
+# every config; ``layer_leaves`` adds the attention variants' own
 LAYER_LEAVES = {"norm1/scale": "norm1.scale", "norm2/scale": "norm2.scale",
                 "attn/wq": "attn.wq", "attn/wk": "attn.wk",
                 "attn/wv": "attn.wv", "attn/wo": "attn.wo",
                 "mlp/w_gate": "mlp.w_gate", "mlp/w_up": "mlp.w_up",
                 "mlp/w_down": "mlp.w_down"}
+_BIAS_LEAVES = ("attn/q_bias", "attn/k_bias", "attn/v_bias")
+_NORM_LEAVES = ("attn/q_norm", "attn/k_norm")
+
+
+def layer_leaves(cfg: ArchConfig) -> dict[str, str]:
+    """``LAYER_LEAVES`` with the q/k/v biases (``qkv_bias``) and the q/k
+    norm scales (``qk_norm``) of configs that have them."""
+    extra = (_BIAS_LEAVES if cfg.qkv_bias else ()) + (
+        _NORM_LEAVES if cfg.qk_norm else ())
+    return {**LAYER_LEAVES,
+            **{key: key.replace("/", ".") for key in extra}}
+
+
+def stack_leaves(cfg: ArchConfig) -> tuple[str, ...]:
+    """The stack's per-layer leaves in the reference's (sorted) key order,
+    the order its scan takes them (``attn/k_bias`` before ``attn/wk``)."""
+    return tuple(sorted(layer_leaves(cfg)))
 
 
 def leaf_shapes(cfg: ArchConfig) -> dict[str, tuple[int, ...]]:
     """Every leaf of the reference's parameter tree by its '/'-joined key
     path (``checkpoint/ckpt.py:_flatten``'s), with its shape."""
     d, f, v = cfg.d_model, cfg.d_ff, cfg.vocab_size
-    hq = cfg.n_heads * cfg.resolved_head_dim
-    hkv = cfg.n_kv_heads * cfg.resolved_head_dim
+    hd = cfg.resolved_head_dim
+    hq, hkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
     per_layer = {"norm1/scale": (d,), "norm2/scale": (d,),
                  "attn/wq": (d, hq), "attn/wk": (d, hkv),
                  "attn/wv": (d, hkv), "attn/wo": (hq, d),
                  "mlp/w_gate": (d, f), "mlp/w_up": (d, f),
                  "mlp/w_down": (f, d)}
+    if cfg.qkv_bias:
+        per_layer.update({"attn/q_bias": (hq,), "attn/k_bias": (hkv,),
+                          "attn/v_bias": (hkv,)})
+    if cfg.qk_norm:
+        per_layer.update({"attn/q_norm": (hd,), "attn/k_norm": (hd,)})
     return {"embed/table": (v, d), "final_norm/scale": (d,),
             "lm_head/w": (d, v),
             **{f"layers/block0/{k}": (cfg.n_layers, *shape)
@@ -88,14 +113,18 @@ def leaf_shapes(cfg: ArchConfig) -> dict[str, tuple[int, ...]]:
 
 def check_ported(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` naming what of ``cfg`` the port does
-    not run yet: the model families of ROADMAP.md's port queue item 5."""
-    unported = [what for what, on in (
-        (f"block_pattern={cfg.block_pattern!r}", cfg.block_pattern != "attn"),
-        ("MoE layers", cfg.n_experts),
-        ("tied embeddings", cfg.tie_embeddings),
-        ("embedding inputs", cfg.input_embed_stub),
-        ("position grids", cfg.needs_position_grid),
-        ("qkv_bias / qk_norm attention", cfg.qkv_bias or cfg.qk_norm)) if on]
+    not run yet, each with its item of ROADMAP.md's port queue: the model
+    families of items 5.2-5.4. The dense attention variants (q/k/v bias,
+    q/k norm, half and no RoPE: item 5.1) run."""
+    unported = [f"{what} (item {item})" for what, item, on in (
+        ("embedding inputs", "5.2", cfg.input_embed_stub),
+        ("tied embeddings", "5.2", cfg.tie_embeddings),
+        ("position grids", "5.2", cfg.needs_position_grid),
+        (f"rope_style={cfg.rope_style!r}", "5.2",
+         cfg.rope_style not in ("full", "half", "none")),
+        ("MoE layers", "5.3", cfg.n_experts),
+        (f"block_pattern={cfg.block_pattern!r}", "5.4",
+         cfg.block_pattern != "attn")) if on]
     if unported:
         raise NotImplementedError(
             f"{', '.join(unported)} not ported yet (ROADMAP.md, port queue "
@@ -126,14 +155,14 @@ def decode_step(cfg: ArchConfig, params: dict, cache: dict,
     x = layers.embed(token[:, None], params["embed"]["table"])
     lp = params["layers"]["block0"]
     lc = cache["layers"]["block0"]
-    leaves = [lp[group][name] for group, name in
-              (key.split("/") for key in STACK_LEAVES)]
+    keys = stack_leaves(cfg)
+    leaves = _stacked(lp, keys)
     ks, vs = [], []
     for i in range(cfg.n_layers):
         with estimator.region("scan", "layers"):
             # the iteration's slices first, as the reference's scan body
             # takes its xs: the leaves in sorted key order, then the cache
-            w = _layer(leaves, i)
+            w = _layer(keys, leaves, i)
             site = {"k": lc["k"][i], "v": lc["v"][i]}
             h = layers.rms_norm(x, w["norm1/scale"], cfg.norm_eps)
             att, kv = attention.decode_attention(
@@ -175,12 +204,12 @@ def decode_step_paged(cfg: ArchConfig, params: dict, cache: dict,
     x = layers.embed(token[:, None], params["embed"]["table"])
     lp = params["layers"]["block0"]
     lc = cache["layers"]["block0"]
-    leaves = [lp[group][name] for group, name in
-              (key.split("/") for key in STACK_LEAVES)]
+    keys = stack_leaves(cfg)
+    leaves = _stacked(lp, keys)
     written: dict[str, list] = {name: [] for name in sorted(lc)}
     for i in range(cfg.n_layers):
         with estimator.region("scan", "layers"):
-            w = _layer(leaves, i)
+            w = _layer(keys, leaves, i)
             site = {name: lc[name][i] for name in sorted(lc)}
             h = layers.rms_norm(x, w["norm1/scale"], cfg.norm_eps)
             att, site = attention.paged_decode_attention_tree(
@@ -202,12 +231,16 @@ def decode_step_paged(cfg: ArchConfig, params: dict, cache: dict,
 # (attention.chunked_causal_attention: the pair-scan flash path)
 CHUNKED_ATTN_THRESHOLD = 2048
 
-# the stack's per-layer leaves in the reference's (sorted) key order
-STACK_LEAVES = tuple(sorted(LAYER_LEAVES))
+
+def _stacked(lp: dict, keys) -> list:
+    """The stacked leaves of ``params["layers"]["block0"]`` in ``keys``'
+    order."""
+    return [lp[group][name] for group, name in
+            (key.split("/") for key in keys)]
 
 
-def _layer(leaves, i: int) -> dict:
-    return {key: leaf[i] for key, leaf in zip(STACK_LEAVES, leaves)}
+def _layer(keys, leaves, i: int) -> dict:
+    return {key: leaf[i] for key, leaf in zip(keys, leaves, strict=True)}
 
 
 def _weight_grad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -239,22 +272,48 @@ def _unit_forward(x, w: dict, cfg: ArchConfig, positions, mask,
     ``infer``. ``full=False`` stops where the VJP stops reading: before
     the down projection; ``residuals=False`` (the forward of a remat
     stack, whose VJP recomputes the layer) computes no chunked lse, as
-    the reference's checkpointed forward drops it."""
+    the reference's checkpointed forward drops it.
+
+    The attention variants take the reference's ``_project_qkv`` order:
+    the q/k/v biases after the products (``qkv_bias``), the per-head norms
+    after the heads split (``qk_norm``; differentiated, with the ops the
+    reference's linearization adds for the VJP:
+    ``layers.head_rms_norm_parts``), the
+    rotation over the first ``layers.rotary_dim`` dims, none under
+    ``rope_style="none"``."""
     eps, hd = cfg.norm_eps, cfg.resolved_head_dim
     b, s, _ = x.shape
+    lin = residuals and not infer
     h1 = layers.rms_norm_fwd(x, w["norm1/scale"], eps)
-    q = (h1 @ w["attn/wq"]).reshape(b, s, cfg.n_heads, hd)
-    k = (h1 @ w["attn/wk"]).reshape(b, s, cfg.n_kv_heads, hd)
-    v = (h1 @ w["attn/wv"]).reshape(b, s, cfg.n_kv_heads, hd)
+    q = h1 @ w["attn/wq"]
+    k = h1 @ w["attn/wk"]
+    v = h1 @ w["attn/wv"]
+    if cfg.qkv_bias:
+        q = q + w["attn/q_bias"]
+        k = k + w["attn/k_bias"]
+        v = v + w["attn/v_bias"]
+    q = q.reshape(b, s, cfg.n_heads, hd)
+    k = k.reshape(b, s, cfg.n_kv_heads, hd)
+    v = v.reshape(b, s, cfg.n_kv_heads, hd)
+    norms = {}
+    if cfg.qk_norm:
+        q, qn = layers.head_rms_norm_parts(q, w["attn/q_norm"], eps, lin)
+        k, kn = layers.head_rms_norm_parts(k, w["attn/k_norm"], eps, lin)
+        norms = {**{f"qn_{n}": t for n, t in qn.items()},
+                 **{f"kn_{n}": t for n, t in kn.items()}}
+    rope = cfg.rope_style != "none"
 
     def table(j):
+        if not rope:
+            return None
         return tables[j] if tables is not None else layers.rope_table(
-            hd, cfg.rope_theta, positions, x.dtype)
+            hd, cfg.rope_theta, positions, x.dtype,
+            layers.rotary_dim(hd, cfg.rope_style))
 
     tq = table(0)
-    qr = layers.rotate(q, *tq)
+    qr = layers.rotate_partial(q, *tq) if rope else q
     tk = table(1)
-    kr = layers.rotate(k, *tk)
+    kr = layers.rotate_partial(k, *tk) if rope else k
     if chunked:
         if infer:
             o, lse = attention.chunked_causal_attention(qr, kr, v), None
@@ -281,11 +340,27 @@ def _unit_forward(x, w: dict, cfg: ArchConfig, positions, mask,
     up = h2 @ w["mlp/w_up"]
     sg = F.silu(gate)
     hm = sg * up
-    r = dict(x=x, h1=h1, tq=tq, tk=tk, qr=qr, kr=kr, v=v, **att, xm=xm,
-             h2=h2, gate=gate, up=up, sg=sg, hm=hm)
+    r = dict(x=x, h1=h1, **norms, tq=tq, tk=tk, qr=qr, kr=kr, v=v, **att,
+             xm=xm, h2=h2, gate=gate, up=up, sg=sg, hm=hm)
     if full:
         r["out"] = xm + hm @ w["mlp/w_down"]
     return r
+
+
+def _head_norm_bwd(ct: torch.Tensor, r: dict, prefix: str,
+                   scale: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The VJP of ``layers.head_rms_norm_parts`` from its residuals
+    ``r[prefix + name]``: (the input's cotangent, the scale's), JAX's
+    transpose of the norm's ops in its order (the reference has no custom
+    VJP here)."""
+    a, e, j, l, m = (r[prefix + name] for name in "aejlm")
+    hd = a.shape[-1]
+    c = ct.float()
+    dscale = (m * c).sum((0, 1, 2))
+    cn = c * scale.float()
+    u = (a * cn).sum(-1, keepdim=True)
+    dx = estimator.add_any(cn * j, u * l / hd * e)
+    return dx.to(ct.dtype), dscale.to(scale.dtype)
 
 
 def _rotate_bwd(ct: torch.Tensor, cos, sin) -> torch.Tensor:
@@ -300,6 +375,18 @@ def _rotate_bwd(ct: torch.Tensor, cos, sin) -> torch.Tensor:
     t4 = c1 * cos
     d1 = estimator.add_any(t1, t4)
     return torch.cat([d1, d2], -1)
+
+
+def _rope_bwd(ct: torch.Tensor, table) -> torch.Tensor:
+    """The VJP of ``layers.rotate_partial`` (``table`` its (cos, sin);
+    None: no rotation): ``_rotate_bwd`` on the rotated dims, the rest
+    passed through."""
+    if table is None:
+        return ct
+    rd = 2 * table[0].shape[-1]
+    if rd == ct.shape[-1]:
+        return _rotate_bwd(ct, *table)
+    return torch.cat([_rotate_bwd(ct[..., :rd], *table), ct[..., rd:]], -1)
 
 
 def _unit_backward(ct: torch.Tensor, r: dict, w: dict,
@@ -332,9 +419,17 @@ def _unit_backward(ct: torch.Tensor, r: dict, w: dict,
         dq, dk, dv = _chunked_backward(ct @ w["attn/wo"].t(), r, cfg)
     else:
         dq, dk, dv = _full_backward(ct @ w["attn/wo"].t(), r, cfg)
-    dk = _rotate_bwd(dk, *r["tk"]).reshape(b, s, -1)
-    dq = _rotate_bwd(dq, *r["tq"]).reshape(b, s, -1)
-    dv = dv.reshape(b, s, -1)
+    dk = _rope_bwd(dk, r["tk"])
+    dq = _rope_bwd(dq, r["tq"])
+    if cfg.qk_norm:
+        dk, grads["attn/k_norm"] = _head_norm_bwd(dk, r, "kn_",
+                                                  w["attn/k_norm"])
+        dq, grads["attn/q_norm"] = _head_norm_bwd(dq, r, "qn_",
+                                                  w["attn/q_norm"])
+    dk, dq, dv = (t.reshape(b, s, -1) for t in (dk, dq, dv))
+    if cfg.qkv_bias:
+        for name, t in (("v", dv), ("k", dk), ("q", dq)):
+            grads[f"attn/{name}_bias"] = t.sum((0, 1))
     grads["attn/wv"] = _weight_grad(r["h1"], dv)
     dx_v = dv @ w["attn/wv"].t()
     grads["attn/wk"] = _weight_grad(r["h1"], dk)
@@ -395,31 +490,40 @@ def _full_backward(do: torch.Tensor, r: dict, cfg: ArchConfig):
 
 
 # what the backward keeps of a layer's forward without remat: full
-# attention, chunked attention
+# attention, chunked attention; the q/k norms' residuals besides
+# (``_residuals``)
 _RESIDUALS = ("h1", "qr", "kr", "v", "p", "e", "ssum", "o", "xm", "h2",
               "gate", "up", "sg", "hm")
 _RESIDUALS_CHUNKED = ("h1", "qr", "kr", "v", "o", "lse", "xm", "h2", "gate",
                       "up", "sg", "hm")
+_NORM_RESIDUALS = tuple(f"{p}n_{n}" for p in "qk" for n in "aejlm")
+
+
+def _residuals(cfg: ArchConfig, chunked: bool) -> tuple[str, ...]:
+    keys = _RESIDUALS_CHUNKED if chunked else _RESIDUALS
+    return keys + (_NORM_RESIDUALS if cfg.qk_norm else ())
 
 
 class _LayerStack(torch.autograd.Function):
     """The layer stack, ``x`` through every layer (module docstring).
     Inputs: the config, x, positions, the causal mask (None: the
     attention is chunked), the (q, k) rope tables (cos, sin each) and the
-    stacked leaves (``STACK_LEAVES``). Outputs: x and what the backward
+    stacked leaves (``stack_leaves(cfg)``). Outputs: x and what the backward
     reads (the layers' inputs after the first; without remat also each
-    layer's residuals), the latter not differentiable."""
+    layer's residuals), the latter not differentiable. Under
+    ``rope_style="none"`` the tables are None."""
 
     @staticmethod
     def forward(cfg, x, positions, mask, qc, qs, kc, ks, *leaves):
-        tables = ((qc, qs), (kc, ks))
+        tables = ((qc, qs), (kc, ks)) if qc is not None else None
         chunked = mask is None
-        keys = _RESIDUALS_CHUNKED if chunked else _RESIDUALS
+        keys = _residuals(cfg, chunked)
+        names = stack_leaves(cfg)
         saved = []
         for i in range(cfg.n_layers):
             with estimator.region("scan", "layers"):
-                r = _unit_forward(x, _layer(leaves, i), cfg, positions,
-                                  mask, tables, chunked=chunked,
+                r = _unit_forward(x, _layer(names, leaves, i), cfg,
+                                  positions, mask, tables, chunked=chunked,
                                   residuals=not cfg.remat)
             if i:
                 saved.append(x)
@@ -439,11 +543,12 @@ class _LayerStack(torch.autograd.Function):
     def backward(ctx, ct, *_):
         cfg = ctx.cfg
         x, positions, mask, qc, qs, kc, ks, *rest = ctx.saved_tensors
-        n = len(STACK_LEAVES)
-        leaves, saved = rest[:n], rest[n:]
+        names = stack_leaves(cfg)
+        leaves, saved = rest[:len(names)], rest[len(names):]
         chunked = mask is None
-        keys = _RESIDUALS_CHUNKED if chunked else _RESIDUALS
+        keys = _residuals(cfg, chunked)
         per = 0 if cfg.remat else len(keys)
+        tables = ((qc, qs), (kc, ks)) if qc is not None else (None, None)
         grads = [[None] * cfg.n_layers for _ in leaves]
         # no_grad: the VJP is written out and never differentiated, and
         # its unpriced ops (estimator.add_any, silu_vjp, select_parts)
@@ -455,16 +560,16 @@ class _LayerStack(torch.autograd.Function):
                 at = i * per + i
                 xi = saved[at - 1] if i else x
                 with estimator.region("scan", "layers.T"):
-                    w = _layer(leaves, i)
+                    w = _layer(names, leaves, i)
                     if cfg.remat:
                         r = _unit_forward(xi, w, cfg, positions, mask,
                                           full=False, chunked=chunked)
                     else:
                         r = dict(zip(keys, saved[at:at + per]), x=xi,
-                                 tq=(qc, qs), tk=(kc, ks),
+                                 tq=tables[0], tk=tables[1],
                                  select=(mask, 0.0))
                     ct, g = _unit_backward(ct, r, w, cfg)
-                for j, key in enumerate(STACK_LEAVES):
+                for j, key in enumerate(names):
                     grads[j][i] = g[key]
             grads = [torch.stack(gl) for gl in grads]
         return (None, ct, None, None, None, None, None, None, *grads)
@@ -483,10 +588,11 @@ def _forward_stack(cfg: ArchConfig, x, positions, mask,
     layer one iteration of the ``"scan"`` region ``"layers"``, making its
     rope tables itself and the chunked attention (``mask`` None) a call
     of its own, as the reference's undifferentiated scan body does."""
+    keys = stack_leaves(cfg)
     for i in range(cfg.n_layers):
         with estimator.region("scan", "layers"):
-            x = _unit_forward(x, _layer(leaves, i), cfg, positions, mask,
-                              chunked=mask is None, infer=True)["out"]
+            x = _unit_forward(x, _layer(keys, leaves, i), cfg, positions,
+                              mask, chunked=mask is None, infer=True)["out"]
     return x
 
 
@@ -504,13 +610,14 @@ def hidden_states(cfg: ArchConfig, params: dict,
     hd = cfg.resolved_head_dim
     pos = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(
         b, s)
-    lp = params["layers"]["block0"]
-    leaves = [lp[group][name] for group, name in
-              (key.split("/") for key in STACK_LEAVES)]
+    leaves = _stacked(params["layers"]["block0"], stack_leaves(cfg))
     differentiated = _differentiated(x, *leaves)
     if differentiated:
-        tq = layers.rope_table(hd, cfg.rope_theta, pos, x.dtype)
-        tk = layers.rope_table(hd, cfg.rope_theta, pos, x.dtype)
+        tq = tk = (None, None)
+        if cfg.rope_style != "none":
+            rd = layers.rotary_dim(hd, cfg.rope_style)
+            tq = layers.rope_table(hd, cfg.rope_theta, pos, x.dtype, rd)
+            tk = layers.rope_table(hd, cfg.rope_theta, pos, x.dtype, rd)
     mask = None if chunked else attention.causal_mask(s, x.device)
     if differentiated:
         x = _LayerStack.apply(cfg, x, pos, mask, *tq, *tk, *leaves)[0]
@@ -573,7 +680,7 @@ class DecoderLM(nn.Module):
         flat = {"embed/table": self.embed.table,
                 "final_norm/scale": self.final_norm.scale,
                 "lm_head/w": self.lm_head.w}
-        for key, attr in LAYER_LEAVES.items():
+        for key, attr in layer_leaves(self.cfg).items():
             flat[f"layers/block0/{key}"] = torch.stack([
                 blk.get_parameter(attr) for blk in self.layers])
         return param_tree({k: flat[k] for k in leaf_shapes(self.cfg)})
@@ -592,7 +699,7 @@ class DecoderLM(nn.Module):
             return tree
         tree = self.stacked_params()
         lp = tree["layers"]["block0"]
-        for key, attr in LAYER_LEAVES.items():
+        for key, attr in layer_leaves(self.cfg).items():
             group, name = key.split("/")
             owner, pname = attr.rsplit(".", 1)
             for i, blk in enumerate(self.layers):

@@ -158,7 +158,8 @@ def test_unported_options_raise_not_implemented():
         lambda: mapper.map_arch("llama3-8b", config=dataclasses.replace(
             get_smoke_config("llama3-8b"), input_embed_stub=True)),
         lambda: mapper.compile_arch("llama3-8b", config=dataclasses.replace(
-            get_smoke_config("llama3-8b"), qkv_bias=True), device="cpu"),
+            get_smoke_config("llama3-8b"), tie_embeddings=True),
+            device="cpu"),
     ]
     for case in cases:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
