@@ -285,6 +285,25 @@ Phases, each printing one JSON line:
    ``kernels_pim`` at (b)'s launches (``"path": "dense_variants"``:
    K1 on the layers' products and the 151,936-column head, K2, K3;
    ``dense_variants_q``: K5).
+25. ``io_variants`` — the model's inputs and outputs (item 5.2), after
+   ``dense_variants``: musicgen-medium (frame embeddings in; full MHA, K4
+   at rep 1, head dim 64) and qwen2-vl-2b (embeddings in, M-RoPE over a
+   (t, h, w) grid, the LM head tied to the embedding table). Holds at the
+   published width in float32, 2 layers: (a) kernel-vs-gather parity of
+   both over fp32 and int8 pools; (b) K4 (f32, bf16 q) and K6 (int8, f32
+   q) at rep 1 and rep 6 with the one-row-past-pos control; (c)
+   qwen2-vl-2b's decode step expanded through the mapper on both grids
+   (the tied head on K1 / K5), bit for bit the executor, its launches
+   the CPU's plan; (d) musicgen-medium through
+   ``ServeEngine(backend="pim")``, token-identical to jit; (e) both
+   train steps (batch 2, seq 128) on seeded embeddings, qwen2-vl-2b's
+   under a seeded grid whose rows differ, bit for bit the executor and
+   within 1e-4 of the plain step, musicgen-medium's unused table moved
+   exactly as AdamW moves a zero-gradient leaf. Time (bf16, not cut):
+   musicgen-medium at 48 layers and qwen2-vl-2b at 28 serve the serve
+   phase's load. Then ``kernels_pim`` at (c)'s launches (``"path":
+   "io_variants"``: K1 on the layers' products and the tied head, K2,
+   K3; ``io_variants_q``: K5).
 
 Then the card's name and power limit, one line with every kernel's
 numbers, and as the last line ``{"ok": true, "device": {...}}``. Any
@@ -4039,7 +4058,8 @@ def llama_train_hold(seed: int) -> dict:
 
 def train_hold(seed: int, cfg, b: int, s: int, k3: dict, label: str,
                hold_waves: bool = True, on_host: bool = True,
-               arch: str = "llama3-8b") -> dict:
+               arch: str = "llama3-8b", batch: dict | None = None,
+               check=None) -> dict:
     """``compile_arch(arch, "train", config=cfg)`` at batch ``b``,
     seq ``s`` on seeded parameters and AdamW state and one
     ``TokenStream`` batch. The main path — every count set to 0 just
@@ -4057,15 +4077,19 @@ def train_hold(seed: int, cfg, b: int, s: int, k3: dict, label: str,
     ``pim_llama_train``, whose AdamW waves are the same).
     ``on_host=False`` keeps the first run's outputs on the card, where
     they fit beside the others (moving 17.8 GB to pageable host memory
-    and back takes ~10 s a pass). ``max_memory_allocated`` over the
-    hold."""
+    and back takes ~10 s a pass). ``batch``: the step's batch where it
+    is not a ``TokenStream`` one (``io_batch``); ``check(params,
+    opt_state, outputs)``, where given, holds more of the compiled step's
+    outputs and returns a dict the row takes. ``max_memory_allocated``
+    over the hold."""
     import torch
     from repro_torch import mapper
     from repro_torch.launch import make_train_step
     from repro_torch.mapper.executor import full_float32
     torch.cuda.reset_peak_memory_stats()
     params, opt = llama_train_state(cfg, seed)
-    batch = token_batch(cfg, b, s, seed)
+    if batch is None:
+        batch = token_batch(cfg, b, s, seed)
     t0 = time.perf_counter()
     prog = mapper.compile_arch(arch, "train", batch=b, seq_len=s,
                                config=cfg)
@@ -4128,6 +4152,7 @@ def train_hold(seed: int, cfg, b: int, s: int, k3: dict, label: str,
         vs_plain = compared_leafwise(got, plain, close)
         del plain
         lap("compared_plain")
+        checked = check(params, opt, got) if check else {}
         torch.cuda.set_sync_debug_mode("error")
         try:
             again = prog(params, opt, batch)
@@ -4180,7 +4205,7 @@ def train_hold(seed: int, cfg, b: int, s: int, k3: dict, label: str,
                                   for form in log["k3_forms"]
                                   for f in form),
          "max_memory_allocated_gb": peak / 1e9,
-         "max_memory_allocated_gb_by_lap": peaks}
+         "max_memory_allocated_gb_by_lap": peaks, **checked}
     del params, opt, got, prog, ex
     torch.cuda.empty_cache()
     return r
@@ -5810,10 +5835,11 @@ def dense_model(cfg, seed: int):
     return vary_attention_(DecoderLM(cfg, device=DEVICE).init(seed), seed)
 
 
-def rep_readings(seed: int) -> dict:
-    """K4 and K6 at ``DENSE_REPS``: each held against its plain version per
-    (slot, head) row with the one-row-past-pos control, timed against its
-    bound and SDPA (``hold_and_time``), its splits per slot recorded."""
+def rep_readings(seed: int, reps: dict = DENSE_REPS) -> dict:
+    """K4 and K6 at ``reps`` (``DENSE_REPS`` by default): each held against
+    its plain version per (slot, head) row with the one-row-past-pos
+    control, timed against its bound and SDPA (``hold_and_time``), its
+    splits per slot recorded."""
     import torch
     from repro_torch.core import quant
     from repro_torch.kernels import ref
@@ -5822,7 +5848,7 @@ def rep_readings(seed: int) -> dict:
         split_policy)
     rng = np.random.default_rng(seed + 30)
     out = {}
-    for arch, s in DENSE_REPS.items():
+    for arch, s in reps.items():
         rep = s["H"] // s["G"]
         rows = []
         for qname in ("float32", "bfloat16"):
@@ -5872,16 +5898,17 @@ def rep_readings(seed: int) -> dict:
     return out
 
 
-def dense_pim_engine(seed: int) -> dict:
-    """(c): chatglm3-6b at ``SERVE_PIM_HOLD`` (published width, float32, 2
-    layers) through ``ServeEngine(backend="pim")`` against the jit engine
-    on the serve_pim hold's requests: tokens identical, launches a tick
-    K1 1, K3 ``SERVE_PIM_K3``, K4 one a layer (rep 16 inside the mapped
-    program), each count set to 0 just before the pim run, read just
-    after."""
+def dense_pim_engine(seed: int, arch: str = "chatglm3-6b",
+                     phase: str = "dense_variants") -> dict:
+    """(c): ``arch`` (chatglm3-6b) at ``SERVE_PIM_HOLD`` (published width,
+    float32, 2 layers) through ``ServeEngine(backend="pim")`` against the
+    jit engine on the serve_pim hold's requests: tokens identical,
+    launches a tick K1 1, K3 ``SERVE_PIM_K3``, K4 one a layer (rep 16
+    inside the mapped program; musicgen-medium's rep 1 in ``io_variants``),
+    each count set to 0 just before the pim run, read just after."""
     import torch
     h, rq = SERVE_PIM_HOLD, SERVE_PIM_REQUESTS
-    cfg = dense_cfg("chatglm3-6b", n_layers=h["n_layers"], dtype="float32")
+    cfg = dense_cfg(arch, n_layers=h["n_layers"], dtype="float32")
     model = dense_model(cfg, seed)
     prompts = make_prompts(np.random.default_rng(seed + 80), rq["n"],
                            rq["lo"], rq["hi"], cfg.vocab_size)
@@ -5894,13 +5921,13 @@ def dense_pim_engine(seed: int) -> dict:
         _, want, _ = serve_engine(cfg, model, prompts, rq["max_tokens"],
                                   prefill="batch", **base)
     if got != want:
-        raise AssertionError("dense_variants chatglm3-6b pim engine: tokens "
-                             "differ from the jit engine's")
+        raise AssertionError(f"{phase} {arch} pim engine: tokens differ "
+                             f"from the jit engine's")
     tick = per_tick(counts, eng._tick)
     want_tick = {"k1": 1, "k3": SERVE_PIM_K3, "k4": cfg.n_layers}
     if tick != {**dict.fromkeys(tick, 0), **want_tick}:
-        raise AssertionError(f"dense_variants chatglm3-6b pim engine: "
-                             f"launches a tick {tick}, want {want_tick}")
+        raise AssertionError(f"{phase} {arch} pim engine: launches a tick "
+                             f"{tick}, want {want_tick}")
     row = {"ticks": eng._tick, "tokens_identical_to_jit": True,
            "launches_per_tick": {k: v for k, v in tick.items() if v},
            "nodes": len(eng.schedule.graph.nodes),
@@ -5924,18 +5951,17 @@ def dense_time_layers(cfg) -> tuple[int, float]:
     largest = 4 * max(int(np.prod(s)) // (s[0] if k.startswith("layers/")
                                            else 1)
                       for k, s in leaf_shapes(cfg).items())
-    per_layer = (cfg.param_count() - 2 * cfg.vocab_size * cfg.d_model) \
-        // cfg.n_layers
+    tables = (1 if cfg.tie_embeddings else 2) * cfg.vocab_size * cfg.d_model
+    per_layer = (cfg.param_count() - tables) // cfg.n_layers
     for n in range(cfg.n_layers, 0, -1):
-        params = 2 * (2 * cfg.vocab_size * cfg.d_model + n * per_layer
-                      + cfg.d_model)
+        params = 2 * (tables + n * per_layer + cfg.d_model)
         peak = params + n * kv + largest
         if peak < DENSE_MEMORY_LIMIT:
             return n, float(peak)
     raise AssertionError(f"{cfg.name}: no depth fits {DENSE_MEMORY_LIMIT}")
 
 
-def dense_time(arch: str, seed: int) -> dict:
+def dense_time(arch: str, seed: int, phase: str = "dense_variants") -> dict:
     """One bf16 config at the most layers that fit (``dense_time_layers``;
     the published depth where it fits) serving the serve phase's load at
     ``DENSE_TIME`` on the kernel path: tok/s, TTFT, ms a tick, K4 launches
@@ -5971,10 +5997,10 @@ def dense_time(arch: str, seed: int) -> dict:
     if len(done) != len(prompts) or any(
             len(r.out) != 32 or not all(0 <= t < cfg.vocab_size
                                         for t in r.out) for r in done):
-        raise AssertionError(f"dense_variants time {arch}: not every request "
+        raise AssertionError(f"{phase} time {arch}: not every request "
                              f"finished with 32 valid tokens")
     if counts["k4"] != cfg.n_layers * eng._tick or counts["k4"] == 0:
-        raise AssertionError(f"dense_variants time {arch}: K4 ran "
+        raise AssertionError(f"{phase} time {arch}: K4 ran "
                              f"{counts['k4']} times")
     decode_s = sum(e.dur_s for e in tr.spans(name="decode:tick"))
     generated = sum(len(r.out) for r in done)
@@ -5991,7 +6017,7 @@ def dense_time(arch: str, seed: int) -> dict:
            **serve_pim_profile(eng, seed)}
     row["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
     if row["max_memory_allocated_gb"] * 1e9 >= DENSE_MEMORY_LIMIT:
-        raise AssertionError(f"dense_variants time {arch}: "
+        raise AssertionError(f"{phase} time {arch}: "
                              f"{row['max_memory_allocated_gb']} GB")
     del eng, done, model
     torch.cuda.empty_cache()
@@ -6084,6 +6110,207 @@ def phase_dense_variants(seed: int) -> dict:
             "shapes": {g: decode[g]["shapes"] for g in decode}}
 
 
+# ---------------------------------------------------------------------------
+# 25. io_variants: musicgen-medium, qwen2-vl-2b (item 5.2)
+# ---------------------------------------------------------------------------
+
+IO_ARCHS = ("musicgen-medium", "qwen2-vl-2b")
+# (a) each at its published width, float32, cut to 2 layers: DENSE_PARITY's
+# 8 requests through 8 slots
+# K4 (f32 and bf16 q) and K6 (int8, f32 q) at the two new reps, the serve
+# shapes otherwise: rep 1 (musicgen-medium's 24 q heads over 24 kv heads,
+# head dim 64) and rep 6 (qwen2-vl-2b's 12 over 2: 6 query rows padded to 8)
+IO_REPS = {"musicgen-medium": dict(K4_SHAPES, H=24, G=24, D=64),
+           "qwen2-vl-2b": dict(K4_SHAPES, H=12, G=2)}
+# (c) qwen2-vl-2b's decode step, expanded, at LLAMA_HOLD: the CPU's plan
+# (products, K3 launches, K3 members), the same on both grids
+# (tests/test_torch_io_variants.py counts the smoke config's): M-RoPE's
+# section products are 4 K3 members a layer more than llama3-8b's
+IO_DECODE_PLAN = (15, 43, 59)
+# (e) both train steps: published width, float32, 2 layers, batch 2, seq
+# 128, on seeded embeddings (qwen2-vl-2b: and a seeded position grid); the
+# CPU's K3 counts (the smoke configs' at 2 layers: the count does not move
+# with the width). qwen2-vl-2b has no lm_head leaf (tied): 2 waves fewer
+IO_TRAIN_HOLD = dict(batch=2, seq_len=128, n_layers=2)
+IO_TRAIN_K3 = {"musicgen-medium": {"compiled": 84, "per_block": 148},
+               "qwen2-vl-2b": {"compiled": 82, "per_block": 141}}
+
+
+def position_grid(rng, b: int, s: int):
+    """A qwen2-vl position grid [3, B, S] int32 (numpy): per row, some text
+    tokens (t = h = w = i), an image of ph x pw patches with t constant and
+    h / w stepping over the patch grid, then text from one past the image's
+    largest position on; the text length and the image's height drawn by
+    row, so the three rows differ."""
+    g = np.zeros((3, b, s), np.int32)
+    for row in range(b):
+        n0 = int(rng.integers(1, max(2, s // 4)))
+        ph = int(rng.integers(2, 9))
+        pw = max(1, (s - n0) // (2 * ph))
+        img = np.stack([np.full((ph, pw), n0),
+                        n0 + np.arange(ph)[:, None].repeat(pw, 1),
+                        n0 + np.arange(pw)[None].repeat(ph, 0)]).reshape(3, -1)
+        after = s - n0 - img.shape[1]
+        g[:, row] = np.concatenate([
+            np.broadcast_to(np.arange(n0), (3, n0)), img,
+            np.broadcast_to(img.max() + 1 + np.arange(after), (3, after))],
+            1)
+    if not ((g[0] != g[1]).any() and (g[1] != g[2]).any()):
+        raise AssertionError("position grid: the t, h and w rows agree")
+    return g
+
+
+def io_batch(cfg, b: int, s: int, seed: int) -> dict:
+    """A train step's batch of the stub frontends on the card, in
+    ``steps.input_specs``'s key order: seeded embeddings [B, S, D] in the
+    model dtype, seeded labels and, under ``needs_position_grid``, a
+    seeded ``position_grid``."""
+    import torch
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 60)
+    batch = {"embeds": torch.randn((b, s, cfg.d_model), generator=gen,
+                                   device=DEVICE).to(getattr(torch,
+                                                             cfg.dtype)),
+             "labels": torch.randint(0, cfg.vocab_size, (b, s),
+                                     generator=gen, device=DEVICE,
+                                     dtype=torch.int32)}
+    if cfg.needs_position_grid:
+        batch["positions"] = torch.from_numpy(position_grid(
+            np.random.default_rng(seed + 61), b, s)).to(DEVICE)
+    return batch
+
+
+def zero_gradient_table(cfg):
+    """A ``train_hold`` check: musicgen-medium's embedding table, which the
+    loss does not reach under embedding inputs, leaves the compiled step
+    (and its m and v) exactly as the plain AdamW moves it on a zero
+    gradient, and moves."""
+    def check(params, opt, got):
+        import torch
+        from repro_torch.optim import make_optimizer
+        adamw = make_optimizer("adamw", lr=3e-4,
+                               state_dtype=cfg.opt_state_dtype)
+        t = params["embed"]["table"]
+        state = {"m": {"t": opt["m"]["embed"]["table"]},
+                 "v": {"t": opt["v"]["embed"]["table"]}, "step": opt["step"]}
+        new_p, new_s = adamw.update({"t": torch.zeros_like(t)}, state,
+                                    {"t": t})
+        for name, tree, b in (("params", got[0], new_p["t"]),
+                              ("m", got[1]["m"], new_s["m"]["t"]),
+                              ("v", got[1]["v"], new_s["v"]["t"])):
+            a = tree["embed"]["table"].to(b.device)
+            if not torch.equal(a, b):
+                raise AssertionError(
+                    f"io_variants musicgen-medium train hold: embed/table's "
+                    f"{name} differs from AdamW on a zero gradient by "
+                    f"{float((a - b).abs().max())}")
+        moved = float((new_p["t"] - t).abs().max())
+        if moved == 0:
+            raise AssertionError("io_variants musicgen-medium train hold: "
+                                 "embed/table did not move")
+        return {"embed_table_zero_gradient": {
+            "bit_equal_adamw_on_zero_gradient": True, "max_move": moved}}
+    return check
+
+
+def phase_io_variants(seed: int) -> dict:
+    """The model's inputs and outputs (item 5.2): musicgen-medium's frame
+    embeddings in (full MHA: K4 at rep 1, head dim 64) and qwen2-vl-2b's
+    embeddings in, M-RoPE over a (t, h, w) grid and the LM head tied to the
+    embedding table (K1 / K5 on the table read transposed). Holds at the
+    published width in float32: (a) each config cut to 2 layers,
+    kernel-vs-gather parity over fp32 and int8 pools (``parity_runs``);
+    (b) K4 and K6 at rep 1 and rep 6 (``rep_readings``); (c) qwen2-vl-2b's
+    decode step expanded through the mapper on both grids
+    (``llama_hold``); (d) musicgen-medium's pim engine
+    (``dense_pim_engine``); (e) both train steps on seeded embeddings
+    (qwen2-vl-2b: and a grid whose rows differ), musicgen-medium's unused
+    table moved exactly as AdamW moves a zero-gradient leaf
+    (``train_hold``). Time: both configs in bf16 at their published depth
+    (``dense_time``). Emitted as one ``io_variants`` line."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    seconds = {}
+    launches = {k: 0 for k in (*PIM_KEYS, "k4", "k6")}
+
+    def part(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        seconds[name] = time.perf_counter() - t0
+        print(f"[{time.perf_counter() - T0:.1f} s] io_variants {name} "
+              f"{seconds[name]:.1f} s", file=sys.stderr, flush=True)
+        return out
+
+    def add(counts):
+        for k in launches:
+            launches[k] += counts.get(k, 0)
+
+    parity = {}
+    for arch in IO_ARCHS:
+        def run(arch=arch):
+            cfg = dense_cfg(arch, n_layers=DENSE_PARITY["n_layers"],
+                            dtype="float32")
+            model = dense_model(cfg, seed)
+            prompts = make_prompts(np.random.default_rng(seed + 4),
+                                   DENSE_PARITY["requests"],
+                                   DENSE_PARITY["lo"], DENSE_PARITY["hi"],
+                                   cfg.vocab_size)
+            got = parity_runs(cfg, model, prompts, ("fp32", "int8"),
+                              f"{arch} n_layers=2 float32",
+                              DENSE_PARITY["batch"])
+            del model
+            torch.cuda.empty_cache()
+            return got
+        parity[arch] = part(f"parity {arch}", run)
+        add({"k4": parity[arch]["fp32"], "k6": parity[arch]["int8"]})
+    reps = part("reps", lambda: rep_readings(seed, IO_REPS))
+    decode = {}
+    for grid in ("fp32", "int8"):
+        decode[grid] = part(f"decode {grid}", lambda grid=grid: llama_hold(
+            seed, grid, "qwen2-vl-2b", expand=True, plan=IO_DECODE_PLAN))
+        add(decode[grid]["launches"])
+    engine = part("pim_engine", lambda: dense_pim_engine(
+        seed, "musicgen-medium", "io_variants"))
+    add(engine["launches"])
+    train = {}
+    for arch in IO_ARCHS:
+        def hold(arch=arch):
+            h = IO_TRAIN_HOLD
+            cfg = dense_cfg(arch, n_layers=h["n_layers"], dtype="float32")
+            return train_hold(
+                seed, cfg, h["batch"], h["seq_len"], IO_TRAIN_K3[arch],
+                f"io_variants {arch} train hold", hold_waves=False,
+                on_host=False, arch=arch,
+                batch=io_batch(cfg, h["batch"], h["seq_len"], seed),
+                check=(zero_gradient_table(cfg) if not cfg.tie_embeddings
+                       else None))
+        train[arch] = part(f"train {arch}", hold)
+        add(train[arch]["launches"])
+    timing = {}
+    for arch in IO_ARCHS:
+        timing[arch] = part(f"time {arch}", lambda arch=arch: dense_time(
+            arch, seed, "io_variants"))
+        add(timing[arch]["launches"])
+    emit({"phase": "io_variants", "seconds": seconds,
+          "configs": {a: config_file(a) for a in IO_ARCHS},
+          "inputs": "serving: token ids through the embedding table (the "
+                    "reference's engine); train: seeded embeddings "
+                    "N(0, 1), qwen2-vl-2b's grid position_grid",
+          "reduced": {"holds": {"n_layers": 2,
+                                "dtype": ["bfloat16", "float32"]},
+                      "time": {a: [dense_cfg(a).n_layers,
+                                   timing[a]["row"]["n_layers"]]
+                               for a in IO_ARCHS}},
+          "parity_launches": parity, "reps": reps,
+          "decode": {g: {**LLAMA_HOLD, **decode[g]["row"]}
+                     for g in decode},
+          "pim_engine": {**SERVE_PIM_HOLD, **engine["row"]},
+          "train": {a: {**IO_TRAIN_HOLD, **train[a]} for a in IO_ARCHS},
+          "time": {a: timing[a]["row"] for a in IO_ARCHS},
+          "launches": launches})
+    return {"launches": launches, "reps": reps,
+            "shapes": {g: decode[g]["shapes"] for g in decode}}
+
+
 def sums(rows) -> dict:
     """Times and bounds of one run's launches: each distinct shape's
     numbers times its count, summed (each shape's bound the larger of its
@@ -6134,7 +6361,9 @@ def pim_entry(ids, key, by_path, rows) -> dict:
                                else None),
             "dense_variants": (sums(rows["dense_variants"][key])
                                if rows["dense_variants"].get(key)
-                               else None)}
+                               else None),
+            "io_variants": (sums(rows["io_variants"][key])
+                            if rows["io_variants"].get(key) else None)}
 
 
 def with_counts(shapes: dict) -> dict:
@@ -6275,6 +6504,14 @@ def main() -> int:
     rows["dense_variants_q"] = phase_kernels_pim_q(
         args.seed, with_counts({"k5": dense["shapes"]["int8"]["k5"]})["k5"],
         "dense_variants_q", LLAMA_HOLD["batch"], iters=3, plain_iters=1)
+    io = phase_io_variants(args.seed)
+    by_path["io_variants"] = {k: io["launches"][k] for k in PIM_KEYS}
+    rows["io_variants"] = phase_kernels_pim(
+        args.seed, with_counts(io["shapes"]["fp32"]), "io_variants",
+        LLAMA_HOLD["batch"], iters=3, plain_iters=1)
+    rows["io_variants_q"] = phase_kernels_pim_q(
+        args.seed, with_counts({"k5": io["shapes"]["int8"]["k5"]})["k5"],
+        "io_variants_q", LLAMA_HOLD["batch"], iters=3, plain_iters=1)
     print(gpu_name_and_power_limit(), flush=True)
 
     def entry(ids, launches, r):
@@ -6299,21 +6536,26 @@ def main() -> int:
     k5_launches = {path: by_path[path]["k5"]
                    for path in ("pim_lenet_q", "pim_train_q", "pim_grad_q",
                                 "pim_llama_q", "pim_llama_pipe",
-                                "serve_pim", "dense_variants")}
+                                "serve_pim", "dense_variants",
+                                "io_variants")}
     k4_bf16 = k4["bfloat16"]
     k6_serve = k6[(SERVE_KV_DTYPE, "bfloat16")]
     k4_launches = {"serve": serve["launches"],
                    "serve_pim": serve_pim["launches"]["k4"],
-                   "dense_variants": dense["launches"]["k4"]}
+                   "dense_variants": dense["launches"]["k4"],
+                   "io_variants": io["launches"]["k4"]}
     k6_launches = {"serve_kvq": kvq["launches"],
                    "serve_pim": serve_pim["launches"]["k6"],
-                   "dense_variants": dense["launches"]["k6"]}
+                   "dense_variants": dense["launches"]["k6"],
+                   "io_variants": io["launches"]["k6"]}
 
     def by_rep(kernel, dtype):
-        # K4 / K6 at the variants' reps (dense_variants): the event times
+        # K4 / K6 at the variants' reps (dense_variants: 5, 8, 16;
+        # io_variants: 1, 6): the event times
         return {str(r["rep"]): {k: row[k] for k in (
             "max_err", "kernel_ms", "plain_ms", "bound_ms", "library_ms",
-            "kernel_graph_ms")} for r in dense["reps"].values()
+            "kernel_graph_ms")}
+            for r in (*dense["reps"].values(), *io["reps"].values())
             for row in r["results"]
             if row["kernel"] == kernel and row["dtype"] == dtype}
     emit({"kernels": [
@@ -6342,7 +6584,8 @@ def main() -> int:
          "pim_train": sums(rows["pim_train_q"]),
          "pim_llama": sums(rows["pim_llama_q"]),
          "pim_llama_pipe": sums(rows["pim_llama_pipe_q"]),
-         "dense_variants": sums(rows["dense_variants_q"])},
+         "dense_variants": sums(rows["dense_variants_q"]),
+         "io_variants": sums(rows["io_variants_q"])},
         {**K7, "launches": attn["launches"],
          "max_abs_err": long_bf16["max_err"],
          **{k: long_bf16[k] for k in ("ms", "plain_ms", "bound_ms",

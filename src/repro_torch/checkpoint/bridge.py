@@ -59,7 +59,8 @@ def params_from_reference(flat: Mapping[str, np.ndarray], cfg: ArchConfig,
     want["embed/table"] = (model.embed.table, flat["embed/table"])
     want["final_norm/scale"] = (model.final_norm.scale,
                                 flat["final_norm/scale"])
-    want["lm_head/w"] = (model.lm_head.w, flat["lm_head/w"])
+    if model.lm_head is not None:       # tied: the head is the table
+        want["lm_head/w"] = (model.lm_head.w, flat["lm_head/w"])
     for name, attr in layer_leaves(cfg).items():
         key = f"layers/block0/{name}"
         stacked = flat[key]
@@ -150,7 +151,8 @@ def model_from_stacked(tree: Mapping, cfg: ArchConfig,
     with torch.no_grad():
         model.embed.table.copy_(tree["embed"]["table"])
         model.final_norm.scale.copy_(tree["final_norm"]["scale"])
-        model.lm_head.w.copy_(tree["lm_head"]["w"])
+        if model.lm_head is not None:
+            model.lm_head.w.copy_(tree["lm_head"]["w"])
         lp = tree["layers"]["block0"]
         for key, attr in layer_leaves(cfg).items():
             group, name = key.split("/")

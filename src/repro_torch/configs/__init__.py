@@ -10,13 +10,16 @@ import importlib
 from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.configs.lenet5 import CONFIG as LENET5, LeNetConfig
 
-ARCH_IDS = ("qwen3-32b", "chatglm3-6b", "llama3-8b", "qwen2.5-32b")
+ARCH_IDS = ("qwen3-32b", "chatglm3-6b", "llama3-8b", "qwen2.5-32b",
+            "musicgen-medium", "qwen2-vl-2b")
 
 _MODULES = {
     "qwen3-32b": "qwen3_32b",
     "chatglm3-6b": "chatglm3_6b",
     "llama3-8b": "llama3_8b",
     "qwen2.5-32b": "qwen2_5_32b",
+    "musicgen-medium": "musicgen_medium",
+    "qwen2-vl-2b": "qwen2_vl_2b",
 }
 
 

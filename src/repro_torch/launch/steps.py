@@ -17,8 +17,11 @@ reference's parameter tree; ``abstract_params``, ``abstract_opt_state``,
 arguments on the meta device (shapes and dtypes, nothing allocated),
 which the mapper traces (``mapper.map_arch``).
 
-Not ported yet: embedding inputs and position grids (ROADMAP.md, queue
-item 5) and the sharding rules (item 7).
+A config with ``input_embed_stub`` takes ``batch["embeds"]`` [B, S, D]
+(a modality frontend's output) where the others take ``batch["tokens"]``,
+one with ``needs_position_grid`` ``batch["positions"]`` [3, B, S] besides,
+and a tied head reads the embedding table's transpose. Not ported yet:
+the sharding rules (ROADMAP.md, queue item 7).
 """
 
 from __future__ import annotations
@@ -53,16 +56,29 @@ def token_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return chunk_loss(logits, labels).mean()
 
 
+def _model_inputs(cfg: ArchConfig, batch: dict) -> dict:
+    """What ``transformer.hidden_states`` takes of ``batch``: ``tokens``
+    or (``input_embed_stub``) ``embeds``, and ``positions`` where the
+    config needs a position grid (the reference's ``loss_fn`` kwargs)."""
+    kwargs = ({"embeds": batch["embeds"]} if cfg.input_embed_stub
+              else {"tokens": batch["tokens"]})
+    if cfg.needs_position_grid:
+        kwargs["positions"] = batch["positions"]
+    return kwargs
+
+
 def make_loss_fn(cfg: ArchConfig) -> Callable:
     """(params, batch) -> loss: the hidden states, then the fused LM head
     and cross entropy over chunks of 512 tokens (``layers.fused_xent_head``;
-    the float32 logits never exist whole)."""
+    the float32 logits never exist whole); a tied head's weight is the
+    embedding table's transpose."""
     transformer.check_ported(cfg)
 
     def loss_fn(params, batch):
-        x = transformer.hidden_states(cfg, params, batch["tokens"])
+        x = transformer.hidden_states(cfg, params,
+                                      **_model_inputs(cfg, batch))
         n_chunks = max(1, x.shape[1] // 512)
-        return layers.fused_xent_head(x, params["lm_head"]["w"],
+        return layers.fused_xent_head(x, transformer.head_weight(cfg, params),
                                       batch["labels"], n_chunks)
 
     return loss_fn
@@ -133,14 +149,15 @@ def _last_position(logits: torch.Tensor) -> torch.Tensor:
 
 def make_prefill_step(cfg: ArchConfig) -> Callable:
     """(params, batch) -> the last position's logits [B, V] (inference
-    prefill): ``transformer.apply`` on ``batch["tokens"]``, its stack the
+    prefill): ``transformer.apply`` on ``batch["tokens"]`` (or ``embeds``,
+    and ``positions``, as ``make_loss_fn`` reads them), its stack the
     undifferentiated one, under ``torch.no_grad``."""
     transformer.check_ported(cfg)
 
     def prefill_step(params, batch):
         with torch.no_grad():
-            return _last_position(transformer.apply(cfg, params,
-                                                   batch["tokens"]))
+            return _last_position(transformer.apply(
+                cfg, params, **_model_inputs(cfg, batch)))
 
     return prefill_step
 
@@ -158,10 +175,25 @@ def input_specs(cfg: ArchConfig, shape: ShapeSpec) -> dict:
     """The batch of a train (or prefill) step of ``shape`` on the meta
     device: ``{"tokens", "labels"}``, each [B, S] int32 (the keys in
     ``data.pipeline.TokenStream``'s order, which a traced step's batch
-    must keep)."""
+    must keep); under ``input_embed_stub`` ``{"embeds", "labels"}``, the
+    embeddings [B, S, D] in the model dtype; with
+    ``needs_position_grid`` the grid ``positions`` [3, B, S] int32 last
+    (the reference's keys, in their sorted order)."""
     b, s = shape.global_batch, shape.seq_len
-    return {name: torch.empty((b, s), dtype=torch.int32, device="meta")
-            for name in ("tokens", "labels")}
+
+    def ints(*dims):
+        return torch.empty(dims, dtype=torch.int32, device="meta")
+
+    if cfg.input_embed_stub:
+        batch = {"embeds": torch.empty((b, s, cfg.d_model),
+                                       dtype=torch_dtype(cfg.dtype),
+                                       device="meta"),
+                 "labels": ints(b, s)}
+    else:
+        batch = {"tokens": ints(b, s), "labels": ints(b, s)}
+    if cfg.needs_position_grid:
+        batch["positions"] = ints(3, b, s)
+    return batch
 
 
 def decode_input_specs(cfg: ArchConfig, shape: ShapeSpec):

@@ -137,10 +137,20 @@ def _project_qkv(x, p, cfg: ArchConfig, positions):
         q = layers.head_rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = layers.head_rms_norm(k, p["k_norm"], cfg.norm_eps)
     q = layers.apply_rope(q, positions, theta=cfg.rope_theta,
-                          style=cfg.rope_style)
+                          style=cfg.rope_style, sections=cfg.mrope_sections)
     k = layers.apply_rope(k, positions, theta=cfg.rope_theta,
-                          style=cfg.rope_style)
+                          style=cfg.rope_style, sections=cfg.mrope_sections)
     return q, k, v
+
+
+def site_positions(cfg: ArchConfig, pos: torch.Tensor) -> torch.Tensor:
+    """A site's positions ``pos`` [B, S] as its rotation takes them:
+    broadcast to the [3, B, S] grid under ``"mrope"`` (every row the same,
+    as the reference's decode and prefill sites broadcast theirs), as
+    they are otherwise."""
+    if cfg.rope_style == "mrope":
+        return pos[None].expand(3, *pos.shape)
+    return pos
 
 
 # ---------------------------------------------------------------------------
@@ -745,7 +755,8 @@ def decode_attention(x: torch.Tensor, p: dict, cfg: ArchConfig,
     hd = cfg.resolved_head_dim
     g = cfg.n_kv_heads
     r = cfg.n_heads // g
-    q, k_new, v_new = _project_qkv(x, p, cfg, pos.expand(b, 1))
+    q, k_new, v_new = _project_qkv(x, p, cfg,
+                                   site_positions(cfg, pos.expand(b, 1)))
     k = _updated(cache["k"], k_new, pos)
     v = _updated(cache["v"], v_new, pos)
     valid = torch.arange(k.shape[1], device=x.device) <= pos
@@ -774,7 +785,12 @@ def _grouped_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.bmm(v.permute(0, 2, 3, 1).reshape(b * g, hd, s),
                     probs.permute(0, 1, 4, 2, 3).reshape(b * g, s, r))
     out = out.view(b, g, hd, r, 1).permute(0, 4, 1, 3, 2)   # b q g r d
-    return out.reshape(b, 1, cfg.n_heads * hd)
+    # flattened to 2-D first: at rep 1 the permuted heads merge without a
+    # copy, and a [B, 1, H·hd] view of them would keep a query-axis stride
+    # of 1, which ``torch.matmul`` will not fold into one ``mm`` with the
+    # output projection (it takes ``bmm``: a batched product the mapper
+    # neither places nor lowers)
+    return out.reshape(b, cfg.n_heads * hd).view(b, 1, cfg.n_heads * hd)
 
 
 # ---------------------------------------------------------------------------
@@ -846,7 +862,8 @@ def paged_decode_attention(x, attn: Attention, cfg: ArchConfig,
     b = x.shape[0]
     hd = cfg.resolved_head_dim
     bs = k_store.shape[1]
-    q, k_new, v_new = _project_qkv(x, attn, cfg, pos[:, None])
+    q, k_new, v_new = _project_qkv(x, attn, cfg,
+                                   site_positions(cfg, pos[:, None]))
     rows = torch.arange(b, device=x.device)
     blk = block_table[rows, (pos // bs).long()].long()      # [B] tail blocks
     off = (pos % bs).long()
@@ -923,7 +940,8 @@ def paged_decode_attention_tree(x: torch.Tensor, p: dict, cfg: ArchConfig,
     k_store, v_store = cache["k"], cache["v"]
     nb, bs = k_store.shape[0], k_store.shape[1]
     w = block_table.shape[1]
-    q, k_new, v_new = _project_qkv(x, p, cfg, pos[:, None])
+    q, k_new, v_new = _project_qkv(x, p, cfg,
+                                   site_positions(cfg, pos[:, None]))
     rows = _wrapped(torch.arange(b, dtype=pos.dtype, device=x.device), b)
     tail = _wrapped(torch.div(pos, bs, rounding_mode="floor"), w)
     blk = block_table[rows.long(), tail.long()]              # [B] tail blocks
@@ -994,7 +1012,8 @@ def paged_prefill_attention(x, attn: Attention, cfg: ArchConfig,
     w = table_row.shape[0]
     g = cfg.n_kv_heads
     gpos = p0 + torch.arange(t, device=x.device)             # [T]
-    q, k_new, v_new = _project_qkv(x, attn, cfg, gpos[None])
+    q, k_new, v_new = _project_qkv(x, attn, cfg,
+                                   site_positions(cfg, gpos[None]))
     new_valid = torch.arange(t, device=x.device) < n_new
     tbl = table_row.long()
     blk = torch.where(new_valid, tbl[torch.clamp(gpos // bs, 0, w - 1)], 0)

@@ -18,6 +18,7 @@ are the reference's custom VJPs, op for op.
 
 from __future__ import annotations
 
+import itertools
 import math
 
 import torch
@@ -185,20 +186,17 @@ def rotate_partial(x, cos, sin):
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, *, theta: float,
-               style: str = "full") -> torch.Tensor:
-    """x: [B, S, H, D]; positions: [B, S]. ``"full"`` rotates every dim
-    (llama), ``"half"`` the first D/2 (chatglm), ``"none"`` none; cos and
-    sin are cast to ``x.dtype`` before the rotation, as in the reference.
-    ``"mrope"`` (qwen2-vl's position grid) is not ported."""
-    if style == "none":
-        return x
-    if style not in ("full", "half"):
-        raise NotImplementedError(
-            f"rope_style={style!r} is not ported yet (ROADMAP.md, port "
-            f"queue item 5.2: M-RoPE and the model's inputs and outputs)")
-    d = x.shape[-1]
-    return rotate_partial(x, *rope_table(d, theta, positions, x.dtype,
-                                         rotary_dim(d, style)))
+               style: str = "full",
+               sections: tuple[int, ...] = ()) -> torch.Tensor:
+    """x: [B, S, H, D]; positions: [B, S], or [3, B, S] under ``"mrope"``
+    (qwen2-vl's temporal / height / width grid). ``"full"`` rotates every
+    dim (llama), ``"half"`` the first D/2 (chatglm), ``"mrope"`` every dim,
+    each section of the frequencies turned by its own grid row, ``"none"``
+    none; cos and sin are cast to ``x.dtype`` before the rotation, as in
+    the reference."""
+    table = rope_table_for(x.shape[-1], positions, x.dtype, theta=theta,
+                           style=style, sections=sections)
+    return x if table is None else rotate_partial(x, *table)
 
 
 # ---------------------------------------------------------------------------
@@ -370,3 +368,38 @@ def rope_table(head_dim: int, theta: float, positions: torch.Tensor,
     ang = positions[..., None].float() * inv
     return (torch.cos(ang)[:, :, None, :].to(dtype),
             torch.sin(ang)[:, :, None, :].to(dtype))
+
+
+def mrope_table(head_dim: int, theta: float, positions: torch.Tensor,
+                dtype, sections: tuple[int, ...]
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """M-RoPE's (cos, sin), each [B, S, 1, head_dim / 2] in ``dtype``, from
+    the grid ``positions`` [3, B, S]: the inverse frequencies of the whole
+    head split at the sections' running sums, each chunk times its own grid
+    row, the angles concatenated (the reference's ``"mrope"`` branch)."""
+    if positions.dim() != 3:
+        raise ValueError(f"mrope needs [3, B, S] positions, got "
+                         f"{tuple(positions.shape)}")
+    inv = rope_freqs(head_dim, theta, positions.device)
+    splits = list(itertools.accumulate(sections))[:-1]
+    ang = torch.cat([positions[i][..., None].float() * chunk
+                     for i, chunk in enumerate(torch.tensor_split(inv,
+                                                                  splits))],
+                    -1)
+    return (torch.cos(ang)[:, :, None, :].to(dtype),
+            torch.sin(ang)[:, :, None, :].to(dtype))
+
+
+def rope_table_for(head_dim: int, positions: torch.Tensor, dtype, *,
+                   theta: float, style: str,
+                   sections: tuple[int, ...] = ()):
+    """The (cos, sin) a ``style`` rotation turns a head by (``rope_table``,
+    or ``mrope_table`` over a position grid); None under ``"none"``."""
+    if style == "none":
+        return None
+    if style == "mrope":
+        return mrope_table(head_dim, theta, positions, dtype, sections)
+    if style not in ("full", "half"):
+        raise ValueError(f"rope_style={style!r}")
+    return rope_table(head_dim, theta, positions, dtype,
+                      rotary_dim(head_dim, style))

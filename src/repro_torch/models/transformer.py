@@ -1,7 +1,9 @@
 """Decoder-only LM: the port of ``repro.models.transformer.DecoderLM``
 for ``block_pattern="attn"`` with dense SwiGLU MLPs (llama3-8b; with
 q/k/v biases, qwen2.5-32b; per-head q/k norms, qwen3-32b; the rotation
-over half the head dims, chatglm3-6b), on a paged KV pool and against a
+over half the head dims, chatglm3-6b; frame embeddings in, musicgen-medium;
+embeddings in, M-RoPE over a (t, h, w) position grid and the head tied to
+the embedding table, qwen2-vl-2b), on a paged KV pool and against a
 contiguous cache.
 
 The reference stacks the layers on a leading axis and scans over them;
@@ -105,8 +107,8 @@ def leaf_shapes(cfg: ArchConfig) -> dict[str, tuple[int, ...]]:
                           "attn/v_bias": (hkv,)})
     if cfg.qk_norm:
         per_layer.update({"attn/q_norm": (hd,), "attn/k_norm": (hd,)})
-    return {"embed/table": (v, d), "final_norm/scale": (d,),
-            "lm_head/w": (d, v),
+    head = {} if cfg.tie_embeddings else {"lm_head/w": (d, v)}
+    return {"embed/table": (v, d), "final_norm/scale": (d,), **head,
             **{f"layers/block0/{k}": (cfg.n_layers, *shape)
                for k, shape in per_layer.items()}}
 
@@ -114,14 +116,11 @@ def leaf_shapes(cfg: ArchConfig) -> dict[str, tuple[int, ...]]:
 def check_ported(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` naming what of ``cfg`` the port does
     not run yet, each with its item of ROADMAP.md's port queue: the model
-    families of items 5.2-5.4. The dense attention variants (q/k/v bias,
-    q/k norm, half and no RoPE: item 5.1) run."""
+    families of items 5.3 and 5.4. The dense attention variants (q/k/v
+    bias, q/k norm, half and no RoPE: item 5.1) and the model's inputs and
+    outputs (embedding inputs, tied embeddings, M-RoPE's position grid:
+    item 5.2) run."""
     unported = [f"{what} (item {item})" for what, item, on in (
-        ("embedding inputs", "5.2", cfg.input_embed_stub),
-        ("tied embeddings", "5.2", cfg.tie_embeddings),
-        ("position grids", "5.2", cfg.needs_position_grid),
-        (f"rope_style={cfg.rope_style!r}", "5.2",
-         cfg.rope_style not in ("full", "half", "none")),
         ("MoE layers", "5.3", cfg.n_experts),
         (f"block_pattern={cfg.block_pattern!r}", "5.4",
          cfg.block_pattern != "attn")) if on]
@@ -144,15 +143,34 @@ def param_tree(flat: dict) -> dict:
     return tree
 
 
+def head_weight(cfg: ArchConfig, params: dict) -> torch.Tensor:
+    """The LM head's weight [D, V]: with ``cfg.tie_embeddings`` the
+    embedding table's transpose, a view (the head's product reads the
+    table where it lies), else ``lm_head.w``."""
+    if cfg.tie_embeddings:
+        return params["embed"]["table"].t()
+    return params["lm_head"]["w"]
+
+
+def logits_of(cfg: ArchConfig, params: dict,
+              x: torch.Tensor) -> torch.Tensor:
+    """The LM head on the final norm's output ``x`` [..., D] (the
+    reference's ``_logits``): ``x @ table.T`` when tied."""
+    return layers.lm_head(x, head_weight(cfg, params))
+
+
 def decode_step(cfg: ArchConfig, params: dict, cache: dict,
                 token: torch.Tensor, pos: torch.Tensor):
-    """The reference's ``DecoderLM.decode_step``: token [B] int; pos a
-    0-d int tensor, the current position; ``params`` the reference's
-    tree (``param_tree``), ``cache`` ``{"layers": {"block0": {"k",
-    "v"}}}``, leaves ``[L, B, max_len, G, hd]``. Returns (logits [B, V],
-    the updated cache, written out of place). Each layer is one
-    iteration of a ``"scan"`` region."""
-    x = layers.embed(token[:, None], params["embed"]["table"])
+    """The reference's ``DecoderLM.decode_step``: token [B] int, or [B, 1,
+    D] embeddings (cast to the model dtype); pos a 0-d int tensor, the
+    current position; ``params`` the reference's tree (``param_tree``),
+    ``cache`` ``{"layers": {"block0": {"k", "v"}}}``, leaves ``[L, B,
+    max_len, G, hd]``. Returns (logits [B, V], the updated cache, written
+    out of place). Each layer is one iteration of a ``"scan"`` region."""
+    if token.dim() == 1:
+        x = layers.embed(token[:, None], params["embed"]["table"])
+    else:
+        x = token.to(torch_dtype(cfg.dtype))
     lp = params["layers"]["block0"]
     lc = cache["layers"]["block0"]
     keys = stack_leaves(cfg)
@@ -175,7 +193,7 @@ def decode_step(cfg: ArchConfig, params: dict, cache: dict,
             x = x + layers.mlp(h, w["mlp/w_gate"], w["mlp/w_up"],
                                w["mlp/w_down"])
     x = layers.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
-    logits = layers.lm_head(x, params["lm_head"]["w"])
+    logits = logits_of(cfg, params, x)
     return logits[:, 0], {"layers": {"block0": {"k": torch.stack(ks),
                                                 "v": torch.stack(vs)}}}
 
@@ -223,7 +241,7 @@ def decode_step_paged(cfg: ArchConfig, params: dict, cache: dict,
         for name, t in site.items():
             written[name].append(t)
     x = layers.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
-    logits = layers.lm_head(x, params["lm_head"]["w"])
+    logits = logits_of(cfg, params, x)
     return logits[:, 0], {"layers": {"block0": written}}
 
 
@@ -306,9 +324,8 @@ def _unit_forward(x, w: dict, cfg: ArchConfig, positions, mask,
     def table(j):
         if not rope:
             return None
-        return tables[j] if tables is not None else layers.rope_table(
-            hd, cfg.rope_theta, positions, x.dtype,
-            layers.rotary_dim(hd, cfg.rope_style))
+        return tables[j] if tables is not None else rope_table(
+            cfg, positions, x.dtype)
 
     tq = table(0)
     qr = layers.rotate_partial(q, *tq) if rope else q
@@ -596,28 +613,45 @@ def _forward_stack(cfg: ArchConfig, x, positions, mask,
     return x
 
 
+def rope_table(cfg: ArchConfig, positions: torch.Tensor, dtype):
+    """The (cos, sin) of ``cfg``'s rotation at ``positions`` ([B, S], or
+    the [3, B, S] grid under ``"mrope"``); None under ``"none"``."""
+    return layers.rope_table_for(cfg.resolved_head_dim, positions, dtype,
+                                 theta=cfg.rope_theta, style=cfg.rope_style,
+                                 sections=cfg.mrope_sections)
+
+
 def hidden_states(cfg: ArchConfig, params: dict,
-                  tokens: torch.Tensor) -> torch.Tensor:
-    """The reference's ``DecoderLM.hidden_states`` for token inputs:
-    tokens [B, S] int -> the final norm's output [B, S, D], on the
-    reference's parameter tree. Above ``CHUNKED_ATTN_THRESHOLD`` tokens
-    the attention is the chunked flash path (the sequence a multiple of
-    ``attention.Q_CHUNK``). Differentiated, the stack is ``_LayerStack``
-    (the rope tables made once outside it); otherwise ``_forward_stack``."""
-    x = layers.embed(tokens, params["embed"]["table"])
+                  tokens: torch.Tensor | None = None,
+                  embeds: torch.Tensor | None = None,
+                  positions: torch.Tensor | None = None) -> torch.Tensor:
+    """The reference's ``DecoderLM.hidden_states``: tokens [B, S] int, or
+    ``embeds`` [B, S, D] (a modality frontend's output, cast to the model
+    dtype) -> the final norm's output [B, S, D], on the reference's
+    parameter tree. ``positions`` default to the arange, broadcast to the
+    [3, B, S] grid under ``"mrope"``. Above ``CHUNKED_ATTN_THRESHOLD``
+    tokens the attention is the chunked flash path (the sequence a
+    multiple of ``attention.Q_CHUNK``). Differentiated, the stack is
+    ``_LayerStack`` (the rope tables made from the positions once, outside
+    it); otherwise ``_forward_stack``."""
+    if embeds is None:
+        x = layers.embed(tokens, params["embed"]["table"])
+    else:
+        x = embeds.to(torch_dtype(cfg.dtype))
     b, s, _ = x.shape
     chunked = s > CHUNKED_ATTN_THRESHOLD
-    hd = cfg.resolved_head_dim
-    pos = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(
-        b, s)
+    if positions is None:
+        pos = attention.site_positions(cfg, torch.arange(
+            s, dtype=torch.int32, device=x.device)[None].expand(b, s))
+    else:
+        pos = positions
     leaves = _stacked(params["layers"]["block0"], stack_leaves(cfg))
     differentiated = _differentiated(x, *leaves)
     if differentiated:
         tq = tk = (None, None)
         if cfg.rope_style != "none":
-            rd = layers.rotary_dim(hd, cfg.rope_style)
-            tq = layers.rope_table(hd, cfg.rope_theta, pos, x.dtype, rd)
-            tk = layers.rope_table(hd, cfg.rope_theta, pos, x.dtype, rd)
+            tq = rope_table(cfg, pos, x.dtype)
+            tk = rope_table(cfg, pos, x.dtype)
     mask = None if chunked else attention.causal_mask(s, x.device)
     if differentiated:
         x = _LayerStack.apply(cfg, x, pos, mask, *tq, *tk, *leaves)[0]
@@ -627,11 +661,13 @@ def hidden_states(cfg: ArchConfig, params: dict,
 
 
 def apply(cfg: ArchConfig, params: dict,
-          tokens: torch.Tensor) -> torch.Tensor:
-    """Full-sequence logits [B, S, V]: ``hidden_states`` then the LM
-    head."""
-    return layers.lm_head(hidden_states(cfg, params, tokens),
-                          params["lm_head"]["w"])
+          tokens: torch.Tensor | None = None,
+          embeds: torch.Tensor | None = None,
+          positions: torch.Tensor | None = None) -> torch.Tensor:
+    """Full-sequence logits [B, S, V]: ``hidden_states`` then the LM head
+    (``logits_of``)."""
+    return logits_of(cfg, params,
+                     hidden_states(cfg, params, tokens, embeds, positions))
 
 
 class Block(nn.Module):
@@ -658,7 +694,9 @@ class DecoderLM(nn.Module):
         self.layers = nn.ModuleList(Block(cfg, dt, dev)
                                     for _ in range(cfg.n_layers))
         self.final_norm = layers.RMSNorm(cfg.d_model, cfg.norm_eps, dt, dev)
-        self.lm_head = layers.LMHead(cfg.d_model, cfg.vocab_size, dt, dev)
+        # tied: the head reads the embedding table (``logits_of``)
+        self.lm_head = (None if cfg.tie_embeddings else
+                        layers.LMHead(cfg.d_model, cfg.vocab_size, dt, dev))
 
     def init(self, seed: int = 0) -> "DecoderLM":
         """Fill every parameter from one seeded generator on the model's
@@ -678,8 +716,9 @@ class DecoderLM(nn.Module):
         what ``decode_step`` and a mapped step take
         (``checkpoint.bridge.params_into`` is the inverse)."""
         flat = {"embed/table": self.embed.table,
-                "final_norm/scale": self.final_norm.scale,
-                "lm_head/w": self.lm_head.w}
+                "final_norm/scale": self.final_norm.scale}
+        if self.lm_head is not None:
+            flat["lm_head/w"] = self.lm_head.w
         for key, attr in layer_leaves(self.cfg).items():
             flat[f"layers/block0/{key}"] = torch.stack([
                 blk.get_parameter(attr) for blk in self.layers])
@@ -720,17 +759,18 @@ class DecoderLM(nn.Module):
             name: t.expand(cfg.n_layers, *t.shape).clone()
             for name, t in site.items()}}}
 
-    def hidden_states(self, params: dict,
-                      tokens: torch.Tensor) -> torch.Tensor:
+    def hidden_states(self, params: dict, tokens=None, embeds=None,
+                      positions=None) -> torch.Tensor:
         """Module-level ``hidden_states`` with this model's config."""
-        return hidden_states(self.cfg, params, tokens)
+        return hidden_states(self.cfg, params, tokens, embeds, positions)
 
-    def apply(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    def apply(self, params: dict, tokens=None, embeds=None,
+              positions=None) -> torch.Tensor:
         """Module-level ``apply`` with this model's config: the logits of
         the reference's ``DecoderLM.apply``, a function of the tree (it
         takes the place of ``nn.Module.apply``, which no code of the
         port calls)."""
-        return apply(self.cfg, params, tokens)
+        return apply(self.cfg, params, tokens, embeds, positions)
 
     def decode_step(self, params: dict, cache: dict, token: torch.Tensor,
                     pos: torch.Tensor):
@@ -781,7 +821,9 @@ class DecoderLM(nn.Module):
                 pos=pos, use_kernel=kernel, kv_dtype=kv_dtype,
                 **self._site(cache, i))
             x = x + blk.mlp(blk.norm2(x))
-        logits = self.lm_head(self.final_norm(x))
+        x = self.final_norm(x)
+        logits = (x @ self.embed.table.t() if self.lm_head is None
+                  else self.lm_head(x))
         return logits[:, 0], cache
 
     @torch.no_grad()

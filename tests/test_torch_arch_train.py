@@ -441,7 +441,8 @@ def test_unported_train_options_raise():
         _tensors(TokenStream(cfg.vocab_size, 8, 2).batch(0)))
     assert torch.isfinite(loss) and int(opt["step"]) == 1
     with pytest.raises(NotImplementedError, match="item 5"):
-        steps.make_loss_fn(dataclasses.replace(cfg, input_embed_stub=True))
+        steps.make_loss_fn(dataclasses.replace(cfg, n_experts=4, top_k=2,
+                                               moe_d_ff=32))
     # a sequence above 2048 maps (item 3.7): the chunked attention's pair
     # scan folds inside the stack and its transpose
     sched = mapper.map_arch("llama3-8b", "train", smoke=True, seq_len=4096)

@@ -24,7 +24,7 @@ away from one, handed to both frameworks through ``checkpoint.bridge``.
   plain step, and ``ServeEngine(backend="pim")`` token-identical to the
   jit engine;
 * the bridge carries the new leaves both ways, AdamW state included;
-  ``check_ported`` still names items 5.2-5.4.
+  ``check_ported`` still names items 5.3 and 5.4.
 
 The gradients and the train step are held in
 ``tests/test_torch_variant_grads.py``, the schedules in
@@ -149,9 +149,11 @@ def test_head_rms_norm_and_half_rope_match_reference(dtype):
     half = layers.apply_rope(tx, torch.from_numpy(pos), theta=1e4,
                              style="half")
     assert torch.equal(half[..., 16:], tx[..., 16:])
-    with pytest.raises(NotImplementedError, match="item 5.2"):
-        layers.apply_rope(tx, torch.from_numpy(pos), theta=1.0,
-                          style="mrope")
+    # M-RoPE (item 5.2) over a grid whose t, h and w rows differ
+    grid = np.stack([pos, pos // 3 + 7, pos % 11]).astype(np.int32)
+    kw = dict(theta=1e6, style="mrope", sections=(4, 6, 6))
+    close(layers.apply_rope(tx, torch.from_numpy(grid), **kw),
+          ref_layers.apply_rope(jx, jnp.asarray(grid), **kw))
 
 
 # ---------------------------------------------------------------------------
@@ -361,9 +363,9 @@ def test_bridge_carries_the_variant_leaves(case):
 @pytest.mark.parametrize("changes,item", [
     (dict(n_experts=4, top_k=2, moe_d_ff=32), "5.3"),
     (dict(block_pattern="xlstm"), "5.4"),
-    (dict(input_embed_stub=True), "5.2"),
-    (dict(tie_embeddings=True), "5.2"),
-    (dict(rope_style="mrope", mrope_sections=(2, 3, 3)), "5.2")])
+    (dict(block_pattern="mamba_shared_attn", ssm_state=16), "5.4"),
+    (dict(n_experts=4, top_k=1, moe_d_ff=32, moe_interleave=2), "5.3"),
+    (dict(n_experts=4, top_k=2, moe_d_ff=32, shared_expert=True), "5.3")])
 def test_check_ported_names_the_items_still_to_port(changes, item):
     cfg = dataclasses.replace(get_smoke_config("qwen2.5-32b"), **changes)
     with pytest.raises(NotImplementedError, match=f"item {item}"):

@@ -42,9 +42,19 @@ def test_apply_rope_full(theta, head_dim):
 
 
 def test_apply_rope_unported_style_raises():
-    x = torch.zeros(1, 1, 1, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        layers.apply_rope(x, torch.zeros(1, 1), theta=1.0, style="mrope")
+    """M-RoPE (qwen2-vl, port queue item 5.2) against the reference's over
+    a grid whose t, h and w rows differ, sections (16, 24, 24) of head
+    dim 128; a [B, S] grid is refused, as the reference asserts."""
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((2, 5, 4, 128)).astype(np.float32)
+    pos = rng.integers(0, 1000, (3, 2, 5)).astype(np.int32)
+    assert (pos[0] != pos[1]).any() and (pos[1] != pos[2]).any()
+    (xj, xt), (pj, pt) = _both(x), _both(pos)
+    kw = dict(theta=1e6, style="mrope", sections=(16, 24, 24))
+    _close(layers.apply_rope(xt, pt, **kw),
+           ref_layers.apply_rope(xj, pj, **kw))
+    with pytest.raises(ValueError, match="3, B, S"):
+        layers.apply_rope(xt, pt[0], **kw)
 
 
 @pytest.mark.parametrize("rows", [1, 6])

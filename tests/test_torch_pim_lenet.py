@@ -156,9 +156,10 @@ def test_unported_options_raise_not_implemented():
                for nd in prog.schedule.graph.nodes) == 184
     cases = [
         lambda: mapper.map_arch("llama3-8b", config=dataclasses.replace(
-            get_smoke_config("llama3-8b"), input_embed_stub=True)),
+            get_smoke_config("llama3-8b"), n_experts=4, top_k=2,
+            moe_d_ff=32)),
         lambda: mapper.compile_arch("llama3-8b", config=dataclasses.replace(
-            get_smoke_config("llama3-8b"), tie_embeddings=True),
+            get_smoke_config("llama3-8b"), block_pattern="xlstm"),
             device="cpu"),
     ]
     for case in cases:
