@@ -304,6 +304,27 @@ Phases, each printing one JSON line:
    phase's load. Then ``kernels_pim`` at (c)'s launches (``"path":
    "io_variants"``: K1 on the layers' products and the tied head, K2,
    K3; ``io_variants_q``: K5).
+26. ``moe_variants`` — mixture of experts for serving (item 5.3), after
+   ``io_variants``: granite-moe-1b-a400m (an MoE block every layer, 32
+   experts top-8, 16 q heads over 8 kv heads at head dim 64: K4 at rep
+   2) and llama4-maverick-400b-a17b (units of a dense block then an MoE
+   block, 128 experts top-1 and a shared expert). Holds, granite at the
+   published width in float32, 2 layers: (a) kernel-vs-gather parity
+   over fp32 and int8 pools; (b) K4 (f32, bf16 q) and K6 (int8, f32 q)
+   at rep 2 with the one-row-past-pos control, and at ``K4_EDGE``'s
+   splits with granite's heads (``MOE_EDGE``); (c) the decode step
+   expanded through the mapper on both grids (the router, attention and
+   head products on K1 / K5, the float waves on K3, the experts' batched
+   products native as the reference's lowering runs them), bit for bit
+   the executor, its launches the CPU's plan; (d)
+   ``ServeEngine(backend="pim")``, token-identical to jit. Time (bf16):
+   granite not cut (24 layers) serves the serve phase's load; maverick
+   at one unit (2 of 48 layers, ~37 GB) serves it through the jit
+   engine's kernel path, with its experts' ``bmm`` share of device time,
+   after its hold: the first tick's kernel path against its gather path
+   (``MOE_BF16_TOL``), a control shifting one token's top-1 expert by one
+   failing it. Then ``kernels_pim`` at (c)'s launches (``"path":
+   "moe_variants"``; ``moe_variants_q``: K5).
 
 Then the card's name and power limit, one line with every kernel's
 numbers, and as the last line ``{"ok": true, "device": {...}}``. Any
@@ -661,43 +682,43 @@ def split_readings(label, call, prefix, pools, table, pos, bs) -> dict:
             "split_ms": ms["split"], "combine_ms": ms["combine"]}
 
 
-def hold_edge(label, kernel, plain, pos, tol) -> dict:
-    """A decode kernel at ``K4_EDGE``: each (slot, head) row of
-    ``kernel(pos)`` within ``tol`` x max|out| of ``plain(pos)``, a call
-    equal to its rerun bit for bit, and the control (the plain version
-    one row past pos must exceed the limit)."""
+def hold_edge(label, kernel, plain, pos, tol, s=K4_EDGE) -> dict:
+    """A decode kernel at ``s`` (``K4_EDGE``'s splits): each (slot, head)
+    row of ``kernel(pos)`` within ``tol`` x max|out| of ``plain(pos)``, a
+    call equal to its rerun bit for bit, and the control (the plain
+    version one row past pos must exceed the limit)."""
     import torch
     from repro_torch.kernels.flash_attention import split_policy
     out, again, want = kernel(pos), kernel(pos), plain(pos)
     ratio = float(over_limit(out, want, tol).max())
     if not ratio <= 1.0 or not bool(torch.isfinite(out).all()):
-        raise AssertionError(f"{label} at {K4_EDGE}: {ratio} x the limit")
+        raise AssertionError(f"{label} at {s}: {ratio} x the limit")
     if not torch.equal(out, again):
-        raise AssertionError(f"{label} at {K4_EDGE}: a rerun differs")
-    control = off_by_one_control(f"{label} at {K4_EDGE}", plain, want, pos,
-                                 K4_EDGE["W"] * K4_EDGE["bs"], tol)
-    per, n_split = split_policy(K4_EDGE["W"], K4_EDGE["bs"])
-    return {"shapes": K4_EDGE, "positions": list(K4_EDGE_POS),
+        raise AssertionError(f"{label} at {s}: a rerun differs")
+    control = off_by_one_control(f"{label} at {s}", plain, want, pos,
+                                 s["W"] * s["bs"], tol)
+    per, n_split = split_policy(s["W"], s["bs"])
+    return {"shapes": s, "positions": list(K4_EDGE_POS),
             "blocks_per_split": per, "n_split": n_split,
             "max_err_over_limit": ratio, "off_by_one_min_over_limit": control,
             "rerun_equal": True}
 
 
-def k4_edge_readings(dtype, rng) -> dict:
-    """K4 at ``K4_EDGE`` (``hold_edge``)."""
+def k4_edge_readings(dtype, rng, s=K4_EDGE) -> dict:
+    """K4 at ``s`` (``K4_EDGE``; ``hold_edge``)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (
         paged_decode_attention_grouped)
     name = str(dtype).split(".")[1]
-    q, (pool,), table, pos = k4_inputs(dtype, rng, DEVICE, K4_EDGE,
-                                       K4_EDGE_POS, copies=1)
+    q, (pool,), table, pos = k4_inputs(dtype, rng, DEVICE, s, K4_EDGE_POS,
+                                       copies=1)
     return hold_edge(
         f"K4 {name}",
         lambda at: paged_decode_attention_grouped(q, pool[0], pool[1],
                                                   table, at),
         lambda at: ref.paged_decode_attention_ref(q, pool[0], pool[1],
                                                   table, at),
-        pos, K4_TOL[name])
+        pos, K4_TOL[name], s)
 
 
 def phase_kernels(seed: int) -> dict:
@@ -783,14 +804,14 @@ def k6_bound(q, codes, pos, s=K4_SHAPES) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def k6_edge_readings(kv_dtype, dtype, rng) -> dict:
-    """K6 at ``K4_EDGE`` (``hold_edge``)."""
+def k6_edge_readings(kv_dtype, dtype, rng, s=K4_EDGE) -> dict:
+    """K6 at ``s`` (``K4_EDGE``; ``hold_edge``)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (
         paged_decode_attention_grouped_q)
     name = str(dtype).split(".")[1]
-    q, (pool,), table, pos = k6_inputs(kv_dtype, dtype, rng, DEVICE,
-                                       K4_EDGE, K4_EDGE_POS, copies=1)
+    q, (pool,), table, pos = k6_inputs(kv_dtype, dtype, rng, DEVICE, s,
+                                       K4_EDGE_POS, copies=1)
     (kc, vc), (ks, vs) = pool
     return hold_edge(
         f"K6 {kv_dtype}/{name}",
@@ -798,7 +819,7 @@ def k6_edge_readings(kv_dtype, dtype, rng) -> dict:
             q, kc, ks, vc, vs, table, at, kv_dtype=kv_dtype),
         lambda at: ref.paged_decode_attention_q_ref(
             q, kc, ks, vc, vs, table, at, kv_dtype),
-        pos, K4_TOL[name])
+        pos, K4_TOL[name], s)
 
 
 def phase_kernels_q(seed: int) -> dict:
@@ -3584,13 +3605,14 @@ def llama_params(cfg, seed: int):
 
 
 def llama_cache(cfg, batch: int, seq_len: int):
+    """A zero contiguous cache on the card: ``DecoderLM.init_cache``'s
+    tree (one ``{"k", "v"}`` a block of the unit, stacked over units)."""
     import torch
-    shape = (cfg.n_layers, batch, seq_len, cfg.n_kv_heads,
-             cfg.resolved_head_dim)
-    dtype = getattr(torch, cfg.dtype)
-    return {"layers": {"block0": {
-        name: torch.zeros(shape, dtype=dtype, device=DEVICE)
-        for name in ("k", "v")}}}
+    from repro_torch._tree import tree_map
+    from repro_torch.models import DecoderLM
+    meta = DecoderLM(cfg, device="meta").init_cache(batch, seq_len)
+    return tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype,
+                                          device=DEVICE), meta)
 
 
 def head_column_zeroed(prog):
@@ -5938,41 +5960,51 @@ def dense_pim_engine(seed: int, arch: str = "chatglm3-6b",
     return {"row": row, "launches": counts}
 
 
-def dense_time_layers(cfg) -> tuple[int, float]:
-    """The most layers (up to the published depth) whose reckoned peak
-    stays under ``DENSE_MEMORY_LIMIT``: the bf16 weights, the KV pool of
-    ``DENSE_TIME`` (every slot's blocks and the scratch block), and the
-    largest transient, init's float32 draw of the largest leaf. Returns
+def dense_time_layers(cfg, n_layers: int | None = None
+                      ) -> tuple[int, float]:
+    """The most layers (up to the published depth, in whole units of
+    ``transformer.unit_blocks``) whose reckoned peak stays under
+    ``DENSE_MEMORY_LIMIT``, or ``n_layers`` where given: the bf16 weights
+    (``param_count`` of the cut config), the KV pool of ``DENSE_TIME``
+    (every slot's blocks and the scratch block), and the largest
+    transient, init's float32 draw of the largest leaf (an expert's slice
+    of an expert leaf: ``MoE.init`` draws one expert at a time). Returns
     (layers, the reckoned peak in bytes)."""
-    from repro_torch.models.transformer import leaf_shapes
+    from repro_torch.models.transformer import leaf_shapes, unit_blocks
     b, m, bs = (DENSE_TIME[k] for k in ("batch", "max_len", "kv_block_size"))
     blocks = 1 + b * -(-m // bs)
     kv = 2 * blocks * bs * cfg.n_kv_heads * cfg.resolved_head_dim * 2
-    largest = 4 * max(int(np.prod(s)) // (s[0] if k.startswith("layers/")
-                                           else 1)
-                      for k, s in leaf_shapes(cfg).items())
-    tables = (1 if cfg.tie_embeddings else 2) * cfg.vocab_size * cfg.d_model
-    per_layer = (cfg.param_count() - tables) // cfg.n_layers
-    for n in range(cfg.n_layers, 0, -1):
-        params = 2 * (tables + n * per_layer + cfg.d_model)
+    largest = 4 * max(
+        int(np.prod(s[(2 if "/moe/w_" in k else 1)
+                      if k.startswith("layers/") else 0:]))
+        for k, s in leaf_shapes(cfg).items())
+    unit = unit_blocks(cfg)
+    for n in ([n_layers] if n_layers else
+              range(cfg.n_layers, 0, -unit)):
+        params = 2 * (dataclasses.replace(cfg, n_layers=n).param_count()
+                      + cfg.d_model)
         peak = params + n * kv + largest
         if peak < DENSE_MEMORY_LIMIT:
             return n, float(peak)
     raise AssertionError(f"{cfg.name}: no depth fits {DENSE_MEMORY_LIMIT}")
 
 
-def dense_time(arch: str, seed: int, phase: str = "dense_variants") -> dict:
+def dense_time(arch: str, seed: int, phase: str = "dense_variants",
+               n_layers: int | None = None, before=None,
+               after=None) -> dict:
     """One bf16 config at the most layers that fit (``dense_time_layers``;
-    the published depth where it fits) serving the serve phase's load at
-    ``DENSE_TIME`` on the kernel path: tok/s, TTFT, ms a tick, K4 launches
-    (one a layer a tick, its count set to 0 just before the run and read
-    just after), then a second short load with 3 ticks under the profiler
-    (device ms, kernels and the busy share a tick), peak memory."""
+    the published depth where it fits; ``n_layers`` where given) serving
+    the serve phase's load at ``DENSE_TIME`` on the kernel path: tok/s,
+    TTFT, ms a tick, K4 launches (one a layer a tick, its count set to 0
+    just before the run and read just after), then a second short load
+    with 3 ticks under the profiler (device ms, kernels and the busy share
+    a tick), peak memory. ``before(cfg, model)`` runs after the init and
+    ``after(eng)`` after the loads, their readings joined to the row."""
     import torch
     from repro_torch import obs
     from repro_torch.serve import Request, ServeEngine
     published = dense_cfg(arch)
-    layers, reckoned = dense_time_layers(published)
+    layers, reckoned = dense_time_layers(published, n_layers)
     cfg = dataclasses.replace(published, n_layers=layers)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -5980,6 +6012,7 @@ def dense_time(arch: str, seed: int, phase: str = "dense_variants") -> dict:
     model = dense_model(cfg, seed)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    extra = before(cfg, model) if before else {}
     prompts = make_prompts(np.random.default_rng(seed + 1), 16, 64, 512,
                            cfg.vocab_size)
     eng = ServeEngine(cfg, model, paged=True, attn_kernel=True,
@@ -6014,7 +6047,9 @@ def dense_time(arch: str, seed: int, phase: str = "dense_variants") -> dict:
            "mean_ttft_s": float(np.mean([r.ttft_s for r in done])),
            "k4_launches": counts["k4"], "preemptions": eng.preemptions,
            "reckoned_peak_gb": reckoned / 1e9,
-           **serve_pim_profile(eng, seed)}
+           **serve_pim_profile(eng, seed), **extra}
+    if after:
+        row.update(after(eng))
     row["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
     if row["max_memory_allocated_gb"] * 1e9 >= DENSE_MEMORY_LIMIT:
         raise AssertionError(f"{phase} time {arch}: "
@@ -6311,6 +6346,249 @@ def phase_io_variants(seed: int) -> dict:
             "shapes": {g: decode[g]["shapes"] for g in decode}}
 
 
+# ---------------------------------------------------------------------------
+# 26. moe_variants: granite-moe-1b-a400m, llama4-maverick-400b-a17b (item 5.3)
+# ---------------------------------------------------------------------------
+
+MOE_ARCHS = ("granite-moe-1b-a400m", "llama4-maverick-400b-a17b")
+# (a) granite at its published width, float32, cut to 2 layers:
+# DENSE_PARITY's 8 requests through 8 slots
+# (b) K4 (f32 and bf16 q) and K6 (int8, f32 q) at granite's heads, the
+# serve shapes otherwise: rep 2 (16 q heads over 8 kv heads, head dim 64);
+# and at K4_EDGE's splits (4-key blocks, 3 splits a slot) with its heads
+MOE_REPS = {"granite-moe-1b-a400m": dict(K4_SHAPES, H=16, G=8, D=64)}
+MOE_EDGE = dict(K4_EDGE, H=16, G=8)
+# (c) granite's decode step, expanded, at LLAMA_HOLD: the CPU's plan
+# (products, K3 launches, K3 members), the same on both grids and at the
+# smoke width: each layer's q, k, v, o and router products and the tied
+# head; the experts' batched products run natively, as the reference's
+# lowering declines batched dot_generals, and the int32 waves of the
+# dispatch decline K3
+MOE_DECODE_PLAN = (11, 39, 55)
+# maverick's hold: the first tick's logits, kernel path against gather
+# path, bf16, x max|logit| (K7's bf16 precedent); a slot whose top-1
+# expert differs between the two paths is left out of the logits only
+# where its two experts' router probabilities lie within bf16's
+# resolution (MOE_TIE_REL of the larger: a near-tie that rounding decides)
+MOE_BF16_TOL = 2e-2
+MOE_TIE_REL = 2.0 ** -6
+MOE_MAVERICK_LAYERS = 2    # one unit: a dense block, then the MoE block
+
+
+@contextlib.contextmanager
+def recording_routes(shift: bool = False):
+    """Record ``(probs, expert indices)`` of every ``models.moe.top_k``
+    call while open; with ``shift``, the first token's first choice moved
+    to the next expert (the control that the maverick hold must see)."""
+    from repro_torch.models import moe
+    real, calls = moe.top_k, []
+
+    def top_k(probs, k):
+        vals, idx = real(probs, k)
+        if shift:
+            flat = idx.view(-1)
+            flat[0] = (flat[0] + 1) % probs.shape[-1]
+        calls.append((probs, idx))
+        return vals, idx
+
+    moe.top_k = top_k
+    try:
+        yield calls
+    finally:
+        moe.top_k = real
+
+
+def moe_first_tick(cfg, model, prompts, kernel: bool, shift: bool = False):
+    """One engine (batch 8, blocks of 16, batched prefill) admitting
+    ``prompts`` and running one decode tick: (its logits [8, V] float32,
+    the tick's router probabilities and top-1 experts)."""
+    import torch
+    from repro_torch.serve import Request, ServeEngine
+    ticks = []
+
+    def sample(logits):
+        ticks.append(logits.float())
+        return torch.argmax(logits, -1)
+
+    eng = ServeEngine(cfg, model, paged=True, batch=8, max_len=1024,
+                      kv_block_size=16, prefill="batch", attn_kernel=kernel,
+                      sample=sample, device=DEVICE)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=p, max_tokens=1))
+    eng._admit()                         # the prompts' batched prefills
+    with recording_routes(shift) as calls:
+        eng.tick_once()
+    probs, idx = calls[-1]               # the tick's MoE block
+    del eng
+    return ticks[0], probs.reshape(len(prompts), -1), idx.reshape(-1)
+
+
+def maverick_hold(cfg, model, seed: int) -> dict:
+    """The maverick hold (bf16, one unit): the first tick's logits on the
+    kernel path against the gather path within ``MOE_BF16_TOL`` x
+    max|logit|; the tick's top-1 experts equal, or apart only at a
+    near-tie (``MOE_TIE_REL``), such a slot left out of the logits; and
+    the control, the kernel path with the first token's expert shifted
+    by one, failing the logits limit."""
+    import torch
+    prompts = make_prompts(np.random.default_rng(seed + 5), 8, 64, 512,
+                           cfg.vocab_size)
+    with torch.no_grad():
+        got, _, idx = moe_first_tick(cfg, model, prompts, True)
+        want, probs, want_idx = moe_first_tick(cfg, model, prompts, False)
+        bad, _, bad_idx = moe_first_tick(cfg, model, prompts, True,
+                                         shift=True)
+    moved = (idx != want_idx).nonzero().flatten().tolist()
+    for slot in moved:
+        a, b = (float(probs[slot, int(e)]) for e in (idx[slot],
+                                                     want_idx[slot]))
+        if abs(a - b) > MOE_TIE_REL * max(a, b):
+            raise AssertionError(f"moe_variants maverick hold: slot {slot}'s "
+                                 f"top-1 expert {int(idx[slot])} on the "
+                                 f"kernel path, {int(want_idx[slot])} on the "
+                                 f"gather path ({a} vs {b})")
+    held = [i for i in range(len(prompts)) if i not in moved]
+    lim = MOE_BF16_TOL * float(want[held].abs().max())
+    err = float((got[held] - want[held]).abs().max())
+    if not err <= lim or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"moe_variants maverick hold: logits differ "
+                             f"by {err} > {lim}")
+    control = float((bad - want).abs().max()) / lim
+    if not control > 1 or int(bad_idx[0]) == int(want_idx[0]):
+        raise AssertionError(f"moe_variants maverick hold: shifting slot 0's"
+                             f" expert gives only {control} x the limit")
+    return {"hold": {"tol": MOE_BF16_TOL, "slots": len(prompts),
+                     "routing_differs_at_near_ties": moved,
+                     "max_err_over_limit": err / lim,
+                     "control_expert_shifted_over_limit": control,
+                     "top1_experts": want_idx.tolist()}}
+
+
+def experts_share(eng, seed: int) -> dict:
+    """A third short load (8 requests of 64 prompt tokens, 8 output
+    tokens): after the admitting tick, 2 ticks under the profiler with the
+    host traced, the device time under ``aten::bmm`` (the experts'
+    batched products: the kernel path's attention is K4) against all the
+    device time."""
+    import torch
+    from repro_torch.serve import Request
+    prompts = make_prompts(np.random.default_rng(seed + 82), 8, 64, 64,
+                           eng.cfg.vocab_size)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=300 + i, prompt=p, max_tokens=8))
+    eng.tick_once()
+    torch.cuda.synchronize()
+    with device_profile() as prof:
+        for _ in range(2):
+            eng.tick_once()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    device = sum(e.self_device_time_total for e in events
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    bmm = sum(e.device_time_total for e in events if e.key == "aten::bmm")
+    eng.run()
+    if not bmm:
+        raise AssertionError("moe_variants: no aten::bmm on the card in a "
+                             "maverick tick")
+    return {"experts_bmm_ms_per_tick": bmm / 2 / 1e3,
+            "device_ms_per_tick_traced": device / 2 / 1e3,
+            "experts_bmm_share_of_device": bmm / device}
+
+
+def phase_moe_variants(seed: int) -> dict:
+    """Mixture of experts for serving (item 5.3): granite-moe-1b-a400m's
+    MoE block on every layer (K4 at rep 2, head dim 64; the tied head on
+    K1 / K5) and llama4-maverick-400b-a17b's interleaved unit with its
+    shared expert. Holds, granite at the published width in float32, 2
+    layers: (a) kernel-vs-gather parity over fp32 and int8 pools
+    (``parity_runs``); (b) K4 and K6 at rep 2 (``rep_readings``) and at
+    ``MOE_EDGE`` (``hold_edge``); (c) the decode step expanded through the
+    mapper on both grids (``llama_hold``); (d) the pim engine
+    (``dense_pim_engine``). Time, bf16 (``dense_time``): granite not cut;
+    maverick at one unit through the jit engine, after its hold
+    (``maverick_hold``), with the experts' share (``experts_share``).
+    Emitted as one ``moe_variants`` line."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    granite = MOE_ARCHS[0]
+    seconds = {}
+    launches = {k: 0 for k in (*PIM_KEYS, "k4", "k6")}
+
+    def part(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        seconds[name] = time.perf_counter() - t0
+        print(f"[{time.perf_counter() - T0:.1f} s] moe_variants {name} "
+              f"{seconds[name]:.1f} s", file=sys.stderr, flush=True)
+        return out
+
+    def add(counts):
+        for k in launches:
+            launches[k] += counts.get(k, 0)
+
+    def parity():
+        cfg = dense_cfg(granite, n_layers=DENSE_PARITY["n_layers"],
+                        dtype="float32")
+        model = dense_model(cfg, seed)
+        prompts = make_prompts(np.random.default_rng(seed + 6),
+                               DENSE_PARITY["requests"], DENSE_PARITY["lo"],
+                               DENSE_PARITY["hi"], cfg.vocab_size)
+        got = parity_runs(cfg, model, prompts, ("fp32", "int8"),
+                          f"{granite} n_layers=2 float32",
+                          DENSE_PARITY["batch"])
+        del model
+        torch.cuda.empty_cache()
+        return got
+
+    par = part("parity", parity)
+    add({"k4": par["fp32"], "k6": par["int8"]})
+
+    def reps():
+        out = rep_readings(seed, MOE_REPS)
+        rng = np.random.default_rng(seed + 31)
+        out[granite]["edge"] = {
+            **{f"K4 {q}": k4_edge_readings(getattr(torch, q), rng, MOE_EDGE)
+               for q in ("float32", "bfloat16")},
+            **{f"K6 int8/{q}": k6_edge_readings("int8", getattr(torch, q),
+                                                rng, MOE_EDGE)
+               for q in ("float32", "bfloat16")}}
+        return out
+
+    rep = part("reps", reps)
+    decode = {}
+    for grid in ("fp32", "int8"):
+        decode[grid] = part(f"decode {grid}", lambda grid=grid: llama_hold(
+            seed, grid, granite, expand=True, plan=MOE_DECODE_PLAN))
+        add(decode[grid]["launches"])
+    engine = part("pim_engine", lambda: dense_pim_engine(
+        seed, granite, "moe_variants"))
+    add(engine["launches"])
+    timing = {granite: part(f"time {granite}", lambda: dense_time(
+        granite, seed, "moe_variants"))}
+    maverick = MOE_ARCHS[1]
+    timing[maverick] = part(f"time {maverick}", lambda: dense_time(
+        maverick, seed, "moe_variants", n_layers=MOE_MAVERICK_LAYERS,
+        before=lambda cfg, model: maverick_hold(cfg, model, seed),
+        after=lambda eng: experts_share(eng, seed)))
+    for arch in MOE_ARCHS:
+        add(timing[arch]["launches"])
+    emit({"phase": "moe_variants", "seconds": seconds,
+          "configs": {a: config_file(a) for a in MOE_ARCHS},
+          "reduced": {"holds": {"n_layers": 2, "dtype": ["bfloat16",
+                                                         "float32"]},
+                      "time": {a: [dense_cfg(a).n_layers,
+                                   timing[a]["row"]["n_layers"]]
+                               for a in MOE_ARCHS}},
+          "parity_launches": par, "reps": rep,
+          "decode": {g: {**LLAMA_HOLD, **decode[g]["row"]}
+                     for g in decode},
+          "pim_engine": {**SERVE_PIM_HOLD, **engine["row"]},
+          "time": {a: timing[a]["row"] for a in MOE_ARCHS},
+          "launches": launches})
+    return {"launches": launches, "reps": rep,
+            "shapes": {g: decode[g]["shapes"] for g in decode}}
+
+
 def sums(rows) -> dict:
     """Times and bounds of one run's launches: each distinct shape's
     numbers times its count, summed (each shape's bound the larger of its
@@ -6363,7 +6641,9 @@ def pim_entry(ids, key, by_path, rows) -> dict:
                                if rows["dense_variants"].get(key)
                                else None),
             "io_variants": (sums(rows["io_variants"][key])
-                            if rows["io_variants"].get(key) else None)}
+                            if rows["io_variants"].get(key) else None),
+            "moe_variants": (sums(rows["moe_variants"][key])
+                             if rows["moe_variants"].get(key) else None)}
 
 
 def with_counts(shapes: dict) -> dict:
@@ -6512,6 +6792,14 @@ def main() -> int:
     rows["io_variants_q"] = phase_kernels_pim_q(
         args.seed, with_counts({"k5": io["shapes"]["int8"]["k5"]})["k5"],
         "io_variants_q", LLAMA_HOLD["batch"], iters=3, plain_iters=1)
+    moe = phase_moe_variants(args.seed)
+    by_path["moe_variants"] = {k: moe["launches"][k] for k in PIM_KEYS}
+    rows["moe_variants"] = phase_kernels_pim(
+        args.seed, with_counts(moe["shapes"]["fp32"]), "moe_variants",
+        LLAMA_HOLD["batch"], iters=3, plain_iters=1)
+    rows["moe_variants_q"] = phase_kernels_pim_q(
+        args.seed, with_counts({"k5": moe["shapes"]["int8"]["k5"]})["k5"],
+        "moe_variants_q", LLAMA_HOLD["batch"], iters=3, plain_iters=1)
     print(gpu_name_and_power_limit(), flush=True)
 
     def entry(ids, launches, r):
@@ -6537,25 +6825,28 @@ def main() -> int:
                    for path in ("pim_lenet_q", "pim_train_q", "pim_grad_q",
                                 "pim_llama_q", "pim_llama_pipe",
                                 "serve_pim", "dense_variants",
-                                "io_variants")}
+                                "io_variants", "moe_variants")}
     k4_bf16 = k4["bfloat16"]
     k6_serve = k6[(SERVE_KV_DTYPE, "bfloat16")]
     k4_launches = {"serve": serve["launches"],
                    "serve_pim": serve_pim["launches"]["k4"],
                    "dense_variants": dense["launches"]["k4"],
-                   "io_variants": io["launches"]["k4"]}
+                   "io_variants": io["launches"]["k4"],
+                   "moe_variants": moe["launches"]["k4"]}
     k6_launches = {"serve_kvq": kvq["launches"],
                    "serve_pim": serve_pim["launches"]["k6"],
                    "dense_variants": dense["launches"]["k6"],
-                   "io_variants": io["launches"]["k6"]}
+                   "io_variants": io["launches"]["k6"],
+                   "moe_variants": moe["launches"]["k6"]}
 
     def by_rep(kernel, dtype):
         # K4 / K6 at the variants' reps (dense_variants: 5, 8, 16;
-        # io_variants: 1, 6): the event times
+        # io_variants: 1, 6; moe_variants: 2): the event times
         return {str(r["rep"]): {k: row[k] for k in (
             "max_err", "kernel_ms", "plain_ms", "bound_ms", "library_ms",
             "kernel_graph_ms")}
-            for r in (*dense["reps"].values(), *io["reps"].values())
+            for r in (*dense["reps"].values(), *io["reps"].values(),
+                      *moe["reps"].values())
             for row in r["results"]
             if row["kernel"] == kernel and row["dtype"] == dtype}
     emit({"kernels": [
@@ -6585,7 +6876,8 @@ def main() -> int:
          "pim_llama": sums(rows["pim_llama_q"]),
          "pim_llama_pipe": sums(rows["pim_llama_pipe_q"]),
          "dense_variants": sums(rows["dense_variants_q"]),
-         "io_variants": sums(rows["io_variants_q"])},
+         "io_variants": sums(rows["io_variants_q"]),
+         "moe_variants": sums(rows["moe_variants_q"])},
         {**K7, "launches": attn["launches"],
          "max_abs_err": long_bf16["max_err"],
          **{k: long_bf16[k] for k in ("ms", "plain_ms", "bound_ms",

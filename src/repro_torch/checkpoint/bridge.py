@@ -2,7 +2,7 @@
 
 ``params_from_reference`` takes the reference's parameters flattened the
 way ``repro.checkpoint.ckpt`` saves them — '/'-joined key paths such as
-``layers/block0/attn/wq``, the layer stack on a leading axis of each
+``layers/block0/attn/wq``, the stack of units on a leading axis of each
 ``layers/...`` leaf — and returns a :class:`DecoderLM` holding the same
 values; ``stacked_from_reference`` returns them as the reference's own
 tree instead (``transformer.param_tree``), what ``decode_step``,
@@ -32,7 +32,8 @@ from repro_torch.configs.lenet5 import CONFIG as LENET5, LeNetConfig
 from repro_torch.core import quant
 from repro_torch.models import lenet
 from repro_torch.models.transformer import (DecoderLM, layer_leaves,
-                                            leaf_shapes, param_tree)
+                                            leaf_at, leaf_shapes, n_units,
+                                            param_tree)
 from repro_torch.optim.optimizers import BLOCK as OPT_BLOCK
 
 
@@ -54,6 +55,9 @@ def params_from_reference(flat: Mapping[str, np.ndarray], cfg: ArchConfig,
     """A ``DecoderLM`` on ``device`` (CUDA by default) whose parameters
     equal the reference's flattened ``flat``. Raises on a missing key, a
     key left over, or a shape or dtype that does not match."""
+    missing = set(leaf_shapes(cfg)) - set(flat)
+    if missing:
+        raise ValueError(f"reference leaves missing: {sorted(missing)}")
     model = DecoderLM(cfg, device=device)
     want: dict[str, tuple[torch.Tensor, np.ndarray]] = {}
     want["embed/table"] = (model.embed.table, flat["embed/table"])
@@ -62,13 +66,13 @@ def params_from_reference(flat: Mapping[str, np.ndarray], cfg: ArchConfig,
     if model.lm_head is not None:       # tied: the head is the table
         want["lm_head/w"] = (model.lm_head.w, flat["lm_head/w"])
     for name, attr in layer_leaves(cfg).items():
-        key = f"layers/block0/{name}"
+        key = f"layers/{name}"
         stacked = flat[key]
-        if stacked.shape[0] != cfg.n_layers:
-            raise ValueError(f"{key}: {stacked.shape[0]} stacked layers, "
-                             f"config has {cfg.n_layers}")
-        for i, blk in enumerate(model.layers):
-            want[f"{key}[{i}]"] = (blk.get_parameter(attr), stacked[i])
+        if stacked.shape[0] != n_units(cfg):
+            raise ValueError(f"{key}: {stacked.shape[0]} stacked units, "
+                             f"config has {n_units(cfg)}")
+        for u, blk in enumerate(model.unit_layers(name)):
+            want[f"{key}[{u}]"] = (blk.get_parameter(attr), stacked[u])
     extra = set(flat) - {k.split("[")[0] for k in want}
     if extra:
         raise ValueError(f"reference leaves not ported: {sorted(extra)}")
@@ -153,11 +157,10 @@ def model_from_stacked(tree: Mapping, cfg: ArchConfig,
         model.final_norm.scale.copy_(tree["final_norm"]["scale"])
         if model.lm_head is not None:
             model.lm_head.w.copy_(tree["lm_head"]["w"])
-        lp = tree["layers"]["block0"]
         for key, attr in layer_leaves(cfg).items():
-            group, name = key.split("/")
-            for i, blk in enumerate(model.layers):
-                blk.get_parameter(attr).copy_(lp[group][name][i])
+            stacked = leaf_at(tree["layers"], key)
+            for u, blk in enumerate(model.unit_layers(key)):
+                blk.get_parameter(attr).copy_(stacked[u])
     return model
 
 
@@ -165,29 +168,37 @@ def kv_pool_from_reference(ref_cache: Mapping, kv_dtype: str,
                            device: str | torch.device | None = None
                            ) -> dict[str, torch.Tensor]:
     """The port's KV pool (``DecoderLM.init_paged_cache`` layout) holding
-    the reference's pool ``{"layers": {"block0": {"k", "v"[, "k_scale",
-    "v_scale"]}}}`` — leaves stacked ``[n_layers, num_blocks, block_size,
-    G, head_dim]`` — bit for bit, on ``device`` (CUDA by default). The
-    fp16 grid's uint16 codes arrive as int16 holding the same bits
-    (``core.quant``). Raises on other sites, leaves or code dtypes."""
+    the reference's pool ``{"layers": {"block<i>": {"k", "v"[, "k_scale",
+    "v_scale"]}}}`` — one site per block of a unit, ``block0`` …
+    ``block<n-1>``, leaves stacked ``[n_units, num_blocks, block_size, G,
+    head_dim]`` — bit for bit, on ``device`` (CUDA by default): layer
+    ``u·n + i`` of the pool is block ``i`` of unit ``u``. The fp16 grid's
+    uint16 codes arrive as int16 holding the same bits (``core.quant``).
+    Raises on other sites, leaves or code dtypes."""
     layers = ref_cache["layers"]
-    if set(layers) != {"block0"}:
+    n = len(layers)
+    if set(layers) != {f"block{i}" for i in range(n)}:
         raise ValueError(f"reference pool sites {sorted(layers)}: the port "
-                         f"pages one attention site per layer (block0)")
-    site = layers["block0"]
+                         f"pages one attention site per block, block0 … "
+                         f"block{n - 1}")
     s = quant.spec(kv_dtype)
     names = {"k", "v"} if s.name == "fp32" else {"k", "k_scale", "v",
                                                  "v_scale"}
-    if set(site) != names:
-        raise ValueError(f"reference pool leaves {sorted(site)}, kv_dtype "
-                         f"{s.name!r} has {sorted(names)}")
+    for site in layers.values():
+        if set(site) != names:
+            raise ValueError(f"reference pool leaves {sorted(site)}, "
+                             f"kv_dtype {s.name!r} has {sorted(names)}")
     dev = resolve_device(device)
-    pool = {name: _to_torch(site[name]).to(dev) for name in sorted(names)}
-    for name in ("k", "v"):
-        if s.name != "fp32" and pool[name].dtype != quant.code_dtype(s):
-            raise ValueError(f"{name}: {np.asarray(site[name]).dtype} codes,"
-                             f" kv_dtype {s.name!r} stores "
-                             f"{quant.code_dtype(s)}")
+    pool = {}
+    for name in sorted(names):
+        blocks = [_to_torch(layers[f"block{i}"][name]) for i in range(n)]
+        # [n_units, n, ...] -> layer u·n + i
+        pool[name] = torch.stack(blocks, 1).flatten(0, 1).to(dev)
+        if name in ("k", "v") and s.name != "fp32" and (
+                pool[name].dtype != quant.code_dtype(s)):
+            raise ValueError(
+                f"{name}: {np.asarray(layers['block0'][name]).dtype} codes,"
+                f" kv_dtype {s.name!r} stores {quant.code_dtype(s)}")
     return pool
 
 

@@ -11,7 +11,8 @@ from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.configs.lenet5 import CONFIG as LENET5, LeNetConfig
 
 ARCH_IDS = ("qwen3-32b", "chatglm3-6b", "llama3-8b", "qwen2.5-32b",
-            "musicgen-medium", "qwen2-vl-2b")
+            "musicgen-medium", "qwen2-vl-2b", "granite-moe-1b-a400m",
+            "llama4-maverick-400b-a17b")
 
 _MODULES = {
     "qwen3-32b": "qwen3_32b",
@@ -20,6 +21,8 @@ _MODULES = {
     "qwen2.5-32b": "qwen2_5_32b",
     "musicgen-medium": "musicgen_medium",
     "qwen2-vl-2b": "qwen2_vl_2b",
+    "granite-moe-1b-a400m": "granite_moe",
+    "llama4-maverick-400b-a17b": "llama4_maverick",
 }
 
 

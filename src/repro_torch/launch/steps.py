@@ -71,8 +71,9 @@ def make_loss_fn(cfg: ArchConfig) -> Callable:
     """(params, batch) -> loss: the hidden states, then the fused LM head
     and cross entropy over chunks of 512 tokens (``layers.fused_xent_head``;
     the float32 logits never exist whole); a tied head's weight is the
-    embedding table's transpose."""
-    transformer.check_ported(cfg)
+    embedding table's transpose. MoE configs raise
+    ``NotImplementedError`` (item 5.3b: ``transformer.check_trainable``)."""
+    transformer.check_trainable(cfg)
 
     def loss_fn(params, batch):
         x = transformer.hidden_states(cfg, params,

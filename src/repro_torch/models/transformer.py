@@ -1,18 +1,26 @@
 """Decoder-only LM: the port of ``repro.models.transformer.DecoderLM``
-for ``block_pattern="attn"`` with dense SwiGLU MLPs (llama3-8b; with
-q/k/v biases, qwen2.5-32b; per-head q/k norms, qwen3-32b; the rotation
-over half the head dims, chatglm3-6b; frame embeddings in, musicgen-medium;
-embeddings in, M-RoPE over a (t, h, w) position grid and the head tied to
-the embedding table, qwen2-vl-2b), on a paged KV pool and against a
-contiguous cache.
+for ``block_pattern="attn"`` (llama3-8b; with q/k/v biases, qwen2.5-32b;
+per-head q/k norms, qwen3-32b; the rotation over half the head dims,
+chatglm3-6b; frame embeddings in, musicgen-medium; embeddings in, M-RoPE
+over a (t, h, w) position grid and the head tied to the embedding table,
+qwen2-vl-2b; mixture-of-experts FFNs, granite-moe-1b-a400m on every
+layer and llama4-maverick-400b-a17b on every second with a shared
+expert), on a paged KV pool and against a contiguous cache.
 
-The reference stacks the layers on a leading axis and scans over them;
-the port keeps one ``nn.Module`` per layer and loops. The KV pool stays
-one stacked tensor per leaf, ``[n_layers, num_blocks, block_size, G,
-head_dim]``, so a block copy or swap is one index operation across every
-layer. Parameters are created empty on the model's device; ``init(seed)``
-fills them from a seeded ``torch.Generator`` on that device (the
-reference's distributions, not its numbers).
+The reference stacks units of ``unit_blocks`` blocks (``moe_interleave``
+with experts: the unit's last block has the MoE FFN, the others the
+dense MLP; one block otherwise) on a leading axis and scans over them,
+its tree ``layers/block<i>/…``; the port keeps one ``nn.Module`` per
+layer, layer ``u·n + i`` being block ``i`` of unit ``u``, and loops. The
+KV pool stays one stacked tensor per leaf, ``[n_layers, num_blocks,
+block_size, G, head_dim]``, so a block copy or swap is one index
+operation across every layer; ``pool_tree`` views it as the reference's
+per-block tree. Parameters are created empty on the model's device;
+``init(seed)`` fills them from a seeded ``torch.Generator`` on that
+device (the reference's distributions, not its numbers).
+
+The MoE configs serve everywhere: their train step (the written-out VJP
+of the MoE block) is item 5.3b, refused by ``check_trainable``.
 
 Entry points:
   * ``decode_step_paged(cache, token, block_table, pos)`` -> logits
@@ -24,12 +32,12 @@ Entry points:
     function of the reference's parameter tree (``stacked_params``,
     ``param_tree``) — the layers stacked on a leading axis, as the
     reference scans them — so the mapper can trace it on meta tensors
-    (``launch.steps.make_serve_step``). Each layer runs in a ``"scan"``
+    (``launch.steps.make_serve_step``). Each unit runs in a ``"scan"``
     region (``core.estimator.region``), which the mapper's graph folds
     back into the reference's scanned nodes;
   * ``decode_step_paged(cfg, params, cache, token, block_table, pos)``
     -> (logits ``[B, V]``, the written pool slices): the paged tick on the
-    same tree, over the engine's pool written in place, each layer one
+    same tree, over the engine's pool written in place, each unit one
     iteration of the ``"scan"`` region — what ``ServeEngine(backend=
     "pim")`` maps (``serve.map_paged_tick``); the method of the same name
     stays the jit engine's tick;
@@ -62,11 +70,12 @@ from torch import nn
 from repro_torch._device import resolve_device, torch_dtype
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import estimator
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, moe
 
-# the reference's per-layer leaves (``layers/block0/<name>``, stacked on a
-# leading axis) and the port's per-layer module attribute of each, for
-# every config; ``layer_leaves`` adds the attention variants' own
+# the reference's per-block leaves of a dense block (``layers/block<i>/
+# <name>``, stacked over the units on a leading axis) and the port's block
+# module attribute of each; ``block_leaves`` adds the attention variants'
+# own and swaps the MLP for the MoE FFN in an MoE block
 LAYER_LEAVES = {"norm1/scale": "norm1.scale", "norm2/scale": "norm2.scale",
                 "attn/wq": "attn.wq", "attn/wk": "attn.wk",
                 "attn/wv": "attn.wv", "attn/wo": "attn.wo",
@@ -74,60 +83,119 @@ LAYER_LEAVES = {"norm1/scale": "norm1.scale", "norm2/scale": "norm2.scale",
                 "mlp/w_down": "mlp.w_down"}
 _BIAS_LEAVES = ("attn/q_bias", "attn/k_bias", "attn/v_bias")
 _NORM_LEAVES = ("attn/q_norm", "attn/k_norm")
+_MOE_LEAVES = ("moe/router", "moe/w_gate", "moe/w_up", "moe/w_down")
+_SHARED_LEAVES = ("moe/shared_expert/w_gate", "moe/shared_expert/w_up",
+                  "moe/shared_expert/w_down")
+
+
+def unit_blocks(cfg: ArchConfig) -> int:
+    """Blocks in one scanned unit: ``moe_interleave`` with experts (the
+    last block's FFN the MoE, the others dense), else 1. Layer ``u·n + i``
+    is block ``i`` of unit ``u``."""
+    return max(cfg.moe_interleave, 1) if cfg.n_experts else 1
+
+
+def n_units(cfg: ArchConfig) -> int:
+    """The scanned units of the stack (the reference's ``StackLayout``)."""
+    n = unit_blocks(cfg)
+    if cfg.n_layers % n:
+        raise ValueError(f"{cfg.n_layers} layers are not whole units of "
+                         f"{n} blocks")
+    return cfg.n_layers // n
+
+
+def is_moe(cfg: ArchConfig, i: int) -> bool:
+    """Whether block ``i`` of a unit has the MoE FFN."""
+    return cfg.n_experts > 0 and i == unit_blocks(cfg) - 1
+
+
+def block_leaves(cfg: ArchConfig, i: int) -> dict[str, str]:
+    """Block ``i``'s leaves -> the attribute of each on its ``Block``:
+    ``LAYER_LEAVES`` with the q/k/v biases (``qkv_bias``) and the q/k
+    norm scales (``qk_norm``) of configs that have them, the MoE's in
+    place of the MLP's in an MoE block."""
+    extra = (_BIAS_LEAVES if cfg.qkv_bias else ()) + (
+        _NORM_LEAVES if cfg.qk_norm else ())
+    leaves = {**LAYER_LEAVES}
+    if is_moe(cfg, i):
+        leaves = {k: a for k, a in leaves.items() if not k.startswith("mlp/")}
+        extra += _MOE_LEAVES + (_SHARED_LEAVES if cfg.shared_expert else ())
+    return {**leaves, **{key: key.replace("/", ".") for key in extra}}
 
 
 def layer_leaves(cfg: ArchConfig) -> dict[str, str]:
-    """``LAYER_LEAVES`` with the q/k/v biases (``qkv_bias``) and the q/k
-    norm scales (``qk_norm``) of configs that have them."""
-    extra = (_BIAS_LEAVES if cfg.qkv_bias else ()) + (
-        _NORM_LEAVES if cfg.qk_norm else ())
-    return {**LAYER_LEAVES,
-            **{key: key.replace("/", ".") for key in extra}}
+    """Every leaf under ``layers/``, ``block<i>/<name>``, -> its attribute
+    on block ``i``'s module (``block_leaves``)."""
+    return {f"block{i}/{key}": attr for i in range(unit_blocks(cfg))
+            for key, attr in block_leaves(cfg, i).items()}
 
 
 def stack_leaves(cfg: ArchConfig) -> tuple[str, ...]:
-    """The stack's per-layer leaves in the reference's (sorted) key order,
-    the order its scan takes them (``attn/k_bias`` before ``attn/wk``)."""
+    """The stack's leaves in the reference's (sorted) key order, the order
+    its scan takes them: ``block0/…`` before ``block1/…``,
+    ``attn/k_bias`` before ``attn/wk``, ``moe`` before ``norm1``."""
     return tuple(sorted(layer_leaves(cfg)))
+
+
+def _block_shapes(cfg: ArchConfig, i: int) -> dict[str, tuple[int, ...]]:
+    d, f = cfg.d_model, cfg.d_ff
+    hd = cfg.resolved_head_dim
+    hq, hkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    shapes = {"norm1/scale": (d,), "norm2/scale": (d,),
+              "attn/wq": (d, hq), "attn/wk": (d, hkv),
+              "attn/wv": (d, hkv), "attn/wo": (hq, d)}
+    if is_moe(cfg, i):
+        e, fe = cfg.n_experts, cfg.moe_d_ff
+        shapes.update({"moe/router": (d, e), "moe/w_gate": (e, d, fe),
+                       "moe/w_up": (e, d, fe), "moe/w_down": (e, fe, d)})
+        if cfg.shared_expert:
+            shapes.update({"moe/shared_expert/w_gate": (d, f),
+                           "moe/shared_expert/w_up": (d, f),
+                           "moe/shared_expert/w_down": (f, d)})
+    else:
+        shapes.update({"mlp/w_gate": (d, f), "mlp/w_up": (d, f),
+                       "mlp/w_down": (f, d)})
+    if cfg.qkv_bias:
+        shapes.update({"attn/q_bias": (hq,), "attn/k_bias": (hkv,),
+                       "attn/v_bias": (hkv,)})
+    if cfg.qk_norm:
+        shapes.update({"attn/q_norm": (hd,), "attn/k_norm": (hd,)})
+    return shapes
 
 
 def leaf_shapes(cfg: ArchConfig) -> dict[str, tuple[int, ...]]:
     """Every leaf of the reference's parameter tree by its '/'-joined key
-    path (``checkpoint/ckpt.py:_flatten``'s), with its shape."""
-    d, f, v = cfg.d_model, cfg.d_ff, cfg.vocab_size
-    hd = cfg.resolved_head_dim
-    hq, hkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
-    per_layer = {"norm1/scale": (d,), "norm2/scale": (d,),
-                 "attn/wq": (d, hq), "attn/wk": (d, hkv),
-                 "attn/wv": (d, hkv), "attn/wo": (hq, d),
-                 "mlp/w_gate": (d, f), "mlp/w_up": (d, f),
-                 "mlp/w_down": (f, d)}
-    if cfg.qkv_bias:
-        per_layer.update({"attn/q_bias": (hq,), "attn/k_bias": (hkv,),
-                          "attn/v_bias": (hkv,)})
-    if cfg.qk_norm:
-        per_layer.update({"attn/q_norm": (hd,), "attn/k_norm": (hd,)})
+    path (``checkpoint/ckpt.py:_flatten``'s), with its shape; the layer
+    leaves ``layers/block<i>/…`` stacked over ``n_units``."""
+    d, v = cfg.d_model, cfg.vocab_size
     head = {} if cfg.tie_embeddings else {"lm_head/w": (d, v)}
+    units = n_units(cfg)
     return {"embed/table": (v, d), "final_norm/scale": (d,), **head,
-            **{f"layers/block0/{k}": (cfg.n_layers, *shape)
-               for k, shape in per_layer.items()}}
+            **{f"layers/block{i}/{k}": (units, *shape)
+               for i in range(unit_blocks(cfg))
+               for k, shape in _block_shapes(cfg, i).items()}}
 
 
 def check_ported(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` naming what of ``cfg`` the port does
-    not run yet, each with its item of ROADMAP.md's port queue: the model
-    families of items 5.3 and 5.4. The dense attention variants (q/k/v
-    bias, q/k norm, half and no RoPE: item 5.1) and the model's inputs and
-    outputs (embedding inputs, tied embeddings, M-RoPE's position grid:
-    item 5.2) run."""
-    unported = [f"{what} (item {item})" for what, item, on in (
-        ("MoE layers", "5.3", cfg.n_experts),
-        (f"block_pattern={cfg.block_pattern!r}", "5.4",
-         cfg.block_pattern != "attn")) if on]
-    if unported:
+    not run yet, with its item of ROADMAP.md's port queue: the block
+    patterns of item 5.4. The dense attention variants (item 5.1), the
+    model's inputs and outputs (item 5.2) and mixture-of-experts serving
+    (item 5.3) run; ``check_trainable`` refuses the MoE train step."""
+    if cfg.block_pattern != "attn":
         raise NotImplementedError(
-            f"{', '.join(unported)} not ported yet (ROADMAP.md, port queue "
-            f"item 5: remaining model families)")
+            f"block_pattern={cfg.block_pattern!r} (item 5.4) not ported yet "
+            f"(ROADMAP.md, port queue item 5: remaining model families)")
+
+
+def check_trainable(cfg: ArchConfig) -> None:
+    """``check_ported``, and refuse a differentiated stack of MoE layers:
+    their train step is item 5.3b of ROADMAP.md's port queue."""
+    check_ported(cfg)
+    if cfg.n_experts:
+        raise NotImplementedError(
+            "the MoE layers' train step (item 5.3b) is not ported yet "
+            "(ROADMAP.md, port queue item 5): MoE configs serve only")
 
 
 def param_tree(flat: dict) -> dict:
@@ -164,38 +232,52 @@ def decode_step(cfg: ArchConfig, params: dict, cache: dict,
     """The reference's ``DecoderLM.decode_step``: token [B] int, or [B, 1,
     D] embeddings (cast to the model dtype); pos a 0-d int tensor, the
     current position; ``params`` the reference's tree (``param_tree``),
-    ``cache`` ``{"layers": {"block0": {"k", "v"}}}``, leaves ``[L, B,
-    max_len, G, hd]``. Returns (logits [B, V], the updated cache, written
-    out of place). Each layer is one iteration of a ``"scan"`` region."""
+    ``cache`` ``{"layers": {"block<i>": {"k", "v"}}}``, leaves ``[n_units,
+    B, max_len, G, hd]``. Returns (logits [B, V], the updated cache,
+    written out of place). Each unit (``unit_blocks`` blocks) is one
+    iteration of a ``"scan"`` region."""
     if token.dim() == 1:
         x = layers.embed(token[:, None], params["embed"]["table"])
     else:
         x = token.to(torch_dtype(cfg.dtype))
-    lp = params["layers"]["block0"]
-    lc = cache["layers"]["block0"]
+    n = unit_blocks(cfg)
     keys = stack_leaves(cfg)
-    leaves = _stacked(lp, keys)
-    ks, vs = [], []
-    for i in range(cfg.n_layers):
+    leaves = _stacked(params["layers"], keys)
+    lc = cache["layers"]
+    new = [{"k": [], "v": []} for _ in range(n)]
+    for u in range(n_units(cfg)):
         with estimator.region("scan", "layers"):
             # the iteration's slices first, as the reference's scan body
             # takes its xs: the leaves in sorted key order, then the cache
-            w = _layer(keys, leaves, i)
-            site = {"k": lc["k"][i], "v": lc["v"][i]}
-            h = layers.rms_norm(x, w["norm1/scale"], cfg.norm_eps)
-            att, kv = attention.decode_attention(
-                h, {name: w[f"attn/{name}"] for name in lp["attn"]}, cfg,
-                site, pos)
-            x = x + att
-            ks.append(kv["k"])
-            vs.append(kv["v"])
-            h = layers.rms_norm(x, w["norm2/scale"], cfg.norm_eps)
-            x = x + layers.mlp(h, w["mlp/w_gate"], w["mlp/w_up"],
-                               w["mlp/w_down"])
+            w = _layer(keys, leaves, u)
+            sites = [{"k": lc[f"block{i}"]["k"][u],
+                      "v": lc[f"block{i}"]["v"][u]} for i in range(n)]
+            for i in range(n):
+                wb = _block(w, i)
+                h = layers.rms_norm(x, wb["norm1/scale"], cfg.norm_eps)
+                att, kv = attention.decode_attention(
+                    h, _group(wb, "attn/"), cfg, sites[i], pos)
+                x = x + att
+                new[i]["k"].append(kv["k"])
+                new[i]["v"].append(kv["v"])
+                h = layers.rms_norm(x, wb["norm2/scale"], cfg.norm_eps)
+                x = x + _ffn(cfg, h, wb)
     x = layers.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
     logits = logits_of(cfg, params, x)
-    return logits[:, 0], {"layers": {"block0": {"k": torch.stack(ks),
-                                                "v": torch.stack(vs)}}}
+    return logits[:, 0], {"layers": {
+        f"block{i}": {name: torch.stack(ts) for name, ts in new[i].items()}
+        for i in range(n)}}
+
+
+def pool_tree(cfg: ArchConfig, pool: dict) -> dict:
+    """The engine's KV pool (``DecoderLM.init_paged_cache``: leaves
+    ``[n_layers, …]``) as the reference's cache tree, ``{"layers":
+    {"block<i>": {leaf: [n_units, …]}}}``: block ``i``'s leaves are views
+    of the pool's layers ``i, i + n, …``, so a write into the tree lands
+    in the pool and a block copy in the pool moves every site."""
+    n = unit_blocks(cfg)
+    return {"layers": {f"block{i}": {name: t[i::n] for name, t in
+                                     pool.items()} for i in range(n)}}
 
 
 def decode_step_paged(cfg: ArchConfig, params: dict, cache: dict,
@@ -204,45 +286,47 @@ def decode_step_paged(cfg: ArchConfig, params: dict, cache: dict,
                       kv_dtype: str = "fp32"):
     """The reference's ``DecoderLM.decode_step_paged`` on its parameter
     tree (``param_tree``): token [B] int; block_table [B, W] int32; pos
-    [B] int32 per-slot positions. ``cache`` is ``{"layers": {"block0":
-    pool}}``, ``pool`` the engine's KV pool (``DecoderLM.init_paged_cache``:
-    leaves ``[L, num_blocks, block_size, G, hd]``), written in place —
-    never copied: at llama3-8b's width it holds gigabytes. Returns
-    (logits [B, V], ``{"layers": {"block0": {leaf: [layer 0's slice, ...]}}}``),
-    each slice a view of ``cache``'s leaf that its layer wrote: the
-    reference's new cache, a stack of its layers' pools, with nothing
-    stacked.
+    [B] int32 per-slot positions. ``cache`` is ``pool_tree(cfg, pool)``,
+    ``pool`` the engine's KV pool (``DecoderLM.init_paged_cache``), written
+    in place — never copied: at llama3-8b's width it holds gigabytes.
+    Returns (logits [B, V], ``{"layers": {"block<i>": {leaf: [unit 0's
+    slice, ...]}}}``), each slice a view of ``cache``'s leaf that its
+    site wrote: the reference's new cache, a stack of its units' pools,
+    with nothing stacked.
 
-    Each layer is one iteration of a ``"scan"`` region, its slices taken
+    Each unit is one iteration of a ``"scan"`` region, its slices taken
     at the iteration's start in the order the reference's scan takes its
     xs (the leaves in sorted key order, then the pool's), so the mapper
     folds it into the reference's scanned nodes; each site is
     ``attention.paged_decode_attention_tree``. ``kernel=True`` runs every
     site's attention on K4 (K6 over a quantized ``kv_dtype``)."""
     x = layers.embed(token[:, None], params["embed"]["table"])
-    lp = params["layers"]["block0"]
-    lc = cache["layers"]["block0"]
+    n = unit_blocks(cfg)
     keys = stack_leaves(cfg)
-    leaves = _stacked(lp, keys)
-    written: dict[str, list] = {name: [] for name in sorted(lc)}
-    for i in range(cfg.n_layers):
+    leaves = _stacked(params["layers"], keys)
+    lcs = [cache["layers"][f"block{i}"] for i in range(n)]
+    written = [{name: [] for name in sorted(lc)} for lc in lcs]
+    for u in range(n_units(cfg)):
         with estimator.region("scan", "layers"):
-            w = _layer(keys, leaves, i)
-            site = {name: lc[name][i] for name in sorted(lc)}
-            h = layers.rms_norm(x, w["norm1/scale"], cfg.norm_eps)
-            att, site = attention.paged_decode_attention_tree(
-                h, {name: w[f"attn/{name}"] for name in lp["attn"]}, cfg,
-                site, block_table, pos, use_kernel=kernel,
-                kv_dtype=kv_dtype)
-            x = x + att
-            h = layers.rms_norm(x, w["norm2/scale"], cfg.norm_eps)
-            x = x + layers.mlp(h, w["mlp/w_gate"], w["mlp/w_up"],
-                               w["mlp/w_down"])
-        for name, t in site.items():
-            written[name].append(t)
+            w = _layer(keys, leaves, u)
+            sites = [{name: lc[name][u] for name in sorted(lc)}
+                     for lc in lcs]
+            for i in range(n):
+                wb = _block(w, i)
+                h = layers.rms_norm(x, wb["norm1/scale"], cfg.norm_eps)
+                att, sites[i] = attention.paged_decode_attention_tree(
+                    h, _group(wb, "attn/"), cfg, sites[i], block_table, pos,
+                    use_kernel=kernel, kv_dtype=kv_dtype)
+                x = x + att
+                h = layers.rms_norm(x, wb["norm2/scale"], cfg.norm_eps)
+                x = x + _ffn(cfg, h, wb)
+        for i, site in enumerate(sites):
+            for name, t in site.items():
+                written[i][name].append(t)
     x = layers.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
     logits = logits_of(cfg, params, x)
-    return logits[:, 0], {"layers": {"block0": written}}
+    return logits[:, 0], {"layers": {f"block{i}": written[i]
+                                     for i in range(n)}}
 
 
 # sequence length above which the reference attends chunk by chunk
@@ -250,15 +334,39 @@ def decode_step_paged(cfg: ArchConfig, params: dict, cache: dict,
 CHUNKED_ATTN_THRESHOLD = 2048
 
 
+def leaf_at(tree: dict, key: str):
+    """The leaf at the '/'-joined path ``key`` of a nested tree."""
+    for part in key.split("/"):
+        tree = tree[part]
+    return tree
+
+
 def _stacked(lp: dict, keys) -> list:
-    """The stacked leaves of ``params["layers"]["block0"]`` in ``keys``'
-    order."""
-    return [lp[group][name] for group, name in
-            (key.split("/") for key in keys)]
+    """The stacked leaves of ``params["layers"]`` in ``keys``' order."""
+    return [leaf_at(lp, key) for key in keys]
 
 
-def _layer(keys, leaves, i: int) -> dict:
-    return {key: leaf[i] for key, leaf in zip(keys, leaves, strict=True)}
+def _layer(keys, leaves, u: int) -> dict:
+    """Unit ``u``'s slice of every stacked leaf, by its key."""
+    return {key: leaf[u] for key, leaf in zip(keys, leaves, strict=True)}
+
+
+def _group(w: dict, prefix: str) -> dict:
+    """The entries of ``w`` under ``prefix``, the prefix taken off."""
+    return {k[len(prefix):]: v for k, v in w.items() if k.startswith(prefix)}
+
+
+def _block(w: dict, i: int) -> dict:
+    """Block ``i``'s leaves of a unit's slice ``w`` (keys ``attn/wq``…)."""
+    return _group(w, f"block{i}/")
+
+
+def _ffn(cfg: ArchConfig, h: torch.Tensor, w: dict) -> torch.Tensor:
+    """A block's FFN on the normed ``h``: the MoE (``moe.moe_block``) in
+    an MoE block, else the SwiGLU MLP."""
+    if "moe/router" in w:
+        return moe.moe_block(h, param_tree(_group(w, "moe/")), cfg)
+    return layers.mlp(h, w["mlp/w_gate"], w["mlp/w_up"], w["mlp/w_down"])
 
 
 def _weight_grad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -271,7 +379,9 @@ def _weight_grad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 def _unit_forward(x, w: dict, cfg: ArchConfig, positions, mask,
                   tables=None, *, full: bool = True, chunked: bool = False,
                   infer: bool = False, residuals: bool = True) -> dict:
-    """One layer's forward over a sequence, returning what its VJP reads.
+    """One block's forward over a sequence, returning what its VJP reads
+    (an MoE block, whose VJP is not ported, only its output, under
+    ``infer``).
 
     ``tables``: the (q, k) rope tables made once outside the stack, as
     the reference's linearization hoists them out of its scan; ``None``
@@ -353,6 +463,9 @@ def _unit_forward(x, w: dict, cfg: ArchConfig, positions, mask,
     o = att["o"]
     xm = x + o @ w["attn/wo"]
     h2 = layers.rms_norm_fwd(xm, w["norm2/scale"], eps)
+    if "moe/router" in w:               # an MoE block: prefill only
+        assert infer, "the MoE block's VJP is item 5.3b"
+        return dict(out=xm + _ffn(cfg, h2, w))
     gate = h2 @ w["mlp/w_gate"]
     up = h2 @ w["mlp/w_up"]
     sg = F.silu(gate)
@@ -539,8 +652,9 @@ class _LayerStack(torch.autograd.Function):
         saved = []
         for i in range(cfg.n_layers):
             with estimator.region("scan", "layers"):
-                r = _unit_forward(x, _layer(names, leaves, i), cfg,
-                                  positions, mask, tables, chunked=chunked,
+                r = _unit_forward(x, _block(_layer(names, leaves, i), 0),
+                                  cfg, positions, mask, tables,
+                                  chunked=chunked,
                                   residuals=not cfg.remat)
             if i:
                 saved.append(x)
@@ -577,7 +691,7 @@ class _LayerStack(torch.autograd.Function):
                 at = i * per + i
                 xi = saved[at - 1] if i else x
                 with estimator.region("scan", "layers.T"):
-                    w = _layer(names, leaves, i)
+                    w = _block(_layer(names, leaves, i), 0)
                     if cfg.remat:
                         r = _unit_forward(xi, w, cfg, positions, mask,
                                           full=False, chunked=chunked)
@@ -587,7 +701,7 @@ class _LayerStack(torch.autograd.Function):
                                  select=(mask, 0.0))
                     ct, g = _unit_backward(ct, r, w, cfg)
                 for j, key in enumerate(names):
-                    grads[j][i] = g[key]
+                    grads[j][i] = g[key.split("/", 1)[1]]
             grads = [torch.stack(gl) for gl in grads]
         return (None, ct, None, None, None, None, None, None, *grads)
 
@@ -602,14 +716,17 @@ def _differentiated(*xs: torch.Tensor) -> bool:
 def _forward_stack(cfg: ArchConfig, x, positions, mask,
                    leaves) -> torch.Tensor:
     """The layer stack of a step that takes no gradient (prefill): each
-    layer one iteration of the ``"scan"`` region ``"layers"``, making its
-    rope tables itself and the chunked attention (``mask`` None) a call
-    of its own, as the reference's undifferentiated scan body does."""
+    unit one iteration of the ``"scan"`` region ``"layers"``, each block
+    making its rope tables itself and the chunked attention (``mask``
+    None) a call of its own, as the reference's undifferentiated scan
+    body does."""
     keys = stack_leaves(cfg)
-    for i in range(cfg.n_layers):
+    for u in range(n_units(cfg)):
         with estimator.region("scan", "layers"):
-            x = _unit_forward(x, _layer(keys, leaves, i), cfg, positions,
-                              mask, chunked=mask is None, infer=True)["out"]
+            w = _layer(keys, leaves, u)
+            for i in range(unit_blocks(cfg)):
+                x = _unit_forward(x, _block(w, i), cfg, positions, mask,
+                                  chunked=mask is None, infer=True)["out"]
     return x
 
 
@@ -645,9 +762,10 @@ def hidden_states(cfg: ArchConfig, params: dict,
             s, dtype=torch.int32, device=x.device)[None].expand(b, s))
     else:
         pos = positions
-    leaves = _stacked(params["layers"]["block0"], stack_leaves(cfg))
+    leaves = _stacked(params["layers"], stack_leaves(cfg))
     differentiated = _differentiated(x, *leaves)
     if differentiated:
+        check_trainable(cfg)
         tq = tk = (None, None)
         if cfg.rope_style != "none":
             tq = rope_table(cfg, pos, x.dtype)
@@ -671,14 +789,20 @@ def apply(cfg: ArchConfig, params: dict,
 
 
 class Block(nn.Module):
-    """Pre-norm attention + SwiGLU MLP."""
+    """Pre-norm attention + SwiGLU MLP, or + the MoE FFN (``moe``)."""
 
-    def __init__(self, cfg: ArchConfig, dtype, device):
+    def __init__(self, cfg: ArchConfig, dtype, device, moe_ffn: bool = False):
         super().__init__()
         self.norm1 = layers.RMSNorm(cfg.d_model, cfg.norm_eps, dtype, device)
         self.attn = attention.init_attention(cfg, dtype, device)
         self.norm2 = layers.RMSNorm(cfg.d_model, cfg.norm_eps, dtype, device)
-        self.mlp = layers.MLP(cfg.d_model, cfg.d_ff, dtype, device)
+        if moe_ffn:
+            self.moe = moe.MoE(cfg, dtype, device)
+        else:
+            self.mlp = layers.MLP(cfg.d_model, cfg.d_ff, dtype, device)
+
+    def ffn(self, h: torch.Tensor) -> torch.Tensor:
+        return self.moe(h) if hasattr(self, "moe") else self.mlp(h)
 
 
 class DecoderLM(nn.Module):
@@ -690,9 +814,12 @@ class DecoderLM(nn.Module):
         self.device = resolve_device(device)
         self.dtype = torch_dtype(cfg.dtype)
         dt, dev = self.dtype, self.device
+        n = unit_blocks(cfg)
+        n_units(cfg)                    # whole units
         self.embed = layers.Embedding(cfg.vocab_size, cfg.d_model, dt, dev)
-        self.layers = nn.ModuleList(Block(cfg, dt, dev)
-                                    for _ in range(cfg.n_layers))
+        # layer u·n + i is block i of unit u
+        self.layers = nn.ModuleList(Block(cfg, dt, dev, is_moe(cfg, j % n))
+                                    for j in range(cfg.n_layers))
         self.final_norm = layers.RMSNorm(cfg.d_model, cfg.norm_eps, dt, dev)
         # tied: the head reads the embedding table (``logits_of``)
         self.lm_head = (None if cfg.tie_embeddings else
@@ -720,9 +847,15 @@ class DecoderLM(nn.Module):
         if self.lm_head is not None:
             flat["lm_head/w"] = self.lm_head.w
         for key, attr in layer_leaves(self.cfg).items():
-            flat[f"layers/block0/{key}"] = torch.stack([
-                blk.get_parameter(attr) for blk in self.layers])
+            flat[f"layers/{key}"] = torch.stack([
+                blk.get_parameter(attr) for blk in self.unit_layers(key)])
         return param_tree({k: flat[k] for k in leaf_shapes(self.cfg)})
+
+    def unit_layers(self, key: str) -> list["Block"]:
+        """The modules of the block that the layer leaf ``key``
+        (``block<i>/…``) belongs to, one a unit, in unit order."""
+        i = int(key.split("/", 1)[0][len("block"):])
+        return list(self.layers[i::unit_blocks(self.cfg)])
 
     @torch.no_grad()
     def shared_stacked_params(self) -> dict:
@@ -737,27 +870,26 @@ class DecoderLM(nn.Module):
         if tree is not None:
             return tree
         tree = self.stacked_params()
-        lp = tree["layers"]["block0"]
         for key, attr in layer_leaves(self.cfg).items():
-            group, name = key.split("/")
+            stacked = leaf_at(tree["layers"], key)
             owner, pname = attr.rsplit(".", 1)
-            for i, blk in enumerate(self.layers):
+            for u, blk in enumerate(self.unit_layers(key)):
                 setattr(blk.get_submodule(owner), pname,
-                        nn.Parameter(lp[group][name][i], requires_grad=False))
+                        nn.Parameter(stacked[u], requires_grad=False))
         self._shared_tree = tree
         return tree
 
     def init_cache(self, batch: int, max_len: int) -> dict:
         """The contiguous KV cache ``decode_step`` takes: ``{"layers":
-        {"block0": {"k", "v"}}}``, each ``[n_layers, batch, max_len,
+        {"block<i>": {"k", "v"}}}``, each ``[n_units, batch, max_len,
         n_kv, head_dim]`` of zeros in the model dtype."""
         cfg = self.cfg
         site = attention.init_kv_cache(batch, max_len, cfg.n_kv_heads,
                                        cfg.resolved_head_dim, self.dtype,
                                        self.device)
-        return {"layers": {"block0": {
-            name: t.expand(cfg.n_layers, *t.shape).clone()
-            for name, t in site.items()}}}
+        return {"layers": {f"block{i}": {
+            name: t.expand(n_units(cfg), *t.shape).clone()
+            for name, t in site.items()} for i in range(unit_blocks(cfg))}}
 
     def hidden_states(self, params: dict, tokens=None, embeds=None,
                       positions=None) -> torch.Tensor:
@@ -820,7 +952,7 @@ class DecoderLM(nn.Module):
                 blk.norm1(x), blk.attn, cfg, block_table=block_table,
                 pos=pos, use_kernel=kernel, kv_dtype=kv_dtype,
                 **self._site(cache, i))
-            x = x + blk.mlp(blk.norm2(x))
+            x = x + blk.ffn(blk.norm2(x))
         x = self.final_norm(x)
         logits = (x @ self.embed.table.t() if self.lm_head is None
                   else self.lm_head(x))
@@ -843,5 +975,5 @@ class DecoderLM(nn.Module):
             x = x + attention.paged_prefill_attention(
                 blk.norm1(x), blk.attn, cfg, table_row=table_row, p0=p0,
                 n_new=n_new, kv_dtype=kv_dtype, **self._site(cache, i))
-            x = x + blk.mlp(blk.norm2(x))
+            x = x + blk.ffn(blk.norm2(x))
         return cache

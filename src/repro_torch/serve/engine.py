@@ -60,7 +60,7 @@ from repro_torch._device import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import quant
 from repro_torch.models import attention
-from repro_torch.models.transformer import DecoderLM
+from repro_torch.models.transformer import DecoderLM, pool_tree
 from repro_torch.serve.kv import (KVCacheOOM, PagedKVCache, kv_token_bits,
                                   kv_token_bytes)
 
@@ -142,7 +142,7 @@ def map_paged_tick(cfg: ArchConfig, *, batch: int, max_len: int,
     step = functools.partial(transformer.decode_step_paged, cfg,
                              kernel=attn_kernel, kv_dtype=kv_dtype)
     sched = mapper.build_schedule(
-        step, steps.abstract_params(cfg), {"layers": {"block0": pool}},
+        step, steps.abstract_params(cfg), pool_tree(cfg, pool),
         ints(batch), ints(batch, max_blocks), ints(batch), tech=pim_tech,
         weight_dtype=weight_dtype, act_dtype=act_dtype,
         partitions=partitions if partitions > 1 else None,
@@ -339,7 +339,7 @@ class ServeEngine:
         """The mapped tick's arguments: (the reference's tree, the pool as
         its tree, token [B] int32, block_table [B, W] int32, pos [B]
         int32)."""
-        return (self.params, {"layers": {"block0": self.cache}},
+        return (self.params, pool_tree(self.cfg, self.cache),
                 torch.from_numpy(tokens.astype(np.int32)).to(self.device),
                 self.kv.device_table(),
                 torch.from_numpy(self._pos).to(self.device))

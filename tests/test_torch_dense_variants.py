@@ -368,7 +368,25 @@ def test_bridge_carries_the_variant_leaves(case):
     (dict(n_experts=4, top_k=2, moe_d_ff=32, shared_expert=True), "5.3")])
 def test_check_ported_names_the_items_still_to_port(changes, item):
     cfg = dataclasses.replace(get_smoke_config("qwen2.5-32b"), **changes)
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        transformer.check_ported(cfg)
+    if item == "5.4":
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
+            transformer.check_ported(cfg)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            transformer.DecoderLM(cfg, device="meta")
+        return
+    # MoE serves (item 5.3, tests/test_torch_moe_serve.py); its train
+    # step is item 5.3b
+    transformer.check_ported(cfg)
+    model = transformer.DecoderLM(cfg, device="cpu").init(0)
+    tree = model.stacked_params()
+    tokens = torch.from_numpy(_tokens(cfg, (2, 8)))
+    logits = transformer.apply(cfg, tree, tokens)
+    assert logits.shape == (2, 8, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all())
+    for call in (lambda: transformer.check_trainable(cfg),
+                 lambda: steps.make_loss_fn(cfg),
+                 lambda: mapper.map_arch(cfg.name, "train", config=cfg)):
+        with pytest.raises(NotImplementedError, match="item 5.3b"):
+            call()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.DecoderLM(cfg, device="meta")
+        steps.make_train_step(cfg)
