@@ -325,6 +325,21 @@ Phases, each printing one JSON line:
    (``MOE_BF16_TOL``), a control shifting one token's top-1 expert by one
    failing it. Then ``kernels_pim`` at (c)'s launches (``"path":
    "moe_variants"``; ``moe_variants_q``: K5).
+27. ``moe_train`` — the MoE train step (item 5.3b), after
+   ``moe_variants``: (a) granite-moe-1b-a400m at its published width in
+   float32, 2 layers, remat as published, and (b) llama4-maverick-400b-a17b
+   at its published width in float32, one unit (2 layers), its experts cut
+   to 8 and its vocabulary to 32,768 (``MOE_TRAIN_CUTS``), each at batch 2,
+   seq 128 through ``compile_arch(kind="train")``: K3 alone at the CPU's
+   counts, the compiled step bit for bit the per-block executor's and a
+   second run's (the gathers' transposes sum in a fixed order), within
+   1e-4 of the plain step (loss; params, m, v), no host sync, the one-ulp
+   last-wave control failing, and the router's choices of the compiled
+   and plain steps the same, with the smallest top-k margin. Time
+   (bf16): granite as published (24 layers) takes plain train steps at
+   batch 4, seq 2048: ms a step, tokens/s, device ms and busy share, the
+   experts' ``bmm`` share of device time, peak memory. Then
+   ``kernels_pim`` at (a)'s launches (``"path": "moe_train"``: K3).
 
 Then the card's name and power limit, one line with every kernel's
 numbers, and as the last line ``{"ok": true, "device": {...}}``. Any
@@ -1119,9 +1134,9 @@ def phase_profile(eng, seed: int, phase: str = "profile",
     ``prompt_len`` prompt tokens, 8 output tokens each) on a serve
     phase's engine. The first ``warm_ticks`` ticks (admission, and
     prefill or prompt replay) run untraced; the remaining ticks run
-    under ``torch.profiler``: device time of every kernel, grouped into
-    K4 (its split and combine kernels), K6, matrix products and the
-    rest, against the host's wall time."""
+    under ``torch.profiler`` (the card traced alone): device time of
+    every kernel, grouped into K4 (its split and combine kernels), K6,
+    matrix products and the rest, against the host's wall time."""
     import torch
     from repro_torch.serve import Request
     prompts = make_prompts(np.random.default_rng(seed + 2), 8, prompt_len,
@@ -1132,7 +1147,10 @@ def phase_profile(eng, seed: int, phase: str = "profile",
         eng.tick_once()
     torch.cuda.synchronize()
     ticks0 = eng._tick
-    with device_profile() as prof:
+    # the card alone, as profile_device traces it: no host event is read,
+    # and reducing a window of ~10^5 kernels with the host's events
+    # beside them takes over a minute
+    with device_profile(cpu=False) as prof:
         t0 = time.perf_counter()
         eng.run()
         torch.cuda.synchronize()
@@ -4078,10 +4096,61 @@ def llama_train_hold(seed: int) -> dict:
                       "pim_llama_train hold")
 
 
+@contextlib.contextmanager
+def recording_sorts(k: int):
+    """While open, every aten ``sort`` (the router's top-k: ``models.moe.
+    top_k`` is a stable descending sort, then a slice) in the order a step
+    makes them, eager or replayed from a compiled program: its first
+    ``k + 1`` values and first ``k`` indices, copies on the card (no host
+    read). ``k`` 0: nothing recorded, no mode entered."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    calls = []
+    if not k:
+        yield calls
+        return
+
+    class Sorts(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func.overloadpacket is torch.ops.aten.sort:
+                calls.append((out[0][..., :k + 1].clone(),
+                              out[1][..., :k].clone()))
+            return out
+
+    with Sorts():
+        yield calls
+
+
+def same_routes(got: list, want: list, cfg, label: str) -> dict:
+    """The router's choices of two runs of one step (``recording_sorts``)
+    the same: each call's expert indices, hence the keep mask, a function
+    of them alone; with the smallest top-k margin (the k-th probability
+    less the next, over every token of every call), so that a failure at
+    a near-tie can be told from a fault."""
+    import torch
+    if len(got) != len(want) or not got:
+        raise AssertionError(f"{label}: {len(got)} router sorts in the "
+                             f"compiled step, {len(want)} in the plain one")
+    k = cfg.top_k
+    margins = [(v[..., k - 1] - v[..., k]).min() for v, _ in want]
+    margin = float(torch.stack(margins).min())
+    differing = sum(int((a != b).any(-1).sum())
+                    for (_, a), (_, b) in zip(got, want))
+    if differing:
+        raise AssertionError(f"{label}: {differing} tokens routed "
+                             f"differently by the compiled and the plain "
+                             f"step (smallest top-k margin {margin})")
+    return {"router_sorts": len(got), "tokens_routed_alike": sum(
+        int(idx.numel() // k) for _, idx in got),
+        "smallest_top_k_margin": margin}
+
+
 def train_hold(seed: int, cfg, b: int, s: int, k3: dict, label: str,
                hold_waves: bool = True, on_host: bool = True,
                arch: str = "llama3-8b", batch: dict | None = None,
-               check=None) -> dict:
+               check=None, rerun: bool = False,
+               log_shapes: bool = False) -> dict:
     """``compile_arch(arch, "train", config=cfg)`` at batch ``b``,
     seq ``s`` on seeded parameters and AdamW state and one
     ``TokenStream`` batch. The main path — every count set to 0 just
@@ -4102,8 +4171,14 @@ def train_hold(seed: int, cfg, b: int, s: int, k3: dict, label: str,
     and back takes ~10 s a pass). ``batch``: the step's batch where it
     is not a ``TokenStream`` one (``io_batch``); ``check(params,
     opt_state, outputs)``, where given, holds more of the compiled step's
-    outputs and returns a dict the row takes. ``max_memory_allocated``
-    over the hold."""
+    outputs and returns a dict the row takes. ``rerun``: the step run
+    without host syncs must equal the first run bit for bit (an MoE
+    step's gathers' transposes sum in a fixed order). With experts, the
+    router's choices (``recording_sorts``) of the compiled and the plain
+    step must be the same (``same_routes``). ``log_shapes``: the row
+    keeps the compiled step's launch shapes under ``shapes``
+    (``recording_launches``' log). ``max_memory_allocated`` over the
+    hold."""
     import torch
     from repro_torch import mapper
     from repro_torch.launch import make_train_step
@@ -4129,7 +4204,8 @@ def train_hold(seed: int, cfg, b: int, s: int, k3: dict, label: str,
 
     with full_float32():
         reset_counts()
-        with recording_launches() as log:
+        with recording_sorts(cfg.top_k if cfg.n_experts else 0) as sorts, \
+                recording_launches() as log:
             out = prog(params, opt, batch)
         torch.cuda.synchronize()
         prog_counts = read_counts()
@@ -4169,18 +4245,32 @@ def train_hold(seed: int, cfg, b: int, s: int, k3: dict, label: str,
             torch.testing.assert_close(h, d, **LLAMA_TRAIN_TOL,
                                        msg=lambda m: f"{label} {path}: {m}")
 
-        plain = step(params, opt, batch)
+        with recording_sorts(cfg.top_k if cfg.n_experts else 0) as \
+                plain_sorts:
+            plain = step(params, opt, batch)
         lap("plain_step")
         vs_plain = compared_leafwise(got, plain, close)
         del plain
         lap("compared_plain")
         checked = check(params, opt, got) if check else {}
+        if cfg.n_experts:
+            checked["routes"] = same_routes(sorts, plain_sorts, cfg, label)
         torch.cuda.set_sync_debug_mode("error")
         try:
             again = prog(params, opt, batch)
         finally:
             torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
+        if rerun:
+            def rerun_equal(path, h, d):
+                if not torch.equal(h, d):
+                    raise AssertionError(f"{label}: {path} of a second "
+                                         f"compiled step differs from the "
+                                         f"first's")
+
+            compared_leafwise(got, again, rerun_equal)
+            checked["rerun_bit_equal"] = True
+            lap("compared_rerun")
         del again
         # the control: the last wave one ulp off
         with recording_helpers(fault=ulp_up, key="k3",
@@ -4228,6 +4318,9 @@ def train_hold(seed: int, cfg, b: int, s: int, k3: dict, label: str,
                                   for f in form),
          "max_memory_allocated_gb": peak / 1e9,
          "max_memory_allocated_gb_by_lap": peaks, **checked}
+    if log_shapes:
+        r["shapes"] = {"k1": log["k1"], "k2": log["k2"],
+                       "k3": log["k3_forms"], "k5": log["k5"]}
     del params, opt, got, prog, ex
     torch.cuda.empty_cache()
     return r
@@ -6589,6 +6682,178 @@ def phase_moe_variants(seed: int) -> dict:
             "shapes": {g: decode[g]["shapes"] for g in decode}}
 
 
+# ---------------------------------------------------------------------------
+# 27. moe_train: the MoE train step (item 5.3b)
+# ---------------------------------------------------------------------------
+
+# (a), (b): the train steps at the published width, float32, one unit each
+# (granite: 2 layers of its 24; maverick: a dense block, then the MoE
+# block, 2 of 48), batch 2, seq 128, remat as published. maverick's 128
+# experts cut to 8 and its vocabulary to 32,768: 1.720 B parameters, ~27.5
+# GB with their gradients and float32 AdamW state (the whole width at one
+# unit is 18.55 B, ~297 GB); its grad_accum of 4 to 1 (batch 2 is not 4
+# microbatches) and its bf16 AdamW state to float32 (the hold's seeded
+# state, as the llama holds). Reckoned peak of (b), its first run's 20.6
+# GB of params, m and v moved to host memory: 20.6 of inputs + 6.9 of
+# gradients + 20.6 of outputs ~ 48 GB (kept on the card: ~70, too near
+# the limit); (a) ~2.5 GB, kept on the card
+MOE_TRAIN_HOLD = dict(batch=2, seq_len=128, n_layers=2)
+MOE_TRAIN_CUTS = {"granite-moe-1b-a400m": {},
+                  "llama4-maverick-400b-a17b": dict(
+                      n_experts=8, vocab_size=32768, grad_accum=1,
+                      opt_state_dtype="float32")}
+# the CPU's K3 counts (tests/test_torch_moe_train_step.py: the smoke
+# configs' with the holds' AdamW state; the width does not move them)
+MOE_TRAIN_K3 = {"granite-moe-1b-a400m": {"compiled": 84, "per_block": 148},
+                "llama4-maverick-400b-a17b": {"compiled": 164,
+                                              "per_block": 293}}
+# the time: granite as published (24 layers, bf16, remat), plain steps
+MOE_TRAIN_TIME = dict(batch=4, seq_len=2048, steps=2)
+
+
+def moe_train_cfg(arch: str):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch),
+                               n_layers=MOE_TRAIN_HOLD["n_layers"],
+                               dtype="float32", **MOE_TRAIN_CUTS[arch])
+
+
+@contextlib.contextmanager
+def timing_experts():
+    """While open, every expert product of ``models.moe`` (``_experts``,
+    ``_experts_bwd``: the batched ``bmm``s and their layout copies) inside
+    a ``moe_experts`` profiler range, for ``experts_device_ms``."""
+    import torch
+    from repro_torch.models import moe
+    real = {name: getattr(moe, name) for name in ("_experts",
+                                                  "_experts_bwd")}
+
+    def ranged(fn):
+        def call(*args):
+            with torch.profiler.record_function("moe_experts"):
+                return fn(*args)
+        return call
+
+    for name, fn in real.items():
+        setattr(moe, name, ranged(fn))
+    try:
+        yield
+    finally:
+        for name, fn in real.items():
+            setattr(moe, name, fn)
+
+
+def experts_device_ms(prof) -> float:
+    """The device time of the ``aten::bmm`` calls inside ``moe_experts``
+    ranges (``timing_experts``) of a profile, in ms."""
+    total = 0.0
+    for e in prof.events():
+        if e.name != "aten::bmm":
+            continue
+        up = e.cpu_parent
+        while up is not None and up.name != "moe_experts":
+            up = up.cpu_parent
+        if up is not None:
+            total += e.device_time_total
+    return total / 1e3
+
+
+def moe_train_time(seed: int) -> dict:
+    """granite-moe-1b-a400m as published (24 layers, bf16, remat) takes
+    plain train steps (``make_train_step``) at ``MOE_TRAIN_TIME``, on
+    seeded parameters and AdamW state: ms a step (wall, after one warm),
+    tokens/s, one step under the profiler (the card alone:
+    ``profile_device``'s device ms, busy share and groups), one more with
+    the host traced for the experts' ``bmm`` (``timing_experts``) and
+    their share of the first's device time, and
+    ``max_memory_allocated``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import make_train_step
+    arch = MOE_ARCHS[0]
+    cfg = get_config(arch)
+    b, s = MOE_TRAIN_TIME["batch"], MOE_TRAIN_TIME["seq_len"]
+    torch.cuda.reset_peak_memory_stats()
+    params, opt = llama_train_state(cfg, seed)
+    batch = token_batch(cfg, b, s, seed)
+    step = make_train_step(cfg)
+    loss = float(step(params, opt, batch)[2])
+    if not np.isfinite(loss):
+        raise AssertionError("moe_train time: loss not finite")
+    ms = wall_ms(lambda: step(params, opt, batch),
+                 iters=MOE_TRAIN_TIME["steps"], warmup=0)
+    prof = profile_device(lambda: step(params, opt, batch), 1, warm=False)
+    with timing_experts(), device_profile() as experts_prof:
+        step(params, opt, batch)
+        torch.cuda.synchronize()
+    experts_ms = experts_device_ms(experts_prof)
+    if not experts_ms:
+        raise AssertionError("moe_train time: no expert bmm on the card")
+    peak = torch.cuda.max_memory_allocated()
+    r = {"config": f"{arch} as published ({config_file(arch)}): 24 layers, "
+                   f"bfloat16, remat",
+         **MOE_TRAIN_TIME, "tokens_per_step": b * s,
+         "parameters": sum(x.numel() for x in
+                           torch.utils._pytree.tree_leaves(params)),
+         "loss": loss, "ms_per_step": ms,
+         "tokens_per_s": b * s / (ms / 1e3), "profile": prof,
+         "experts_bmm_ms": experts_ms,
+         "experts_bmm_share_of_device":
+             experts_ms / prof["device_ms_per_call"],
+         "max_memory_allocated_gb": peak / 1e9}
+    del params, opt, batch
+    torch.cuda.empty_cache()
+    return r
+
+
+def phase_moe_train(seed: int) -> dict:
+    """The MoE train step (item 5.3b): granite-moe-1b-a400m and
+    llama4-maverick-400b-a17b through ``compile_arch(kind="train")``
+    (``train_hold``) at ``MOE_TRAIN_HOLD`` (the cuts of
+    ``MOE_TRAIN_CUTS``): K3 alone at the CPU's counts (``MOE_TRAIN_K3``),
+    the compiled step bit for bit the per-block executor's and a rerun's,
+    within ``LLAMA_TRAIN_TOL`` of the plain step, no host sync, the
+    one-ulp last-wave control failing, the routes of the compiled and
+    plain steps the same. Then granite's bf16 time (``moe_train_time``).
+    Emitted as one ``moe_train`` line; returns (a)'s launch shapes for
+    ``kernels_pim``."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    seconds, holds = {}, {}
+    launches = dict.fromkeys(PIM_KEYS, 0)
+    for arch in MOE_ARCHS:
+        t0 = time.perf_counter()
+        h = MOE_TRAIN_HOLD
+        holds[arch] = train_hold(
+            seed, moe_train_cfg(arch), h["batch"], h["seq_len"],
+            MOE_TRAIN_K3[arch], f"moe_train {arch} hold", hold_waves=False,
+            on_host=arch != MOE_ARCHS[0], arch=arch, rerun=True,
+            log_shapes=arch == MOE_ARCHS[0])
+        for k in launches:
+            launches[k] += holds[arch]["launches"][k]
+        seconds[arch] = time.perf_counter() - t0
+        print(f"[{time.perf_counter() - T0:.1f} s] moe_train {arch} "
+              f"{seconds[arch]:.1f} s", file=sys.stderr, flush=True)
+    shapes = holds[MOE_ARCHS[0]].pop("shapes")
+    t0 = time.perf_counter()
+    timing = moe_train_time(seed)
+    seconds["time"] = time.perf_counter() - t0
+    emit({"phase": "moe_train", "seconds": seconds,
+          "configs": {a: config_file(a) for a in MOE_ARCHS},
+          **{k: MOE_TRAIN_HOLD[k] for k in ("batch", "seq_len")},
+          "reduced": {"holds": {
+              "n_layers": {a: [dense_cfg(a).n_layers,
+                               MOE_TRAIN_HOLD["n_layers"]]
+                           for a in MOE_ARCHS},
+              "dtype": ["bfloat16", "float32"],
+              MOE_ARCHS[1]: {k: [getattr(dense_cfg(MOE_ARCHS[1]), k), v]
+                             for k, v in MOE_TRAIN_CUTS[MOE_ARCHS[1]]
+                             .items()}}},
+          "tol": LLAMA_TRAIN_TOL, "holds": holds, "time": timing,
+          "launches": launches})
+    return {"launches": launches, "shapes": shapes}
+
+
 def sums(rows) -> dict:
     """Times and bounds of one run's launches: each distinct shape's
     numbers times its count, summed (each shape's bound the larger of its
@@ -6643,7 +6908,9 @@ def pim_entry(ids, key, by_path, rows) -> dict:
             "io_variants": (sums(rows["io_variants"][key])
                             if rows["io_variants"].get(key) else None),
             "moe_variants": (sums(rows["moe_variants"][key])
-                             if rows["moe_variants"].get(key) else None)}
+                             if rows["moe_variants"].get(key) else None),
+            "moe_train": (sums(rows["moe_train"][key])
+                          if rows["moe_train"].get(key) else None)}
 
 
 def with_counts(shapes: dict) -> dict:
@@ -6800,6 +7067,11 @@ def main() -> int:
     rows["moe_variants_q"] = phase_kernels_pim_q(
         args.seed, with_counts({"k5": moe["shapes"]["int8"]["k5"]})["k5"],
         "moe_variants_q", LLAMA_HOLD["batch"], iters=3, plain_iters=1)
+    moe_train = phase_moe_train(args.seed)
+    by_path["moe_train"] = moe_train["launches"]
+    rows["moe_train"] = phase_kernels_pim(
+        args.seed, with_counts(moe_train["shapes"]), "moe_train",
+        MOE_TRAIN_HOLD["batch"], iters=3, plain_iters=1)
     print(gpu_name_and_power_limit(), flush=True)
 
     def entry(ids, launches, r):

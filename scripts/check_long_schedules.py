@@ -1,5 +1,6 @@
 """Hold the port's schedules of llama3-8b's published config above seq
-2048 against the reference's planning, node for node, on the CPU.
+2048, and of the mixture-of-experts configs' published train steps,
+against the reference's planning, node for node, on the CPU.
 
 The published config (32 layers, bf16) traces about 10^5 aten ops at
 these lengths, minutes each here, too long for the test suite; the smoke
@@ -14,7 +15,13 @@ and 2-layer cuts of the same steps are held in
   port's capture at seq 32768 is ~6 M aten ops (66,560 pair iterations),
   hours on a CPU core here at ~1 ms an op and tens of GB: this row holds
   the pair scan at that length (2,080 pairs, 183,000 aten ops), and
-  ``prefill_8192`` the 32-layer stack around it.
+  ``prefill_8192`` the 32-layer stack around it;
+* ``granite_train_128``: ``map_arch("granite-moe-1b-a400m", "train")``
+  as published (24 layers, bf16, remat), seq 128 (~20 s);
+* ``maverick_train_128_1_unit``: llama4-maverick-400b-a17b at its
+  published width, one unit (2 layers), float32, ``grad_accum`` 1, seq
+  128 (~5 s; the smoke cuts of both are held in
+  ``tests/test_torch_moe_train_schedules*.py``).
 
 For each it prints one JSON line: the nodes, subarrays and nodes by
 ``repeat`` of both, whether every node's row (kind, shape, MACs, edges,
@@ -27,7 +34,8 @@ Run from the repository root (the reference package is the JAX one):
 
     PYTHONPATH=src:tests JAX_PLATFORMS=cpu \
         python scripts/check_long_schedules.py [train_4096] [prefill_8192] \
-        [prefill_32768_1_layer] [prefill_32768]
+        [prefill_32768_1_layer] [prefill_32768] [granite_train_128] \
+        [maverick_train_128_1_unit]
 """
 
 from __future__ import annotations
@@ -38,10 +46,17 @@ import json
 import sys
 import time
 
-ROWS = {"train_4096": ("train", 4096, None),
-        "prefill_8192": ("prefill", 8192, None),
-        "prefill_32768": ("prefill", 32768, None),
-        "prefill_32768_1_layer": ("prefill", 32768, 1)}
+LLAMA, GRANITE = "llama3-8b", "granite-moe-1b-a400m"
+MAVERICK = "llama4-maverick-400b-a17b"
+# name -> (kind, seq, changes to the published config, arch)
+ROWS = {"train_4096": ("train", 4096, {}, LLAMA),
+        "prefill_8192": ("prefill", 8192, {}, LLAMA),
+        "prefill_32768": ("prefill", 32768, {}, LLAMA),
+        "prefill_32768_1_layer": ("prefill", 32768, {"n_layers": 1}, LLAMA),
+        "granite_train_128": ("train", 128, {}, GRANITE),
+        "maverick_train_128_1_unit": ("train", 128, {
+            "n_layers": 2, "dtype": "float32", "grad_accum": 1,
+            "fsdp": False}, MAVERICK)}
 
 
 def _row(nd) -> tuple:
@@ -57,17 +72,15 @@ def check(name: str) -> dict:
     from repro_torch.mapper import schedule as schedule_mod
     from test_torch_long_schedules import _oracle, _prefill_oracle
 
-    kind, seq, n_layers = ROWS[name]
-    rcfg, cfg = ref_config("llama3-8b"), get_config("llama3-8b")
-    if n_layers:
-        rcfg = dataclasses.replace(rcfg, n_layers=n_layers)
-        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    kind, seq, changes, arch = ROWS[name]
+    rcfg = dataclasses.replace(ref_config(arch), **changes)
+    cfg = dataclasses.replace(get_config(arch), **changes)
     t0 = time.perf_counter()
     want = (_oracle(rcfg, 1, seq) if kind == "train"
             else _prefill_oracle(rcfg, 1, seq))
     t1 = time.perf_counter()
     if kind == "train":
-        port = mapper.map_arch("llama3-8b", "train", batch=1, seq_len=seq,
+        port = mapper.map_arch(arch, "train", batch=1, seq_len=seq,
                                config=cfg)
     else:
         port = schedule_mod.build_schedule(
@@ -90,8 +103,8 @@ def check(name: str) -> dict:
                                                for nd in nodes).items()))
 
     return {"row": name, "kind": kind, "seq_len": seq, "batch": 1,
-            "config": f"llama3-8b published, {cfg.n_layers} layers, "
-                      f"bfloat16",
+            "config": f"{arch} published, {cfg.n_layers} layers, "
+                      f"{cfg.dtype}",
             "nodes": [len(pn), len(wn)],
             "subarrays": [port.placement.n_subarrays,
                           want.placement.n_subarrays],

@@ -44,8 +44,10 @@ costed nodes in its order:
 A backward written out by hand (the decoder's layer stack) spells the
 ops the reference's graph does not see as ops of their own, unpriced:
 the cotangent sum :func:`add_any`, ``silu``'s VJP :func:`silu_vjp` (the
-reference's ``silu`` is a jit whose ops it does not walk) and
-``jnp.where``'s outputs :func:`select_parts`. A chunk's slice and a
+reference's ``silu`` is a jit whose ops it does not walk),
+``jnp.where``'s outputs :func:`select_parts`, ``take_along_axis``'s
+:func:`take_parts` and a gather's transpose :func:`scatter_add` (the
+mixture-of-experts block's dispatch and combine). A chunk's slice and a
 loop carry's update by a traced index are :func:`dynamic_slice` and
 :func:`dynamic_update_slice_`, the reference's ``dynamic_slice`` and
 ``dynamic_update_slice`` (unpriced there too). Elsewhere the same holds
@@ -148,6 +150,55 @@ def select_parts(mask: torch.Tensor, x: torch.Tensor,
 @select_parts.register_fake
 def _select_parts_fake(mask, x, fill):
     return (torch.empty_like(x), torch.empty_like(mask), x.new_empty(()))
+
+
+@torch.library.custom_op("repro_torch::take_parts", mutates_args=())
+def take_parts(x: torch.Tensor, index: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``jnp.take_along_axis(x, index[..., None], axis=1)`` as the
+    reference traces it: one call whose outputs are the rows of ``x``
+    [G, N, D] at ``index`` [G, M] and the index (what the gather's
+    transpose scatters by), each with an edge from both inputs, as the
+    reference's graph gives every output of a call."""
+    return (torch.take_along_dim(x, index[..., None].long(), dim=1),
+            index.clone())
+
+
+@take_parts.register_fake
+def _take_parts_fake(x, index):
+    return (x.new_empty((*index.shape, x.shape[2])), torch.empty_like(index))
+
+
+@torch.library.custom_op("repro_torch::scatter_add", mutates_args=())
+def scatter_add(src: torch.Tensor, index: torch.Tensor,
+                size: int) -> torch.Tensor:
+    """The transpose of a gather along axis ``d = index.dim() - 1``:
+    zeros with ``src``'s shape but ``size`` along ``d``, and each
+    ``src[..., i, ...]`` added at ``index[..., i]`` (``index`` has
+    ``src``'s leading ``d + 1`` dims). The reference's ``scatter-add``,
+    unpriced, in a fixed order: duplicate indices sum the same way on
+    every run (CUDA: ``index_put_`` with ``accumulate``, sorted; the CPU:
+    ``index_add_``, serial), where ``scatter_add_`` on the card adds by
+    atomics in no fixed order."""
+    d = index.dim() - 1
+    lead = math.prod(src.shape[:d])
+    rest = math.prod(src.shape[d + 1:])
+    n = src.shape[d]
+    rows = (index.reshape(lead, n).long() + size * torch.arange(
+        lead, device=src.device)[:, None]).reshape(-1)
+    vals = src.reshape(lead * n, rest)
+    out = src.new_zeros(lead * size, rest)
+    if src.is_cuda:
+        out.index_put_((rows,), vals, accumulate=True)
+    else:
+        out.index_add_(0, rows, vals)
+    return out.reshape(*src.shape[:d], size, *src.shape[d + 1:])
+
+
+@scatter_add.register_fake
+def _scatter_add_fake(src, index, size):
+    d = index.dim() - 1
+    return src.new_empty((*src.shape[:d], size, *src.shape[d + 1:]))
 
 
 @torch.library.custom_op("repro_torch::silu_vjp", mutates_args=())

@@ -20,7 +20,8 @@ which the mapper traces (``mapper.map_arch``).
 A config with ``input_embed_stub`` takes ``batch["embeds"]`` [B, S, D]
 (a modality frontend's output) where the others take ``batch["tokens"]``,
 one with ``needs_position_grid`` ``batch["positions"]`` [3, B, S] besides,
-and a tied head reads the embedding table's transpose. Not ported yet:
+and a tied head reads the embedding table's transpose. The
+mixture-of-experts configs train as the dense ones do. Not ported yet:
 the sharding rules (ROADMAP.md, queue item 7).
 """
 
@@ -71,16 +72,22 @@ def make_loss_fn(cfg: ArchConfig) -> Callable:
     """(params, batch) -> loss: the hidden states, then the fused LM head
     and cross entropy over chunks of 512 tokens (``layers.fused_xent_head``;
     the float32 logits never exist whole); a tied head's weight is the
-    embedding table's transpose. MoE configs raise
-    ``NotImplementedError`` (item 5.3b: ``transformer.check_trainable``)."""
-    transformer.check_trainable(cfg)
+    embedding table's transpose. A block pattern still to port raises
+    ``NotImplementedError`` (``transformer.check_ported``)."""
+    transformer.check_ported(cfg)
 
     def loss_fn(params, batch):
+        head = transformer.head_weight(cfg, params)
+        if cfg.tie_embeddings and not cfg.input_embed_stub:
+            # the table read by the lookup and the head: its two
+            # cotangents summed as the reference's add_any, unpriced
+            table, tied = layers.fork(params["embed"]["table"])
+            params = {**params, "embed": {**params["embed"], "table": table}}
+            head = tied.t()
         x = transformer.hidden_states(cfg, params,
                                       **_model_inputs(cfg, batch))
         n_chunks = max(1, x.shape[1] // 512)
-        return layers.fused_xent_head(x, transformer.head_weight(cfg, params),
-                                      batch["labels"], n_chunks)
+        return layers.fused_xent_head(x, head, batch["labels"], n_chunks)
 
     return loss_fn
 

@@ -209,6 +209,42 @@ def mlp(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
 
 
+def mlp_parts(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor
+              ) -> dict:
+    """``mlp``'s forward up to the down projection: what its VJP reads
+    (``mlp_bwd``)."""
+    gate = x @ w_gate
+    up = x @ w_up
+    sg = F.silu(gate)
+    return dict(gate=gate, up=up, sg=sg, hm=sg * up)
+
+
+def weight_grad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The cotangent of ``w`` in ``x @ w``: ``xᵀg`` over the flattened
+    rows, [in, out] (the reference's ``dot_general(g, x)`` transposed;
+    ``estimator.mm_transposed``)."""
+    return x.reshape(-1, x.shape[-1]).t() @ g.reshape(-1, g.shape[-1])
+
+
+def mlp_bwd(ct: torch.Tensor, x: torch.Tensor, r: dict, w_gate, w_up,
+            w_down) -> tuple[torch.Tensor, dict]:
+    """``mlp``'s VJP from its input ``x`` and ``mlp_parts``' values ``r``:
+    (the cotangent of ``x``, ``{"w_down", "w_up", "w_gate"}``), the ops
+    in the order the reference's transpose emits them (the down
+    projection first, each weight's cotangent before its input's, the
+    sum unpriced: ``estimator.add_any``)."""
+    grads = {"w_down": weight_grad(r["hm"], ct)}
+    dhm = ct @ w_down.t()
+    ct_up = r["sg"] * dhm
+    ct_sg = dhm * r["up"]
+    ct_gate = estimator.silu_vjp(ct_sg, r["gate"])
+    grads["w_up"] = weight_grad(x, ct_up)
+    dx_up = ct_up @ w_up.t()
+    grads["w_gate"] = weight_grad(x, ct_gate)
+    dx_gate = ct_gate @ w_gate.t()
+    return estimator.add_any(dx_up, dx_gate), grads
+
+
 class MLP(nn.Module):
     def __init__(self, d_model: int, d_ff: int, dtype, device):
         super().__init__()
@@ -231,6 +267,33 @@ class MLP(nn.Module):
 
 def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return table[tokens]
+
+
+class _Fork(torch.autograd.Function):
+    """``x`` read by two consumers: two views of it, whose cotangents sum
+    unpriced (``estimator.add_any``), as JAX sums a value's cotangents,
+    where autograd would accumulate them at ``x`` with an ``add``."""
+
+    @staticmethod
+    def forward(x):
+        return x.view_as(x), x.view_as(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, ga, gb):
+        if ga is None or gb is None:
+            return gb if ga is None else ga
+        with torch.no_grad():
+            return estimator.add_any(ga, gb)
+
+
+def fork(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Two views of ``x`` for two consumers (``_Fork``): a tied
+    embedding table, read by the lookup and by the LM head."""
+    return _Fork.apply(x)
 
 
 def lm_head(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

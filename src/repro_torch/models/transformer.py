@@ -19,8 +19,9 @@ per-block tree. Parameters are created empty on the model's device;
 ``init(seed)`` fills them from a seeded ``torch.Generator`` on that
 device (the reference's distributions, not its numbers).
 
-The MoE configs serve everywhere: their train step (the written-out VJP
-of the MoE block) is item 5.3b, refused by ``check_trainable``.
+The MoE configs serve and train everywhere llama3-8b does: the
+differentiated stack writes out the MoE block's VJP too
+(``moe.moe_block_bwd``).
 
 Entry points:
   * ``decode_step_paged(cache, token, block_table, pos)`` -> logits
@@ -48,15 +49,18 @@ Entry points:
     path (``attention.chunked_causal_attention``). Undifferentiated (a
     prefill), the stack is ``_forward_stack``, the reference's plain
     scan. Differentiated, it is one ``autograd.Function``
-    (``_LayerStack``): its forward runs
-    each layer as one iteration of the ``"scan"`` region ``"layers"``,
-    its backward each layer's VJP, last layer first, as one iteration of
-    ``"layers.T"`` — the reference's scan and its transpose. The VJP is
-    written out op for op in the order the reference's transpose emits
-    (``_unit_backward``), so the mapper traces the reference's nodes;
-    under ``cfg.remat`` each iteration first recomputes its layer's
-    forward from the saved layer input, as the reference's
-    ``jax.checkpoint``-ed scan body does.
+    (``_LayerStack``): its forward runs each unit of ``unit_blocks``
+    blocks as one iteration of the ``"scan"`` region ``"layers"``, its
+    backward each unit's VJP, last unit (and last block) first, as one
+    iteration of ``"layers.T"`` — the reference's scan and its
+    transpose. The VJP is written out op for op in the order the
+    reference's transpose emits (``_unit_backward``, an MoE block's FFN
+    ``moe.moe_block_bwd``), so the mapper traces the reference's nodes;
+    what the reference's linearization hoists out of its scan (each
+    block's rope tables, the slot map's group offsets) is made once
+    before the stack; under ``cfg.remat`` each iteration first
+    recomputes its unit's forward from the saved unit input, as the
+    reference's ``jax.checkpoint``-ed scan body does.
 """
 
 from __future__ import annotations
@@ -64,7 +68,6 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from repro_torch._device import resolve_device, torch_dtype
@@ -180,22 +183,12 @@ def check_ported(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` naming what of ``cfg`` the port does
     not run yet, with its item of ROADMAP.md's port queue: the block
     patterns of item 5.4. The dense attention variants (item 5.1), the
-    model's inputs and outputs (item 5.2) and mixture-of-experts serving
-    (item 5.3) run; ``check_trainable`` refuses the MoE train step."""
+    model's inputs and outputs (item 5.2) and mixture-of-experts blocks
+    (item 5.3) serve and train."""
     if cfg.block_pattern != "attn":
         raise NotImplementedError(
             f"block_pattern={cfg.block_pattern!r} (item 5.4) not ported yet "
             f"(ROADMAP.md, port queue item 5: remaining model families)")
-
-
-def check_trainable(cfg: ArchConfig) -> None:
-    """``check_ported``, and refuse a differentiated stack of MoE layers:
-    their train step is item 5.3b of ROADMAP.md's port queue."""
-    check_ported(cfg)
-    if cfg.n_experts:
-        raise NotImplementedError(
-            "the MoE layers' train step (item 5.3b) is not ported yet "
-            "(ROADMAP.md, port queue item 5): MoE configs serve only")
 
 
 def param_tree(flat: dict) -> dict:
@@ -369,19 +362,17 @@ def _ffn(cfg: ArchConfig, h: torch.Tensor, w: dict) -> torch.Tensor:
     return layers.mlp(h, w["mlp/w_gate"], w["mlp/w_up"], w["mlp/w_down"])
 
 
-def _weight_grad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """The cotangent of ``w`` in ``x @ w``: ``xᵀg`` over the flattened
-    rows, [in, out] (the reference's ``dot_general(g, x)`` transposed;
-    ``estimator.mm_transposed``)."""
-    return x.reshape(-1, x.shape[-1]).t() @ g.reshape(-1, g.shape[-1])
-
-
 def _unit_forward(x, w: dict, cfg: ArchConfig, positions, mask,
                   tables=None, *, full: bool = True, chunked: bool = False,
-                  infer: bool = False, residuals: bool = True) -> dict:
+                  infer: bool = False, residuals: bool = True,
+                  g_off=None) -> dict:
     """One block's forward over a sequence, returning what its VJP reads
-    (an MoE block, whose VJP is not ported, only its output, under
-    ``infer``).
+    (under ``infer``, only its output ``out``). An MoE block's FFN is
+    ``moe.moe_forward``, its values under ``moe/<name>``: linearized
+    where the layer is, its gathers and selections the reference's
+    calls in the recomputing body (``tables`` None), ``g_off`` the slot
+    map's hoisted group offsets (None: made here, as the recomputing body
+    and the undifferentiated forward make them).
 
     ``tables``: the (q, k) rope tables made once outside the stack, as
     the reference's linearization hoists them out of its scan; ``None``
@@ -463,17 +454,21 @@ def _unit_forward(x, w: dict, cfg: ArchConfig, positions, mask,
     o = att["o"]
     xm = x + o @ w["attn/wo"]
     h2 = layers.rms_norm_fwd(xm, w["norm2/scale"], eps)
-    if "moe/router" in w:               # an MoE block: prefill only
-        assert infer, "the MoE block's VJP is item 5.3b"
+    if infer:
         return dict(out=xm + _ffn(cfg, h2, w))
-    gate = h2 @ w["mlp/w_gate"]
-    up = h2 @ w["mlp/w_up"]
-    sg = F.silu(gate)
-    hm = sg * up
     r = dict(x=x, h1=h1, **norms, tq=tq, tk=tk, qr=qr, kr=kr, v=v, **att,
-             xm=xm, h2=h2, gate=gate, up=up, sg=sg, hm=hm)
+             xm=xm, h2=h2)
+    if "moe/router" in w:
+        mr = moe.moe_forward(h2, param_tree(_group(w, "moe/")), cfg,
+                             lin=lin, parts=tables is None, g_off=g_off,
+                             full=full)
+        out = mr.pop("out", None)
+        r.update({f"moe/{name}": t for name, t in mr.items()})
+    else:
+        r.update(layers.mlp_parts(h2, w["mlp/w_gate"], w["mlp/w_up"]))
+        out = r["hm"] @ w["mlp/w_down"] if full else None
     if full:
-        r["out"] = xm + hm @ w["mlp/w_down"]
+        r["out"] = xm + out
     return r
 
 
@@ -521,30 +516,29 @@ def _rope_bwd(ct: torch.Tensor, table) -> torch.Tensor:
 
 def _unit_backward(ct: torch.Tensor, r: dict, w: dict,
                    cfg: ArchConfig) -> tuple[torch.Tensor, dict]:
-    """One layer's VJP from the values ``_unit_forward`` returned: (the
+    """One block's VJP from the values ``_unit_forward`` returned: (the
     cotangent of its input, its leaves' gradients). The ops and their
-    order are the reference's transpose of the layer: the down projection
-    first, the weight's cotangent before the input's, the cotangent sums
-    unpriced (``estimator.add_any``)."""
+    order are the reference's transpose of the block: the FFN first
+    (``layers.mlp_bwd``: the down projection first, the weight's
+    cotangent before the input's; or ``moe.moe_block_bwd``), the norm,
+    the attention, the cotangent sums unpriced (``estimator.add_any``)."""
     eps = cfg.norm_eps
     b, s, _ = ct.shape
     add = estimator.add_any
-    grads = {}
-    # MLP: out = xm + (silu(h2 @ wg) * (h2 @ wu)) @ wd
-    grads["mlp/w_down"] = _weight_grad(r["hm"], ct)
-    dhm = ct @ w["mlp/w_down"].t()
-    ct_up = r["sg"] * dhm
-    ct_sg = dhm * r["up"]
-    ct_gate = estimator.silu_vjp(ct_sg, r["gate"])
-    grads["mlp/w_up"] = _weight_grad(r["h2"], ct_up)
-    dx_up = ct_up @ w["mlp/w_up"].t()
-    grads["mlp/w_gate"] = _weight_grad(r["h2"], ct_gate)
-    dx_gate = ct_gate @ w["mlp/w_gate"].t()
+    # the FFN: out = xm + mlp(h2), or + the MoE's (moe.moe_block_bwd)
+    if "moe/router" in w:
+        dh2, g = moe.moe_block_bwd(ct, {**_group(r, "moe/"), "x": r["h2"]},
+                                   param_tree(_group(w, "moe/")), cfg)
+        grads = {f"moe/{name}": t for name, t in g.items()}
+    else:
+        dh2, g = layers.mlp_bwd(ct, r["h2"], r, w["mlp/w_gate"],
+                                w["mlp/w_up"], w["mlp/w_down"])
+        grads = {f"mlp/{name}": t for name, t in g.items()}
     dxm, grads["norm2/scale"] = layers.rms_norm_bwd(
-        r["xm"], w["norm2/scale"], add(dx_up, dx_gate), eps)
+        r["xm"], w["norm2/scale"], dh2, eps)
     ct = add(ct, dxm)
     # attention: xm = x + o @ wo
-    grads["attn/wo"] = _weight_grad(r["o"], ct)
+    grads["attn/wo"] = layers.weight_grad(r["o"], ct)
     if "lse" in r:
         dq, dk, dv = _chunked_backward(ct @ w["attn/wo"].t(), r, cfg)
     else:
@@ -560,11 +554,11 @@ def _unit_backward(ct: torch.Tensor, r: dict, w: dict,
     if cfg.qkv_bias:
         for name, t in (("v", dv), ("k", dk), ("q", dq)):
             grads[f"attn/{name}_bias"] = t.sum((0, 1))
-    grads["attn/wv"] = _weight_grad(r["h1"], dv)
+    grads["attn/wv"] = layers.weight_grad(r["h1"], dv)
     dx_v = dv @ w["attn/wv"].t()
-    grads["attn/wk"] = _weight_grad(r["h1"], dk)
+    grads["attn/wk"] = layers.weight_grad(r["h1"], dk)
     dx_k = dk @ w["attn/wk"].t()
-    grads["attn/wq"] = _weight_grad(r["h1"], dq)
+    grads["attn/wq"] = layers.weight_grad(r["h1"], dq)
     dx_q = dq @ w["attn/wq"].t()
     dx, grads["norm1/scale"] = layers.rms_norm_bwd(
         r["x"], w["norm1/scale"], add(add(dx_v, dx_k), dx_q), eps)
@@ -619,9 +613,10 @@ def _full_backward(do: torch.Tensor, r: dict, cfg: ArchConfig):
             dk.permute(0, 2, 1, 3), dv)
 
 
-# what the backward keeps of a layer's forward without remat: full
-# attention, chunked attention; the q/k norms' residuals besides
-# (``_residuals``)
+# what the backward keeps of a block's forward without remat: full
+# attention, chunked attention; an MoE block's FFN values in place of the
+# MLP's, the q/k norms' residuals and the input of a unit's later block
+# besides (``_residuals``)
 _RESIDUALS = ("h1", "qr", "kr", "v", "p", "e", "ssum", "o", "xm", "h2",
               "gate", "up", "sg", "hm")
 _RESIDUALS_CHUNKED = ("h1", "qr", "kr", "v", "o", "lse", "xm", "h2", "gate",
@@ -629,38 +624,56 @@ _RESIDUALS_CHUNKED = ("h1", "qr", "kr", "v", "o", "lse", "xm", "h2", "gate",
 _NORM_RESIDUALS = tuple(f"{p}n_{n}" for p in "qk" for n in "aejlm")
 
 
-def _residuals(cfg: ArchConfig, chunked: bool) -> tuple[str, ...]:
+def _residuals(cfg: ArchConfig, chunked: bool, i: int) -> tuple[str, ...]:
+    """The values of block ``i``'s forward that its VJP reads, by key."""
     keys = _RESIDUALS_CHUNKED if chunked else _RESIDUALS
-    return keys + (_NORM_RESIDUALS if cfg.qk_norm else ())
+    if is_moe(cfg, i):
+        keys = keys[:keys.index("gate")] + tuple(
+            f"moe/{name}" for name in moe.residuals(cfg))
+    return (("x",) if i else ()) + keys + (
+        _NORM_RESIDUALS if cfg.qk_norm else ())
+
+
+def _tables(cfg: ArchConfig, rest) -> tuple[list, list]:
+    """Split ``_LayerStack``'s inputs after the offsets: each block's
+    ((q cos, q sin), (k cos, k sin)), None under ``rope_style="none"``,
+    and the rest."""
+    n = unit_blocks(cfg)
+    tables = [((qc, qs), (kc, ks)) if qc is not None else None
+              for qc, qs, kc, ks in zip(*[iter(rest[:4 * n])] * 4)]
+    return tables, list(rest[4 * n:])
 
 
 class _LayerStack(torch.autograd.Function):
-    """The layer stack, ``x`` through every layer (module docstring).
-    Inputs: the config, x, positions, the causal mask (None: the
-    attention is chunked), the (q, k) rope tables (cos, sin each) and the
-    stacked leaves (``stack_leaves(cfg)``). Outputs: x and what the backward
-    reads (the layers' inputs after the first; without remat also each
-    layer's residuals), the latter not differentiable. Under
+    """The layer stack, ``x`` through every unit of ``unit_blocks`` blocks
+    (module docstring). Inputs: the config, x, positions, the causal mask
+    (None: the attention is chunked), an MoE block's hoisted group
+    offsets (``moe.group_offsets``; None without experts), each block's
+    (q, k) rope tables (cos, sin each; ``_tables``) and the stacked leaves
+    (``stack_leaves(cfg)``). Outputs: x and what the backward reads (the
+    units' inputs after the first; without remat also each block's
+    residuals, ``_residuals``), the latter not differentiable. Under
     ``rope_style="none"`` the tables are None."""
 
     @staticmethod
-    def forward(cfg, x, positions, mask, qc, qs, kc, ks, *leaves):
-        tables = ((qc, qs), (kc, ks)) if qc is not None else None
+    def forward(cfg, x, positions, mask, g_off, *rest):
+        tables, leaves = _tables(cfg, rest)
         chunked = mask is None
-        keys = _residuals(cfg, chunked)
         names = stack_leaves(cfg)
         saved = []
-        for i in range(cfg.n_layers):
-            with estimator.region("scan", "layers"):
-                r = _unit_forward(x, _block(_layer(names, leaves, i), 0),
-                                  cfg, positions, mask, tables,
-                                  chunked=chunked,
-                                  residuals=not cfg.remat)
-            if i:
+        for u in range(n_units(cfg)):
+            if u:
                 saved.append(x)
-            if not cfg.remat:
-                saved.extend(r[key] for key in keys)
-            x = r["out"]
+            with estimator.region("scan", "layers"):
+                w = _layer(names, leaves, u)
+                for i in range(unit_blocks(cfg)):
+                    r = _unit_forward(x, _block(w, i), cfg, positions, mask,
+                                      tables[i], chunked=chunked,
+                                      residuals=not cfg.remat, g_off=g_off)
+                    if not cfg.remat:
+                        saved.extend(r[key] for key in
+                                     _residuals(cfg, chunked, i))
+                    x = r["out"]
         return (x, *saved)
 
     @staticmethod
@@ -673,37 +686,52 @@ class _LayerStack(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct, *_):
         cfg = ctx.cfg
-        x, positions, mask, qc, qs, kc, ks, *rest = ctx.saved_tensors
+        x, positions, mask, _, *rest = ctx.saved_tensors
+        tables, rest = _tables(cfg, rest)
         names = stack_leaves(cfg)
         leaves, saved = rest[:len(names)], rest[len(names):]
         chunked = mask is None
-        keys = _residuals(cfg, chunked)
-        per = 0 if cfg.remat else len(keys)
-        tables = ((qc, qs), (kc, ks)) if qc is not None else (None, None)
-        grads = [[None] * cfg.n_layers for _ in leaves]
+        n, units = unit_blocks(cfg), n_units(cfg)
+        keys = [_residuals(cfg, chunked, i) for i in range(n)]
+        per = 0 if cfg.remat else sum(map(len, keys))
+        grads = [[None] * units for _ in leaves]
         # no_grad: the VJP is written out and never differentiated, and
-        # its unpriced ops (estimator.add_any, silu_vjp, select_parts)
-        # have no VJP for torch.func to record
+        # its unpriced ops (estimator.add_any, silu_vjp, select_parts,
+        # take_parts, scatter_add) have no VJP for torch.func to record
         with torch.no_grad():
-            for i in reversed(range(cfg.n_layers)):
-                # layer i's block of the saved list: its input (after the
-                # first layer), then its residuals
-                at = i * per + i
-                xi = saved[at - 1] if i else x
+            for u in reversed(range(units)):
+                # unit u's part of the saved list: its input (after the
+                # first unit), then each block's residuals
+                at = u * per + u
+                xu = saved[at - 1] if u else x
                 with estimator.region("scan", "layers.T"):
-                    w = _block(_layer(names, leaves, i), 0)
-                    if cfg.remat:
-                        r = _unit_forward(xi, w, cfg, positions, mask,
-                                          full=False, chunked=chunked)
-                    else:
-                        r = dict(zip(keys, saved[at:at + per]), x=xi,
-                                 tq=tables[0], tk=tables[1],
-                                 select=(mask, 0.0))
-                    ct, g = _unit_backward(ct, r, w, cfg)
+                    w = _layer(names, leaves, u)
+                    rs = []
+                    for i in range(n):
+                        if cfg.remat:
+                            # the unit recomputed from its input; the last
+                            # block up to where its VJP stops reading
+                            r = _unit_forward(xu, _block(w, i), cfg,
+                                              positions, mask,
+                                              full=i < n - 1,
+                                              chunked=chunked)
+                            xu = r.get("out")
+                        else:
+                            tq, tk = tables[i] or (None, None)
+                            r = dict(zip(keys[i], saved[at:at + len(keys[i])]),
+                                     tq=tq, tk=tk, select=(mask, 0.0))
+                            r.setdefault("x", xu)
+                            at += len(keys[i])
+                        rs.append(r)
+                    g = {}
+                    for i in reversed(range(n)):
+                        ct, gi = _unit_backward(ct, rs[i], _block(w, i), cfg)
+                        g.update({f"block{i}/{k}": t for k, t in gi.items()})
                 for j, key in enumerate(names):
-                    grads[j][i] = g[key.split("/", 1)[1]]
+                    grads[j][u] = g[key]
             grads = [torch.stack(gl) for gl in grads]
-        return (None, ct, None, None, None, None, None, None, *grads)
+        return (None, ct, None, None, None, *[None] * len(tables) * 4,
+                *grads)
 
 
 def _differentiated(*xs: torch.Tensor) -> bool:
@@ -764,15 +792,20 @@ def hidden_states(cfg: ArchConfig, params: dict,
         pos = positions
     leaves = _stacked(params["layers"], stack_leaves(cfg))
     differentiated = _differentiated(x, *leaves)
+    g_off = None
     if differentiated:
-        check_trainable(cfg)
-        tq = tk = (None, None)
+        check_ported(cfg)
+        # each block's (q, k) tables, then the slot map's group offsets
+        tables = [None] * (4 * unit_blocks(cfg))
         if cfg.rope_style != "none":
-            tq = rope_table(cfg, pos, x.dtype)
-            tk = rope_table(cfg, pos, x.dtype)
+            tables = [t for _ in range(2 * unit_blocks(cfg))
+                      for t in rope_table(cfg, pos, x.dtype)]
+        if cfg.n_experts:
+            g_off = moe.group_offsets(cfg, b * s, x.device)
     mask = None if chunked else attention.causal_mask(s, x.device)
     if differentiated:
-        x = _LayerStack.apply(cfg, x, pos, mask, *tq, *tk, *leaves)[0]
+        x = _LayerStack.apply(cfg, x, pos, mask, g_off, *tables,
+                              *leaves)[0]
     else:
         x = _forward_stack(cfg, x, pos, mask, leaves)
     return layers.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)

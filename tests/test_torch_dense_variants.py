@@ -374,8 +374,8 @@ def test_check_ported_names_the_items_still_to_port(changes, item):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             transformer.DecoderLM(cfg, device="meta")
         return
-    # MoE serves (item 5.3, tests/test_torch_moe_serve.py); its train
-    # step is item 5.3b
+    # MoE serves (item 5.3, tests/test_torch_moe_serve.py) and trains
+    # (item 5.3b, tests/test_torch_moe_train*.py)
     transformer.check_ported(cfg)
     model = transformer.DecoderLM(cfg, device="cpu").init(0)
     tree = model.stacked_params()
@@ -383,10 +383,8 @@ def test_check_ported_names_the_items_still_to_port(changes, item):
     logits = transformer.apply(cfg, tree, tokens)
     assert logits.shape == (2, 8, cfg.vocab_size)
     assert bool(torch.isfinite(logits).all())
-    for call in (lambda: transformer.check_trainable(cfg),
-                 lambda: steps.make_loss_fn(cfg),
-                 lambda: mapper.map_arch(cfg.name, "train", config=cfg)):
-        with pytest.raises(NotImplementedError, match="item 5.3b"):
-            call()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        steps.make_train_step(cfg)
+    grads, loss = torch.func.grad_and_value(steps.make_loss_fn(cfg))(
+        tree, {"tokens": tokens, "labels": tokens})
+    assert bool(torch.isfinite(loss))
+    assert all(bool(torch.isfinite(g).all())
+               for g in pytree.tree_leaves(grads))

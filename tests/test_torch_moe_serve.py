@@ -16,10 +16,10 @@ top-1 of 4 with the shared expert), in float32:
   engine; the compiled decode step (folded and ``expand_scans``) bit for
   bit against the per-block executor and within 1e-4 of the plain step;
 * the bridge: parameters both ways, a wrong or missing MoE leaf refused,
-  and a two-block pool (maverick's) as the port's one pool;
-* the train entry points refused, naming item 5.3b.
+  and a two-block pool (maverick's) as the port's one pool.
 
-The schedules are held in ``tests/test_torch_moe_schedules.py``.
+The schedules are held in ``tests/test_torch_moe_schedules.py``, the
+train step in ``tests/test_torch_moe_train*.py``.
 """
 
 import jax
@@ -42,11 +42,9 @@ from repro_torch.checkpoint import (kv_pool_from_reference,
                                     params_from_reference,
                                     stacked_from_reference)
 from repro_torch.configs import get_smoke_config
-from repro_torch.data import TokenStream
 from repro_torch.launch import steps
 from repro_torch.mapper.executor import max_deviation
 from repro_torch.models import transformer
-from repro_torch.optim import make_optimizer
 from repro_torch.serve import Request, ServeEngine
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -244,22 +242,3 @@ def test_bridge_carries_the_moe_leaves_and_pools(case):
             assert leaf.data_ptr() - pool[name].data_ptr() == (
                 int(path.split("/")[1][len("block"):])
                 * pool[name][0].nbytes)
-
-
-def test_train_entry_points_refused_naming_item_5_3b(case):
-    rcfg, cfg, rparams, flat, tree = case
-    batch = {k: torch.as_tensor(v) for k, v in TokenStream(
-        cfg.vocab_size, 8, 2).batch(0).items()}
-    cases = [
-        lambda: steps.make_loss_fn(cfg),
-        lambda: steps.make_train_step(cfg)(
-            tree, make_optimizer("adamw", lr=3e-4).init(tree), batch),
-        lambda: mapper.map_arch(cfg.name, "train", config=cfg),
-        lambda: mapper.compile_arch(cfg.name, "train", config=cfg,
-                                    device="cpu"),
-        lambda: torch.func.grad(lambda p: transformer.apply(
-            cfg, p, batch["tokens"]).sum())(tree),
-    ]
-    for call in cases:
-        with pytest.raises(NotImplementedError, match="item 5.3b"):
-            call()
