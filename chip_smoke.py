@@ -40,9 +40,10 @@ Phases, each printing one JSON line:
 5. ``profile``   — a short second load on the same engine under
    ``torch.profiler``: device time by kernel group (K4's two kernels,
    K6's two, matrix products, the rest) against wall time.
-6. ``serve_kvq`` — the same model serves 16 requests over an fp8_e4m3 KV
-   pool (kernel path, replayed prompts); K6 must run once per layer per
-   tick, K4 never. ``profile_kvq`` profiles a second load on it.
+6. ``serve_kvq`` — the same model serves 8 requests (one wave of the 8
+   slots; a second wave's ~35 s is left to later phases) over an
+   fp8_e4m3 KV pool (kernel path, replayed prompts); K6 must run once per
+   layer per tick, K4 never. ``profile_kvq`` profiles a second load on it.
 7. ``pim_lenet``   — the paper's LeNet-5 through the mapper: the compiled
    program (K1 and K3) and the per-block executor (K2 and K3) at batch 256
    and 4096 over digit images, with seeded random parameters and non-zero
@@ -340,6 +341,25 @@ Phases, each printing one JSON line:
    batch 4, seq 2048: ms a step, tokens/s, device ms and busy share, the
    experts' ``bmm`` share of device time, peak memory. Then
    ``kernels_pim`` at (a)'s launches (``"path": "moe_train"``: K3).
+28. ``recurrent`` — the recurrent families for serving (item 5.4, the
+   serve half), after ``moe_train``: xlstm-350m (units of an mLSTM and
+   an sLSTM block) and zamba2-7b (groups of 6 Mamba2 layers, each
+   followed by the weight-tied attention + MLP block, then 3 tail
+   layers). Holds at the published width in float32, TF32 off, cut to
+   xlstm 4 layers and zamba2 13 (2 groups and the tail's 1): (a) decode
+   == prefill over 16 positions at the reference's 2e-3 / 2e-2, and the
+   chunked mLSTM / Mamba2 == its sequential form at seq 512 (2 / 4
+   chunks) at 2e-4 / 1e-3; (b) the decode step expanded through the
+   mapper on both grids, bit for bit the executor, its launches the
+   CPU's plan (``REC_DECODE_PLAN``), within 1e-4 of the plain step, 8
+   greedy steps with identical tokens, no host sync, the last K3 wave
+   one ulp off failing; (c) ``ServeEngine(paged=False, backend="pim")``
+   token-identical to jit over 12 requests in 8 lanes (recycled), one K1
+   and 3 K3 a tick. Time (bf16, not cut): both through
+   ``ServeEngine(paged=False)``, batch 8 (ms a tick, tok/s, device ms,
+   kernels and busy share a tick, peak memory), and one
+   ``make_prefill_step`` call at seq 2048. Then ``kernels_pim`` at (b)'s
+   launches (``"path": "recurrent"``: K1, K2, K3; ``recurrent_q``: K5).
 
 Then the card's name and power limit, one line with every kernel's
 numbers, and as the last line ``{"ok": true, "device": {...}}``. Any
@@ -1188,20 +1208,25 @@ def phase_profile(eng, seed: int, phase: str = "profile",
 # 6. serve_kvq: the same model over an fp8_e4m3 KV pool
 # ---------------------------------------------------------------------------
 
+# one wave of the 8 slots: a second wave of 8 added ~35 s of ticks of the
+# same kind, and the script's time limit is shared by every phase
+SERVE_KVQ_REQUESTS = 8
+
 
 def phase_serve_kvq(model, seed: int) -> dict:
     """llama3-8b full config, bf16, over a ``SERVE_KV_DTYPE`` pool: the
     kernel path with replayed prompts (a bf16 model with a quantized pool
-    runs nowhere else, as in the reference). 16 requests of 64–256 prompt
-    tokens, 32 output tokens each, all submitted at once."""
+    runs nowhere else, as in the reference). ``SERVE_KVQ_REQUESTS``
+    requests of 64–256 prompt tokens, 32 output tokens each, all
+    submitted at once."""
     import torch
     from repro_torch import obs
     from repro_torch.kernels.flash_attention import (
         paged_decode_attention_grouped, paged_decode_attention_grouped_q)
     from repro_torch.serve import Request, ServeEngine
     cfg = model.cfg
-    prompts = make_prompts(np.random.default_rng(seed + 3), 16, 64, 256,
-                           cfg.vocab_size)
+    prompts = make_prompts(np.random.default_rng(seed + 3),
+                           SERVE_KVQ_REQUESTS, 64, 256, cfg.vocab_size)
     finite = []
 
     def sample(logits):
@@ -6854,6 +6879,389 @@ def phase_moe_train(seed: int) -> dict:
     return {"launches": launches, "shapes": shapes}
 
 
+# ---------------------------------------------------------------------------
+# 28. recurrent: xlstm-350m and zamba2-7b for serving (item 5.4)
+# ---------------------------------------------------------------------------
+
+REC_ARCHS = ("xlstm-350m", "zamba2-7b")
+# the holds at the published width in float32, cut in depth: xlstm to 4
+# layers (2 units of an mLSTM and an sLSTM block), zamba2 to 13 (2 groups
+# of 6 Mamba2 layers, each with the shared attention site, and the tail's
+# 1)
+REC_LAYERS = {"xlstm-350m": 4, "zamba2-7b": 13}
+# (a) decode == prefill at the reference's own tolerance
+# (tests/test_arch_smoke.py), and the chunked forms == the sequential ones
+# at seq 512 (2 mLSTM chunks of 256, 4 Mamba2 chunks of 128) at the
+# reference's (tests/test_attention_ssm.py)
+REC_CONSISTENCY = dict(batch=2, seq_len=16, atol=2e-3, rtol=2e-2)
+REC_CHUNKED = dict(batch=1, seq_len=512, atol=2e-4, rtol=1e-3)
+# (b) the decode step expanded through the mapper at LLAMA_HOLD's batch
+# and cache: the CPU's plan (products, K3 launches, K3 members) of the cut
+# configs' structure (tests/test_torch_recurrent_schedules.py, at the
+# smoke width: the width does not move it); the batched products (the
+# mLSTM's two einsums, the Mamba2 conv's and output's) run natively, as
+# the reference's lowering declines batched dot_generals, and zamba2's
+# Mamba2 layers inside each group stay a folded loop of their own
+REC_DECODE_PLAN = {"xlstm-350m": (29, 81, 95), "zamba2-7b": (15, 23, 23)}
+REC_STEPS = 8
+# (c) the contiguous lanes' pim engine against the jit engine, cut depth
+REC_ENGINE = dict(batch=8, max_len=64, requests=12, lo=4, hi=16,
+                  max_tokens=8)
+# the time: bf16, not cut, through ServeEngine(paged=False): 8 requests of
+# 16 prompt tokens and 16 output tokens in 8 lanes of 128 (31 ticks); then
+# one make_prefill_step call at seq 2048, after a warm call at 64
+REC_TIME = dict(batch=8, max_len=128, prompt=16, max_tokens=16)
+REC_PREFILL = dict(batch=1, seq_len=2048)
+
+
+def recurrent_model(arch: str, seed: int, **changes):
+    """(config, ``DecoderLM`` on the card from ``seed``) of ``arch``'s
+    published config with ``changes``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import DecoderLM
+    cfg = dataclasses.replace(get_config(arch), **changes)
+    return cfg, DecoderLM(cfg, device=DEVICE).init(seed)
+
+
+def recurrent_consistency(cfg, model, seed: int) -> dict:
+    """(a): greedy decode logits against the full-sequence logits position
+    by position (``REC_CONSISTENCY``), and the block's chunked form
+    against its sequential one at ``REC_CHUNKED`` (xlstm: layer 0's
+    mLSTM; zamba2: layer 0's Mamba2), on the module's own tree."""
+    import torch
+    from repro_torch.mapper.executor import full_float32
+    from repro_torch.models import ssm, transformer
+    c, k = REC_CONSISTENCY, REC_CHUNKED
+    tree = model.shared_stacked_params()
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 100)
+    toks = torch.randint(0, cfg.vocab_size, (c["batch"], c["seq_len"]),
+                         generator=gen, device=DEVICE, dtype=torch.int32)
+    tol = dict(atol=c["atol"], rtol=c["rtol"])
+    with torch.no_grad(), full_float32():
+        full = transformer.apply(cfg, tree, toks)
+        cache = model.init_cache(c["batch"], c["seq_len"])
+        worst = 0.0
+        for t in range(c["seq_len"]):
+            lg, cache = transformer.decode_step(
+                cfg, tree, cache, toks[:, t],
+                torch.tensor(t, dtype=torch.int32, device=DEVICE))
+            torch.testing.assert_close(lg, full[:, t], **tol)
+            worst = max(worst, float((lg - full[:, t]).abs().max()))
+        x = torch.randn((k["batch"], k["seq_len"], cfg.d_model),
+                        generator=gen, device=DEVICE)
+        blk = model.layers[0]
+        if cfg.block_pattern == "xlstm":
+            seq = ssm.mlstm_seq(x, blk, cfg.n_heads)
+            chk = ssm.mlstm_seq_chunked(x, blk, cfg.n_heads)
+            chunks = k["seq_len"] // 256
+        else:
+            kw = dict(ssm_state=cfg.ssm_state, headdim=cfg.mamba_headdim)
+            seq = ssm.mamba2_seq(x, blk, **kw)
+            chk = ssm.mamba2_seq_chunked(x, blk, **kw)
+            chunks = k["seq_len"] // 128
+        torch.testing.assert_close(chk, seq, atol=k["atol"], rtol=k["rtol"])
+    return {"decode_vs_prefill": {**c, "max_abs_err": worst},
+            "chunked_vs_sequential": {
+                **k, "block": "mlstm" if cfg.block_pattern == "xlstm"
+                else "mamba2", "chunks": chunks,
+                "max_abs_err": float((chk - seq).abs().max())}}
+
+
+def recurrent_hold(seed: int, arch: str, cfg, model,
+                   weight_dtype: str) -> dict:
+    """(b): ``compile_arch(arch, "serve", expand_scans=True)`` at the cut
+    ``cfg`` and ``LLAMA_HOLD``'s batch and cache, on the module's tree:
+    every count set to 0 just before one compiled step and one executor
+    run, read just after, against the CPU's plan (``REC_DECODE_PLAN``);
+    the compiled step bit for bit the executor's, and against the plain
+    step (fp32: ``prog.verify``; int8: ``run_fake_quant_plain``) at
+    ``LLAMA_TOL``; ``REC_STEPS`` greedy steps with identical tokens; no
+    host sync in a compiled step; the control: the last K3 wave one ulp
+    off must break the bit equality."""
+    import torch
+    from repro_torch import mapper
+    from repro_torch.launch import make_serve_step
+    from repro_torch.mapper.executor import (full_float32, max_deviation,
+                                             run_fake_quant_plain)
+    b, s = LLAMA_HOLD["batch"], LLAMA_HOLD["seq_len"]
+    mm = "k1" if weight_dtype == "fp32" else "k5"
+    label = f"recurrent {arch} {weight_dtype}"
+    params = model.shared_stacked_params()
+    cache = model.init_cache(b, s)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 101)
+    tok = torch.randint(0, cfg.vocab_size, (b,), generator=gen,
+                        device=DEVICE, dtype=torch.int32)
+    pos0 = torch.tensor(0, dtype=torch.int32, device=DEVICE)
+    t0 = time.perf_counter()
+    prog = mapper.compile_arch(arch, "serve", batch=b, seq_len=s,
+                               weight_dtype=weight_dtype, config=cfg,
+                               expand_scans=True)
+    compile_s = time.perf_counter() - t0
+    n_mm, n_k3, n_calls = REC_DECODE_PLAN[arch]
+    ex = mapper.ScheduleExecutor(prog.schedule)
+    step = make_serve_step(cfg)
+    leaves = torch.utils._pytree.tree_leaves
+
+    def plain(params, cache, tok, pos):
+        if weight_dtype == "fp32":
+            return step(params, cache, tok, pos)
+        return run_fake_quant_plain(prog.schedule, params, cache, tok, pos)
+
+    with torch.no_grad(), full_float32():
+        reset_counts()
+        with recording_launches() as prog_log:
+            out = prog(params, cache, tok, pos0)
+        prog_counts = read_counts()
+        with recording_launches() as ex_log:
+            ex_out = ex.run(params, cache, tok, pos0)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        ex_counts = {k: counts[k] - prog_counts[k] for k in counts}
+        blocks = prog.placed_blocks
+        want = ({"k1": 0, "k2": 0, "k3": n_k3, "k5": 0, mm: n_mm},
+                {"k1": 0, "k2": blocks, "k3": n_calls, "k5": 0})
+        if (prog_counts, ex_counts) != want or (
+                prog.matmul_launches, prog.eltwise_launches,
+                prog.eltwise_calls) != (n_mm, n_k3, n_calls):
+            raise AssertionError(f"{label}: launches {prog_counts} "
+                                 f"compiled, {ex_counts} per-block; want "
+                                 f"{want}")
+        logits = out[0]
+        if logits.shape != (b, cfg.vocab_size) or not bool(
+                torch.isfinite(logits).all()):
+            raise AssertionError(f"{label}: logits {tuple(logits.shape)} "
+                                 f"not finite")
+        if not all(torch.equal(x, y)
+                   for x, y in zip(leaves(out), leaves(ex_out))):
+            raise AssertionError(f"{label}: the compiled step differs from "
+                                 f"the per-block executor's")
+        del ex_out
+        if weight_dtype == "fp32":
+            vs_plain = prog.verify(params, cache, tok, pos0, **LLAMA_TOL)
+        else:
+            vs_plain = max_deviation(out, plain(params, cache, tok, pos0),
+                                     **LLAMA_TOL)
+        c_cache = p_cache = cache
+        c_tok = p_tok = tok
+        worst = 0.0
+        for i in range(REC_STEPS):
+            pos = torch.tensor(i, dtype=torch.int32, device=DEVICE)
+            lc, c_cache = prog(params, c_cache, c_tok, pos)
+            lp, p_cache = plain(params, p_cache, p_tok, pos)
+            worst = max(worst, max_deviation(lc, lp, **LLAMA_TOL))
+            c_tok = lc.argmax(-1).to(torch.int32)
+            p_tok = lp.argmax(-1).to(torch.int32)
+            if not torch.equal(c_tok, p_tok):
+                raise AssertionError(f"{label}: step {i} tokens differ")
+        state_dev = max_deviation(c_cache, p_cache, **LLAMA_TOL)
+        del c_cache, p_cache
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            prog(params, cache, tok, pos0)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        # the control: the last K3 wave one ulp off
+        with recording_helpers(fault=ulp_up, key="k3", index=n_k3 - 1):
+            bad = prog(params, cache, tok, pos0)
+        differing = sum(int((x != y).sum())
+                        for x, y in zip(leaves(bad), leaves(out)))
+        if not differing:
+            raise AssertionError(f"{label}: the last K3 wave one ulp off "
+                                 f"passes the bit-for-bit hold")
+    shapes = {mm: prog_log[mm], "k2": ex_log["k2"],
+              "k3": prog_log["k3_forms"]}
+    r = {"weight_dtype": weight_dtype, "launches": counts,
+         "launches_per_step": {"compiled": prog_counts,
+                               "per_block": ex_counts},
+         "placed_blocks": blocks, "nodes": len(prog.schedule.graph.nodes),
+         "subarrays": prog.schedule.placement.n_subarrays,
+         "expanded": prog.schedule.graph.groups, "compile_s": compile_s,
+         "compiled_bit_equal_executor": True,
+         "plain": ("decode_step" if weight_dtype == "fp32" else
+                   "run_fake_quant_plain: the plain step over the stored "
+                   "weights"),
+         "max_abs_err_vs_plain": vs_plain, "greedy_steps": REC_STEPS,
+         "greedy_max_abs_err": worst, "greedy_tokens_identical": True,
+         "state_max_abs_err": state_dev, "host_syncs_in_step": 0,
+         "control_last_wave_one_ulp_elements_differing": differing}
+    del params, cache, out, prog, ex, bad
+    return {"row": r, "shapes": shapes, "launches": counts}
+
+
+def recurrent_engine(cfg, model, seed: int) -> dict:
+    """(c): ``ServeEngine(paged=False, backend="pim")`` against the jit
+    engine on ``REC_ENGINE``'s requests (more than the lanes: recycled
+    mid-stream): tokens identical; each tick one K1 (the LM head) and
+    ``LLAMA_K3`` K3 launches (the final norm), the folded stack native,
+    the counts set to 0 just before the pim run and read just after."""
+    import torch
+    from repro_torch.serve import Request, ServeEngine
+    e = REC_ENGINE
+    prompts = make_prompts(np.random.default_rng(seed + 102),
+                           e["requests"], e["lo"], e["hi"], cfg.vocab_size)
+
+    def run(backend):
+        eng = ServeEngine(cfg, model, paged=False, batch=e["batch"],
+                          max_len=e["max_len"], backend=backend,
+                          device=DEVICE)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p, max_tokens=e["max_tokens"]))
+        reset_counts()
+        out = {r.rid: list(r.out) for r in eng.run()}
+        return eng, out, read_counts()
+
+    with torch.no_grad():
+        eng, got, counts = run("pim")
+        _, want, _ = run("jit")
+    if got != want or len(got) != e["requests"]:
+        raise AssertionError(f"recurrent {cfg.name} pim engine: tokens "
+                             f"differ from the jit engine's")
+    ticks = eng._tick
+    want_counts = {"k1": ticks, "k2": 0, "k3": LLAMA_K3 * ticks, "k5": 0}
+    if counts != want_counts:
+        raise AssertionError(f"recurrent {cfg.name} pim engine: launches "
+                             f"{counts}, want {want_counts}")
+    row = {**e, "ticks": ticks, "tokens_identical_to_jit": True,
+           "launches_per_tick": {k: v / ticks for k, v in counts.items()
+                                 if v},
+           "nodes": len(eng.schedule.graph.nodes),
+           "subarrays": eng.schedule.placement.n_subarrays}
+    del eng
+    return {"row": row, "launches": counts}
+
+
+def recurrent_time(arch: str, seed: int) -> dict:
+    """The published config as it is (bf16, every layer) through
+    ``ServeEngine(paged=False)`` at ``REC_TIME``: ms a tick, decode
+    tokens/s, then 3 ticks under the profiler (device ms, kernels and the
+    busy share a tick), and one ``make_prefill_step`` call at
+    ``REC_PREFILL`` after a warm call at 64 tokens (ms, tokens/s); peak
+    memory."""
+    import torch
+    from repro_torch import obs
+    from repro_torch.launch import make_prefill_step
+    from repro_torch.serve import Request, ServeEngine
+    t = REC_TIME
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, model = recurrent_model(arch, seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = make_prompts(np.random.default_rng(seed + 103), t["batch"],
+                           t["prompt"], t["prompt"], cfg.vocab_size)
+    eng = ServeEngine(cfg, model, paged=False, batch=t["batch"],
+                      max_len=t["max_len"], device=DEVICE)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=p, max_tokens=t["max_tokens"]))
+    tr = obs.enable()
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    obs.disable()
+    if len(done) != len(prompts) or any(
+            len(r.out) != t["max_tokens"]
+            or not all(0 <= x < cfg.vocab_size for x in r.out)
+            for r in done):
+        raise AssertionError(f"recurrent time {arch}: not every request "
+                             f"finished with valid tokens")
+    decode_s = sum(e.dur_s for e in tr.spans(name="decode:tick"))
+    generated = sum(len(r.out) for r in done)
+    feed = np.zeros(t["batch"], np.int32)
+    prof = profile_device(lambda: eng.step(1, feed), calls=3)
+    pre = make_prefill_step(cfg)
+    p = REC_PREFILL
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 104)
+    toks = torch.randint(0, cfg.vocab_size, (p["batch"], p["seq_len"]),
+                         generator=gen, device=DEVICE, dtype=torch.int32)
+    warm = pre(eng.params, {"tokens": toks[:, :64]})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last = pre(eng.params, {"tokens": toks})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    if last.shape != (p["batch"], cfg.vocab_size) or not bool(
+            torch.isfinite(last.float()).all()) or not bool(
+            torch.isfinite(warm.float()).all()):
+        raise AssertionError(f"recurrent time {arch}: prefill logits not "
+                             f"finite")
+    row = {"config": f"{arch} published ({config_file(arch)}), bf16, "
+                     f"{cfg.n_layers} layers",
+           **t, "init_s": init_s, "ticks": eng._tick,
+           "generated_tokens": generated, "wall_s": wall_s,
+           "decode_s": decode_s, "decode_tok_per_s": generated / decode_s,
+           "tick_ms": decode_s / eng._tick * 1e3,
+           "profile": prof,
+           "prefill": {**p, "ms": prefill_s * 1e3,
+                       "tok_per_s": p["batch"] * p["seq_len"] / prefill_s},
+           "max_memory_allocated_gb":
+               torch.cuda.max_memory_allocated() / 1e9}
+    del eng, done, model, warm, last
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_recurrent(seed: int) -> dict:
+    """The recurrent families for serving (item 5.4, the serve half):
+    xlstm-350m (alternating mLSTM / sLSTM blocks) and zamba2-7b (Mamba2
+    layers, a weight-tied attention + MLP block every 6). Holds at the
+    published width in float32, cut to ``REC_LAYERS``, TF32 off: (a)
+    decode == prefill and chunked == sequential
+    (``recurrent_consistency``); (b) the decode step expanded through the
+    mapper on both grids (``recurrent_hold``); (c) the contiguous lanes'
+    pim engine against jit (``recurrent_engine``). Time (bf16, not cut):
+    ``recurrent_time``. Emitted as one ``recurrent`` line."""
+    import gc as gc_mod
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    seconds = {}
+    launches = {k: 0 for k in PIM_KEYS}
+
+    def part(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        seconds[name] = time.perf_counter() - t0
+        print(f"[{time.perf_counter() - T0:.1f} s] recurrent {name} "
+              f"{seconds[name]:.1f} s", file=sys.stderr, flush=True)
+        return out
+
+    holds, shapes = {}, {"fp32": {}, "int8": {}}
+    for arch in REC_ARCHS:
+        cfg, model = part(f"init {arch}", lambda arch=arch: recurrent_model(
+            arch, seed, n_layers=REC_LAYERS[arch], dtype="float32"))
+        h = {"consistency": part(f"consistency {arch}",
+                                 lambda: recurrent_consistency(cfg, model,
+                                                               seed))}
+        for grid in ("fp32", "int8"):
+            d = part(f"decode {arch} {grid}", lambda grid=grid:
+                     recurrent_hold(seed, arch, cfg, model, grid))
+            h[f"decode_{grid}"] = d["row"]
+            for key, rows in d["shapes"].items():
+                shapes[grid].setdefault(key, []).extend(rows)
+            for k in launches:
+                launches[k] += d["launches"][k]
+        e = part(f"pim_engine {arch}", lambda: recurrent_engine(cfg, model,
+                                                                seed))
+        h["pim_engine"] = e["row"]
+        for k in launches:
+            launches[k] += e["launches"][k]
+        holds[arch] = h
+        del model
+        gc_mod.collect()
+        torch.cuda.empty_cache()
+    timing = {arch: part(f"time {arch}", lambda arch=arch: recurrent_time(
+        arch, seed)) for arch in REC_ARCHS}
+    emit({"phase": "recurrent", "seconds": seconds,
+          "configs": {a: config_file(a) for a in REC_ARCHS},
+          "reduced": {"holds": {"n_layers": REC_LAYERS, "dtype": "float32"},
+                      "time": "none"},
+          "holds": holds, "time": timing, "launches": launches})
+    return {"launches": launches, "shapes": shapes}
+
+
 def sums(rows) -> dict:
     """Times and bounds of one run's launches: each distinct shape's
     numbers times its count, summed (each shape's bound the larger of its
@@ -6910,7 +7318,9 @@ def pim_entry(ids, key, by_path, rows) -> dict:
             "moe_variants": (sums(rows["moe_variants"][key])
                              if rows["moe_variants"].get(key) else None),
             "moe_train": (sums(rows["moe_train"][key])
-                          if rows["moe_train"].get(key) else None)}
+                          if rows["moe_train"].get(key) else None),
+            "recurrent": (sums(rows["recurrent"][key])
+                          if rows["recurrent"].get(key) else None)}
 
 
 def with_counts(shapes: dict) -> dict:
@@ -7072,6 +7482,14 @@ def main() -> int:
     rows["moe_train"] = phase_kernels_pim(
         args.seed, with_counts(moe_train["shapes"]), "moe_train",
         MOE_TRAIN_HOLD["batch"], iters=3, plain_iters=1)
+    rec = phase_recurrent(args.seed)
+    by_path["recurrent"] = rec["launches"]
+    rows["recurrent"] = phase_kernels_pim(
+        args.seed, with_counts(rec["shapes"]["fp32"]), "recurrent",
+        LLAMA_HOLD["batch"], iters=3, plain_iters=1)
+    rows["recurrent_q"] = phase_kernels_pim_q(
+        args.seed, with_counts({"k5": rec["shapes"]["int8"]["k5"]})["k5"],
+        "recurrent_q", LLAMA_HOLD["batch"], iters=3, plain_iters=1)
     print(gpu_name_and_power_limit(), flush=True)
 
     def entry(ids, launches, r):
@@ -7097,7 +7515,8 @@ def main() -> int:
                    for path in ("pim_lenet_q", "pim_train_q", "pim_grad_q",
                                 "pim_llama_q", "pim_llama_pipe",
                                 "serve_pim", "dense_variants",
-                                "io_variants", "moe_variants")}
+                                "io_variants", "moe_variants",
+                                "recurrent")}
     k4_bf16 = k4["bfloat16"]
     k6_serve = k6[(SERVE_KV_DTYPE, "bfloat16")]
     k4_launches = {"serve": serve["launches"],
@@ -7149,7 +7568,8 @@ def main() -> int:
          "pim_llama_pipe": sums(rows["pim_llama_pipe_q"]),
          "dense_variants": sums(rows["dense_variants_q"]),
          "io_variants": sums(rows["io_variants_q"]),
-         "moe_variants": sums(rows["moe_variants_q"])},
+         "moe_variants": sums(rows["moe_variants_q"]),
+         "recurrent": sums(rows["recurrent_q"])},
         {**K7, "launches": attn["launches"],
          "max_abs_err": long_bf16["max_err"],
          **{k: long_bf16[k] for k in ("ms", "plain_ms", "bound_ms",

@@ -31,8 +31,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.configs.lenet5 import CONFIG as LENET5, LeNetConfig
 from repro_torch.core import quant
 from repro_torch.models import lenet
-from repro_torch.models.transformer import (DecoderLM, layer_leaves,
-                                            leaf_at, leaf_shapes, n_units,
+from repro_torch.models.transformer import (DecoderLM, leaf_at,
+                                            leaf_layout, leaf_shapes,
                                             param_tree)
 from repro_torch.optim.optimizers import BLOCK as OPT_BLOCK
 
@@ -55,27 +55,24 @@ def params_from_reference(flat: Mapping[str, np.ndarray], cfg: ArchConfig,
     """A ``DecoderLM`` on ``device`` (CUDA by default) whose parameters
     equal the reference's flattened ``flat``. Raises on a missing key, a
     key left over, or a shape or dtype that does not match."""
-    missing = set(leaf_shapes(cfg)) - set(flat)
+    layout = leaf_layout(cfg)
+    missing = set(layout) - set(flat)
     if missing:
         raise ValueError(f"reference leaves missing: {sorted(missing)}")
-    model = DecoderLM(cfg, device=device)
-    want: dict[str, tuple[torch.Tensor, np.ndarray]] = {}
-    want["embed/table"] = (model.embed.table, flat["embed/table"])
-    want["final_norm/scale"] = (model.final_norm.scale,
-                                flat["final_norm/scale"])
-    if model.lm_head is not None:       # tied: the head is the table
-        want["lm_head/w"] = (model.lm_head.w, flat["lm_head/w"])
-    for name, attr in layer_leaves(cfg).items():
-        key = f"layers/{name}"
-        stacked = flat[key]
-        if stacked.shape[0] != n_units(cfg):
-            raise ValueError(f"{key}: {stacked.shape[0]} stacked units, "
-                             f"config has {n_units(cfg)}")
-        for u, blk in enumerate(model.unit_layers(name)):
-            want[f"{key}[{u}]"] = (blk.get_parameter(attr), stacked[u])
-    extra = set(flat) - {k.split("[")[0] for k in want}
+    extra = set(flat) - set(layout)
     if extra:
         raise ValueError(f"reference leaves not ported: {sorted(extra)}")
+    model = DecoderLM(cfg, device=device)
+    want: dict[str, tuple[torch.Tensor, np.ndarray]] = {}
+    for key, (dims, shape, owners) in layout.items():
+        arr = np.asarray(flat[key])
+        if tuple(arr.shape[:len(dims)]) != dims:
+            raise ValueError(f"{key}: stacked {arr.shape[:len(dims)]}, "
+                             f"config has {dims}")
+        rows = arr.reshape(-1, *arr.shape[len(dims):]) if dims else [arr]
+        for i, path in enumerate(owners):
+            want[f"{key}[{i}]" if dims else key] = (
+                model.get_parameter(path), rows[i])
     with torch.no_grad():
         for key, (param, arr) in want.items():
             t = _to_torch(arr)
@@ -153,14 +150,10 @@ def model_from_stacked(tree: Mapping, cfg: ArchConfig,
     ``device`` (CUDA by default) whose parameters equal the tree's."""
     model = DecoderLM(cfg, device=device)
     with torch.no_grad():
-        model.embed.table.copy_(tree["embed"]["table"])
-        model.final_norm.scale.copy_(tree["final_norm"]["scale"])
-        if model.lm_head is not None:
-            model.lm_head.w.copy_(tree["lm_head"]["w"])
-        for key, attr in layer_leaves(cfg).items():
-            stacked = leaf_at(tree["layers"], key)
-            for u, blk in enumerate(model.unit_layers(key)):
-                blk.get_parameter(attr).copy_(stacked[u])
+        for key, (dims, shape, owners) in leaf_layout(cfg).items():
+            rows = leaf_at(tree, key).reshape(-1, *shape)
+            for i, path in enumerate(owners):
+                model.get_parameter(path).copy_(rows[i])
     return model
 
 

@@ -12,7 +12,7 @@ from repro_torch.configs.lenet5 import CONFIG as LENET5, LeNetConfig
 
 ARCH_IDS = ("qwen3-32b", "chatglm3-6b", "llama3-8b", "qwen2.5-32b",
             "musicgen-medium", "qwen2-vl-2b", "granite-moe-1b-a400m",
-            "llama4-maverick-400b-a17b")
+            "llama4-maverick-400b-a17b", "xlstm-350m", "zamba2-7b")
 
 _MODULES = {
     "qwen3-32b": "qwen3_32b",
@@ -23,6 +23,8 @@ _MODULES = {
     "qwen2-vl-2b": "qwen2_vl_2b",
     "granite-moe-1b-a400m": "granite_moe",
     "llama4-maverick-400b-a17b": "llama4_maverick",
+    "xlstm-350m": "xlstm_350m",
+    "zamba2-7b": "zamba2_7b",
 }
 
 

@@ -73,7 +73,8 @@ def make_loss_fn(cfg: ArchConfig) -> Callable:
     and cross entropy over chunks of 512 tokens (``layers.fused_xent_head``;
     the float32 logits never exist whole); a tied head's weight is the
     embedding table's transpose. A block pattern still to port raises
-    ``NotImplementedError`` (``transformer.check_ported``)."""
+    ``NotImplementedError`` (``transformer.check_ported``: the recurrent
+    patterns' train step, item 5.4b)."""
     transformer.check_ported(cfg)
 
     def loss_fn(params, batch):
@@ -159,8 +160,7 @@ def make_prefill_step(cfg: ArchConfig) -> Callable:
     """(params, batch) -> the last position's logits [B, V] (inference
     prefill): ``transformer.apply`` on ``batch["tokens"]`` (or ``embeds``,
     and ``positions``, as ``make_loss_fn`` reads them), its stack the
-    undifferentiated one, under ``torch.no_grad``."""
-    transformer.check_ported(cfg)
+    undifferentiated one (every block pattern), under ``torch.no_grad``."""
 
     def prefill_step(params, batch):
         with torch.no_grad():

@@ -5,7 +5,13 @@ chatglm3-6b; frame embeddings in, musicgen-medium; embeddings in, M-RoPE
 over a (t, h, w) position grid and the head tied to the embedding table,
 qwen2-vl-2b; mixture-of-experts FFNs, granite-moe-1b-a400m on every
 layer and llama4-maverick-400b-a17b on every second with a shared
-expert), on a paged KV pool and against a contiguous cache.
+expert), on a paged KV pool and against a contiguous cache; and for
+the recurrent patterns (item 5.4, serving), ``"xlstm"`` (xlstm-350m:
+units of an mLSTM then an sLSTM block) and ``"mamba_shared_attn"``
+(zamba2-7b: groups of ``shared_attn_every`` Mamba2 layers, each followed
+by one weight-tied attention + MLP block, then a tail of Mamba2 layers),
+whose blocks are ``models.ssm``'s, against a contiguous cache of their
+O(1) states (and zamba2's per-group KV).
 
 The reference stacks units of ``unit_blocks`` blocks (``moe_interleave``
 with experts: the unit's last block has the MoE FFN, the others the
@@ -21,7 +27,15 @@ device (the reference's distributions, not its numbers).
 
 The MoE configs serve and train everywhere llama3-8b does: the
 differentiated stack writes out the MoE block's VJP too
-(``moe.moe_block_bwd``).
+(``moe.moe_block_bwd``). The recurrent patterns serve through
+``decode_step`` and ``hidden_states`` / ``apply`` undifferentiated
+(``_decode_recurrent``, ``_forward_recurrent``: each of the reference's
+loops a ``"scan"`` region — the units, zamba2's groups with a ``"mamba"``
+loop inside each, its ``"tail"``), with one module a layer (``ssm.
+RecurrentBlock``) and zamba2's shared block once (``SharedBlock``);
+``leaf_layout`` maps every leaf of the tree to the modules holding its
+slices. The paged entry points raise for them, as the reference's do,
+and their differentiated stack is item 5.4b (``check_ported``).
 
 Entry points:
   * ``decode_step_paged(cache, token, block_table, pos)`` -> logits
@@ -71,9 +85,10 @@ import torch
 from torch import nn
 
 from repro_torch._device import resolve_device, torch_dtype
+from repro_torch._tree import leaves_with_path, tree_map
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import estimator
-from repro_torch.models import attention, layers, moe
+from repro_torch.models import attention, layers, moe, ssm
 
 # the reference's per-block leaves of a dense block (``layers/block<i>/
 # <name>``, stacked over the units on a leading axis) and the port's block
@@ -98,8 +113,23 @@ def unit_blocks(cfg: ArchConfig) -> int:
     return max(cfg.moe_interleave, 1) if cfg.n_experts else 1
 
 
+RECURRENT = ("xlstm", "mamba_shared_attn")
+
+
 def n_units(cfg: ArchConfig) -> int:
-    """The scanned units of the stack (the reference's ``StackLayout``)."""
+    """The scanned units of the stack (the reference's ``StackLayout``):
+    xlstm's are (mLSTM, sLSTM) pairs, zamba2's groups of
+    ``shared_attn_every`` Mamba2 layers (the rest the tail,
+    ``tail_units``)."""
+    if cfg.block_pattern == "xlstm":
+        if cfg.n_layers % 2:
+            raise ValueError(f"{cfg.n_layers} layers are not whole "
+                             f"(mLSTM, sLSTM) units")
+        return cfg.n_layers // 2
+    if cfg.block_pattern == "mamba_shared_attn":
+        return cfg.n_layers // cfg.shared_attn_every
+    if cfg.block_pattern != "attn":
+        raise ValueError(cfg.block_pattern)
     n = unit_blocks(cfg)
     if cfg.n_layers % n:
         raise ValueError(f"{cfg.n_layers} layers are not whole units of "
@@ -166,29 +196,97 @@ def _block_shapes(cfg: ArchConfig, i: int) -> dict[str, tuple[int, ...]]:
     return shapes
 
 
+def tail_units(cfg: ArchConfig) -> int:
+    """zamba2's Mamba2 layers after its last whole group (a scan of their
+    own in the reference, ``tail_layers``); 0 for the other patterns."""
+    if cfg.block_pattern != "mamba_shared_attn":
+        return 0
+    return cfg.n_layers % cfg.shared_attn_every
+
+
+def _recurrent_groups(cfg: ArchConfig) -> list:
+    """The recurrent patterns' parameter groups: (tree prefix, stacked
+    dims, the leaves' shapes, the module path of slice ``i`` in row-major
+    order over the stacked dims). xlstm: unit ``u``'s mLSTM and sLSTM
+    are layers ``2u`` and ``2u + 1``; zamba2: group ``u``'s Mamba2 layer
+    ``j`` is layer ``u·every + j``, the tail's ``t`` the layer after the
+    groups', the weight-tied shared block one module, ``shared``."""
+    d, h = cfg.d_model, cfg.n_heads
+    units = n_units(cfg)
+    if cfg.block_pattern == "xlstm":
+        return [("layers/mlstm", (units,), ssm.mlstm_shapes(d, h),
+                 lambda i: f"layers.{2 * i}"),
+                ("layers/slstm", (units,), ssm.slstm_shapes(d, h),
+                 lambda i: f"layers.{2 * i + 1}")]
+    every, tail = cfg.shared_attn_every, tail_units(cfg)
+    mamba = ssm.mamba2_shapes(d, cfg.ssm_state, cfg.mamba_headdim,
+                              cfg.mamba_conv_width)
+    hd, f = cfg.resolved_head_dim, cfg.d_ff
+    hq, hkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    groups = [("layers/mamba", (units, every), mamba, lambda i: f"layers.{i}")]
+    if tail:
+        groups.append(("tail_layers/mamba", (tail,), mamba,
+                       lambda i: f"layers.{units * every + i}"))
+    return groups + [
+        ("shared_attn", (), {"wk": (d, hkv), "wo": (hq, d), "wq": (d, hq),
+                             "wv": (d, hkv)}, lambda i: "shared.attn"),
+        ("shared_mlp", (), {"w_down": (f, d), "w_gate": (d, f),
+                            "w_up": (d, f)}, lambda i: "shared.mlp"),
+        ("shared_norm1", (), {"scale": (d,)}, lambda i: "shared.norm1"),
+        ("shared_norm2", (), {"scale": (d,)}, lambda i: "shared.norm2")]
+
+
+def leaf_layout(cfg: ArchConfig) -> dict[str, tuple]:
+    """Every leaf of the reference's parameter tree by its '/'-joined key
+    path -> (its stacked dims, the shape of one slice, the ``DecoderLM``
+    parameter holding each slice in row-major order): the one table the
+    module's tree (``DecoderLM.stacked_params``) and the bridge read.
+    Leaves outside a stack have no stacked dims and one owner."""
+    d, v = cfg.d_model, cfg.vocab_size
+    out = {"embed/table": ((), (v, d), ["embed.table"]),
+           "final_norm/scale": ((), (d,), ["final_norm.scale"])}
+    if not cfg.tie_embeddings:
+        out["lm_head/w"] = ((), (d, v), ["lm_head.w"])
+    if cfg.block_pattern == "attn":
+        n, units = unit_blocks(cfg), n_units(cfg)
+        for i in range(n):
+            attrs = block_leaves(cfg, i)
+            for k, shape in _block_shapes(cfg, i).items():
+                out[f"layers/block{i}/{k}"] = (
+                    (units,), shape,
+                    [f"layers.{u * n + i}.{attrs[k]}" for u in range(units)])
+        return out
+    for prefix, dims, shapes, owner in _recurrent_groups(cfg):
+        for k, shape in shapes.items():
+            attr = k.replace("/", ".")
+            out[f"{prefix}/{k}"] = (dims, shape, [
+                f"{owner(i)}.{attr}" for i in range(math.prod(dims))])
+    return out
+
+
 def leaf_shapes(cfg: ArchConfig) -> dict[str, tuple[int, ...]]:
     """Every leaf of the reference's parameter tree by its '/'-joined key
-    path (``checkpoint/ckpt.py:_flatten``'s), with its shape; the layer
-    leaves ``layers/block<i>/…`` stacked over ``n_units``."""
-    d, v = cfg.d_model, cfg.vocab_size
-    head = {} if cfg.tie_embeddings else {"lm_head/w": (d, v)}
-    units = n_units(cfg)
-    return {"embed/table": (v, d), "final_norm/scale": (d,), **head,
-            **{f"layers/block{i}/{k}": (units, *shape)
-               for i in range(unit_blocks(cfg))
-               for k, shape in _block_shapes(cfg, i).items()}}
+    path (``checkpoint/ckpt.py:_flatten``'s), with its shape: the stacked
+    leaves (``layers/block<i>/…`` over ``n_units``; the recurrent
+    patterns' ``layers/…`` and ``tail_layers/…``) with their stacked dims
+    first (``leaf_layout``)."""
+    return {key: (*dims, *shape)
+            for key, (dims, shape, _) in leaf_layout(cfg).items()}
 
 
 def check_ported(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` naming what of ``cfg`` the port does
-    not run yet, with its item of ROADMAP.md's port queue: the block
-    patterns of item 5.4. The dense attention variants (item 5.1), the
-    model's inputs and outputs (item 5.2) and mixture-of-experts blocks
-    (item 5.3) serve and train."""
-    if cfg.block_pattern != "attn":
+    not run yet, with its item of ROADMAP.md's port queue: the
+    differentiated stack of the recurrent patterns (item 5.4b, the
+    recurrent train step). Every pattern serves (forward, prefill and the
+    contiguous decode step); the attention patterns also train. Called
+    where a step differentiates the stack."""
+    if cfg.block_pattern in RECURRENT:
         raise NotImplementedError(
-            f"block_pattern={cfg.block_pattern!r} (item 5.4) not ported yet "
-            f"(ROADMAP.md, port queue item 5: remaining model families)")
+            f"block_pattern={cfg.block_pattern!r}: the differentiated "
+            f"recurrent stack (item 5.4b, the recurrent train step) not "
+            f"ported yet (ROADMAP.md, port queue item 5: remaining model "
+            f"families); it serves")
 
 
 def param_tree(flat: dict) -> dict:
@@ -228,11 +326,16 @@ def decode_step(cfg: ArchConfig, params: dict, cache: dict,
     ``cache`` ``{"layers": {"block<i>": {"k", "v"}}}``, leaves ``[n_units,
     B, max_len, G, hd]``. Returns (logits [B, V], the updated cache,
     written out of place). Each unit (``unit_blocks`` blocks) is one
-    iteration of a ``"scan"`` region."""
+    iteration of a ``"scan"`` region. The recurrent patterns take their
+    own cache (``DecoderLM.init_cache``; ``_decode_recurrent``)."""
     if token.dim() == 1:
         x = layers.embed(token[:, None], params["embed"]["table"])
     else:
         x = token.to(torch_dtype(cfg.dtype))
+    if cfg.block_pattern in RECURRENT:
+        x, cache = _decode_recurrent(cfg, params, cache, x, pos)
+        x = layers.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
+        return logits_of(cfg, params, x)[:, 0], cache
     n = unit_blocks(cfg)
     keys = stack_leaves(cfg)
     leaves = _stacked(params["layers"], keys)
@@ -260,6 +363,132 @@ def decode_step(cfg: ArchConfig, params: dict, cache: dict,
     return logits[:, 0], {"layers": {
         f"block{i}": {name: torch.stack(ts) for name, ts in new[i].items()}
         for i in range(n)}}
+
+
+def _slices(trees, i: int) -> list[dict]:
+    """Slice ``i`` of every leaf of each tree, taken in the order a scan
+    takes its xs (the trees in turn, each's leaves in sorted key order):
+    the slices of one iteration, made at its start."""
+    return [tree_map(lambda t: t[i], tree) for tree in trees]
+
+
+def _stack_trees(trees: list[dict]) -> dict:
+    """The per-iteration trees stacked leaf by leaf on a new leading axis
+    (a scan's ys)."""
+    return tree_map(lambda *ts: torch.stack(ts), *trees)
+
+
+def _flat(tree: dict) -> dict:
+    """A block's nested leaves as the '/'-joined names ``models.ssm``'s
+    functions read (``"norm/scale"``, ``"w_q"``)."""
+    return dict(leaves_with_path(tree))
+
+
+def _decode_recurrent(cfg: ArchConfig, params: dict, cache: dict,
+                      x: torch.Tensor, pos: torch.Tensor):
+    """The recurrent patterns' layer stack of ``decode_step``: (x, the new
+    cache), each loop of the reference's a ``"scan"`` region whose
+    iteration slices its params and state first. xlstm: one region a
+    unit, its mLSTM then its sLSTM step (``cache["layers"]``: ``mlstm``
+    {C, m, n}, ``slstm`` {c, h, m, n}, each ``[n_units, B, …]``).
+    zamba2: one ``"layers"`` region a group, inside it one ``"mamba"``
+    region a Mamba2 step (``cache["layers"]["mamba"]`` {conv, ssm}
+    ``[n_units, every, B, …]``), then the weight-tied shared attention +
+    MLP on the group's own KV (``shared_kv`` {k, v} ``[n_units, B,
+    max_len, G, hd]``), its weights read whole in every group, as the
+    reference's scan takes them as consts; then the tail, one ``"tail"``
+    region a layer (``cache["tail"]``)."""
+    if cfg.block_pattern == "xlstm":
+        new = []
+        for u in range(n_units(cfg)):
+            with estimator.region("scan", "layers"):
+                up, uc = _slices((params["layers"], cache["layers"]), u)
+                x, m_st = ssm.mlstm_step(x, _flat(up["mlstm"]),
+                                         uc["mlstm"], cfg.n_heads)
+                x, s_st = ssm.slstm_step(x, _flat(up["slstm"]),
+                                         uc["slstm"], cfg.n_heads)
+            new.append({"mlstm": m_st, "slstm": s_st})
+        return x, {"layers": _stack_trees(new)}
+    kw = dict(ssm_state=cfg.ssm_state, headdim=cfg.mamba_headdim)
+    eps = cfg.norm_eps
+    sm = params["shared_mlp"]
+    groups = []
+    for u in range(n_units(cfg)):
+        with estimator.region("scan", "layers"):
+            gp, gc = _slices((params["layers"], cache["layers"]), u)
+            states = []
+            for j in range(cfg.shared_attn_every):
+                with estimator.region("scan", "mamba"):
+                    lp, st = _slices((gp, gc["mamba"]), j)
+                    x, st = ssm.mamba2_step(x, _flat(lp["mamba"]), st, **kw)
+                states.append(st)
+            mamba_new = _stack_trees(states)
+            h = layers.rms_norm(x, params["shared_norm1"]["scale"], eps)
+            att, kv = attention.decode_attention(
+                h, params["shared_attn"], cfg, gc["shared_kv"], pos)
+            x = x + att
+            h = layers.rms_norm(x, params["shared_norm2"]["scale"], eps)
+            x = x + layers.mlp(h, sm["w_gate"], sm["w_up"], sm["w_down"])
+        groups.append({"mamba": mamba_new, "shared_kv": kv})
+    new_cache = {"layers": _stack_trees(groups)}
+    tail = []
+    for t in range(tail_units(cfg)):
+        with estimator.region("scan", "tail"):
+            lp, st = _slices((params["tail_layers"], cache["tail"]), t)
+            x, st = ssm.mamba2_step(x, _flat(lp["mamba"]), st, **kw)
+        tail.append(st)
+    if tail:
+        new_cache["tail"] = _stack_trees(tail)
+    return x, new_cache
+
+
+def _forward_recurrent(cfg: ArchConfig, params: dict, x: torch.Tensor,
+                       positions: torch.Tensor,
+                       chunked: bool) -> torch.Tensor:
+    """The recurrent patterns' undifferentiated stack over a sequence
+    (prefill), the reference's ``hidden_states`` scans: xlstm's units the
+    chunked mLSTM (``ssm.mlstm_seq_chunked``, chunk 256) then the sLSTM
+    (``ssm.slstm_seq``); zamba2's groups their chunked Mamba2 layers
+    (``ssm.mamba2_seq_chunked``, chunk 128) then the shared attention
+    block (above ``CHUNKED_ATTN_THRESHOLD`` tokens the chunked flash
+    path), then the tail. One ``"scan"`` region an iteration, as in
+    ``_decode_recurrent``."""
+    if cfg.block_pattern == "xlstm":
+        for u in range(n_units(cfg)):
+            with estimator.region("scan", "layers"):
+                up, = _slices((params["layers"],), u)
+                x = ssm.mlstm_seq_chunked(x, _flat(up["mlstm"]), cfg.n_heads)
+                x = ssm.slstm_seq(x, _flat(up["slstm"]), cfg.n_heads)
+        return x
+    kw = dict(ssm_state=cfg.ssm_state, headdim=cfg.mamba_headdim)
+    eps = cfg.norm_eps
+    sm = params["shared_mlp"]
+    for u in range(n_units(cfg)):
+        with estimator.region("scan", "layers"):
+            gp, = _slices((params["layers"],), u)
+            for j in range(cfg.shared_attn_every):
+                with estimator.region("scan", "mamba"):
+                    lp, = _slices((gp,), j)
+                    x = ssm.mamba2_seq_chunked(x, _flat(lp["mamba"]), **kw)
+            h = layers.rms_norm(x, params["shared_norm1"]["scale"], eps)
+            x = x + attention.attention_block(h, params["shared_attn"], cfg,
+                                              positions, chunked=chunked)
+            h = layers.rms_norm(x, params["shared_norm2"]["scale"], eps)
+            x = x + layers.mlp(h, sm["w_gate"], sm["w_up"], sm["w_down"])
+    for t in range(tail_units(cfg)):
+        with estimator.region("scan", "tail"):
+            lp, = _slices((params["tail_layers"],), t)
+            x = ssm.mamba2_seq_chunked(x, _flat(lp["mamba"]), **kw)
+    return x
+
+
+def _not_paged(cfg: ArchConfig, what: str) -> None:
+    """The reference's ``NotImplementedError`` for a paged entry point of
+    a recurrent pattern: it holds O(1) state a slot, nothing to page."""
+    if cfg.block_pattern != "attn":
+        raise NotImplementedError(
+            f"{what} requires block_pattern='attn', "
+            f"got {cfg.block_pattern!r}")
 
 
 def pool_tree(cfg: ArchConfig, pool: dict) -> dict:
@@ -293,6 +522,7 @@ def decode_step_paged(cfg: ArchConfig, params: dict, cache: dict,
     folds it into the reference's scanned nodes; each site is
     ``attention.paged_decode_attention_tree``. ``kernel=True`` runs every
     site's attention on K4 (K6 over a quantized ``kv_dtype``)."""
+    _not_paged(cfg, "paged decode")
     x = layers.embed(token[:, None], params["embed"]["table"])
     n = unit_blocks(cfg)
     keys = stack_leaves(cfg)
@@ -778,7 +1008,9 @@ def hidden_states(cfg: ArchConfig, params: dict,
     tokens the attention is the chunked flash path (the sequence a
     multiple of ``attention.Q_CHUNK``). Differentiated, the stack is
     ``_LayerStack`` (the rope tables made from the positions once, outside
-    it); otherwise ``_forward_stack``."""
+    it); otherwise ``_forward_stack``. The recurrent patterns run
+    undifferentiated only (``_forward_recurrent``; their differentiated
+    stack is item 5.4b: ``check_ported``)."""
     if embeds is None:
         x = layers.embed(tokens, params["embed"]["table"])
     else:
@@ -790,6 +1022,12 @@ def hidden_states(cfg: ArchConfig, params: dict,
             s, dtype=torch.int32, device=x.device)[None].expand(b, s))
     else:
         pos = positions
+    if cfg.block_pattern in RECURRENT:
+        if _differentiated(x, *(t for _, t in leaves_with_path(params))):
+            check_ported(cfg)
+        x = _forward_recurrent(cfg, params, x, pos, chunked)
+        return layers.rms_norm(x, params["final_norm"]["scale"],
+                               cfg.norm_eps)
     leaves = _stacked(params["layers"], stack_leaves(cfg))
     differentiated = _differentiated(x, *leaves)
     g_off = None
@@ -838,21 +1076,51 @@ class Block(nn.Module):
         return self.moe(h) if hasattr(self, "moe") else self.mlp(h)
 
 
+class SharedBlock(nn.Module):
+    """zamba2's weight-tied attention + MLP block, one set of weights read
+    at every group's site (the reference's ``shared_attn``,
+    ``shared_mlp``, ``shared_norm1`` / ``shared_norm2``)."""
+
+    def __init__(self, cfg: ArchConfig, dtype, device):
+        super().__init__()
+        self.attn = attention.init_attention(cfg, dtype, device)
+        self.mlp = layers.MLP(cfg.d_model, cfg.d_ff, dtype, device)
+        self.norm1 = layers.RMSNorm(cfg.d_model, cfg.norm_eps, dtype, device)
+        self.norm2 = layers.RMSNorm(cfg.d_model, cfg.norm_eps, dtype, device)
+
+
+def _recurrent_layers(cfg: ArchConfig, dtype, device) -> list[nn.Module]:
+    """The recurrent patterns' layer modules in layer order: xlstm's
+    alternating mLSTM and sLSTM blocks, zamba2's Mamba2 blocks."""
+    d, h, eps = cfg.d_model, cfg.n_heads, cfg.norm_eps
+    if cfg.block_pattern == "xlstm":
+        return [(ssm.mlstm_block if j % 2 == 0 else ssm.slstm_block)(
+            d, h, eps, dtype, device) for j in range(cfg.n_layers)]
+    return [ssm.mamba2_block(d, cfg.ssm_state, cfg.mamba_headdim,
+                             cfg.mamba_conv_width, eps, dtype, device)
+            for _ in range(cfg.n_layers)]
+
+
 class DecoderLM(nn.Module):
     def __init__(self, cfg: ArchConfig, *,
                  device: str | torch.device | None = None):
         super().__init__()
-        check_ported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = torch_dtype(cfg.dtype)
         dt, dev = self.dtype, self.device
-        n = unit_blocks(cfg)
-        n_units(cfg)                    # whole units
+        n_units(cfg)                    # whole units of a known pattern
         self.embed = layers.Embedding(cfg.vocab_size, cfg.d_model, dt, dev)
-        # layer u·n + i is block i of unit u
-        self.layers = nn.ModuleList(Block(cfg, dt, dev, is_moe(cfg, j % n))
-                                    for j in range(cfg.n_layers))
+        if cfg.block_pattern == "attn":
+            n = unit_blocks(cfg)
+            # layer u·n + i is block i of unit u
+            self.layers = nn.ModuleList(
+                Block(cfg, dt, dev, is_moe(cfg, j % n))
+                for j in range(cfg.n_layers))
+        else:
+            self.layers = nn.ModuleList(_recurrent_layers(cfg, dt, dev))
+        if cfg.block_pattern == "mamba_shared_attn":
+            self.shared = SharedBlock(cfg, dt, dev)
         self.final_norm = layers.RMSNorm(cfg.d_model, cfg.norm_eps, dt, dev)
         # tied: the head reads the embedding table (``logits_of``)
         self.lm_head = (None if cfg.tie_embeddings else
@@ -875,20 +1143,12 @@ class DecoderLM(nn.Module):
         leaves stacked on a leading axis (a copy), the rest as they are —
         what ``decode_step`` and a mapped step take
         (``checkpoint.bridge.params_into`` is the inverse)."""
-        flat = {"embed/table": self.embed.table,
-                "final_norm/scale": self.final_norm.scale}
-        if self.lm_head is not None:
-            flat["lm_head/w"] = self.lm_head.w
-        for key, attr in layer_leaves(self.cfg).items():
-            flat[f"layers/{key}"] = torch.stack([
-                blk.get_parameter(attr) for blk in self.unit_layers(key)])
-        return param_tree({k: flat[k] for k in leaf_shapes(self.cfg)})
-
-    def unit_layers(self, key: str) -> list["Block"]:
-        """The modules of the block that the layer leaf ``key``
-        (``block<i>/…``) belongs to, one a unit, in unit order."""
-        i = int(key.split("/", 1)[0][len("block"):])
-        return list(self.layers[i::unit_blocks(self.cfg)])
+        flat = {}
+        for key, (dims, shape, owners) in leaf_layout(self.cfg).items():
+            ps = [self.get_parameter(o) for o in owners]
+            flat[key] = (ps[0] if not dims else
+                         torch.stack(ps).reshape(*dims, *shape))
+        return param_tree(flat)
 
     @torch.no_grad()
     def shared_stacked_params(self) -> dict:
@@ -903,26 +1163,56 @@ class DecoderLM(nn.Module):
         if tree is not None:
             return tree
         tree = self.stacked_params()
-        for key, attr in layer_leaves(self.cfg).items():
-            stacked = leaf_at(tree["layers"], key)
-            owner, pname = attr.rsplit(".", 1)
-            for u, blk in enumerate(self.unit_layers(key)):
-                setattr(blk.get_submodule(owner), pname,
-                        nn.Parameter(stacked[u], requires_grad=False))
+        for key, (dims, shape, owners) in leaf_layout(self.cfg).items():
+            if not dims:
+                continue
+            rows = leaf_at(tree, key).reshape(-1, *shape)
+            for i, path in enumerate(owners):
+                owner, pname = path.rsplit(".", 1)
+                setattr(self.get_submodule(owner), pname,
+                        nn.Parameter(rows[i], requires_grad=False))
         self._shared_tree = tree
         return tree
 
     def init_cache(self, batch: int, max_len: int) -> dict:
-        """The contiguous KV cache ``decode_step`` takes: ``{"layers":
+        """The contiguous cache ``decode_step`` takes: ``{"layers":
         {"block<i>": {"k", "v"}}}``, each ``[n_units, batch, max_len,
-        n_kv, head_dim]`` of zeros in the model dtype."""
+        n_kv, head_dim]`` of zeros in the model dtype. xlstm: each unit's
+        mLSTM state ``{C, m, n}`` and sLSTM state ``{c, h, m, n}``
+        (``models.ssm``), float32, ``m`` at -1e30; zamba2: each group's
+        Mamba2 states ``{conv, ssm}`` ``[n_units, every, …]`` and its
+        shared site's KV, then the tail's states (``"tail"``)."""
         cfg = self.cfg
+        dev = self.device
         site = attention.init_kv_cache(batch, max_len, cfg.n_kv_heads,
                                        cfg.resolved_head_dim, self.dtype,
-                                       self.device)
-        return {"layers": {f"block{i}": {
-            name: t.expand(n_units(cfg), *t.shape).clone()
-            for name, t in site.items()} for i in range(unit_blocks(cfg))}}
+                                       dev)
+
+        def stack(tree: dict, *dims: int) -> dict:
+            return {name: (stack(t, *dims) if isinstance(t, dict) else
+                           t.expand(*dims, *t.shape).clone())
+                    for name, t in tree.items()}
+
+        units = n_units(cfg)
+        if cfg.block_pattern == "xlstm":
+            dk = cfg.d_model // cfg.n_heads
+            return {"layers": stack({
+                "mlstm": ssm.mlstm_state(batch, cfg.n_heads, dk, dk, dev),
+                "slstm": ssm.slstm_state(batch, cfg.d_model, cfg.n_heads,
+                                         dev)}, units)}
+        if cfg.block_pattern == "mamba_shared_attn":
+            d_in = 2 * cfg.d_model
+            state = ssm.mamba2_state(
+                batch, d_in // cfg.mamba_headdim, cfg.mamba_headdim,
+                cfg.ssm_state, cfg.mamba_conv_width, d_in, dev)
+            cache = {"layers": {
+                "mamba": stack(state, units, cfg.shared_attn_every),
+                "shared_kv": stack(site, units)}}
+            if tail_units(cfg):
+                cache["tail"] = stack(state, tail_units(cfg))
+            return cache
+        return {"layers": {f"block{i}": stack(site, units)
+                           for i in range(unit_blocks(cfg))}}
 
     def hidden_states(self, params: dict, tokens=None, embeds=None,
                       positions=None) -> torch.Tensor:
@@ -953,8 +1243,13 @@ class DecoderLM(nn.Module):
         model dtype (block axis addressed through per-slot block tables —
         see ``repro_torch.serve.kv``); a quantized ``kv_dtype`` stores
         codes and adds ``k_scale``/``v_scale`` leaves
-        (``attention.init_paged_kv_cache``)."""
+        (``attention.init_paged_kv_cache``). Only the ``attn`` pattern
+        pages: the recurrent ones hold O(1) state a slot, not KV."""
         cfg = self.cfg
+        if cfg.block_pattern != "attn":
+            raise NotImplementedError(
+                f"paged KV cache requires block_pattern='attn'; "
+                f"{cfg.block_pattern!r} holds recurrent state, not KV")
         return attention.init_paged_kv_cache(
             cfg.n_layers, num_blocks, block_size, cfg.n_kv_heads,
             cfg.resolved_head_dim, self.dtype, self.device,
@@ -979,6 +1274,7 @@ class DecoderLM(nn.Module):
         pool), one launch for all slots; ``kv_dtype`` must be the
         cache's storage grid."""
         cfg = self.cfg
+        _not_paged(cfg, "paged decode")
         x = self.embed(token[:, None])
         for i, blk in enumerate(self.layers):
             x = x + attention.paged_decode_attention(
@@ -1003,6 +1299,7 @@ class DecoderLM(nn.Module):
         logits: the decode tick that feeds the final prompt token samples
         the first output."""
         cfg = self.cfg
+        _not_paged(cfg, "paged prefill")
         x = self.embed(tokens[None])                          # [1, T, D]
         for i, blk in enumerate(self.layers):
             x = x + attention.paged_prefill_attention(

@@ -1,10 +1,25 @@
-"""Batched serving engine over a paged KV pool: the port of
-``repro.serve.engine`` on its paged path.
+"""Batched serving engine: the port of ``repro.serve.engine``, slot-based
+continuous batching over the decode step, with contiguous or paged KV.
 
 A fixed pool of B slots shares one decode step. Requests are admitted
 into free slots, decode ticks advance every active slot by one token, and
 finished slots (EOS or max_tokens) are refilled from the queue in the same
-tick (continuous batching). KV lives in a shared block pool
+tick (continuous batching).
+
+The contiguous lanes (``paged=False``, the reference's default): every
+slot owns a ``max_len`` lane of the model's cache (``DecoderLM.
+init_cache``: KV, or the recurrent patterns' O(1) state) and all slots
+share one tick counter, the position every lane is written at. A slot is
+fed token 0 while empty; admission resets its cursor but neither its lane
+nor its recurrent state, so a request admitted at tick t starts from the
+lane as the t earlier ticks left it (and reads that lane's stale KV rows
+below t). That is the reference's contract, copied and not fixed: the
+tokens match it. The tick counter bounds the whole run at ``max_len - 1``
+ticks; past it the pending requests are starved. The recurrent patterns
+(xlstm, zamba2) serve only here, as in the reference, whose paged entry
+points raise for them.
+
+Paged (``paged=True``): KV lives in a shared block pool
 (``repro_torch.serve.kv.PagedKVCache``); slots hold block tables and
 per-slot positions, so recycled slots restart at position 0 with fresh
 blocks, and requests whose prompts extend a cached prefix skip the shared
@@ -25,7 +40,11 @@ with ``attn_kernel=True`` and ``prefill="replay"``, as in the reference
 
 ``backend="pim"`` maps the decode tick onto the paper's PIM hierarchy
 (``repro_torch.mapper``) and decodes every tick through the compiled
-program: the tick is ``models.transformer.decode_step_paged`` on the
+program. On the contiguous lanes the tick is ``launch.steps.
+make_serve_step`` (``map_contiguous_tick``): the stack folded into the
+reference's scanned nodes and run natively, the final norm's MACs on K3
+and the LM head on K1 (K5 on a quantized grid); no KV placement, as in
+the reference. On the paged path the tick is ``models.transformer.decode_step_paged`` on the
 reference's parameter tree, its layer stack folded into the reference's
 scanned nodes and run natively (each site's attention on K4, or K6 over a
 quantized pool, writing the pool in place), the nodes outside the stack
@@ -38,9 +57,8 @@ schedule. Preemption, swap, copy-on-write, prefix sharing and batched
 prefill (plain PyTorch, as in the reference) are the same on both
 backends.
 
-Not ported yet: the contiguous lanes (``paged=False`` raises
-``NotImplementedError`` naming its item of the port queue in
-``ROADMAP.md``).
+Not ported yet: the router and the traffic workload that drive several
+engines (ROADMAP.md, port queue item 6).
 """
 
 from __future__ import annotations
@@ -57,15 +75,12 @@ import torch
 
 from repro_torch import obs
 from repro_torch._device import resolve_device
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.core import quant
 from repro_torch.models import attention
 from repro_torch.models.transformer import DecoderLM, pool_tree
 from repro_torch.serve.kv import (KVCacheOOM, PagedKVCache, kv_token_bits,
                                   kv_token_bytes)
-
-_CONTIGUOUS = ("ROADMAP.md, port queue item 6: contiguous lanes, router, "
-               "workload")
 
 
 @dataclasses.dataclass
@@ -156,6 +171,27 @@ def map_paged_tick(cfg: ArchConfig, *, batch: int, max_len: int,
     return sched
 
 
+def map_contiguous_tick(cfg: ArchConfig, *, batch: int, max_len: int,
+                        pim_tech: str = "proposed",
+                        weight_dtype: str = "fp32", act_dtype: str = "fp32",
+                        partitions: int = 1, expand_scans: bool = False):
+    """The schedule ``ServeEngine(paged=False, backend="pim")`` decodes
+    through: one decode step against the ``max_len`` contiguous cache
+    (``launch.steps.make_serve_step``), traced on meta tensors and
+    placed — the reference's ``_build_pim`` on its contiguous path. No KV
+    placement: the reference places KV only for a paged pool."""
+    from repro_torch import mapper
+    from repro_torch.launch import steps
+    shape = ShapeSpec("serve", max_len, batch, "decode")
+    return mapper.build_schedule(
+        steps.make_serve_step(cfg), steps.abstract_params(cfg),
+        steps.abstract_cache(cfg, shape), *steps.decode_input_specs(
+            cfg, shape), tech=pim_tech, weight_dtype=weight_dtype,
+        act_dtype=act_dtype,
+        partitions=partitions if partitions > 1 else None,
+        expand_scans=expand_scans)
+
+
 class ServeEngine:
     def __init__(self, cfg: ArchConfig, params: DecoderLM, *, batch: int = 4,
                  max_len: int = 128, sample: Callable | None = None,
@@ -168,7 +204,7 @@ class ServeEngine:
                  pim_compile: dict | None = None,
                  expand_scans: bool = False,
                  scheduler: str = "continuous",
-                 admission: str = "kv", preempt: bool = True,
+                 admission: str | None = None, preempt: bool = True,
                  kv_dtype: str = "fp32", act_dtype: str = "fp32",
                  device: str | torch.device | None = None):
         """``params`` is the model (a ``DecoderLM`` on ``device``).
@@ -177,12 +213,17 @@ class ServeEngine:
         and meanings; ``backend="jit"`` is the reference's name for the
         direct (non-PIM) decode path, which the port runs eagerly.
 
-        ``paged=True`` is required: KV lives in ``kv_blocks`` physical
+        ``paged=False`` (the default) runs the contiguous lanes (module
+        docstring): one ``max_len`` lane of the model's cache a slot, one
+        shared tick. ``paged=True`` keeps KV in ``kv_blocks`` physical
         blocks of ``kv_block_size`` tokens (default: scratch + ``batch *
-        ceil(max_len / kv_block_size)``). ``prefill="batch"`` writes a
+        ceil(max_len / kv_block_size)``); the recurrent block patterns
+        raise there, as in the reference. ``prefill="batch"`` (paged only)
+        writes a
         prompt's KV blocks in one call per admission instead of replaying
         it token by token; the decode tick that feeds the final prompt
-        token is unchanged. ``attn_kernel=True`` runs every decode site's
+        token is unchanged. ``attn_kernel=True`` (paged only) runs every
+        decode site's
         attention through the paged decode kernel (on CUDA, the
         hand-written kernel: one launch per layer per tick for all slots).
         ``kv_dtype`` (paged only) stores the pool on a reduced grid; the
@@ -213,20 +254,29 @@ class ServeEngine:
 
         ``scheduler="continuous"`` refills a finished slot the same tick;
         ``"static"`` admits a full batch and drains it first.
-        ``admission="kv"`` (default) admits the queue head only when the
-        pool's free + evictable blocks cover its peak footprint; ``"slot"``
-        admits into any free slot. ``preempt=True`` swaps the youngest,
-        lowest-priority slot out to host memory when a tick cannot
-        allocate a block."""
+        ``admission="kv"`` (the paged default) admits the queue head only
+        when the pool's free + evictable blocks cover its peak footprint;
+        ``"slot"`` (the contiguous default, the only one there) admits
+        into any free slot. ``preempt=True`` (paged only) swaps the
+        youngest, lowest-priority slot out to host memory when a tick
+        cannot allocate a block."""
         self.kv_dtype = quant.spec(kv_dtype).name
         if self.kv_dtype != "fp32" and not paged:
             raise ValueError(
                 "kv_dtype only applies to paged=True (the contiguous "
                 "lanes have no block pool to quantize)")
-        if not paged:
-            raise NotImplementedError(
-                f"not ported yet: paged=False, the contiguous lanes "
-                f"({_CONTIGUOUS})")
+        if prefill == "batch" and not paged:
+            raise ValueError("prefill='batch' requires paged=True (the "
+                             "contiguous lanes have no block writes)")
+        if attn_kernel and not paged:
+            raise ValueError("attn_kernel=True requires paged=True (it is "
+                             "the paged gather path)")
+        if admission is None:
+            admission = "kv" if paged else "slot"
+        if admission == "kv" and not paged:
+            raise ValueError("admission='kv' requires paged=True (the "
+                             "contiguous lanes have no block pool to "
+                             "gate on)")
         if backend not in ("jit", "pim"):
             raise ValueError(f"backend must be 'jit' or 'pim', "
                              f"got {backend!r}")
@@ -275,7 +325,8 @@ class ServeEngine:
         self.sample = sample or (lambda logits: torch.argmax(logits, -1))
         self.scheduler = scheduler
         self.admission = admission
-        self.preempt = bool(preempt)
+        self.paged = paged
+        self.preempt = bool(preempt) and paged
         self.preemptions = 0
         self.resumes = 0
         self.swapped_blocks = 0   # pages currently on host scratch
@@ -292,19 +343,29 @@ class ServeEngine:
         self.pim_program = None
         self.pipeline_timeline = None
 
-        self.block_size = kv_block_size
-        self.max_blocks = math.ceil(max_len / kv_block_size)
-        if kv_blocks is None:
-            kv_blocks = 1 + batch * self.max_blocks
-        self.kv = PagedKVCache(kv_blocks, kv_block_size, batch, max_len,
-                               kv_dtype=self.kv_dtype, device=self.device)
-        self.cache = self.model.init_paged_cache(
-            kv_blocks, kv_block_size, kv_dtype=self.kv_dtype)
+        if paged:
+            self.block_size = kv_block_size
+            self.max_blocks = math.ceil(max_len / kv_block_size)
+            if kv_blocks is None:
+                kv_blocks = 1 + batch * self.max_blocks
+            self.kv = PagedKVCache(kv_blocks, kv_block_size, batch, max_len,
+                                   kv_dtype=self.kv_dtype,
+                                   device=self.device)
+            self.cache = self.model.init_paged_cache(
+                kv_blocks, kv_block_size, kv_dtype=self.kv_dtype)
+        else:
+            self.kv = None
+            self.cache = self.model.init_cache(batch, max_len)
+            # the lanes' step runs on the reference's tree, the module's
+            # parameters made views of it (no tick copies a weight)
+            self.params = self.model.shared_stacked_params()
 
         # per-token KV footprint (bytes, all attention sites) for the
         # bytes-moved accounting: the model dtype's values, or codes plus
-        # per-(token, head) scales
-        if self.kv_dtype == "fp32":
+        # per-(token, head) scales; 0 for the recurrent patterns (no KV)
+        if cfg.block_pattern != "attn":
+            self._tok_bytes = 0
+        elif self.kv_dtype == "fp32":
             self._tok_bytes = (cfg.n_layers * 2 * cfg.n_kv_heads
                                * cfg.resolved_head_dim
                                * self.model.dtype.itemsize)
@@ -322,8 +383,8 @@ class ServeEngine:
         # externally)
         self._prompt_idx = np.zeros(batch, np.int64)
         self._last_tok = np.zeros(batch, np.int32)
-        self._pos = np.zeros(batch, np.int32)    # per-slot position
-        self._tick = 0
+        self._pos = np.zeros(batch, np.int32)    # paged: per-slot position
+        self._tick = 0                           # contiguous: shared tick
         # admission order per slot (monotone): the preemption victim is
         # the youngest-admitted active slot — deterministic, and older
         # requests are never starved by later arrivals
@@ -346,21 +407,26 @@ class ServeEngine:
 
     def _build_pim(self, pim_tech: str, partitions: int,
                    microbatches: int) -> None:
-        """Map the paged tick, place the pool and price its traffic
-        (:func:`map_paged_tick`), then compile: the reference's
+        """Map the tick (:func:`map_contiguous_tick`; paged,
+        :func:`map_paged_tick`, which also places the pool and prices its
+        traffic), then compile: the reference's
         ``ServeEngine._build_pim``. The parameter tree is built once, here,
         with the module's parameters made views of it
         (``DecoderLM.shared_stacked_params``): no tick copies a weight."""
         from repro_torch import mapper
         self.params = self.model.shared_stacked_params()
-        sched = map_paged_tick(
-            self.cfg, batch=self.batch, max_len=self.max_len,
-            kv_block_size=self.block_size, kv_blocks=self.kv.num_blocks,
-            attn_kernel=self.attn_kernel, kv_dtype=self.kv_dtype,
-            pim_tech=pim_tech, weight_dtype=self.weight_dtype,
-            act_dtype=self.act_dtype, partitions=partitions,
-            expand_scans=self.expand_scans)
-        self.kv_placement = sched.kv_placement
+        common = dict(batch=self.batch, max_len=self.max_len,
+                      pim_tech=pim_tech, weight_dtype=self.weight_dtype,
+                      act_dtype=self.act_dtype, partitions=partitions,
+                      expand_scans=self.expand_scans)
+        if self.paged:
+            sched = map_paged_tick(
+                self.cfg, kv_block_size=self.block_size,
+                kv_blocks=self.kv.num_blocks, attn_kernel=self.attn_kernel,
+                kv_dtype=self.kv_dtype, **common)
+            self.kv_placement = sched.kv_placement
+        else:
+            sched = map_contiguous_tick(self.cfg, **common)
         self.schedule = sched
         # use_cache=False: the key holds the step's identity, a closure
         # per engine, which would never hit but would pin the engine
@@ -377,6 +443,19 @@ class ServeEngine:
         # caller's stream)
         self._pim_call = (self.pim_program.run_async if streams
                           else self.pim_program)
+
+    def step(self, tick: int, tokens: np.ndarray) -> np.ndarray:
+        """Advance every lane one token (the contiguous path) at the
+        shared position ``tick``; returns the next tokens [B] int32."""
+        args = (self.params, self.cache,
+                torch.from_numpy(tokens.astype(np.int32)).to(self.device),
+                torch.tensor(tick, dtype=torch.int32, device=self.device))
+        with torch.no_grad():
+            if self.backend == "pim":
+                logits, self.cache = self._pim_call(*args)
+            else:
+                logits, self.cache = self.model.decode_step(*args)
+        return self.sample(logits).to("cpu", torch.int32).numpy()
 
     def _decode(self, tokens: np.ndarray) -> torch.Tensor:
         if self.backend == "pim":
@@ -399,8 +478,10 @@ class ServeEngine:
         self.queue.append(req)
 
     def kv_blocks_needed(self, req: Request) -> int:
-        """Fresh blocks admitting ``req`` here would eventually allocate."""
-        return self.kv.blocks_needed(req.prompt, req.max_tokens)
+        """Fresh blocks admitting ``req`` here would eventually allocate
+        (0 when contiguous)."""
+        return (self.kv.blocks_needed(req.prompt, req.max_tokens)
+                if self.paged else 0)
 
     @staticmethod
     def _work_of(req: Request) -> int:
@@ -460,7 +541,8 @@ class ServeEngine:
         for s in range(self.batch):
             if self.slots[s] is None and self.queue:
                 req = self.queue[0]
-                if self.admission == "kv" and not self._admissible(req):
+                if (self.paged and self.admission == "kv"
+                        and not self._admissible(req)):
                     break   # FIFO: the head waits, nothing overtakes it
                 self.queue.popleft()
                 self.slots[s] = req
@@ -475,9 +557,9 @@ class ServeEngine:
                 # masking the previous occupant's sample/cursor
                 self._prompt_idx[s] = 0
                 self._last_tok[s] = 0
-                if req.resume is not None:
+                if self.paged and req.resume is not None:
                     self._resume_slot(s, req)
-                else:
+                elif self.paged:
                     shared = self.kv.alloc_slot(s, req.prompt)
                     self._pos[s] = shared
                     self._prompt_idx[s] = shared   # skip cached prefix
@@ -605,8 +687,9 @@ class ServeEngine:
         self._adm_seq[s] = -1
         self._prompt_idx[s] = 0
         self._last_tok[s] = 0
-        self.kv.free_slot(s)
-        self._pos[s] = 0
+        if self.paged:
+            self.kv.free_slot(s)
+            self._pos[s] = 0
 
     def _feed(self, active: list[int]) -> np.ndarray:
         """The tokens a tick feeds: each active slot's next prompt token,
@@ -622,27 +705,40 @@ class ServeEngine:
     def tick_once(self) -> bool:
         """Advance every active slot one token. Any slot that finishes is
         refilled from the queue *within this same tick* (see the trailing
-        ``_admit``). Returns False when nothing is active."""
+        ``_admit``). Returns False when no progress is possible: nothing
+        admitted, or (contiguous only) the shared tick at the lane bound,
+        ``max_len - 1`` (capacity exhaustion)."""
         self._admit()
         active = [s for s in range(self.batch) if self.slots[s] is not None]
         if not active:
             return False
-        # writability first: this may preempt (swap out) victims, so the
-        # feed is built only from the survivors
-        active = self._ensure_active(active)
+        if not self.paged and self._tick >= self.max_len - 1:
+            return False          # shared lanes full; run() reports starved
+        if self.paged:
+            # writability first: this may preempt (swap out) victims, so
+            # the feed is built only from the survivors
+            active = self._ensure_active(active)
         feed = self._feed(active)
         with obs.span("decode:tick", lane="serve", tick=self._tick,
                       active=len(active)):
-            logits = self._decode(feed)
             # reading the ids back waits for the device, inside the span
-            nxt = self.sample(logits).to("cpu", torch.int32).numpy()
-        bs = self.block_size
-        for s in active:
-            self.kv.note_filled(s, int(self._pos[s]))
-            self._pos[s] += 1
-            # block-granular read + one-token write per site
-            self.kv_bytes_read += (math.ceil(int(self._pos[s]) / bs)
-                                   * bs * self._tok_bytes)
+            if self.paged:
+                nxt = self.sample(self._decode(feed)).to(
+                    "cpu", torch.int32).numpy()
+            else:
+                nxt = self.step(self._tick, feed)
+        if self.paged:
+            bs = self.block_size
+            for s in active:
+                self.kv.note_filled(s, int(self._pos[s]))
+                self._pos[s] += 1
+                # block-granular read + one-token write per site
+                self.kv_bytes_read += (math.ceil(int(self._pos[s]) / bs)
+                                       * bs * self._tok_bytes)
+        else:
+            # contiguous lanes stream their full provisioned length
+            self.kv_bytes_read += len(active) * self.max_len \
+                * self._tok_bytes
         self.kv_bytes_written += len(active) * self._tok_bytes
         for s in active:
             req = self.slots[s]
@@ -674,10 +770,11 @@ class ServeEngine:
         m = obs.metrics()
         m.counter("serve.ticks").inc()
         m.gauge("serve.queue_depth").set(len(self.queue))
-        m.gauge("serve.kv_live_blocks").set(self.kv.live_blocks)
-        m.gauge("serve.kv_cached_blocks").set(self.kv.cached_blocks)
-        m.gauge("serve.kv_free_blocks").set(self.kv.free_blocks)
-        m.gauge("serve.kv_swapped_blocks").set(self.swapped_blocks)
+        if self.paged:
+            m.gauge("serve.kv_live_blocks").set(self.kv.live_blocks)
+            m.gauge("serve.kv_cached_blocks").set(self.kv.cached_blocks)
+            m.gauge("serve.kv_free_blocks").set(self.kv.free_blocks)
+            m.gauge("serve.kv_swapped_blocks").set(self.swapped_blocks)
         return True
 
     def run(self, max_ticks: int | None = None, *,

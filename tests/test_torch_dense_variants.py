@@ -24,7 +24,7 @@ away from one, handed to both frameworks through ``checkpoint.bridge``.
   plain step, and ``ServeEngine(backend="pim")`` token-identical to the
   jit engine;
 * the bridge carries the new leaves both ways, AdamW state included;
-  ``check_ported`` still names items 5.3 and 5.4.
+  ``check_ported`` names item 5.4b (the recurrent train step).
 
 The gradients and the train step are held in
 ``tests/test_torch_variant_grads.py``, the schedules in
@@ -369,10 +369,14 @@ def test_bridge_carries_the_variant_leaves(case):
 def test_check_ported_names_the_items_still_to_port(changes, item):
     cfg = dataclasses.replace(get_smoke_config("qwen2.5-32b"), **changes)
     if item == "5.4":
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
+        # the recurrent patterns serve (item 5.4,
+        # tests/test_torch_recurrent*.py); their train step (item 5.4b)
+        # still raises
+        with pytest.raises(NotImplementedError, match=f"item {item}b"):
             transformer.check_ported(cfg)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            transformer.DecoderLM(cfg, device="meta")
+            steps.make_loss_fn(cfg)
+        transformer.DecoderLM(cfg, device="meta")
         return
     # MoE serves (item 5.3, tests/test_torch_moe_serve.py) and trains
     # (item 5.3b, tests/test_torch_moe_train*.py)

@@ -121,14 +121,13 @@ def test_kernel_and_gather_paths_agree(models):
     ("pim_compile", {"streams": ()}, ValueError, "pim_compile only"),
     ("partitions", 2, ValueError, "partitions require"),
     ("weight_dtype", "int8", ValueError, "weight_dtype only"),
-    ("act_dtype", "fp8_e4m3", ValueError, "act_dtype only"),
-    ("paged", False, NotImplementedError, "ROADMAP")])
+    ("act_dtype", "fp8_e4m3", ValueError, "act_dtype only")])
 def test_unported_options_raise_naming_the_roadmap(models, option, value,
                                                    error, match):
-    """The contiguous lanes are not ported and say where they stand; the
-    PIM backend's options on the jit backend raise the reference's
+    """The PIM backend's options on the jit backend raise the reference's
     ``ValueError`` (``backend="pim"`` itself serves:
-    ``tests/test_torch_serve_pim.py``)."""
+    ``tests/test_torch_serve_pim.py``; the contiguous lanes serve since
+    item 5.4: ``tests/test_torch_recurrent_serve.py``)."""
     _, _, tcfg, model = models
     opts = dict(paged=True, device="cpu")
     opts[option] = value
