@@ -121,7 +121,7 @@ Phases, each printing one JSON line:
    version (as K1 in 8) and against K1 on ``q * s`` bit for bit; timed
    with its bound and the library call (``q * s`` then ``bmm``).
 14. ``pim_train_q`` — ``Trainer(backend="pim", weight_dtype="int8")``,
-   AdamW, batch 64, 301 steps: 11 K5 per step and no K1 or K2; the first
+   AdamW, batch 64, 31 steps: 11 K5 per step and no K1 or K2; the first
    5 losses within 2% of ``pim_train``'s fp32 run from the same
    parameters and batches, whose ms per step it is set beside; the last
    below the first; one compiled step bit-equal to the executor and
@@ -191,7 +191,7 @@ Phases, each printing one JSON line:
    member by member, peak memory. Then 3 steps of ``Trainer(backend=
    "pim")`` against ``"jit"`` (losses within 1e-4, each run's final
    checkpoint timed and removed). Then the published dtype (bf16) cut to
-   4 layers, batch 1, seq 2048: ms per compiled and plain step (wall and
+   2 layers, batch 1, seq 2048: ms per compiled and plain step (wall and
    under the profiler: kernels a step, busy share), peak memory, and
    each of the step's K3 waves timed on its own operands by events and by
    CUDA graph against its plain version, its library calls and its byte
@@ -208,8 +208,8 @@ Phases, each printing one JSON line:
    microbatches (each its own tokens and random cache) and
    ``run_partitioned_async`` on 4 streams bit for bit their sequential
    calls; no host sync; the control, one boundary value swapped between
-   two microbatches, failing. Time: the published config as it is
-   (bf16, 32 layers), batch 8, a 2048-token cache, 8 microbatches: 8
+   two microbatches, failing. Time: the published config (bf16) cut to
+   16 of its 32 layers, batch 8, a 2048-token cache, 8 microbatches: 8
    sequential compiled steps, ``run_partitioned`` and
    ``run_partitioned_async`` (wall and under the profiler), peak memory.
 21. ``pim_pipe`` — LeNet-5, not cut: ``compile_lenet("serve",
@@ -237,7 +237,7 @@ Phases, each printing one JSON line:
    sync in a program call; 4 partitions of the expanded stack on one
    stream and on a ring of 4 token-identical to the unpartitioned pim
    engine. Time: the serve phase's bf16 model (32 layers), batch 8,
-   ``max_len`` 1024, blocks of 8, its 16 requests: the pim and the jit
+   ``max_len`` 1024, blocks of 8, 8 of its requests: the pim and the jit
    engine — tok/s, TTFT, ms a tick, device ms and kernels a tick under
    the profiler, peak memory, the pim tick's drift ratio (recorded).
 23. ``pim_llama_long`` — llama3-8b's train step above seq 2048 and with
@@ -256,10 +256,10 @@ Phases, each printing one JSON line:
    position's logits within rtol 1e-4 and atol 1e-4 x max|logit| of a
    plain forward over the full causal attention, the control (the last
    diagonal pair dropped from ``attention._pair_indices``) failing it.
-   Time: the bf16 step at 2 layers, seq 4096 (ms per compiled and plain
+   Time: the bf16 step at 2 layers, seq 2560 (ms per compiled and plain
    step, wall and under the profiler, the pair scan's and the LM head's
    shares of the plain step's device time, peak memory) and the
-   published config's prefill (bf16, 32 layers) at seq 8192 (ms a call,
+   published config's prefill (bf16, 32 layers) at seq 4096 (ms a call,
    tokens/s, peak memory; 32768 left out, minutes of eager launches).
 24. ``dense_variants`` — the dense attention variants, after the serve
    phases' model is freed: qwen2.5-32b (q/k/v biases), qwen3-32b
@@ -358,8 +358,23 @@ Phases, each printing one JSON line:
    and 3 K3 a tick. Time (bf16, not cut): both through
    ``ServeEngine(paged=False)``, batch 8 (ms a tick, tok/s, device ms,
    kernels and busy share a tick, peak memory), and one
-   ``make_prefill_step`` call at seq 2048. Then ``kernels_pim`` at (b)'s
+   ``make_prefill_step`` call at seq 512. Then ``kernels_pim`` at (b)'s
    launches (``"path": "recurrent"``: K1, K2, K3; ``recurrent_q``: K5).
+29. ``recurrent_train`` — the recurrent train step (item 5.4b), after
+   ``recurrent``: xlstm-350m at its published width in float32, 4 layers,
+   batch 1, seq 512 (two mLSTM chunks, 512 sLSTM tokens a unit) and
+   zamba2-7b at its published width in float32, 13 layers, batch 2, seq
+   256 (two Mamba2 chunks, its published ``grad_accum=2``) through
+   ``compile_arch(kind="train")``: K3 alone at the CPU's counts
+   (``REC_TRAIN_K3``), the compiled step bit for bit the per-block
+   executor's and a second run's, within 1e-4 of the plain step (loss;
+   params, m, v), no host sync, the one-ulp last-wave control failing;
+   zamba2's shared block (rope ``"none"``) trains here on the card. Time
+   (bf16, one cold step under the profiler): xlstm-350m as published at
+   batch 8, seq 32; zamba2-7b at batch 2, seq 512, cut to the whole
+   groups of 6 that fit 76 GB (``rec_train_groups``). Then
+   ``kernels_pim`` at xlstm's launches (``"path": "recurrent_train"``:
+   K3).
 
 Then the card's name and power limit, one line with every kernel's
 numbers, and as the last line ``{"ok": true, "device": {...}}``. Any
@@ -377,6 +392,7 @@ import dataclasses
 import gc
 import importlib
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -1208,17 +1224,20 @@ def phase_profile(eng, seed: int, phase: str = "profile",
 # 6. serve_kvq: the same model over an fp8_e4m3 KV pool
 # ---------------------------------------------------------------------------
 
-# one wave of the 8 slots: a second wave of 8 added ~35 s of ticks of the
-# same kind, and the script's time limit is shared by every phase
+# one wave of the 8 slots and prompts of 32–64 tokens: each prompt token
+# is a replayed tick (~0.24 s on this pool), a second wave of 8 added ~35
+# s of ticks of the same kind, and the script's time limit is shared by
+# every phase
 SERVE_KVQ_REQUESTS = 8
+SERVE_KVQ_PROMPTS = (32, 64)
 
 
 def phase_serve_kvq(model, seed: int) -> dict:
     """llama3-8b full config, bf16, over a ``SERVE_KV_DTYPE`` pool: the
     kernel path with replayed prompts (a bf16 model with a quantized pool
     runs nowhere else, as in the reference). ``SERVE_KVQ_REQUESTS``
-    requests of 64–256 prompt tokens, 32 output tokens each, all
-    submitted at once."""
+    requests of ``SERVE_KVQ_PROMPTS`` prompt tokens, 32 output tokens
+    each, all submitted at once."""
     import torch
     from repro_torch import obs
     from repro_torch.kernels.flash_attention import (
@@ -1226,7 +1245,8 @@ def phase_serve_kvq(model, seed: int) -> dict:
     from repro_torch.serve import Request, ServeEngine
     cfg = model.cfg
     prompts = make_prompts(np.random.default_rng(seed + 3),
-                           SERVE_KVQ_REQUESTS, 64, 256, cfg.vocab_size)
+                           SERVE_KVQ_REQUESTS, *SERVE_KVQ_PROMPTS,
+                           cfg.vocab_size)
     finite = []
 
     def sample(logits):
@@ -2268,7 +2288,7 @@ def k3_sass() -> dict:
 # batch 64 is the reference example's (examples/train_lenet.py); at 4096
 # the card, not the host, should set the pace
 TRAIN_BATCHES = (64, 4096)
-TRAIN_STEPS = 301          # the batch-64 pim run: loss at step 300 < step 0
+TRAIN_STEPS = 31           # the batch-64 pim run: loss at step 30 < step 0
 TRAIN_PARITY_STEPS = 10    # pim against the plain step, loss by loss
 TRAIN_BIG_STEPS = 20       # the batch-4096 run
 TRAIN_LR = 2e-3            # AdamW, as the reference's example and test
@@ -2367,7 +2387,7 @@ def phase_pim_train(seed: int) -> dict:
     """``Trainer(backend="pim")`` and ``Trainer(backend="jit")`` (the plain
     eager step) on the card from the same seeded parameters, TF32 off.
     The batch-64 pim run is the main path: every count set to 0 just
-    before its 301 steps and read just after. Then one compiled step
+    before its ``TRAIN_STEPS`` steps and read just after. Then one compiled step
     against the per-block executor, bit for bit, with the shapes of both
     logged for ``kernels_pim``, and a profile of the compiled step; then
     20 steps at batch 4096 with a profile of the compiled step."""
@@ -3617,20 +3637,49 @@ LLAMA_TIME = dict(batch=8, seq_len=2048, pos=1024)
 def vary_attention_(model, seed: int):
     """``model`` with its attention variants' leaves seeded away from their
     init (which the holds could not tell from a dropped leaf): q/k/v biases
-    0.1 N(0, 1), q/k norm scales 1 + 0.25 N(0, 1). A no-op for llama3-8b,
+    0.1 N(0, 1), q/k norm scales 1 + 0.25 N(0, 1); a recurrent model's
+    constant leaves too (``vary_recurrent_``). A no-op for llama3-8b,
     which has none. Returns ``model``."""
     import torch
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 90)
     with torch.no_grad():
         for blk in model.layers:
             for name in ("q_bias", "k_bias", "v_bias", "q_norm", "k_norm"):
-                if hasattr(blk.attn, name):
+                if hasattr(getattr(blk, "attn", None), name):
                     leaf = blk.attn[name]
                     draw = torch.randn(leaf.shape, generator=gen,
                                        device=DEVICE)
                     leaf.copy_(0.1 * draw if name.endswith("bias")
                                else 1 + 0.25 * draw)
+        vary_recurrent_(model, gen)
     return model
+
+
+def vary_recurrent_(model, gen) -> None:
+    """The recurrent blocks' leaves their init makes constants seeded
+    away from it (``tests/test_torch_recurrent_train.py`` seeds the
+    same): ``f_bias``, ``dt_bias``, ``d_skip`` and every norm scale
+    (zamba2's shared block's too) + 0.2 N(0, 1), ``a_log`` -1 + 0.2 N(0,
+    1) (its decays' exponents stay finite above a chunk's diagonal). A
+    no-op for the attention patterns."""
+    import torch
+    from repro_torch.models import ssm
+    shift = {"a_log": -1.0}
+    mods = [m for m in model.modules() if isinstance(m, ssm.RecurrentBlock)]
+    if not mods:
+        return
+    if hasattr(model, "shared"):
+        mods += [model.shared.norm1, model.shared.norm2]
+    for m in mods:
+        for name in ("f_bias", "dt_bias", "a_log", "d_skip", "norm/scale",
+                     "scale"):
+            try:
+                leaf = m[name] if isinstance(m, ssm.RecurrentBlock) \
+                    else getattr(m, name)
+            except (AttributeError, KeyError):
+                continue
+            leaf.add_(shift.get(name, 0.0) + 0.2 * torch.randn(
+                leaf.shape, generator=gen, device=DEVICE).to(leaf.dtype))
 
 
 def llama_params(cfg, seed: int):
@@ -3947,10 +3996,11 @@ LLAMA_TRAIN_TOL = dict(rtol=1e-4, atol=1e-4)   # the mapper's verify tol
 LLAMA_TRAIN_K3 = {"compiled": 84, "per_block": 148}
 LLAMA_TRAIN_STEPS = 3      # Trainer(backend="pim") against "jit"
 LLAMA_TRAIN_LR = 3e-4      # make_train_step's default
-# the timed run: the published dtype (bf16), cut to 4 layers (AdamW's
-# state for 32 does not fit one card), the longest sequence the
-# reference trains on full attention
-LLAMA_TRAIN_TIME = dict(batch=1, seq_len=2048, n_layers=4)
+# the timed run: the published dtype (bf16), cut to 2 layers (AdamW's
+# state for 32 does not fit one card; 4 take ~10 s more of the script's
+# shared time), the longest sequence the reference trains on full
+# attention
+LLAMA_TRAIN_TIME = dict(batch=1, seq_len=2048, n_layers=2)
 # a K3 wave of more elements than this is timed by fewer calls
 K3_BIG_WAVE = 1 << 26
 
@@ -4419,7 +4469,7 @@ def llama_train_trainer(seed: int) -> dict:
 
 def llama_train_time(seed: int) -> dict:
     """llama3-8b at its published dtype (bf16) cut to
-    ``LLAMA_TRAIN_TIME``'s 4 layers, batch 1, seq 2048, on seeded
+    ``LLAMA_TRAIN_TIME``'s 2 layers, batch 1, seq 2048, on seeded
     parameters and AdamW state: one warm compiled step counted (K3 at the
     plan's waves, no K1, K2 or K5; the loss finite and against the plain
     step's), then ms per compiled and plain step (wall, 3 steps after one
@@ -4453,10 +4503,12 @@ def llama_train_time(seed: int) -> dict:
     plain_loss = float(step(params, opt, batch)[2])
     if not np.isfinite(loss):
         raise AssertionError("pim_llama_train time: loss not finite")
-    ms = wall_ms(lambda: prog(params, opt, batch), iters=3, warmup=1)
-    plain_ms = wall_ms(lambda: step(params, opt, batch), iters=3, warmup=1)
-    prof = profile_device(lambda: prog(params, opt, batch), 1)
-    plain_prof = profile_device(lambda: step(params, opt, batch), 1)
+    # both warm: the counted step and the plain loss's
+    ms = wall_ms(lambda: prog(params, opt, batch), iters=2, warmup=0)
+    prof = profile_device(lambda: prog(params, opt, batch), 1, warm=False)
+    plain_ms = wall_ms(lambda: step(params, opt, batch), iters=2, warmup=0)
+    plain_prof = profile_device(lambda: step(params, opt, batch), 1,
+                                warm=False)
     peak = torch.cuda.max_memory_allocated()
     with timing_waves() as rows:
         prog(params, opt, batch)
@@ -4522,8 +4574,9 @@ PIPE_PARTITIONS = 4
 PIPE_MICRO = 8             # GPipe microbatches
 PIPE_STREAMS = 4           # the asynchronous driver's ring of streams
 LLAMA_PIPE_POS = 5         # the hold's position: the caches' rows 0..5 read
-# the timed run: the published config as it is (bf16, 32 layers)
-LLAMA_PIPE_TIME = dict(batch=8, seq_len=2048, pos=1024)
+# the timed run: the published config (bf16) cut to 16 of its 32 layers
+# (the script's time is shared by every phase: 32 take ~20 s more)
+LLAMA_PIPE_TIME = dict(batch=8, seq_len=2048, pos=1024, n_layers=16)
 
 
 def leaves_equal(a, b) -> bool:
@@ -4742,7 +4795,7 @@ def llama_pipe_hold(seed: int, weight_dtype: str) -> dict:
 
 
 def llama_pipe_time(seed: int) -> dict:
-    """The published config as it is (bf16, 32 layers) at
+    """The published config (bf16) cut to ``LLAMA_PIPE_TIME``'s layers at
     ``LLAMA_PIPE_TIME`` with ``PIPE_MICRO`` microbatches (each its own
     tokens and cache), ``partitions=4, expand_scans=True``: the expansion
     (chunks of the stack, each a folded loop), the cut, ms of
@@ -4755,7 +4808,8 @@ def llama_pipe_time(seed: int) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.mapper.executor import full_float32
     from repro_torch.parallel import pipeline as pipe
-    cfg = get_config("llama3-8b")
+    cfg = dataclasses.replace(get_config("llama3-8b"),
+                              n_layers=LLAMA_PIPE_TIME["n_layers"])
     b, s = LLAMA_PIPE_TIME["batch"], LLAMA_PIPE_TIME["seq_len"]
     clock = [time.perf_counter()]
     seconds = {}
@@ -4777,7 +4831,8 @@ def llama_pipe_time(seed: int) -> dict:
     torch.cuda.reset_peak_memory_stats()
     lap("weights_and_caches")
     prog = mapper.compile_arch("llama3-8b", "serve", batch=b, seq_len=s,
-                               partitions=PIPE_PARTITIONS, expand_scans=True)
+                               partitions=PIPE_PARTITIONS, expand_scans=True,
+                               config=cfg)
     lap("compile")
     sched = prog.schedule
     base = mapper.compile_schedule(sched, use_cache=False)
@@ -4821,10 +4876,11 @@ def llama_pipe_time(seed: int) -> dict:
                          ("run_partitioned_async", grid_async)):
             stats0 = torch.cuda.memory_stats()
             # the checks above made each driver's first call
-            ms = wall_ms(fn, iters=3, warmup=0)
+            ms = wall_ms(fn, iters=1, warmup=0)
             stats1 = torch.cuda.memory_stats()
             lap(f"{name}_wall")
-            prof = profile_device(fn, 1)
+            # warm: the timed calls just ran
+            prof = profile_device(fn, 1, warm=False)
             lap(f"{name}_profile")
             rows[name] = {"wall_ms": ms,
                           # the caching allocator over the timed calls:
@@ -4843,8 +4899,8 @@ def llama_pipe_time(seed: int) -> dict:
                           "device_ms_by_group":
                               prof["device_ms_per_call_by_group"]}
         peak = torch.cuda.max_memory_allocated()
-    r = {"config": "llama3-8b published (configs/llama3_8b.py), bf16, 32 "
-                   "layers, not cut", **LLAMA_PIPE_TIME,
+    r = {"config": "llama3-8b published (configs/llama3_8b.py), bf16, "
+                   f"{cfg.n_layers} of 32 layers", **LLAMA_PIPE_TIME,
          "microbatches": PIPE_MICRO, "streams": PIPE_STREAMS,
          "expansion": sched.graph.groups,
          "partitions": [{"nodes": len(p.nodes), "out_bits": p.out_bits}
@@ -5432,18 +5488,24 @@ def serve_pim_profile(eng, seed: int) -> dict:
     return r
 
 
+# the serve-load time runs (serve_pim, the variants'): one wave of the 8
+# slots, 32 output tokens each (two waves took ~60 s more of the script's
+# shared time limit over the phases)
+TIME_LOAD_REQUESTS = 8
+
+
 def serve_pim_time(model, seed: int) -> dict:
     """The published config (the serve phase's bf16 model, 32 layers) at
-    ``SERVE_PIM_TIME`` over the serve phase's 16 requests, 32 output
-    tokens each: the pim engine and the jit engine in turn — tok/s, TTFT,
+    ``SERVE_PIM_TIME`` over ``TIME_LOAD_REQUESTS`` of the serve phase's
+    requests, 32 output tokens each: the pim engine and the jit engine in turn — tok/s, TTFT,
     ms a tick, device ms and kernels a tick under the profiler, peak
     memory — and the pim tick's drift ratio (recorded, not held)."""
     import torch
     from repro_torch import obs
     from repro_torch.serve import Request, ServeEngine
     cfg = model.cfg
-    prompts = make_prompts(np.random.default_rng(seed + 1), 16, 64, 512,
-                           cfg.vocab_size)
+    prompts = make_prompts(np.random.default_rng(seed + 1),
+                           TIME_LOAD_REQUESTS, 64, 512, cfg.vocab_size)
     out = {}
     for backend in ("pim", "jit"):
         torch.cuda.synchronize()
@@ -5551,14 +5613,16 @@ ACCUM_TOL = 1e-4           # accumulated vs one-step gradients and loss
 # plain forward over the full causal attention at the same length
 LONG_PREFILL_HOLD = dict(batch=1, seq_len=4096, n_layers=2)
 LONG_PREFILL_TOL = 1e-4    # rtol, and atol x max|logit|
-# the timed runs: the published dtype (bf16), the reference's train_4k
-# length, cut to 2 layers (AdamW's state for 32 does not fit one card; at
-# 4 layers, 47,552 aten ops to trace, the whole script took 709 s, past
-# its 702.8 s budget); the published config's prefill as it is at 8192
-# tokens (32768 would take ~66,560 pair iterations of eager launches a
-# call, minutes)
-LONG_TRAIN_TIME = dict(batch=1, seq_len=4096, n_layers=2)
-LONG_PREFILL_TIME = dict(batch=1, seq_len=8192)
+# the timed runs: the published dtype (bf16) at seq 2560, the shortest
+# the pair scan takes (the reference's train_4k length takes ~20 s more of
+# the script's shared time), cut to 2 layers (AdamW's state for 32 does
+# not fit one card; at 4 layers, 47,552 aten ops to trace, the whole
+# script took 709 s, past its 702.8 s budget); the published config's
+# prefill as it is at 4096
+# tokens (the script's time is shared by every phase: 8192 takes ~6 s
+# more, 32768 ~66,560 pair iterations of eager launches a call, minutes)
+LONG_TRAIN_TIME = dict(batch=1, seq_len=2560, n_layers=2)
+LONG_PREFILL_TIME = dict(batch=1, seq_len=4096)
 
 
 def accum_against_one(seed: int, cfg, b: int, s: int) -> dict:
@@ -5760,10 +5824,10 @@ def head_share(cfg, b: int, s: int, seed: int, step_ms: float) -> dict:
 
 def long_train_time(seed: int) -> dict:
     """llama3-8b at its published dtype (bf16), remat as published, cut
-    to ``LONG_TRAIN_TIME``'s 2 layers, batch 1, seq 4096, on seeded
+    to ``LONG_TRAIN_TIME``'s 2 layers, batch 1, seq 2560, on seeded
     parameters and AdamW state: one warm compiled step counted (K3 at the
     plan's waves, no K1, K2 or K5; the loss finite and against the plain
-    step's), then ms per compiled and plain step (wall, 2 steps each,
+    step's), then ms per compiled and plain step (wall, one step each,
     both warm), device time, kernels a step and the busy share under the
     profiler, the pair scan's and the LM head's shares of the plain
     step's device time (``pair_share``, ``head_share``),
@@ -5797,9 +5861,9 @@ def long_train_time(seed: int) -> dict:
     if not np.isfinite(loss):
         raise AssertionError("pim_llama_long time: loss not finite")
     # both warm: the counted step and the plain loss's
-    ms = wall_ms(lambda: prog(params, opt, batch), iters=2, warmup=0)
+    ms = wall_ms(lambda: prog(params, opt, batch), iters=1, warmup=0)
     prof = profile_device(lambda: prog(params, opt, batch), 1, warm=False)
-    plain_ms = wall_ms(lambda: step(params, opt, batch), iters=2, warmup=0)
+    plain_ms = wall_ms(lambda: step(params, opt, batch), iters=1, warmup=0)
     plain_prof = profile_device(lambda: step(params, opt, batch), 1,
                                 warm=False)
     peak = torch.cuda.max_memory_allocated()
@@ -5828,8 +5892,8 @@ def long_train_time(seed: int) -> dict:
 
 def long_prefill_time(seed: int) -> dict:
     """``make_prefill_step`` at the published config as it is (bf16, 32
-    layers), ``LONG_PREFILL_TIME``'s batch 1 and 8192 tokens (16 chunks,
-    136 pairs a layer) on seeded parameters: the last position's logits
+    layers), ``LONG_PREFILL_TIME``'s batch 1 and 4096 tokens (8 chunks,
+    36 pairs a layer) on seeded parameters: the last position's logits
     finite, ms of that one call (wall; its kernels warm from
     ``long_train_time``'s bf16 pairs), tokens/s,
     ``max_memory_allocated``."""
@@ -5952,10 +6016,13 @@ DENSE_TRAIN_K3 = {"compiled": 86, "per_block": 156}
 # (c) chatglm3-6b through ServeEngine(backend="pim") at SERVE_PIM_HOLD
 # (float32, 2 layers), the serve_pim hold's requests: K4 at rep 16 inside
 # the mapped program
-# time runs (bf16): the serve phase's load (batch 8, 16 requests of 64-512
-# prompt tokens, 32 output tokens), blocks of 16
+# time runs (bf16): the serve phase's load (batch 8, TIME_LOAD_REQUESTS
+# requests of 64-512 prompt tokens, 32 output tokens), blocks of 16
 DENSE_TIME = dict(batch=8, max_len=1024, kv_block_size=16)
 DENSE_TIME_ARCHS = ("chatglm3-6b", "qwen2.5-32b")
+# qwen2.5-32b's time at 32 of its 64 layers (all 64 fit; the script's time
+# is shared by every phase, and the 64 take ~10 s more of init and ticks)
+DENSE_TIME_LAYERS = {"qwen2.5-32b": 32}
 DENSE_MEMORY_LIMIT = 76e9
 
 
@@ -6131,8 +6198,8 @@ def dense_time(arch: str, seed: int, phase: str = "dense_variants",
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     extra = before(cfg, model) if before else {}
-    prompts = make_prompts(np.random.default_rng(seed + 1), 16, 64, 512,
-                           cfg.vocab_size)
+    prompts = make_prompts(np.random.default_rng(seed + 1),
+                           TIME_LOAD_REQUESTS, 64, 512, cfg.vocab_size)
     eng = ServeEngine(cfg, model, paged=True, attn_kernel=True,
                       prefill="batch", device=DEVICE, **DENSE_TIME)
     for i, p in enumerate(prompts):
@@ -6241,7 +6308,7 @@ def phase_dense_variants(seed: int) -> dict:
     timing = {}
     for arch in DENSE_TIME_ARCHS:
         timing[arch] = part(f"time {arch}", lambda arch=arch: dense_time(
-            arch, seed))
+            arch, seed, n_layers=DENSE_TIME_LAYERS.get(arch)))
         add(timing[arch]["launches"])
     emit({"phase": "dense_variants", "seconds": seconds,
           "configs": {a: config_file(a) for a in DENSE_ARCHS},
@@ -6733,7 +6800,7 @@ MOE_TRAIN_K3 = {"granite-moe-1b-a400m": {"compiled": 84, "per_block": 148},
                 "llama4-maverick-400b-a17b": {"compiled": 164,
                                               "per_block": 293}}
 # the time: granite as published (24 layers, bf16, remat), plain steps
-MOE_TRAIN_TIME = dict(batch=4, seq_len=2048, steps=2)
+MOE_TRAIN_TIME = dict(batch=4, seq_len=2048, steps=1)
 
 
 def moe_train_cfg(arch: str):
@@ -6908,10 +6975,11 @@ REC_STEPS = 8
 REC_ENGINE = dict(batch=8, max_len=64, requests=12, lo=4, hi=16,
                   max_tokens=8)
 # the time: bf16, not cut, through ServeEngine(paged=False): 8 requests of
-# 16 prompt tokens and 16 output tokens in 8 lanes of 128 (31 ticks); then
-# one make_prefill_step call at seq 2048, after a warm call at 64
-REC_TIME = dict(batch=8, max_len=128, prompt=16, max_tokens=16)
-REC_PREFILL = dict(batch=1, seq_len=2048)
+# 16 prompt tokens and 8 output tokens in 8 lanes of 128 (23 ticks); then
+# one make_prefill_step call at seq 512 (xlstm's sLSTM scans each token
+# eagerly: 2048 takes ~10 s of the script's time), after a warm call at 64
+REC_TIME = dict(batch=8, max_len=128, prompt=16, max_tokens=8)
+REC_PREFILL = dict(batch=1, seq_len=512)
 
 
 def recurrent_model(arch: str, seed: int, **changes):
@@ -7262,6 +7330,161 @@ def phase_recurrent(seed: int) -> dict:
     return {"launches": launches, "shapes": shapes}
 
 
+# ---------------------------------------------------------------------------
+# 29. recurrent_train: xlstm-350m and zamba2-7b's train step (item 5.4b)
+# ---------------------------------------------------------------------------
+
+# the holds at the published width in float32, cut in depth: xlstm 4 layers at batch 1, seq 512 (two mLSTM chunks,
+# 512 sLSTM tokens a unit); zamba2 13 layers (2 groups of 6 and the
+# tail's 1) at batch 2, seq 256 (two Mamba2 chunks) with its published
+# grad_accum=2. zamba2's 5.8 GB of f32 params and ~17.5 GB with AdamW's
+# state: its first run's outputs go to host memory, as llama3-8b's
+REC_TRAIN_HOLDS = {"xlstm-350m": dict(n_layers=4, batch=1, seq_len=512),
+                   "zamba2-7b": dict(n_layers=13, batch=2, seq_len=256)}
+# the CPU's K3 counts (tests/test_torch_recurrent_train_step.py: the
+# smoke width in the holds' structure; the width does not move them)
+REC_TRAIN_K3 = {"xlstm-350m": {"compiled": 142, "per_block": 256},
+                "zamba2-7b": {"compiled": 194, "per_block": 354}}
+# the time, bf16 plain steps, in the script's shared time limit: xlstm-350m
+# not cut at batch 8, seq 32 (a cold step at seq 256 took 128 s under the
+# profiler, at 64 30 s: the sLSTM's eager tokens, forward, recomputed and
+# transposed, ~2,000 launches a token); zamba2-7b at batch 2, seq 512 (at
+# 2048 a cold step took 40 s) in whole groups of 6
+# (no tail), as many as fit DENSE_MEMORY_LIMIT by REC_TRAIN_BYTES a
+# parameter (bf16 params and gradients, the f32 microbatch sum, f32 m and
+# v, and AdamW's f32 temporaries of the stacked leaves: 5 and 4 groups
+# ran out of the card in AdamW, 67.6 and 69.2 GB allocated)
+REC_TRAIN_TIME = {"xlstm-350m": dict(batch=8, seq_len=32),
+                  "zamba2-7b": dict(batch=2, seq_len=512)}
+REC_TRAIN_BYTES = 36
+
+
+def rec_train_groups() -> int:
+    """zamba2-7b's groups for the bf16 time: the most whole groups whose
+    parameters at ``REC_TRAIN_BYTES`` each fit ``DENSE_MEMORY_LIMIT``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    cfg = get_config("zamba2-7b")
+    groups = 1
+    while groups < transformer.n_units(cfg):
+        nxt = dataclasses.replace(cfg, n_layers=6 * (groups + 1))
+        n = sum(math.prod(s) for s in transformer.leaf_shapes(nxt).values())
+        if n * REC_TRAIN_BYTES > DENSE_MEMORY_LIMIT:
+            break
+        groups += 1
+    return groups
+
+
+def rec_train_cfg(arch: str):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), dtype="float32",
+                               n_layers=REC_TRAIN_HOLDS[arch]["n_layers"])
+
+
+def rec_train_time(arch: str, seed: int) -> dict:
+    """``arch``'s bf16 plain train step (``make_train_step``) at
+    ``REC_TRAIN_TIME`` on seeded parameters and AdamW state: one step,
+    cold, under the profiler (``profile_device``: its wall ms, device ms,
+    busy share, kernels, groups), tokens/s and
+    ``max_memory_allocated``. xlstm-350m as published; zamba2-7b cut to
+    ``rec_train_groups()`` groups."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import make_train_step
+    cfg = get_config(arch)
+    if arch == "zamba2-7b":
+        cfg = dataclasses.replace(cfg, n_layers=6 * rec_train_groups())
+    t = REC_TRAIN_TIME[arch]
+    b, s = t["batch"], t["seq_len"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params, opt = llama_train_state(cfg, seed)
+    batch = token_batch(cfg, b, s, seed)
+    step = make_train_step(cfg)
+    out = []
+    # one step, under the profiler (the card alone): its wall is the
+    # step's; a step costs xlstm ~1 min of eager launches
+    prof = profile_device(lambda: out.append(step(params, opt, batch)[2]),
+                          1, warm=False)
+    loss = float(out[0])
+    if not np.isfinite(loss):
+        raise AssertionError(f"recurrent_train time {arch}: loss not finite")
+    ms = prof["wall_ms_per_call"]
+    peak = torch.cuda.max_memory_allocated()
+    r = {"config": f"{arch} ({config_file(arch)}): {cfg.n_layers} of "
+                   f"{get_config(arch).n_layers} layers, bfloat16, remat "
+                   f"{cfg.remat}, grad_accum {cfg.grad_accum}",
+         **t, "tokens_per_step": b * s,
+         "parameters": sum(x.numel() for x in
+                           torch.utils._pytree.tree_leaves(params)),
+         "loss": loss, "ms_per_step": ms,
+         "tokens_per_s": b * s / (ms / 1e3), "profile": prof,
+         "max_memory_allocated_gb": peak / 1e9}
+    del params, opt, batch
+    torch.cuda.empty_cache()
+    if peak >= DENSE_MEMORY_LIMIT:
+        raise AssertionError(f"recurrent_train time {arch}: {peak / 1e9} "
+                             f"GB allocated")
+    return r
+
+
+def phase_recurrent_train(seed: int) -> dict:
+    """The recurrent train step (item 5.4b): xlstm-350m and zamba2-7b
+    through ``compile_arch(kind="train")`` (``train_hold``) at
+    ``REC_TRAIN_HOLDS`` (f32, TF32 off): K3 alone at the CPU's counts
+    (``REC_TRAIN_K3``), the compiled step bit for bit the per-block
+    executor's and a rerun's, within ``LLAMA_TRAIN_TOL`` of the plain
+    step (loss, params, m, v), no host sync, the one-ulp last-wave
+    control failing; zamba2's shared block (rope ``"none"``) trains here
+    on the card. Then the bf16 time (``rec_train_time``). Emitted as one
+    ``recurrent_train`` line; returns xlstm's launch shapes for
+    ``kernels_pim``."""
+    import gc as gc_mod
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    seconds, holds = {}, {}
+    launches = dict.fromkeys(PIM_KEYS, 0)
+    for arch in REC_ARCHS:
+        t0 = time.perf_counter()
+        h = REC_TRAIN_HOLDS[arch]
+        holds[arch] = train_hold(
+            seed, rec_train_cfg(arch), h["batch"], h["seq_len"],
+            REC_TRAIN_K3[arch], f"recurrent_train {arch} hold",
+            hold_waves=False, on_host=arch != REC_ARCHS[0], arch=arch,
+            rerun=True, log_shapes=arch == REC_ARCHS[0])
+        for k in launches:
+            launches[k] += holds[arch]["launches"][k]
+        gc_mod.collect()
+        torch.cuda.empty_cache()
+        seconds[arch] = time.perf_counter() - t0
+        print(f"[{time.perf_counter() - T0:.1f} s] recurrent_train {arch} "
+              f"{seconds[arch]:.1f} s", file=sys.stderr, flush=True)
+    shapes = holds[REC_ARCHS[0]].pop("shapes")
+    timing = {}
+    for arch in REC_ARCHS:
+        t0 = time.perf_counter()
+        timing[arch] = rec_train_time(arch, seed)
+        seconds[f"time {arch}"] = time.perf_counter() - t0
+        print(f"[{time.perf_counter() - T0:.1f} s] recurrent_train time "
+              f"{arch} {seconds[f'time {arch}']:.1f} s", file=sys.stderr,
+              flush=True)
+    emit({"phase": "recurrent_train", "seconds": seconds,
+          "configs": {a: config_file(a) for a in REC_ARCHS},
+          "holds_shape": REC_TRAIN_HOLDS,
+          "reduced": {"holds": {"n_layers": {
+              a: [dense_cfg(a).n_layers, REC_TRAIN_HOLDS[a]["n_layers"]]
+              for a in REC_ARCHS}, "dtype": ["bfloat16", "float32"]},
+              "time": {"zamba2-7b": {"n_layers": [
+                  dense_cfg("zamba2-7b").n_layers,
+                  6 * rec_train_groups()]},
+                  "seq_len": {a: [{"xlstm-350m": 256, "zamba2-7b": 2048}[a],
+                                  REC_TRAIN_TIME[a]["seq_len"]]
+                              for a in REC_ARCHS}}},
+          "tol": LLAMA_TRAIN_TOL, "holds": holds, "time": timing,
+          "launches": launches})
+    return {"launches": launches, "shapes": shapes}
+
+
 def sums(rows) -> dict:
     """Times and bounds of one run's launches: each distinct shape's
     numbers times its count, summed (each shape's bound the larger of its
@@ -7289,7 +7512,7 @@ def pim_entry(ids, key, by_path, rows) -> dict:
     those of one batch-64 train step (K2: one executor step), of
     ``pim_grad``'s backward (K2: the executor's backward there), of one
     llama3-8b decode step (K2: one executor step) and of one llama3-8b
-    train step (bf16, 4 layers, seq 2048; K3 alone launches there); under
+    train step (bf16, 2 layers, seq 2048; K3 alone launches there); under
     ``pim_llama_pipe``, those of one partitioned decode step of the hold
     (f32, 2 layers unrolled: the layers' products and waves). ``pim_pipe``
     (LeNet-5 through the partitions) adds launches only: its stages run
@@ -7320,7 +7543,10 @@ def pim_entry(ids, key, by_path, rows) -> dict:
             "moe_train": (sums(rows["moe_train"][key])
                           if rows["moe_train"].get(key) else None),
             "recurrent": (sums(rows["recurrent"][key])
-                          if rows["recurrent"].get(key) else None)}
+                          if rows["recurrent"].get(key) else None),
+            "recurrent_train": (sums(rows["recurrent_train"][key])
+                                if rows["recurrent_train"].get(key)
+                                else None)}
 
 
 def with_counts(shapes: dict) -> dict:
@@ -7442,10 +7668,12 @@ def main() -> int:
     serve = phase_serve(args.seed)
     phase_profile(serve["engine"], args.seed)
     kvq = phase_serve_kvq(serve["engine"].model, args.seed)
-    # 64-token prompts replayed: the last 15 ticks (7 of replay, 8 of
-    # generation) run under the profiler
-    phase_profile(kvq["engine"], args.seed, "profile_kvq", prompt_len=64,
-                  warm_ticks=56)
+    # 10-token prompts replayed: the last 10 ticks (2 of replay, 8 of
+    # generation) run under the profiler; each replayed tick costs ~0.24 s
+    # of the script's time, and the profiler's reduction of a window ~1 s
+    # a tick more
+    phase_profile(kvq["engine"], args.seed, "profile_kvq", prompt_len=10,
+                  warm_ticks=8)
     serve_pim = phase_serve_pim(serve["engine"].model, args.seed)
     by_path["serve_pim"] = {k: serve_pim["launches"][k] for k in PIM_KEYS}
     # the serve phases' bf16 model (16 GB) goes before the variants' time
@@ -7490,6 +7718,11 @@ def main() -> int:
     rows["recurrent_q"] = phase_kernels_pim_q(
         args.seed, with_counts({"k5": rec["shapes"]["int8"]["k5"]})["k5"],
         "recurrent_q", LLAMA_HOLD["batch"], iters=3, plain_iters=1)
+    rec_train = phase_recurrent_train(args.seed)
+    by_path["recurrent_train"] = rec_train["launches"]
+    rows["recurrent_train"] = phase_kernels_pim(
+        args.seed, with_counts(rec_train["shapes"]), "recurrent_train",
+        REC_TRAIN_HOLDS[REC_ARCHS[0]]["batch"], iters=3, plain_iters=1)
     print(gpu_name_and_power_limit(), flush=True)
 
     def entry(ids, launches, r):

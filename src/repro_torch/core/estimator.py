@@ -43,8 +43,9 @@ costed nodes in its order:
 
 A backward written out by hand (the decoder's layer stack) spells the
 ops the reference's graph does not see as ops of their own, unpriced:
-the cotangent sum :func:`add_any`, ``silu``'s VJP :func:`silu_vjp` (the
-reference's ``silu`` is a jit whose ops it does not walk),
+the cotangent sum :func:`add_any`, ``silu``'s and ``softplus``'s VJPs
+:func:`silu_vjp` and :func:`softplus_vjp` (the reference's ``silu`` and
+``softplus`` are jits whose ops it does not walk),
 ``jnp.where``'s outputs :func:`select_parts`, ``take_along_axis``'s
 :func:`take_parts` and a gather's transpose :func:`scatter_add` (the
 mixture-of-experts block's dispatch and combine). A chunk's slice and a
@@ -69,6 +70,7 @@ from typing import Any, Callable
 
 import torch
 import torch.fx.traceback as fx_traceback
+from torch.fx._lazy_graph_module import _use_lazy_graph_module
 from torch.fx.experimental.proxy_tensor import make_fx
 from torch.utils import _pytree as pytree
 
@@ -213,6 +215,20 @@ def silu_vjp(g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 @silu_vjp.register_fake
 def _silu_vjp_fake(g, x):
+    return torch.empty_like(g)
+
+
+@torch.library.custom_op("repro_torch::softplus_vjp", mutates_args=())
+def softplus_vjp(g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The cotangent of ``x`` in ``softplus(x)`` for the cotangent ``g``:
+    ``g·σ(x)``. The reference's ``softplus`` is a jit of its own, whose
+    ops its graph does not price; one op of its own keeps them unpriced
+    here."""
+    return g * torch.sigmoid(x)
+
+
+@softplus_vjp.register_fake
+def _softplus_vjp_fake(g, x):
     return torch.empty_like(g)
 
 
@@ -490,8 +506,27 @@ def _hoist_residuals(gm: torch.fx.GraphModule) -> None:
     moved = False
     for node in list(gm.graph.nodes):
         y = node.args[0] if node.target is aten.rsub.Scalar else None
-        if isinstance(y, torch.fx.Node) and y.target is aten.tanh.default:
+        if (isinstance(y, torch.fx.Node) and y.target is aten.tanh.default
+                and y.next is not node):
             y.append(node)
+            moved = True
+    if moved:
+        gm.recompile()
+
+
+# marks a node that only stands for another (``models.lin``'s copied
+# loop iterations): :func:`capture` replaces it by the node it reads
+STAND_IN_KEY = "repro_torch.stand_in"
+
+
+def _drop_stand_ins(gm: torch.fx.GraphModule) -> None:
+    """Replace each stand-in node by the node it reads and erase it, so
+    the graph holds what tracing every iteration would have."""
+    moved = False
+    for node in list(gm.graph.nodes):
+        if node.meta.get(STAND_IN_KEY):
+            node.replace_all_uses_with(node.args[0])
+            gm.graph.erase_node(node)
             moved = True
     if moved:
         gm.recompile()
@@ -515,10 +550,13 @@ def capture(fn: Callable, *args, **kwargs) -> Capture:
         out_spec[:] = [spec]
         return outs
 
-    with fx_traceback.preserve_node_meta():     # regions into node meta
+    # a lazy module: its Python code is generated at its first call, not
+    # after each edit (seconds at 10^5 nodes; the mapper reads the graph)
+    with fx_traceback.preserve_node_meta(), _use_lazy_graph_module(True):
         gm = make_fx(flat_fn, tracing_mode="fake",
                      decomposition_table=DECOMPOSITIONS)(*flat)
-    _hoist_residuals(gm)
+        _drop_stand_ins(gm)
+        _hoist_residuals(gm)
     return Capture(gm=gm, in_spec=in_spec, out_spec=out_spec[0])
 
 

@@ -72,10 +72,8 @@ def make_loss_fn(cfg: ArchConfig) -> Callable:
     """(params, batch) -> loss: the hidden states, then the fused LM head
     and cross entropy over chunks of 512 tokens (``layers.fused_xent_head``;
     the float32 logits never exist whole); a tied head's weight is the
-    embedding table's transpose. A block pattern still to port raises
-    ``NotImplementedError`` (``transformer.check_ported``: the recurrent
-    patterns' train step, item 5.4b)."""
-    transformer.check_ported(cfg)
+    embedding table's transpose. Every block pattern trains: the
+    recurrent ones through ``transformer._RecurrentStack``."""
 
     def loss_fn(params, batch):
         head = transformer.head_weight(cfg, params)

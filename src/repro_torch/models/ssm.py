@@ -30,6 +30,7 @@ operands, batch dims and output layout are its ``dot_general``'s.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -521,3 +522,315 @@ def mamba2_seq_chunked(x: torch.Tensor, p, *, ssm_state: int, headdim: int,
         ys.append(y_intra + y_inter)
     y = torch.stack(ys).permute(1, 0, 3, 2, 4).reshape(b, s, nh, headdim)
     return _mamba_out(x, y, xh, z, p)
+
+
+# ---------------------------------------------------------------------------
+# the differentiated forms: each block spelled on a ``lin.Tape`` (the train
+# step's stack, ``transformer._RecurrentStack``): the reference's
+# linearized forward, and through ``Tape.transpose`` its transpose
+# ---------------------------------------------------------------------------
+
+
+def last_index(n: int, device) -> torch.Tensor:
+    """``-1`` normalized into an axis of ``n`` as the reference's indexing
+    normalizes it (``x[..., -1]``; the ``add`` its graph prices), a 0-d
+    int32 tensor on ``device``."""
+    from repro_torch.models import attention
+    return attention._wrapped(torch.full((), -1, dtype=torch.int32,
+                                         device=device), n)
+
+
+def _gelu_t(t, x):
+    """``gelu`` on the tape: linearized, ``integer_pow``'s coefficient
+    ``3·x²`` and ``tanh``'s ``1 - y`` besides its six products."""
+    x3 = t.ipow(x, 3)
+    inner = t.add(x, t.mul(0.044715, x3))
+    th = t.tanh(t.mul(math.sqrt(2 / math.pi), inner))
+    return t.mul(x, t.mul(0.5, t.add(1.0, th)))
+
+
+def _block_out_t(t, x, hidden, gate_in, p, keep: bool):
+    """``_block_out`` on the tape: ``sigmoid(gate_in @ w_o)`` gates
+    ``hidden``, then ``x + gelu(hidden @ w_proj_up) @ w_proj_down``; with
+    ``keep=False`` the last product and the sum are not evaluated (a
+    recomputed block whose output nothing reads)."""
+    o_gate = t.logistic(t.matmul(gate_in, p["w_o"]))
+    hidden = t.mul(hidden, o_gate)
+    act = _gelu_t(t, t.matmul(hidden, p["w_proj_up"]))
+    with (t.dead() if not keep else contextlib.nullcontext()):
+        return t.add(x, t.matmul(act, p["w_proj_down"]))
+
+
+def _cummax_t(t, x, axis: int):
+    """``lax.cummax`` along ``axis`` as its derivative computes it: JAX's
+    ``associative_scan`` of ``max`` (strided slices, the pairwise maxima,
+    their interleave as two pads and an ``add``)."""
+    def combine(a, b):
+        return t.maximum(a, b)
+
+    def interleave(a, b):
+        if a.shape[axis] == b.shape[axis]:
+            return t.add(t.pad(a, axis, 0, 1, 1), t.pad(b, axis, 1, 0, 1))
+        return t.add(t.pad(a, axis, 0, 0, 1), t.pad(b, axis, 1, 1, 1))
+
+    def scan(e):
+        n = e.shape[axis]
+        if n < 2:
+            return e
+        odd = scan(combine(t.slice(e, axis, 0, n - 1, 2),
+                           t.slice(e, axis, 1, n, 2)))
+        if n % 2 == 0:
+            even = combine(t.slice(odd, axis, 0, odd.shape[axis] - 1),
+                           t.slice(e, axis, 2, n, 2))
+        else:
+            even = combine(odd, t.slice(e, axis, 2, n, 2))
+        even = t.cat([t.slice(e, axis, 0, 1), even], axis)
+        return interleave(even, odd)
+
+    return scan(x)
+
+
+def _repeat_t(t, x, n: int):
+    """``jnp.repeat(x, n, axis=-1)`` of x [B, H] on the tape."""
+    b, h = x.shape
+    return t.reshape(t.expand(t.reshape(x, b, h, 1), b, h, n), b, h * n)
+
+
+def _mlstm_chunk_t(t, causal, carry, xs, *, keep: bool, idx):
+    """One chunk of ``mlstm_seq_chunked`` (the reference's checkpointed
+    scan body) on the tape: carry (Ĉ, n̂, m) [B, H, dk, dk] / [B, H, dk] /
+    [B, H], xs (q, k, v [B, H, L, dk], i, f [B, H, L]). ``idx``: the
+    normalized ``-1`` of the two ``[..., -1]`` reads (hoisted by the
+    caller, as the reference's linearization hoists them), None to make
+    them here. ``keep=False``: what only the chunk's outputs read is not
+    evaluated (its recompute in the transpose)."""
+    c_hat, n_hat, m_prev = carry
+    qt, kt, vt, it, ft = xs
+    b, h, l, dk = qt.shape
+    dead = (lambda: t.dead()) if not keep else contextlib.nullcontext
+    bh = (([3], [2]), ([0, 1], [0, 1]))
+    f_cum = t.cumsum(t.log_sigmoid(ft), -1)                  # F_t
+    g = t.sub(it, f_cum)                                     # i - F
+    m_loc = t.maximum(_cummax_t(t, g, 2), t.reshape(m_prev, b, h, 1))
+    dmat = t.exp(t.sub(t.reshape(g, b, h, 1, l), t.reshape(m_loc, b, h, l,
+                                                           1)))
+    dmat = t.where(causal, dmat, 0.0)
+    scores = t.mul(t.dot(qt, kt, (([3], [3]), ([0, 1], [0, 1]))), dmat)
+    y_intra = t.dot(scores, vt, bh)
+    inter = t.exp(t.sub(t.reshape(m_prev, b, h, 1), m_loc))   # [B, H, L]
+    y_inter = t.mul(t.dot(qt, c_hat, bh), t.reshape(inter, b, h, l, 1))
+    y = t.add(y_intra, y_inter)
+    n_t = t.add(t.dot(dmat, kt, bh), t.mul(t.reshape(n_hat, b, h, 1, dk),
+                                           t.reshape(inter, b, h, l, 1)))
+    denom = t.abs(t.dot(n_t, qt, (([3], [3]), ([0, 1, 2], [0, 1, 2]))))
+    m_t = t.add(f_cum, m_loc)
+    denom = t.maximum(denom, t.exp(t.neg(m_t)))
+    with dead():
+        y = t.div(y, t.reshape(denom, b, h, l, 1))
+    # the state at the chunk's end
+    m_end = t.at(m_loc, 2, idx[0] if idx else last_index(l, qt.device))
+    w_state = t.exp(t.sub(g, t.reshape(m_end, b, h, 1)))
+    decay = t.exp(t.sub(m_prev, m_end))
+    with dead():
+        c_old = t.mul(t.reshape(decay, b, h, 1, 1), c_hat)
+    vw = t.dot(vt, w_state, (([], []), ([0, 1, 2], [0, 1, 2])))
+    with dead():
+        c_new = t.add(c_old, t.dot(kt, vw, (([2], [2]), ([0, 1], [0, 1]))))
+    decay = t.exp(t.sub(m_prev, m_end))
+    with dead():
+        n_new = t.add(t.mul(t.reshape(decay, b, h, 1), n_hat),
+                      t.dot(kt, w_state, (([2], [2]), ([0, 1], [0, 1]))))
+        at = idx[1] if idx else last_index(l, qt.device)
+        m_new = t.add(t.at(f_cum, 2, at), m_end)
+    return [c_new, n_new, m_new], [y]
+
+
+def mlstm_block_t(t, x, p, n_heads: int, eps: float, *, keep: bool = True,
+                  idx=None, chunk: int = 256):
+    """``mlstm_seq_chunked`` on the tape (the train step's block): the
+    chunks a checkpointed loop (``Tape.checkpoint_loop``, the ``"scan"``
+    region ``"chunks"``). Where the tape linearizes, the chunk body's two
+    ``-1`` indices are made once before the loop (the reference's
+    linearization hoists them), or come hoisted further out in ``idx``
+    (``chunk_indices``)."""
+    b, s, d = x.shape
+    dk = d // n_heads
+    f32 = torch.float32
+    h_in = t.rms_norm(x, p["norm/scale"], eps)
+    q = t.mul(t.reshape(t.matmul(h_in, p["w_q"]), b, s, n_heads, dk),
+              dk ** -0.5)
+    k = t.reshape(t.matmul(h_in, p["w_k"]), b, s, n_heads, dk)
+    v = t.reshape(t.matmul(h_in, p["w_v"]), b, s, n_heads, dk)
+    i_pre = t.astype(t.matmul(h_in, p["w_i"]), f32)
+    f_pre = t.add(t.astype(t.matmul(h_in, p["w_f"]), f32),
+                  t.astype(p["f_bias"], f32))
+    l, nc = _chunk(s, chunk)
+
+    def cshape(u):               # [B, S, H, dk] -> [nc, B, H, L, dk]
+        return t.permute(t.reshape(t.astype(u, f32), b, nc, l, n_heads, dk),
+                         1, 0, 3, 2, 4)
+
+    def gshape(u):               # [B, S, H] -> [nc, B, H, L]
+        return t.permute(t.reshape(u, b, nc, l, n_heads), 1, 0, 3, 2)
+
+    causal = torch.ones((l, l), dtype=torch.bool, device=x.device).tril()
+    carry = [torch.zeros((b, n_heads, dk, dk), dtype=f32, device=x.device),
+             torch.zeros((b, n_heads, dk), dtype=f32, device=x.device),
+             torch.full((b, n_heads), -1e30, dtype=f32, device=x.device)]
+
+    if t.lin and idx is None:    # hoisted out of the chunk loop
+        idx = [last_index(l, x.device), last_index(l, x.device)]
+
+    def body(tc, consts, c, xs, keep=True):
+        return _mlstm_chunk_t(tc, causal, c, xs, keep=keep,
+                              idx=idx if (t.lin and keep) else None)
+
+    _, (ys,) = t.checkpoint_loop(
+        body, carry, [cshape(q), cshape(k), cshape(v), gshape(i_pre),
+                      gshape(f_pre)], [], "chunks")
+    hidden = t.astype(t.reshape(t.permute(ys, 1, 0, 3, 2, 4), b, s, d),
+                      x.dtype)
+    return _block_out_t(t, x, hidden, h_in, p, keep)
+
+
+def chunk_indices(cfg, s: int, device) -> list:
+    """The normalized ``-1`` indices the chunk bodies of ``cfg``'s blocks
+    read, made once before the stack as the reference's linearization
+    hoists them out of its loops: the mLSTM's two, the Mamba2's one."""
+    if cfg.block_pattern == "xlstm":
+        l, _ = _chunk(s, 256)
+        return [last_index(l, device), last_index(l, device)]
+    l, _ = _chunk(s, 128)
+    return [last_index(l, device)]
+
+
+def _slstm_cell_t(t, consts, carry, xs, n_heads: int, dtype):
+    """One token of ``slstm_seq`` on the tape (the reference's scan body):
+    the recurrent product from the previous hidden state, then the cell.
+    carry (c, h, m, n), xs (z, i, f) of the token."""
+    (r_z,) = consts
+    c, h_prev, m, n = carry
+    zt, it, ft = xs
+    b, d = zt.shape
+    dh = d // n_heads
+    f32 = torch.float32
+    z_rec = t.astype(t.matmul(t.astype(h_prev, dtype), r_z), f32)
+    z_pre = t.add(t.astype(zt, f32), z_rec)
+    log_f = t.log_sigmoid(ft)
+    m_new = t.maximum(t.add(log_f, m), it)
+    i_g = _repeat_t(t, t.exp(t.sub(it, m_new)), dh)
+    f_g = _repeat_t(t, t.exp(t.sub(t.add(log_f, m), m_new)), dh)
+    z = t.tanh(z_pre)
+    c_new = t.add(t.mul(f_g, c), t.mul(i_g, z))
+    n_new = t.add(t.mul(f_g, n), i_g)
+    h_new = t.div(c_new, t.maximum(n_new, 1e-6))
+    return [c_new, h_new, m_new, n_new], [h_new]
+
+
+def slstm_block_t(t, x, p, n_heads: int, eps: float, *,
+                  keep: bool = True):
+    """``slstm_seq`` on the tape: the tokens a loop (``Tape.loop``, the
+    ``"scan"`` region ``"tokens"``) whose body is linearized where the
+    tape is, its transpose the tokens' in reverse."""
+    b, s, d = x.shape
+    f32 = torch.float32
+    xn = t.rms_norm(x, p["norm/scale"], eps)
+    z_all = t.matmul(xn, p["w_z"])
+    i_all = t.astype(t.matmul(xn, p["w_i"]), f32)
+    f_all = t.add(t.astype(t.matmul(xn, p["w_f"]), f32),
+                  t.astype(p["f_bias"], f32))
+    st = slstm_state(b, d, n_heads, x.device)
+    carry = [st["c"], st["h"], st["m"], st["n"]]
+    _, (hs,) = t.loop(
+        lambda tc, consts, c, xs: _slstm_cell_t(tc, consts, c, xs, n_heads,
+                                                x.dtype),
+        carry, [t.permute(z_all, 1, 0, 2), t.permute(i_all, 1, 0, 2),
+                t.permute(f_all, 1, 0, 2)], [p["r_z"]], "tokens")
+    hidden = t.astype(t.permute(hs, 1, 0, 2), x.dtype)
+    return _block_out_t(t, x, hidden, xn, p, keep)
+
+
+def _mamba_chunk_t(t, consts, carry, xs, causal, *, keep: bool, idx):
+    """One chunk of ``mamba2_seq_chunked`` (the reference's checkpointed
+    scan body) on the tape: consts (A [H],), carry (S [B, H, P, N],), xs
+    (x [B, H, L, P], B, C [B, L, N], dt [B, H, L])."""
+    (a,) = consts
+    (st,) = carry
+    xt, bt, ct, dtt = xs
+    b, h, l, pdim = xt.shape
+    dead = (lambda: t.dead()) if not keep else contextlib.nullcontext
+    a_cum = t.cumsum(t.mul(t.reshape(a, 1, h, 1), dtt), -1)  # A_t (<= 0)
+    dm = t.exp(t.sub(t.reshape(a_cum, b, h, l, 1), t.reshape(a_cum, b, h, 1,
+                                                             l)))
+    dm = t.where(causal, dm, 0.0)
+    cb = t.dot(ct, bt, (([2], [2]), ([0], [0])))              # [B, L, L]
+    scores = t.mul(t.reshape(cb, b, 1, l, l), dm)
+    dx = t.mul(t.reshape(dtt, b, h, l, 1), xt)                # [B, H, L, P]
+    with dead():
+        y_intra = t.dot(scores, dx, (([3], [2]), ([0, 1], [0, 1])))
+    y_st = t.permute(t.dot(st, ct, (([3], [2]), ([0], [0]))), 0, 1, 3, 2)
+    with dead():
+        y_inter = t.mul(y_st, t.reshape(t.exp(a_cum), b, h, l, 1))
+    w_end = t.exp(t.sub(t.slice(a_cum, 2, l - 1, l), a_cum))  # [B, H, L]
+    e_end = t.exp(t.at(a_cum, 2, idx[0] if idx else last_index(l, xt.device)))
+    with dead():
+        decayed = t.mul(t.reshape(e_end, b, h, 1, 1), st)
+    dxw = t.dot(dx, w_end, (([], []), ([0, 1, 2], [0, 1, 2])))
+    with dead():
+        st_new = t.add(decayed, t.dot(dxw, bt, (([2], [1]), ([0], [0]))))
+        y = t.add(y_intra, y_inter)
+    return [st_new], [y]
+
+
+def mamba2_block_t(t, x, p, *, ssm_state: int, headdim: int, eps: float,
+                   keep: bool = True, idx=None, chunk: int = 128):
+    """``mamba2_seq_chunked`` on the tape: the in projection, the causal
+    conv (a sum of shifted products), B, C, dt, then the chunks a
+    checkpointed loop (the ``"scan"`` region ``"chunks"``), the skip, the
+    ``silu(z)`` gate and the out projection."""
+    b, s, d = x.shape
+    f32 = torch.float32
+    xn = t.rms_norm(x, p["norm/scale"], eps)
+    xz = t.matmul(xn, p["w_in"])
+    d_in = xz.shape[-1] // 2
+    xi, z = t.slice(xz, 2, 0, d_in), t.slice(xz, 2, d_in, 2 * d_in)
+    conv = p["conv"]
+    w = conv.shape[0]
+    pad = t.pad(xi, 1, w - 1, 0)
+    out = torch.zeros_like(xi)
+    for i in range(w):
+        out = t.add(out, t.mul(t.slice(pad, 1, i, i + s),
+                               t.reshape(t.slice(conv, 0, i, i + 1), 1, 1,
+                                         d_in)))
+    xi = t.silu(out)
+    nh = d_in // headdim
+    bmat = t.astype(t.matmul(xi, p["w_b"]), f32)
+    cmat = t.astype(t.matmul(xi, p["w_c"]), f32)
+    dt = t.softplus(t.add(t.astype(t.matmul(xn, p["w_dt"]), f32),
+                          t.astype(p["dt_bias"], f32)))
+    a = t.neg(t.exp(t.astype(p["a_log"], f32)))
+    xh = t.astype(t.reshape(xi, b, s, nh, headdim), f32)
+    l, nc = _chunk(s, chunk)
+    causal = torch.ones((l, l), dtype=torch.bool, device=x.device).tril()
+    st0 = torch.zeros((b, nh, headdim, ssm_state), dtype=f32,
+                      device=x.device)
+
+    if t.lin and idx is None:    # hoisted out of the chunk loop
+        idx = [last_index(l, x.device)]
+
+    def body(tc, consts, c, xs, keep=True):
+        return _mamba_chunk_t(tc, consts, c, xs, causal, keep=keep,
+                              idx=idx if (t.lin and keep) else None)
+
+    _, (ys,) = t.checkpoint_loop(
+        body, [st0],
+        [t.permute(t.reshape(xh, b, nc, l, nh, headdim), 1, 0, 3, 2, 4),
+         t.permute(t.reshape(bmat, b, nc, l, ssm_state), 1, 0, 2, 3),
+         t.permute(t.reshape(cmat, b, nc, l, ssm_state), 1, 0, 2, 3),
+         t.permute(t.reshape(dt, b, nc, l, nh), 1, 0, 3, 2)], [a], "chunks")
+    y = t.reshape(t.permute(ys, 1, 0, 3, 2, 4), b, s, nh, headdim)
+    y = t.add(y, t.mul(t.reshape(t.astype(p["d_skip"], f32), 1, 1, nh, 1),
+                       xh))
+    y = t.mul(t.astype(t.reshape(y, b, s, d_in), x.dtype), t.silu(z))
+    with (t.dead() if not keep else contextlib.nullcontext()):
+        return t.add(x, t.matmul(y, p["w_out"]))

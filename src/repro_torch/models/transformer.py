@@ -34,8 +34,11 @@ loops a ``"scan"`` region — the units, zamba2's groups with a ``"mamba"``
 loop inside each, its ``"tail"``), with one module a layer (``ssm.
 RecurrentBlock``) and zamba2's shared block once (``SharedBlock``);
 ``leaf_layout`` maps every leaf of the tree to the modules holding its
-slices. The paged entry points raise for them, as the reference's do,
-and their differentiated stack is item 5.4b (``check_ported``).
+slices. They train through ``_RecurrentStack``: the blocks spelled on a
+``lin.Tape``, whose transpose is the reference's, op for op (the loops'
+transposes, the chunk bodies recomputed as its checkpoint does, the
+shared block's gradients summed over the groups). The paged entry
+points raise for them, as the reference's do.
 
 Entry points:
   * ``decode_step_paged(cache, token, block_table, pos)`` -> logits
@@ -88,7 +91,7 @@ from repro_torch._device import resolve_device, torch_dtype
 from repro_torch._tree import leaves_with_path, tree_map
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import estimator
-from repro_torch.models import attention, layers, moe, ssm
+from repro_torch.models import attention, layers, lin, moe, ssm
 
 # the reference's per-block leaves of a dense block (``layers/block<i>/
 # <name>``, stacked over the units on a leading axis) and the port's block
@@ -272,21 +275,6 @@ def leaf_shapes(cfg: ArchConfig) -> dict[str, tuple[int, ...]]:
     first (``leaf_layout``)."""
     return {key: (*dims, *shape)
             for key, (dims, shape, _) in leaf_layout(cfg).items()}
-
-
-def check_ported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` naming what of ``cfg`` the port does
-    not run yet, with its item of ROADMAP.md's port queue: the
-    differentiated stack of the recurrent patterns (item 5.4b, the
-    recurrent train step). Every pattern serves (forward, prefill and the
-    contiguous decode step); the attention patterns also train. Called
-    where a step differentiates the stack."""
-    if cfg.block_pattern in RECURRENT:
-        raise NotImplementedError(
-            f"block_pattern={cfg.block_pattern!r}: the differentiated "
-            f"recurrent stack (item 5.4b, the recurrent train step) not "
-            f"ported yet (ROADMAP.md, port queue item 5: remaining model "
-            f"families); it serves")
 
 
 def param_tree(flat: dict) -> dict:
@@ -480,6 +468,159 @@ def _forward_recurrent(cfg: ArchConfig, params: dict, x: torch.Tensor,
             lp, = _slices((params["tail_layers"],), t)
             x = ssm.mamba2_seq_chunked(x, _flat(lp["mamba"]), **kw)
     return x
+
+
+def recurrent_leaves(cfg: ArchConfig) -> tuple[str, ...]:
+    """The recurrent stack's leaves by key path, the order
+    ``_RecurrentStack`` takes them: xlstm's ``layers/mlstm/…`` then
+    ``layers/slstm/…``; zamba2's ``layers/mamba/…``, ``tail_layers/
+    mamba/…`` and the shared block's (``leaf_layout``'s order)."""
+    return tuple(k for k in leaf_layout(cfg)
+                 if k.startswith(("layers/", "tail_layers/", "shared_")))
+
+
+# the shared block's leaves under the names ``_unit_forward`` reads
+_SHARED_NAMES = {"shared_norm1/scale": "norm1/scale",
+                 "shared_attn/wq": "attn/wq", "shared_attn/wk": "attn/wk",
+                 "shared_attn/wv": "attn/wv", "shared_attn/wo": "attn/wo",
+                 "shared_norm2/scale": "norm2/scale",
+                 "shared_mlp/w_gate": "mlp/w_gate",
+                 "shared_mlp/w_up": "mlp/w_up",
+                 "shared_mlp/w_down": "mlp/w_down"}
+
+
+def _shared_block_t(t, x, w: dict, cfg: ArchConfig, positions, mask,
+                    keep: bool):
+    """zamba2's weight-tied attention + MLP block on the tape: the dense
+    block of the attention stack (``_unit_forward``; rope ``"none"``, so
+    no tables), its VJP ``_unit_backward`` recorded as one linear op of
+    the block's input and leaves (``w`` keyed as ``_SHARED_NAMES``)."""
+    chunked = mask is None
+    if not t.lin:
+        return _unit_forward(x, w, cfg, positions, mask, chunked=chunked,
+                             residuals=False)["out"]
+    r = _unit_forward(x, w, cfg, positions, mask, full=keep,
+                      chunked=chunked)
+    out = r["out"] if keep else x.new_empty(()).expand(x.shape)
+    names = list(w)
+
+    def rule(g):
+        dx, grads = _unit_backward(g[0], r, w, cfg)
+        return (dx, *[grads[n] for n in names])
+
+    t.custom([out], [x, *w.values()], rule)
+    return out
+
+
+class _Holder:
+    """What ``_RecurrentStack``'s forward leaves for its backward: the
+    tape (its recorded transposes hold the residuals), the forward's own
+    input and output tensors. Passed as an input, so ``torch.func``
+    hands it to the backward as it is (not a pytree)."""
+
+    tape = out = inputs = None
+
+
+def _recurrent_forward(t, cfg: ArchConfig, x, positions, mask,
+                       p: dict) -> torch.Tensor:
+    """The recurrent stack on the tape ``t``: each loop of the reference's
+    ``hidden_states`` a ``Tape.loop`` (a ``Tape.checkpoint_loop`` under
+    ``cfg.remat``, as the reference checkpoints each unit and, in zamba2,
+    each Mamba2 layer inside a group and each tail layer). The chunk
+    bodies' ``-1`` indices are made once before each stack without remat,
+    where the reference's linearization hoists them."""
+    h, remat = cfg.n_heads, cfg.remat
+    top = t.checkpoint_loop if remat else t.loop
+
+    def group(prefix):
+        keys = [k for k in p if k.startswith(prefix)]
+        return keys, [p[k] for k in keys]
+
+    if cfg.block_pattern == "xlstm":
+        mk, mv = group("layers/mlstm/")
+        sk, sv = group("layers/slstm/")
+        idx = None if remat else ssm.chunk_indices(cfg, x.shape[1],
+                                                   x.device)
+
+        def unit(tc, consts, carry, xs, keep=True):
+            pm = {k[len("layers/mlstm/"):]: v for k, v in zip(mk, xs)}
+            ps = {k[len("layers/slstm/"):]: v
+                  for k, v in zip(sk, xs[len(mk):])}
+            y = ssm.mlstm_block_t(tc, carry[0], pm, h, 1e-5, idx=idx)
+            y = ssm.slstm_block_t(tc, y, ps, h, 1e-5, keep=keep)
+            return [y], []
+
+        (x,), _ = top(unit, [x], mv + sv, [], "layers")
+        return x
+    kw = dict(ssm_state=cfg.ssm_state, headdim=cfg.mamba_headdim, eps=1e-5)
+    gk, gv = group("layers/mamba/")
+    shared = {_SHARED_NAMES[k]: p[k] for k in _SHARED_NAMES}
+    idx = None if remat else ssm.chunk_indices(cfg, x.shape[1], x.device)
+
+    def mamba(names):
+        def layer(tc, consts, carry, xs, keep=True):
+            lp = {k.split("/mamba/")[1]: v for k, v in zip(names, xs)}
+            return [ssm.mamba2_block_t(tc, carry[0], lp, keep=keep,
+                                       idx=idx, **kw)], []
+        return layer
+
+    def unit(tc, consts, carry, xs, keep=True):
+        inner = tc.checkpoint_loop if remat else tc.loop
+        (y,), _ = inner(mamba(gk), carry, xs, [], "mamba")
+        w = dict(zip(shared, consts))
+        return [_shared_block_t(tc, y, w, cfg, positions, mask, keep)], []
+
+    (x,), _ = top(unit, [x], gv, list(shared.values()), "layers")
+    tk, tv = group("tail_layers/mamba/")
+    if tv:
+        idx = None if remat else ssm.chunk_indices(cfg, x.shape[1],
+                                                   x.device)
+        (x,), _ = top(mamba(tk), [x], tv, [], "tail")
+    return x
+
+
+class _RecurrentStack(torch.autograd.Function):
+    """The recurrent stack differentiated (``hidden_states`` under
+    autograd): inputs the config, a ``_Holder``, x, positions, the causal
+    mask (zamba2's shared attention; None when chunked or absent) and the
+    leaves of ``recurrent_leaves(cfg)``. The forward is the reference's
+    linearized forward on a ``lin.Tape`` (``_recurrent_forward``), each
+    unit one iteration of the ``"scan"`` region ``"layers"`` (zamba2: an
+    inner ``"mamba"`` loop per group, then the ``"tail"``); the backward
+    transposes the tape, last unit first, in ``"layers.T"`` (and
+    ``"mamba.T"``, ``"tail.T"``) — the reference's transposed scans, op
+    for op, with the shared block's gradients summed over the groups."""
+
+    @staticmethod
+    def forward(cfg, holder, x, positions, mask, *leaves):
+        t = lin.Tape(True)
+        t.var(x, *leaves)
+        holder.inputs = (x, *leaves)
+        holder.out = _recurrent_forward(
+            t, cfg, x, positions, mask,
+            dict(zip(recurrent_leaves(cfg), leaves, strict=True)))
+        holder.tape = t
+        return holder.out
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.holder = inputs[1]
+
+    @staticmethod
+    def backward(ctx, ct):
+        h = ctx.holder
+        # no_grad: the VJP is written out and never differentiated, and
+        # its unpriced ops (estimator.add_any, silu_vjp, softplus_vjp,
+        # select_parts) have no VJP for torch.func to record
+        with torch.no_grad():
+            acc = h.tape.transpose({h.out: ct})
+            grads = [_or_zeros(h.tape.ct_of(acc, v), v) for v in h.inputs]
+        h.tape = h.out = h.inputs = None
+        return (None, None, grads[0], None, None, *grads[1:])
+
+
+def _or_zeros(c, like: torch.Tensor) -> torch.Tensor:
+    return c if c is not None else torch.zeros_like(like)
 
 
 def _not_paged(cfg: ArchConfig, what: str) -> None:
@@ -679,8 +820,11 @@ def _unit_forward(x, w: dict, cfg: ArchConfig, positions, mask,
                                                      attention.NEG_INF)
         p, e, ssum = attention.softmax_parts(masked)
         p = p.to(x.dtype)
+        # contiguous: a [B, S, H·hd] view of the grouped product's layout
+        # folds into the reference's one product with wo only at B = 1
         att = dict(p=p, e=e, ssum=ssum, select=select,
-                   o=attention.grouped_values(p, v).reshape(b, s, -1))
+                   o=attention.grouped_values(p, v).reshape(b, s, -1)
+                   .contiguous())
     o = att["o"]
     xm = x + o @ w["attn/wo"]
     h2 = layers.rms_norm_fwd(xm, w["norm2/scale"], eps)
@@ -780,7 +924,8 @@ def _unit_backward(ct: torch.Tensor, r: dict, w: dict,
                                                   w["attn/k_norm"])
         dq, grads["attn/q_norm"] = _head_norm_bwd(dq, r, "qn_",
                                                   w["attn/q_norm"])
-    dk, dq, dv = (t.reshape(b, s, -1) for t in (dk, dq, dv))
+    # contiguous: each folds into one product with its weight at any B
+    dk, dq, dv = (t.reshape(b, s, -1).contiguous() for t in (dk, dq, dv))
     if cfg.qkv_bias:
         for name, t in (("v", dv), ("k", dk), ("q", dq)):
             grads[f"attn/{name}_bias"] = t.sum((0, 1))
@@ -1008,9 +1153,9 @@ def hidden_states(cfg: ArchConfig, params: dict,
     tokens the attention is the chunked flash path (the sequence a
     multiple of ``attention.Q_CHUNK``). Differentiated, the stack is
     ``_LayerStack`` (the rope tables made from the positions once, outside
-    it); otherwise ``_forward_stack``. The recurrent patterns run
-    undifferentiated only (``_forward_recurrent``; their differentiated
-    stack is item 5.4b: ``check_ported``)."""
+    it); otherwise ``_forward_stack``. The recurrent patterns' stack is
+    ``_RecurrentStack`` differentiated, ``_forward_recurrent``
+    otherwise."""
     if embeds is None:
         x = layers.embed(tokens, params["embed"]["table"])
     else:
@@ -1023,16 +1168,20 @@ def hidden_states(cfg: ArchConfig, params: dict,
     else:
         pos = positions
     if cfg.block_pattern in RECURRENT:
-        if _differentiated(x, *(t for _, t in leaves_with_path(params))):
-            check_ported(cfg)
-        x = _forward_recurrent(cfg, params, x, pos, chunked)
+        leaves = [leaf_at(params, k) for k in recurrent_leaves(cfg)]
+        if _differentiated(x, *leaves):
+            mask = (attention.causal_mask(s, x.device)
+                    if cfg.block_pattern == "mamba_shared_attn"
+                    and not chunked else None)
+            x = _RecurrentStack.apply(cfg, _Holder(), x, pos, mask, *leaves)
+        else:
+            x = _forward_recurrent(cfg, params, x, pos, chunked)
         return layers.rms_norm(x, params["final_norm"]["scale"],
                                cfg.norm_eps)
     leaves = _stacked(params["layers"], stack_leaves(cfg))
     differentiated = _differentiated(x, *leaves)
     g_off = None
     if differentiated:
-        check_ported(cfg)
         # each block's (q, k) tables, then the slot map's group offsets
         tables = [None] * (4 * unit_blocks(cfg))
         if cfg.rope_style != "none":

@@ -440,10 +440,14 @@ def test_unported_train_options_raise():
         params, make_optimizer("adamw", lr=3e-4).init(params),
         _tensors(TokenStream(cfg.vocab_size, 8, 2).batch(0)))
     assert torch.isfinite(loss) and int(opt["step"]) == 1
-    # the recurrent block patterns (item 5.4; the MoE configs train since
-    # item 5.3b, tests/test_torch_moe_train*.py)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        steps.make_loss_fn(dataclasses.replace(cfg, block_pattern="xlstm"))
+    # the recurrent block patterns train since item 5.4b (the MoE configs
+    # since 5.3b; tests/test_torch_recurrent_train*.py, _moe_train*.py)
+    xl = dataclasses.replace(cfg, block_pattern="xlstm")
+    tree = transformer.DecoderLM(xl, device="cpu").init(0).stacked_params()
+    _, opt, loss = steps.make_train_step(xl)(
+        tree, make_optimizer("adamw", lr=3e-4).init(tree),
+        _tensors(TokenStream(cfg.vocab_size, 8, 2).batch(0)))
+    assert torch.isfinite(loss) and int(opt["step"]) == 1
     # a sequence above 2048 maps (item 3.7): the chunked attention's pair
     # scan folds inside the stack and its transpose
     sched = mapper.map_arch("llama3-8b", "train", smoke=True, seq_len=4096)

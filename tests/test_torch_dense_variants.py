@@ -363,25 +363,27 @@ def test_bridge_carries_the_variant_leaves(case):
 @pytest.mark.parametrize("changes,item", [
     (dict(n_experts=4, top_k=2, moe_d_ff=32), "5.3"),
     (dict(block_pattern="xlstm"), "5.4"),
-    (dict(block_pattern="mamba_shared_attn", ssm_state=16), "5.4"),
+    # zamba2's shared block: one group a layer, no q/k/v biases
+    (dict(block_pattern="mamba_shared_attn", ssm_state=16,
+          shared_attn_every=1, qkv_bias=False), "5.4"),
     (dict(n_experts=4, top_k=1, moe_d_ff=32, moe_interleave=2), "5.3"),
     (dict(n_experts=4, top_k=2, moe_d_ff=32, shared_expert=True), "5.3")])
 def test_check_ported_names_the_items_still_to_port(changes, item):
+    """No item is left to refuse (``check_ported`` went with item 5.4b):
+    each family serves and trains — MoE (item 5.3, 5.3b:
+    tests/test_torch_moe*.py) and the recurrent patterns (item 5.4, 5.4b:
+    tests/test_torch_recurrent*.py), whose train step takes an AdamW
+    step here."""
     cfg = dataclasses.replace(get_smoke_config("qwen2.5-32b"), **changes)
-    if item == "5.4":
-        # the recurrent patterns serve (item 5.4,
-        # tests/test_torch_recurrent*.py); their train step (item 5.4b)
-        # still raises
-        with pytest.raises(NotImplementedError, match=f"item {item}b"):
-            transformer.check_ported(cfg)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            steps.make_loss_fn(cfg)
-        transformer.DecoderLM(cfg, device="meta")
-        return
-    # MoE serves (item 5.3, tests/test_torch_moe_serve.py) and trains
-    # (item 5.3b, tests/test_torch_moe_train*.py)
-    transformer.check_ported(cfg)
     model = transformer.DecoderLM(cfg, device="cpu").init(0)
+    if item == "5.4":
+        tree = model.stacked_params()
+        tokens = torch.from_numpy(_tokens(cfg, (2, 8)))
+        _, opt, loss = steps.make_train_step(cfg)(
+            tree, make_optimizer("adamw", lr=3e-4).init(tree),
+            {"tokens": tokens, "labels": tokens})
+        assert bool(torch.isfinite(loss)) and int(opt["step"]) == 1
+        return
     tree = model.stacked_params()
     tokens = torch.from_numpy(_tokens(cfg, (2, 8)))
     logits = transformer.apply(cfg, tree, tokens)

@@ -23,8 +23,8 @@ the shared expert, top-1 of 4), in float32:
 * the two gathers' transposes (``estimator.scatter_add``): the same bits
   on two runs with many duplicate indices, without
   ``torch.use_deterministic_algorithms``;
-* ``check_ported`` still refuses the recurrent block patterns (item 5.4)
-  through ``make_train_step``.
+* the recurrent block patterns, refused here until item 5.4b, take an
+  AdamW step through ``make_train_step``.
 
 The train step itself and its compiled program are held in
 ``tests/test_torch_moe_train_step.py``, the schedules in
@@ -51,7 +51,7 @@ from repro_torch.checkpoint import stacked_from_reference
 from repro_torch.configs import get_smoke_config
 from repro_torch.core import estimator
 from repro_torch.launch import steps
-from repro_torch.models import moe
+from repro_torch.models import moe, transformer
 from repro_torch.optim import make_optimizer
 
 GRANITE, MAVERICK = "granite-moe-1b-a400m", "llama4-maverick-400b-a17b"
@@ -224,10 +224,16 @@ def test_gather_transposes_are_deterministic(trailing):
 
 
 def test_recurrent_block_patterns_still_refused():
+    """The recurrent block patterns refused here until item 5.4b; now
+    they train as the MoE configs do: one AdamW step of each, a finite
+    loss."""
     cfg = dataclasses.replace(get_smoke_config(GRANITE), n_experts=0,
                               block_pattern="xlstm")
-    with pytest.raises(NotImplementedError, match="item 5.4"):
-        steps.make_train_step(cfg)
+    params = transformer.DecoderLM(cfg, device="cpu").init(0).stacked_params()
+    _, opt, loss = steps.make_train_step(cfg)(
+        params, make_optimizer("adamw", lr=3e-4).init(params),
+        {k: torch.from_numpy(v) for k, v in _batch(cfg, 2, 8).items()})
+    assert torch.isfinite(loss) and int(opt["step"]) == 1
     rcfg, cfg, rp, tree = reference_state(GRANITE)
     step = steps.make_train_step(cfg)
     _, opt, loss = step(tree, make_optimizer("adamw", lr=3e-4).init(tree),

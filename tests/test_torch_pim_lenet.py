@@ -154,17 +154,17 @@ def test_unported_options_raise_not_implemented():
         device="cpu")
     assert sum(nd.kind == "eltwise" and not nd.scanned
                for nd in prog.schedule.graph.nodes) == 184
-    # MoE blocks map since item 5.3b (tests/test_torch_moe_train*.py);
-    # the recurrent block patterns (item 5.4) raise
+    # MoE blocks map since item 5.3b (tests/test_torch_moe_train*.py), the
+    # recurrent block patterns since item 5.4b (test_torch_recurrent_train*)
     moe_sched = mapper.map_arch("llama3-8b", config=dataclasses.replace(
         get_smoke_config("llama3-8b"), n_experts=4, top_k=2, moe_d_ff=32),
         batch=1, seq_len=8)
     assert any(nd.kind == "matmul" and nd.out_shape[0] == 4
                for nd in moe_sched.graph.nodes)     # the experts' products
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mapper.compile_arch("llama3-8b", config=dataclasses.replace(
-            get_smoke_config("llama3-8b"), block_pattern="xlstm"),
-            device="cpu")
+    rec = mapper.compile_arch("llama3-8b", config=dataclasses.replace(
+        get_smoke_config("llama3-8b"), block_pattern="xlstm"), device="cpu")
+    assert all(nd.scanned for nd in rec.schedule.graph.nodes
+               if nd.kind == "matmul")
     with pytest.raises(ValueError, match="kind"):
         mapper.map_lenet("decode")
 

@@ -44,6 +44,7 @@ from repro_torch.checkpoint import (model_from_stacked,
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.launch import steps
 from repro_torch.models import transformer
+from repro_torch.optim import make_optimizer
 from repro_torch.serve import ServeEngine
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -229,20 +230,33 @@ def test_default_device_is_cuda(monkeypatch):
 
 
 def test_differentiated_stack_and_train_step_raise_naming_item_5_4b(case):
+    """Item 5.4b is ported: the entry points that refused (naming it)
+    until then train. ``make_train_step`` takes an AdamW step with a
+    finite loss, a differentiated ``hidden_states`` (the written-out
+    stack, ``transformer._RecurrentStack``) gives finite gradients, and
+    the same tree still serves undifferentiated (the gradients against
+    the reference's: ``tests/test_torch_recurrent_train*.py``)."""
     _, cfg, _, _, tree = case
-    with pytest.raises(NotImplementedError, match="item 5.4b"):
-        steps.make_train_step(cfg)
-    with pytest.raises(NotImplementedError, match="item 5.4b"):
-        steps.make_loss_fn(cfg)
-    grads = {**tree, "embed": {"table": tree["embed"]["table"].clone()
-                               .requires_grad_()}}
-    toks = torch.from_numpy(_tokens(cfg, (1, 4)))
-    with pytest.raises(NotImplementedError, match="item 5.4b"):
-        transformer.hidden_states(cfg, grads, toks)
+    # batch 2: zamba2's published grad_accum=2 splits it in microbatches
+    toks = torch.from_numpy(_tokens(cfg, (2, 4)))
+    _, opt, loss = steps.make_train_step(cfg)(
+        tree, make_optimizer("adamw", lr=3e-4).init(tree),
+        {"tokens": toks, "labels": toks})
+    assert bool(torch.isfinite(loss)) and int(opt["step"]) == 1
+    grads, loss = torch.func.grad_and_value(steps.make_loss_fn(cfg))(
+        tree, {"tokens": toks, "labels": toks})
+    assert bool(torch.isfinite(loss))
+    assert all(bool(torch.isfinite(g).all())
+               for _, g in leaves_with_path(grads))
+    table = tree["embed"]["table"].clone().requires_grad_()
+    hidden = transformer.hidden_states(
+        cfg, {**tree, "embed": {"table": table}}, toks)
+    hidden.square().sum().backward()
+    assert table.grad is not None and bool(torch.isfinite(table.grad).all())
     # undifferentiated, the same tree serves
     with torch.no_grad():
-        assert transformer.hidden_states(cfg, grads, toks).shape == (
-            1, 4, cfg.d_model)
+        assert transformer.hidden_states(cfg, tree, toks).shape == (
+            2, 4, cfg.d_model)
 
 
 def test_paged_entry_points_raise_the_reference_errors(case):
