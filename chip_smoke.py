@@ -36,7 +36,18 @@ Phases, each printing one JSON line:
    quantized pool's logits against the fp32 pool's are read as the
    control).
 4. ``serve``     — llama3-8b at its full published config in bfloat16
-   serves 16 requests; K4 must run once per layer per tick.
+   serves 16 requests; K4 must run once per layer per tick. Then
+   ``router`` (item 6): a seeded bursty trace (``serve.workload``, 32
+   requests over 4 Zipf-shared 128-token system prompts) replayed on the
+   virtual clock over two paged engines that share that model
+   (``serve.router.Router``, prefix transfer on), every decode site of
+   both on K4: the card's tick record equal to a replay of the same trace
+   through the port on the CPU (the smoke config: with no EOS the
+   scheduling never reads a sampled token), K4 = 32 x both engines'
+   ticks, every request complete with finite logits, nothing starved, one
+   set of weights; and a prefix migrated across engines token- and
+   logit-identical to a fresh engine, a corrupted imported block failing
+   that check. TTFT in ticks and seconds, goodput, tok/s.
 5. ``profile``   — a short second load on the same engine under
    ``torch.profiler``: device time by kernel group (K4's two kernels,
    K6's two, matrix products, the rest) against wall time.
@@ -189,8 +200,9 @@ Phases, each printing one JSON line:
    sync in a step, the control (the last wave one ulp off) breaking the
    bit equality, every wave of a step held against K3's plain version
    member by member, peak memory. Then 3 steps of ``Trainer(backend=
-   "pim")`` against ``"jit"`` (losses within 1e-4, each run's final
-   checkpoint timed and removed). Then the published dtype (bf16) cut to
+   "pim")`` against the plain step ``Trainer(backend="jit")`` runs, called
+   directly (losses within 1e-4; the trainer's final checkpoint timed and
+   removed: a jit trainer's second one took ~40 s of the script's time). Then the published dtype (bf16) cut to
    2 layers, batch 1, seq 2048: ms per compiled and plain step (wall and
    under the profiler: kernels a step, busy share), peak memory, and
    each of the step's K3 waves timed on its own operands by events and by
@@ -209,7 +221,7 @@ Phases, each printing one JSON line:
    ``run_partitioned_async`` on 4 streams bit for bit their sequential
    calls; no host sync; the control, one boundary value swapped between
    two microbatches, failing. Time: the published config (bf16) cut to
-   16 of its 32 layers, batch 8, a 2048-token cache, 8 microbatches: 8
+   8 of its 32 layers, batch 8, a 2048-token cache, 8 microbatches: 8
    sequential compiled steps, ``run_partitioned`` and
    ``run_partitioned_async`` (wall and under the profiler), peak memory.
 21. ``pim_pipe`` — LeNet-5, not cut: ``compile_lenet("serve",
@@ -1150,6 +1162,276 @@ def phase_serve(seed: int) -> dict:
     return {"launches": launches, "engine": eng}
 
 
+# ---------------------------------------------------------------------------
+# router: the traffic workload over two paged engines (item 6)
+# ---------------------------------------------------------------------------
+
+# the serve phase's engine geometry, each of the router's two engines
+ROUTER_ENGINE = dict(batch=8, max_len=1024, kv_block_size=16, paged=True,
+                     attn_kernel=True, prefill="batch")
+# bursty MMPP arrivals at one a tick, 4 Zipf-shared system prompts of 8
+# blocks, heavy-tailed tails and outputs; no EOS
+ROUTER_SPEC = dict(n_requests=32, arrival="bursty", mean_interarrival=1.0,
+                   burst_factor=6.0, burst_fraction=0.25,
+                   burst_mean_len=12.0, n_prefixes=4, zipf_a=1.2,
+                   prefix_len=128, tail_len_mean=32, tail_len_sigma=0.8,
+                   max_tail=128, out_mean=16, out_sigma=0.8, max_out=64,
+                   eos=None)
+ROUTER_SLO_TICKS = 40.0    # the reference's traffic_bench.py SLO
+# the migration check: engine 0 warmed with a system prompt and loaded
+# with 4 requests of 64 prompt tokens and 4 output tokens (pending work
+# 4 x 67 > the 128 prefix tokens a hit saves), then one request sharing
+# the prompt with an 8-token tail and 8 output tokens (16 and 8 output
+# tokens took ~2 s more of the phase's 25)
+ROUTER_MIGRATE = dict(load=4, load_prompt=64, load_tokens=4, tail=8,
+                      max_tokens=8)
+
+
+def router_setup(cfg, model, seed: int, device, sample=None):
+    """The router phase's two engines over ``model`` and its trace: fresh
+    ``Request``s from ``generate``."""
+    from repro_torch.serve import Router, WorkloadSpec, generate
+    router = Router.replicated(cfg, model, 2, prefix_transfer=True,
+                               sample=sample, device=device,
+                               **ROUTER_ENGINE)
+    spec = WorkloadSpec(vocab=cfg.vocab_size, **ROUTER_SPEC)
+    return router, generate(spec, seed=seed)
+
+
+def tick_record(report, router) -> dict:
+    """What a replay decided, on the virtual clock: every request's (rid,
+    engine, first tick, done tick, tokens generated), the ticks driven and
+    idled, the router's counts, preemptions and skipped prefix tokens."""
+    where = {r.rid: i for i, e in enumerate(router.engines)
+             for r in e.completed}
+    return {"requests": [[r.rid, where.get(r.rid), r.first_tick,
+                          r.done_tick, len(r.out)] for r in report.requests],
+            "ticks": report.ticks, "idle_ticks": report.idle_ticks,
+            "stats": json.loads(json.dumps(router.stats)),
+            "preemptions": router.preemptions,
+            "prefix_skipped_tokens": router.prefix_skipped_tokens}
+
+
+def cpu_tick_record(seed: int, vocab: int) -> dict:
+    """The router phase's trace replayed through the port on the CPU, on
+    the llama3-8b smoke config at the card's vocabulary and the same
+    engine geometry."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import DecoderLM
+    from repro_torch.serve import replay
+    cfg = dataclasses.replace(get_smoke_config("llama3-8b"),
+                              vocab_size=vocab)
+    model = DecoderLM(cfg, device="cpu").init(seed)
+    router, trace = router_setup(cfg, model, seed, "cpu")
+    return tick_record(replay(router, trace, slo_ticks=ROUTER_SLO_TICKS),
+                       router)
+
+
+def migrate_check(cfg, model, seed: int) -> dict:
+    """The reference's ``test_router_prefix_transfer_migrates_and_stays_
+    exact`` at full width: engine 0 holds a system prompt's 8 blocks and
+    a queue that costs more than they save, so a request sharing the
+    prompt is routed to engine 1 with the blocks copied across (host
+    round trip, ``export_prefix`` / ``import_prefix``). Its tokens and
+    every tick's logits must equal those of the same request on a fresh
+    engine that warmed the prompt the same way (the prefix's KV is then
+    made by the same calls on both, so the comparison is bit for bit).
+    The control overwrites one imported block with another block's values
+    and must fail the check."""
+    import torch
+    from repro_torch.serve import Request, Router, ServeEngine
+    from repro_torch.serve.kv import copy_block
+    m = ROUTER_MIGRATE
+    rng = np.random.default_rng(seed + 7)
+    prefix = rng.integers(0, cfg.vocab_size, ROUTER_SPEC["prefix_len"],
+                          dtype=np.int32)
+    prompt = np.concatenate([prefix, rng.integers(
+        0, cfg.vocab_size, m["tail"], dtype=np.int32)])
+    load = [rng.integers(0, cfg.vocab_size, m["load_prompt"],
+                         dtype=np.int32) for _ in range(m["load"])]
+
+    def warm(eng):
+        eng.submit(Request(rid=99, prompt=prefix, max_tokens=1))
+        eng.run()
+
+    def recorder(rows):
+        def sample(logits):
+            rows.append(logits[0].float().cpu())
+            return torch.argmax(logits, -1)
+        return sample
+
+    def migrated(corrupt: bool) -> dict:
+        router = Router.replicated(cfg, model, 2, prefix_transfer=True,
+                                   device=DEVICE, **ROUTER_ENGINE)
+        rows = []
+        router.engines[1].sample = recorder(rows)
+        warm(router.engines[0])
+        for i, p in enumerate(load):
+            router.engines[0].submit(Request(rid=50 + i, prompt=p,
+                                             max_tokens=m["load_tokens"]))
+        req = Request(rid=0, prompt=prompt, max_tokens=m["max_tokens"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        idx = router.submit(req)
+        torch.cuda.synchronize()
+        submit_ms = (time.perf_counter() - t0) * 1e3
+        e1 = router.engines[1]
+        blocks = [e1.kv._prefix[k] for k in e1.kv._chain_keys(
+            prompt, e1.prefix_lookup(prompt) // e1.block_size)]
+        if corrupt:
+            copy_block(e1.cache, blocks[1], blocks[0])
+        router.run()
+        return {"engine": idx, "stats": dict(router.stats),
+                "blocks": len(blocks), "submit_ms": submit_ms,
+                "tokens": list(req.out), "logits": torch.stack(rows),
+                "skipped": e1.prefix_skipped_tokens}
+
+    rows = []
+    fresh = ServeEngine(cfg, model, sample=recorder(rows), device=DEVICE,
+                        **ROUTER_ENGINE)
+    warm(fresh)
+    rows.clear()
+    req = Request(rid=0, prompt=prompt, max_tokens=m["max_tokens"])
+    fresh.submit(req)
+    fresh.run()
+    want_tokens, want = list(req.out), torch.stack(rows)
+    del fresh
+    out = {}
+    for label, corrupt in (("clean", False), ("control", True)):
+        got = migrated(corrupt)
+        diff = float((got["logits"] - want).abs().max())
+        out[label] = {"tokens_equal": got["tokens"] == want_tokens,
+                      "max_abs_logit_diff": diff,
+                      "holds": got["tokens"] == want_tokens and diff == 0.0,
+                      "engine": got["engine"], "blocks": got["blocks"],
+                      "submit_ms": got["submit_ms"],
+                      "prefix_skipped_tokens": got["skipped"],
+                      "prefix_transferred": got["stats"][
+                          "prefix_transferred"],
+                      "transferred_blocks": got["stats"][
+                          "transferred_blocks"]}
+    clean = out["clean"]
+    if (clean["engine"] != 1 or clean["prefix_transferred"] != 1
+            or clean["transferred_blocks"] <= 0
+            or clean["prefix_skipped_tokens"] <= 0):
+        raise AssertionError(f"router: the prefix did not migrate: {clean}")
+    if not clean["holds"]:
+        raise AssertionError(f"router: the migrated request differs from "
+                             f"a fresh engine's: {clean}")
+    if out["control"]["holds"]:
+        raise AssertionError("router: a corrupted imported block passed "
+                             "the migration check")
+    out["max_abs_logit"] = float(want.abs().max())
+    out["block_mb"] = (cfg.n_layers * 2 * cfg.n_kv_heads
+                       * cfg.resolved_head_dim * model.dtype.itemsize
+                       * ROUTER_ENGINE["kv_block_size"] / 1e6)
+    return out
+
+
+def phase_router(model, seed: int) -> dict:
+    """The traffic workload (``serve.workload``) routed over two paged
+    engines (``serve.router.Router``) that share the serve phase's
+    llama3-8b (32 layers, bf16): every decode site of both on K4.
+
+    (a) The card's tick record (``tick_record``) equals a replay of the
+    same trace through the port on the CPU, on the llama3-8b smoke config
+    at the card's vocabulary and the same engine geometry. With ``eos``
+    None the scheduling is a function of lengths, prompt tokens and pool
+    geometry only: a request ends at ``max_tokens`` whatever it samples,
+    admission and preemption count blocks, and prefix keys hash prompt
+    blocks only (``PagedKVCache.note_filled`` registers no generated
+    block), so the router's affinity and migration see the same pools on
+    both. The sampled tokens never enter a decision. (b) K4 launches = 32
+    x both engines' ticks, > 0. (c) Every request finished with its
+    ``max_tokens`` ids in [0, vocab), every logit finite. (d) Nothing
+    starved. (e) Both engines hold the model's own tensors. (f)
+    ``migrate_check``."""
+    import torch
+    from repro_torch import obs
+    from repro_torch.kernels.flash_attention import (
+        paged_decode_attention_grouped)
+    from repro_torch.serve import replay
+    t_phase = time.perf_counter()
+    cfg = model.cfg
+    finite = []
+
+    def sample(logits):
+        if logits.shape != (ROUTER_ENGINE["batch"], cfg.vocab_size):
+            raise AssertionError(f"router: logits {tuple(logits.shape)}")
+        finite.append(torch.isfinite(logits).all())
+        return torch.argmax(logits, -1)
+
+    router, trace = router_setup(cfg, model, seed, DEVICE, sample)
+    ptrs = [p.data_ptr() for p in model.parameters()]
+    if any([p.data_ptr() for p in e.model.parameters()] != ptrs
+           for e in router.engines):
+        raise AssertionError("router: an engine holds weights of its own")
+    torch.cuda.reset_peak_memory_stats()
+    paged_decode_attention_grouped.launches = 0
+    tr = obs.enable()
+    report = replay(router, trace, slo_ticks=ROUTER_SLO_TICKS)
+    torch.cuda.synchronize()
+    launches = paged_decode_attention_grouped.launches
+    obs.disable()
+    engine_ticks = [e._tick for e in router.engines]
+    if launches != cfg.n_layers * sum(engine_ticks) or launches == 0:
+        raise AssertionError(f"router: {launches} K4 launches, want "
+                             f"{cfg.n_layers} x {sum(engine_ticks)} ticks")
+    if router.starved or report.starved:
+        raise AssertionError(f"router: starved {router.starved}")
+    if len(report.completed) != ROUTER_SPEC["n_requests"] or any(
+            len(r.out) != r.max_tokens
+            or not all(0 <= t < cfg.vocab_size for t in r.out)
+            for r in report.requests):
+        raise AssertionError("router: not every request finished with its "
+                             "max_tokens valid ids")
+    if not bool(torch.stack(finite).all()):
+        raise AssertionError("router: non-finite logits")
+    card = tick_record(report, router)
+    t0 = time.perf_counter()
+    cpu = cpu_tick_record(seed, cfg.vocab_size)
+    cpu_s = time.perf_counter() - t0
+    if card != cpu:
+        raise AssertionError(f"router: the card's tick record differs from "
+                             f"the CPU's replay:\n{card}\n{cpu}")
+    summary = report.summary(ROUTER_SLO_TICKS)
+    decode_s = sum(e.dur_s for e in tr.spans(name="decode:tick"))
+    prefill_s = sum(e.dur_s for e in tr.spans(name="prefill:batch"))
+    ttft_s = [r.ttft_s for r in report.requests]
+    memory_gb = torch.cuda.max_memory_allocated() / 1e9
+    del router, report, trace
+    migrate = migrate_check(cfg, model, seed)
+    stats = card["stats"]
+    emit({"phase": "router", "config": "llama3-8b full (32 layers) "
+          "bfloat16, 2 paged engines sharing its weights",
+          "requests": summary["requests"], "ticks": card["ticks"],
+          "idle_ticks": card["idle_ticks"], "engine_ticks": engine_ticks,
+          "per_engine": stats["per_engine"],
+          "prefix_routed": stats["prefix_routed"],
+          "depth_routed": stats["depth_routed"],
+          "prefix_transferred": stats["prefix_transferred"],
+          "transferred_blocks": stats["transferred_blocks"],
+          "preemptions": card["preemptions"],
+          "prefix_skipped_tokens": card["prefix_skipped_tokens"],
+          "generated_tokens": summary["generated_tokens"],
+          "ttft_p50_ticks": summary["ttft_p50_ticks"],
+          "ttft_p95_ticks": summary["ttft_p95_ticks"],
+          "ttft_p50_s": float(np.percentile(ttft_s, 50)),
+          "ttft_p95_s": float(np.percentile(ttft_s, 95)),
+          "slo_ticks": ROUTER_SLO_TICKS,
+          "goodput_tokens": summary["goodput_tokens"],
+          "goodput_per_tick": summary["goodput_per_tick"],
+          "tokens_per_s": summary["tokens_per_s"],
+          "goodput_per_s": summary["goodput_per_s"],
+          "decode_s": decode_s, "prefill_s": prefill_s,
+          "decode_tok_per_s": summary["generated_tokens"] / decode_s,
+          "wall_s": summary["wall_s"], "max_memory_allocated_gb": memory_gb,
+          "k4_launches": launches, "tick_record_equals_cpu": True,
+          "cpu_replay_s": cpu_s, "migrate": migrate,
+          "phase_s": time.perf_counter() - t_phase})
+    return {"launches": launches}
+
+
 def decode_group(name: str) -> str | None:
     """"k6" or "k4" for a profiled kernel of K6 or K4 (each its split and
     combine kernels, by their own names: no K6 name holds a K4 name), else
@@ -1224,12 +1506,12 @@ def phase_profile(eng, seed: int, phase: str = "profile",
 # 6. serve_kvq: the same model over an fp8_e4m3 KV pool
 # ---------------------------------------------------------------------------
 
-# one wave of the 8 slots and prompts of 32–64 tokens: each prompt token
-# is a replayed tick (~0.24 s on this pool), a second wave of 8 added ~35
-# s of ticks of the same kind, and the script's time limit is shared by
-# every phase
+# one wave of the 8 slots and prompts of 16–32 tokens: each prompt token
+# is a replayed tick (~0.24 s on this pool; 0.26–0.3 s on a slow host), a
+# second wave of 8 added ~35 s of ticks of the same kind, prompts of 32–64
+# ~8 s, and the script's time limit is shared by every phase
 SERVE_KVQ_REQUESTS = 8
-SERVE_KVQ_PROMPTS = (32, 64)
+SERVE_KVQ_PROMPTS = (16, 32)
 
 
 def phase_serve_kvq(model, seed: int) -> dict:
@@ -3994,7 +4276,7 @@ LLAMA_TRAIN_TOL = dict(rtol=1e-4, atol=1e-4)   # the mapper's verify tol
 # add/sub/mul nodes outside the folded loops, in 84 waves; every product
 # lies in a loop and runs natively, so K1, K2 and K5 launch nothing
 LLAMA_TRAIN_K3 = {"compiled": 84, "per_block": 148}
-LLAMA_TRAIN_STEPS = 3      # Trainer(backend="pim") against "jit"
+LLAMA_TRAIN_STEPS = 3      # Trainer(backend="pim") against the plain step
 LLAMA_TRAIN_LR = 3e-4      # make_train_step's default
 # the timed run: the published dtype (bf16), cut to 2 layers (AdamW's
 # state for 32 does not fit one card; 4 take ~10 s more of the script's
@@ -4402,12 +4684,15 @@ def train_hold(seed: int, cfg, b: int, s: int, k3: dict, label: str,
 
 
 def llama_train_trainer(seed: int) -> dict:
-    """``Trainer(backend="pim")`` against ``Trainer(backend="jit")`` at the
-    hold's cut, ``LLAMA_TRAIN_STEPS`` steps of ``TokenStream`` batches
-    from the same seeded parameters (AdamW from zeros), one after the
-    other: losses within ``LLAMA_TRAIN_TOL``. Each writes its final
-    checkpoint (params, m and v) into a temporary directory removed after
-    it; its time is the run's less its steps'."""
+    """``Trainer(backend="pim")`` at the hold's cut, ``LLAMA_TRAIN_STEPS``
+    steps of ``TokenStream`` batches from seeded parameters (AdamW from
+    zeros), against the plain step ``make_train_step`` that
+    ``Trainer(backend="jit")`` runs, called directly on the same batches
+    from the same state: losses within ``LLAMA_TRAIN_TOL``. The trainer
+    writes its final checkpoint (params, m and v) into a temporary
+    directory removed after it; its time is the run's less its steps'.
+    (A jit trainer's own 17.8 GB checkpoint took ~40 s of the script's
+    1,200.)"""
     import shutil
     import tempfile
     import torch
@@ -4424,47 +4709,52 @@ def llama_train_trainer(seed: int) -> dict:
     b, s = LLAMA_TRAIN_HOLD["batch"], LLAMA_TRAIN_HOLD["seq_len"]
     stream = TokenStream(cfg.vocab_size, s, b, seed=seed)
     opt = make_optimizer("adamw", lr=LLAMA_TRAIN_LR)
+    step_fn = make_train_step(cfg, lr=LLAMA_TRAIN_LR)
 
     def init_state():
         p = llama_params(cfg, seed)
         return p, opt.init(p)
 
-    runs = {}
-    for backend in ("pim", "jit"):
-        d = tempfile.mkdtemp(prefix="llama_train_ckpt_")
-        try:
-            obs.metrics().reset()
-            tc = TrainerConfig(total_steps=LLAMA_TRAIN_STEPS,
-                               ckpt_every=LLAMA_TRAIN_STEPS + 1, ckpt_dir=d,
-                               keep=1, async_ckpt=False)
-            with full_float32():
-                t0 = time.perf_counter()
-                tr = Trainer(tc, train_step=make_train_step(
-                                 cfg, lr=LLAMA_TRAIN_LR),
-                             init_state=init_state, batch_fn=stream.batch,
-                             backend=backend, device=DEVICE)
-                build_s = time.perf_counter() - t0
-                t0 = time.perf_counter()
-                out = tr.run()
-                run_s = time.perf_counter() - t0
-            walls = step_wall_s()
-            ckpt_bytes = sum(f.stat().st_size
-                             for f in pathlib.Path(d).iterdir())
-            runs[backend] = {
-                "losses": out["losses"], "build_s": build_s,
-                "run_s": run_s, "step_wall_s": walls,
-                "checkpoint_s": run_s - walls["count"] * walls["mean"],
-                "checkpoint_gb": ckpt_bytes / 1e9}
-            del tr, out
-        finally:
-            shutil.rmtree(d, ignore_errors=True)
-        torch.cuda.empty_cache()
-    np.testing.assert_allclose(runs["pim"]["losses"], runs["jit"]["losses"],
-                               **LLAMA_TRAIN_TOL)
-    return {"steps": LLAMA_TRAIN_STEPS, "lr": LLAMA_TRAIN_LR, **runs,
-            "max_loss_diff": float(np.abs(
-                np.subtract(runs["pim"]["losses"],
-                            runs["jit"]["losses"])).max())}
+    d = tempfile.mkdtemp(prefix="llama_train_ckpt_")
+    try:
+        obs.metrics().reset()
+        tc = TrainerConfig(total_steps=LLAMA_TRAIN_STEPS,
+                           ckpt_every=LLAMA_TRAIN_STEPS + 1, ckpt_dir=d,
+                           keep=1, async_ckpt=False)
+        with full_float32():
+            t0 = time.perf_counter()
+            tr = Trainer(tc, train_step=step_fn, init_state=init_state,
+                         batch_fn=stream.batch, backend="pim",
+                         device=DEVICE)
+            build_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out = tr.run()
+            run_s = time.perf_counter() - t0
+        walls = step_wall_s()
+        ckpt_bytes = sum(f.stat().st_size for f in pathlib.Path(d).iterdir())
+        pim = {"losses": out["losses"], "build_s": build_s, "run_s": run_s,
+               "step_wall_s": walls,
+               "checkpoint_s": run_s - walls["count"] * walls["mean"],
+               "checkpoint_gb": ckpt_bytes / 1e9}
+        del tr, out
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.empty_cache()
+    params, state = init_state()
+    plain = []
+    with full_float32():
+        for step in range(LLAMA_TRAIN_STEPS):
+            batch = {k: torch.as_tensor(v, device=DEVICE)
+                     for k, v in stream.batch(step).items()}
+            params, state, loss = step_fn(params, state, batch)
+            plain.append(float(loss))
+    del params, state
+    torch.cuda.empty_cache()
+    np.testing.assert_allclose(pim["losses"], plain, **LLAMA_TRAIN_TOL)
+    return {"steps": LLAMA_TRAIN_STEPS, "lr": LLAMA_TRAIN_LR, "pim": pim,
+            "plain_losses": plain,
+            "max_loss_diff": float(np.abs(np.subtract(pim["losses"],
+                                                      plain)).max())}
 
 
 def llama_train_time(seed: int) -> dict:
@@ -4574,9 +4864,10 @@ PIPE_PARTITIONS = 4
 PIPE_MICRO = 8             # GPipe microbatches
 PIPE_STREAMS = 4           # the asynchronous driver's ring of streams
 LLAMA_PIPE_POS = 5         # the hold's position: the caches' rows 0..5 read
-# the timed run: the published config (bf16) cut to 16 of its 32 layers
-# (the script's time is shared by every phase: 32 take ~20 s more)
-LLAMA_PIPE_TIME = dict(batch=8, seq_len=2048, pos=1024, n_layers=16)
+# the timed run: the published config (bf16) cut to 8 of its 32 layers,
+# 2 a stage (the script's time is shared by every phase: 32 took ~20 s
+# more than 16, and 16 ~10 s more than 8)
+LLAMA_PIPE_TIME = dict(batch=8, seq_len=2048, pos=1024, n_layers=8)
 
 
 def leaves_equal(a, b) -> bool:
@@ -7666,14 +7957,15 @@ def main() -> int:
                    for k in PIM_KEYS}}
     phase_parity(args.seed)
     serve = phase_serve(args.seed)
+    routed = phase_router(serve["engine"].model, args.seed)
     phase_profile(serve["engine"], args.seed)
     kvq = phase_serve_kvq(serve["engine"].model, args.seed)
-    # 10-token prompts replayed: the last 10 ticks (2 of replay, 8 of
-    # generation) run under the profiler; each replayed tick costs ~0.24 s
-    # of the script's time, and the profiler's reduction of a window ~1 s
-    # a tick more
+    # 10-token prompts replayed: the last 4 ticks (generation) run under
+    # the profiler; each replayed tick costs ~0.24 s of the script's time,
+    # and the profiler's reduction of a window ~1–2 s a tick more (9
+    # profiled ticks took ~21 s on a slow host)
     phase_profile(kvq["engine"], args.seed, "profile_kvq", prompt_len=10,
-                  warm_ticks=8)
+                  warm_ticks=13)
     serve_pim = phase_serve_pim(serve["engine"].model, args.seed)
     by_path["serve_pim"] = {k: serve_pim["launches"][k] for k in PIM_KEYS}
     # the serve phases' bf16 model (16 GB) goes before the variants' time
@@ -7753,6 +8045,7 @@ def main() -> int:
     k4_bf16 = k4["bfloat16"]
     k6_serve = k6[(SERVE_KV_DTYPE, "bfloat16")]
     k4_launches = {"serve": serve["launches"],
+                   "router": routed["launches"],
                    "serve_pim": serve_pim["launches"]["k4"],
                    "dense_variants": dense["launches"]["k4"],
                    "io_variants": io["launches"]["k4"],

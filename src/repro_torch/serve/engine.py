@@ -57,8 +57,9 @@ schedule. Preemption, swap, copy-on-write, prefix sharing and batched
 prefill (plain PyTorch, as in the reference) are the same on both
 backends.
 
-Not ported yet: the router and the traffic workload that drive several
-engines (ROADMAP.md, port queue item 6).
+The engine can be driven tick by tick from outside: that is how
+``repro_torch.serve.router.Router`` interleaves several engines and how
+``repro_torch.serve.workload.replay`` drives one on a virtual clock.
 """
 
 from __future__ import annotations
@@ -100,6 +101,12 @@ class Request:
     t_submit: float | None = None
     t_first: float | None = None
     t_done: float | None = None
+    # virtual-clock stamps (decode ticks): arrival set by the workload
+    # generator, first/done stamped by the replay driver — TTFT measured
+    # from *arrival*, queue wait included (repro_torch.serve.workload)
+    t_arrival: float | None = None
+    first_tick: int | None = None
+    done_tick: int | None = None
     # preemption: bumped per swap-out; ``resume`` holds the engine's saved
     # decode state + scratch pages between swap-out and re-admission
     preemptions: int = 0
@@ -118,6 +125,14 @@ class Request:
         if self.t_first is None or self.t_done is None or len(self.out) < 2:
             return None
         return (self.t_done - self.t_first) / (len(self.out) - 1)
+
+    @property
+    def ttft_ticks(self) -> float | None:
+        """Virtual-clock TTFT: decode ticks from arrival to first token
+        (None until the replay driver stamps both ends)."""
+        if self.t_arrival is None or self.first_tick is None:
+            return None
+        return self.first_tick - self.t_arrival
 
 
 def map_paged_tick(cfg: ArchConfig, *, batch: int, max_len: int,
@@ -471,11 +486,22 @@ class ServeEngine:
         return logits
 
     def submit(self, req: Request) -> None:
-        if req.t_submit is None:
+        if req.t_submit is None:      # router stamps before delegating
             req.t_submit = time.monotonic()
         obs.metrics().counter("serve.submitted").inc()
         self._work += self._work_of(req)
         self.queue.append(req)
+
+    def prefix_lookup(self, prompt) -> int:
+        """Prompt tokens this engine's paged cache already holds (0 when
+        contiguous) — the router's prefix-affinity signal."""
+        return self.kv.lookup_prefix(prompt) if self.paged else 0
+
+    def kv_headroom(self) -> int:
+        """Blocks the pool could hand out right now (free + evictable);
+        effectively unbounded for contiguous engines — the router's
+        KV-pressure routing signal."""
+        return self.kv.available_blocks if self.paged else (1 << 30)
 
     def kv_blocks_needed(self, req: Request) -> int:
         """Fresh blocks admitting ``req`` here would eventually allocate

@@ -8,6 +8,10 @@ the reference's parameters carried across by the bridge:
   requests than lanes (recycled mid-stream), each request's first and
   last tick, ``kv_bytes_read`` / ``kv_bytes_written`` (0 for the
   recurrent patterns) and the work counter;
+* driven by ``serve.workload.replay`` on the virtual clock (arrivals
+  spread out, so lanes idle and the clock fast-forwards): every request's
+  ``first_tick`` / ``done_tick`` stamps and the report's tick fields equal
+  the reference's replay of its contiguous engine;
 * the lane bound: the shared tick stops at ``max_len - 1`` and the same
   requests are starved;
 * ``backend="pim"`` (folded, and xlstm's stack expanded) token-identical
@@ -28,10 +32,11 @@ from repro.configs import get_smoke_config as ref_smoke_config
 from repro.models.transformer import build_model
 from repro.serve import Request as RefRequest
 from repro.serve import ServeEngine as RefEngine
+from repro.serve import replay as ref_replay
 from repro_torch.checkpoint import params_from_reference
 from repro_torch.configs import get_smoke_config
 from repro_torch.kernels import ref
-from repro_torch.serve import Request, ServeEngine
+from repro_torch.serve import Request, ServeEngine, replay
 
 ARCHS = ("xlstm-350m", "zamba2-7b", "llama3-8b")
 
@@ -93,6 +98,35 @@ def test_lanes_match_the_reference_engine(case, scheduler):
     assert max(got["first"].values()) > min(got["done"].values())
     if cfg.block_pattern != "attn":
         assert got["kv"] == (0, 0)
+
+
+@pytest.mark.parametrize("scheduler", ["continuous", "static"])
+def test_replayed_lanes_stamp_the_reference_ticks(case, scheduler):
+    rcfg, cfg, rparams, model = case
+    prompts = _prompts(cfg, n=6, seed=3)
+    arrivals = (0.0, 0.5, 1.0, 9.5, 10.0, 30.0)
+
+    def replayed(engine_cls, request_cls, run, cfg_, params, **device):
+        eng = engine_cls(cfg_, params, batch=2, max_len=64,
+                         scheduler=scheduler, **device)
+        reqs = [request_cls(rid=i, prompt=p, max_tokens=3 + i % 3,
+                            t_arrival=t)
+                for i, (p, t) in enumerate(zip(prompts, arrivals))]
+        rep = run(eng, reqs, slo_ticks=8.0)
+        summary = rep.summary(8.0)
+        return dict(requests=[(r.rid, [int(x) for x in r.out], r.first_tick,
+                               r.done_tick, r.ttft_ticks)
+                              for r in rep.requests],
+                    ticks=(rep.ticks, rep.idle_ticks, eng._tick),
+                    summary={k: v for k, v in summary.items()
+                             if k not in ("wall_s", "tokens_per_s",
+                                          "goodput_per_s")},
+                    kv=(eng.kv_bytes_read, eng.kv_bytes_written))
+    want = replayed(RefEngine, RefRequest, ref_replay, rcfg, rparams)
+    got = replayed(ServeEngine, Request, replay, cfg, model, device="cpu")
+    assert got == want
+    assert got["ticks"][1] > 0            # the clock fast-forwarded
+    assert all(r[3] is not None for r in got["requests"])
 
 
 def test_the_lane_bound_starves_the_same_requests(case):
