@@ -387,6 +387,26 @@ Phases, each printing one JSON line:
    groups of 6 that fit 76 GB (``rec_train_groups``). Then
    ``kernels_pim`` at xlstm's launches (``"path": "recurrent_train"``:
    K3).
+30. ``launch`` — the distributed substrate (item 7a), last: (a)
+   ``launch.train.main(["--steps", "3", "--ckpt", <tmp>])``, the CLI's
+   smoke llama3-8b on a 1 x 1 CUDA mesh over a one-rank NCCL group
+   (``launch.mesh.make_host_mesh``), params, AdamW state and batches as
+   DTensors: its line, finite losses, the group destroyed after; then
+   ``--steps 4`` on its checkpoint, restored onto the mesh, takes one
+   step whose loss is bit for bit a 4-step run's from scratch; (b)
+   llama3-8b at its published width, 2 layers, float32, batch 8, seq
+   128, the seeded params and AdamW state of
+   ``pim_llama_train`` laid out as DTensors on a 1 x 1 mesh under
+   ``single_pod_rules(fsdp=True)`` (every leaf's placements those of
+   ``param_specs``): one train step on them equal to the plain step on
+   the same params and batch, loss, params, m and v bit for bit (a leaf
+   that is not is named and held to 1e-4); (c) ``optim.compressed_psum``
+   over that one-rank NCCL group on the step's gradient tree (~1.5 B
+   elements), the reduced tree and the error feedback bit for bit the
+   leaf's own int8 round trip through ``core.quant`` (a rank's mean on
+   one rank) and what it drops, its ms a call and NCCL calls. No kernel
+   of the port lies on this path (the launcher trains with the plain
+   step, as the reference's does).
 
 Then the card's name and power limit, one line with every kernel's
 numbers, and as the last line ``{"ok": true, "device": {...}}``. Any
@@ -7776,6 +7796,237 @@ def phase_recurrent_train(seed: int) -> dict:
     return {"launches": launches, "shapes": shapes}
 
 
+# ---------------------------------------------------------------------------
+# 30. launch: the distributed substrate (item 7a)
+# ---------------------------------------------------------------------------
+
+LAUNCH_CLI = ["--steps", "3"]              # the CLI's smoke run, 1 x 1 mesh
+LAUNCH_HOLD = dict(batch=8, seq_len=128, n_layers=2)   # llama3-8b, f32
+LAUNCH_TOL = 1e-4          # rtol = atol for a leaf DTensor computes apart
+LAUNCH_PSUM_CALLS = 3      # compressed_psum calls timed after a warm one
+
+
+def one_rank_psum_leaf(g):
+    """What ``compressed_psum`` must give for one leaf on one rank, by
+    another path: the rank's mean is its own blockwise int8 round trip
+    (``core.quant``'s quantize / dequantize), its error feedback what
+    that drops. -> (reduced, error feedback)."""
+    from repro_torch.optim.compression import compress_int8, decompress_int8
+    g32 = g.float()
+    recon = decompress_int8(*compress_int8(g32), g32)
+    return recon.to(g.dtype), g32 - recon
+
+
+@contextlib.contextmanager
+def counting_all_reduce():
+    """``torch.distributed.all_reduce`` counted (the collectives
+    ``compressed_psum`` issues, one NCCL all-reduce each)."""
+    import torch.distributed as dist
+    orig, calls = dist.all_reduce, collections.Counter()
+
+    def counted(tensor, op=dist.ReduceOp.SUM, group=None, async_op=False):
+        calls[str(op).split(".")[-1]] += 1
+        return orig(tensor, op=op, group=group, async_op=async_op)
+
+    dist.all_reduce = counted
+    try:
+        yield calls
+    finally:
+        dist.all_reduce = orig
+
+
+def launch_cli() -> dict:
+    """(a): the CLI's smoke run on the card, its printed line read back;
+    then a run resumed from its checkpoint for one more step, whose loss
+    must be the uninterrupted run's bit for bit."""
+    import io
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.launch import train as launch_train
+    from repro_torch import obs
+    d = tempfile.mkdtemp(prefix="launch_ckpt_")
+    steps = int(LAUNCH_CLI[1])
+
+    def cli(*argv):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            res = launch_train.main([*argv])
+        assert not dist.is_initialized(), "the CLI left its group behind"
+        return res, out.getvalue().strip().splitlines()[-1]
+
+    try:
+        obs.metrics().reset()
+        t0 = time.perf_counter()
+        res, line = cli(*LAUNCH_CLI, "--ckpt", f"{d}/run")
+        wall = time.perf_counter() - t0
+        walls = step_wall_s()
+        t0 = time.perf_counter()
+        again, _ = cli("--steps", str(steps + 1), "--ckpt", f"{d}/run")
+        resume_wall = time.perf_counter() - t0
+        whole, _ = cli("--steps", str(steps + 1), "--ckpt", f"{d}/whole")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    print(line, flush=True)
+    assert line.startswith("llama3-8b on {'data': 1, 'model': 1}: loss "), line
+    assert len(res["losses"]) == steps, res["losses"]
+    assert all(math.isfinite(x) for x in res["losses"]), res["losses"]
+    assert again["resumed"] and again["start_step"] == steps, again
+    assert whole["losses"][:steps] == res["losses"], (whole, res)
+    assert again["losses"] == whole["losses"][steps:], (again, whole)
+    return {"line": line, "losses": res["losses"], "wall_s": wall,
+            "step_wall_s": walls,
+            "outside_steps_s": wall - walls["count"] * walls["mean"],
+            "resumed_loss": again["losses"][0],
+            "resumed_bit_equal": True, "resume_wall_s": resume_wall}
+
+
+def launch_hold(seed: int) -> dict:
+    """(b) and (c) on a 1 x 1 mesh over a one-rank NCCL group (module
+    docstring, phase 30)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch._tree import leaves_with_path
+    from repro_torch.configs import get_config
+    from repro_torch.launch import make_loss_fn, make_train_step
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.mesh import make_host_mesh, release_group
+    from repro_torch.mapper.executor import full_float32
+    from repro_torch.optim import compressed_psum
+    from repro_torch.parallel import sharding
+    cfg = dataclasses.replace(get_config("llama3-8b"),
+                              n_layers=LAUNCH_HOLD["n_layers"],
+                              dtype="float32")
+    seconds = {}
+    t0 = time.perf_counter()
+    mesh = make_host_mesh(device=DEVICE)
+    assert dist.get_backend() == ("nccl" if DEVICE == "cuda" else "gloo")
+    rules = sharding.single_pod_rules(mesh, fsdp=True)
+    params, state = llama_train_state(cfg, seed)
+    batch = token_batch(cfg, LAUNCH_HOLD["batch"], LAUNCH_HOLD["seq_len"],
+                        seed)
+    n_elements = sum(p.numel() for _, p in leaves_with_path(params))
+    seconds["setup"] = time.perf_counter() - t0
+
+    # (c) compressed_psum on the step's gradients
+    t0 = time.perf_counter()
+    with full_float32():
+        grads = torch.func.grad(make_loss_fn(cfg))(params, batch)
+    with counting_all_reduce() as calls:
+        compressed_psum(grads)            # warm: the communicator starts
+        torch.cuda.synchronize()
+        calls.clear()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(LAUNCH_PSUM_CALLS):
+            reduced, error = compressed_psum(grads)
+        end.record()
+        end.synchronize()
+    psum_ms = start.elapsed_time(end) / LAUNCH_PSUM_CALLS
+    leaves = list(leaves_with_path(grads))
+    unequal = []
+    for path, g in leaves:          # leaf by leaf: ~8 GB of temporaries
+        want_red, want_err = one_rank_psum_leaf(g)
+        if not (torch.equal(leaf_of(reduced, path), want_red)
+                and torch.equal(leaf_of(error, path), want_err)):
+            unequal.append(path)
+        del want_red, want_err
+    assert not unequal, f"compressed_psum != the round trip: {unequal}"
+    psum = {"elements": n_elements, "leaves": len(leaves),
+            "ms_per_call": psum_ms, "calls_timed": LAUNCH_PSUM_CALLS,
+            "nccl_all_reduce_per_call": {
+                k: v // LAUNCH_PSUM_CALLS for k, v in calls.items()},
+            "bit_equal": True}
+    del grads, reduced, error
+    torch.cuda.empty_cache()
+    seconds["compressed_psum"] = time.perf_counter() - t0
+
+    # (b) one train step on DTensors against the plain step
+    t0 = time.perf_counter()
+    p_specs = sharding.param_specs(params, rules)
+    o_specs = steps_mod._opt_specs_like(state, p_specs)
+    with sharding.use_rules(rules):
+        dp = sharding.distribute(params, p_specs, mesh)
+        do = sharding.distribute(state, o_specs, mesh)
+        db = sharding.distribute(batch, steps_mod.batch_specs(cfg, rules),
+                                 mesh)
+    misplaced = [path for tree, specs in ((dp, p_specs),
+                                          (do["m"], p_specs),
+                                          (do["v"], p_specs))
+                 for path, leaf in leaves_with_path(tree)
+                 if tuple(leaf.placements)
+                 != sharding.placements(leaf_of(specs, path), mesh)]
+    assert not misplaced, f"placements off their specs: {misplaced}"
+    sharded_leaves = sum(
+        any(p.is_shard() for p in leaf.placements)
+        for _, leaf in leaves_with_path(dp))
+    step = make_train_step(cfg, lr=LLAMA_TRAIN_LR)
+    with full_float32():
+        t1 = time.perf_counter()
+        p1, o1, l1 = step(params, state, batch)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t1
+        del params, state
+        t1 = time.perf_counter()
+        with sharding.use_rules(rules):
+            p2, o2, l2 = step(dp, do, db)
+        torch.cuda.synchronize()
+        sharded_s = time.perf_counter() - t1
+    del dp, do
+    worst = dict.fromkeys(("loss", "params", "m", "v"), 0.0)
+    apart = {}
+    for group, a, b in (("loss", {"loss": l1}, {"loss": l2}),
+                        ("params", p1, p2), ("m", o1["m"], o2["m"]),
+                        ("v", o1["v"], o2["v"])):
+        for path, x in leaves_with_path(a):
+            y = sharding.full(leaf_of(b, path))
+            if not torch.equal(x, y):
+                d = float((x.double() - y.double()).abs().max())
+                apart[f"{group}/{path}"] = d
+                worst[group] = max(worst[group], d)
+                torch.testing.assert_close(y, x, rtol=LAUNCH_TOL,
+                                           atol=LAUNCH_TOL)
+    assert int(sharding.full(o2["step"])) == int(o1["step"])
+    seconds["train_step"] = time.perf_counter() - t0
+    del p1, o1, p2, o2
+    release_group()
+    torch.cuda.empty_cache()
+    return {"psum": psum, "loss": float(l1), "max_diff": worst,
+            "leaves_not_bit_equal": apart, "bit_equal": not apart,
+            "sharded_param_leaves": sharded_leaves,
+            "plain_step_s": plain_s, "dtensor_step_s": sharded_s,
+            "seconds": seconds}
+
+
+def leaf_of(tree, path: str):
+    """The leaf of ``tree`` at a ``leaves_with_path`` path."""
+    for key in path.split("/"):
+        tree = tree[int(key)] if isinstance(tree, (list, tuple)) else \
+            tree[key]
+    return tree
+
+
+def phase_launch(seed: int) -> dict:
+    """Item 7a on the card (module docstring, phase 30), one ``launch``
+    line."""
+    seconds = {}
+    t0 = time.perf_counter()
+    cli = launch_cli()
+    seconds["cli"] = time.perf_counter() - t0
+    hold = launch_hold(seed)
+    seconds.update(hold.pop("seconds"))
+    seconds["phase"] = time.perf_counter() - t0
+    emit({"phase": "launch", "seconds": seconds, "cli": cli,
+          "config": config_file("llama3-8b"),
+          "hold_shape": LAUNCH_HOLD, "mesh": {"data": 1, "model": 1},
+          "rules": "single_pod_rules(fsdp=True)",
+          "reduced": {"n_layers": [32, LAUNCH_HOLD["n_layers"]],
+                      "dtype": ["bfloat16", "float32"]},
+          "tol_named_leaves": LAUNCH_TOL, **hold})
+    return hold
+
+
 def sums(rows) -> dict:
     """Times and bounds of one run's launches: each distinct shape's
     numbers times its count, summed (each shape's bound the larger of its
@@ -8015,6 +8266,7 @@ def main() -> int:
     rows["recurrent_train"] = phase_kernels_pim(
         args.seed, with_counts(rec_train["shapes"]), "recurrent_train",
         REC_TRAIN_HOLDS[REC_ARCHS[0]]["batch"], iters=3, plain_iters=1)
+    phase_launch(args.seed)
     print(gpu_name_and_power_limit(), flush=True)
 
     def entry(ids, launches, r):

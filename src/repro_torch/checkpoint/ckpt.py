@@ -15,6 +15,13 @@ bits.
 Async mode hands serialization to a background thread so the train loop
 only blocks on the previous save; the tensors are copied to host memory
 before the hand-off.
+
+Sharded trees: a DTensor leaf is saved as its full tensor (every rank
+takes part in the gather), and in a process group of several ranks only
+rank 0 writes, synchronously, and the ranks meet at a barrier after the
+write. A restored leaf whose like leaf is a DTensor is laid out on that
+leaf's mesh and placements, so a checkpoint written on one mesh resumes
+on another (elastic rescale).
 """
 
 from __future__ import annotations
@@ -26,13 +33,15 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch._tree import leaves_with_path, map_with_path
+from repro_torch.parallel.sharding import full
 
 
 def _host(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
-        leaf = leaf.detach()
+        leaf = full(leaf.detach())
         if leaf.dtype == torch.bfloat16:
             leaf = leaf.float()
         return leaf.cpu().numpy().copy()
@@ -50,11 +59,25 @@ def _unflatten_like(tree, flat: dict[str, np.ndarray]):
             arr = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
         else:
             arr = torch.from_numpy(arr)
+        if _is_dtensor(leaf):
+            from torch.distributed.tensor import distribute_tensor
+            return distribute_tensor(
+                arr.to(device=leaf.to_local().device, dtype=leaf.dtype),
+                leaf.device_mesh, leaf.placements)
         if isinstance(leaf, torch.Tensor):
             return arr.to(device=leaf.device, dtype=leaf.dtype)
         return arr
 
     return map_with_path(leaf_for, tree)
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def _ranks() -> int:
+    return dist.get_world_size() if dist.is_initialized() else 1
 
 
 def _write(directory: pathlib.Path, step: int, flat: dict[str, np.ndarray],
@@ -71,7 +94,14 @@ def _write(directory: pathlib.Path, step: int, flat: dict[str, np.ndarray],
 
 
 def save_checkpoint(directory, step: int, tree, *, metadata=None) -> str:
-    return _write(pathlib.Path(directory), step, _flatten(tree), metadata)
+    flat = _flatten(tree)
+    directory = pathlib.Path(directory)
+    if _ranks() == 1:
+        return _write(directory, step, flat, metadata)
+    if dist.get_rank() == 0:
+        _write(directory, step, flat, metadata)
+    dist.barrier()
+    return str(directory / f"ckpt_{step:08d}.npz")
 
 
 def latest_step(directory) -> int | None:
@@ -120,7 +150,12 @@ class CheckpointManager:
             _write(self.directory, step, flat, metadata)
             self._gc()
 
-        if self.async_save:
+        if _ranks() > 1:
+            # one writer; no rank reads on before the file is whole
+            if dist.get_rank() == 0:
+                _do()
+            dist.barrier()
+        elif self.async_save:
             self._thread = threading.Thread(target=_do, daemon=True)
             self._thread.start()
         else:

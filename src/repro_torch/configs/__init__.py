@@ -7,7 +7,9 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ArchConfig, ShapeSpec
+from repro_torch.configs.base import (LM_SHAPES, LONG_CONTEXT_ARCHS,
+                                      ArchConfig, ShapeSpec,
+                                      shape_applicable)
 from repro_torch.configs.lenet5 import CONFIG as LENET5, LeNetConfig
 
 ARCH_IDS = ("qwen3-32b", "chatglm3-6b", "llama3-8b", "qwen2.5-32b",
@@ -38,5 +40,6 @@ def get_smoke_config(name: str) -> ArchConfig:
     return mod.smoke_config()
 
 
-__all__ = ["ARCH_IDS", "ArchConfig", "LENET5", "LeNetConfig", "ShapeSpec",
-           "get_config", "get_smoke_config"]
+__all__ = ["ARCH_IDS", "ArchConfig", "LENET5", "LM_SHAPES",
+           "LONG_CONTEXT_ARCHS", "LeNetConfig", "ShapeSpec", "get_config",
+           "get_smoke_config", "shape_applicable"]

@@ -1,10 +1,14 @@
 """Architecture config schema (a copy of the reference's ``ArchConfig``,
-so the port reads the same configs and counts the same parameters) and
-the input shape of a step (``ShapeSpec``, the reference's)."""
+so the port reads the same configs and counts the same parameters), the
+input shape of a step (``ShapeSpec``, the reference's) and the
+production shapes every arch is laid out for (``LM_SHAPES``, with
+``shape_applicable``: the long-context decode only for the recurrent
+archs)."""
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,3 +110,21 @@ class ShapeSpec:
     seq_len: int
     global_batch: int
     kind: str   # train | prefill | decode
+
+
+LM_SHAPES: Sequence[ShapeSpec] = (
+    ShapeSpec("train_4k", 4_096, 256, "train"),
+    ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    ShapeSpec("long_500k", 524_288, 1, "decode"),
+)
+
+# archs for which long_500k applies (SSM / hybrid: sub-quadratic decode
+# state; the full-attention archs skip it)
+LONG_CONTEXT_ARCHS = ("xlstm-350m", "zamba2-7b")
+
+
+def shape_applicable(cfg: ArchConfig, shape: ShapeSpec) -> bool:
+    if shape.name == "long_500k":
+        return cfg.name in LONG_CONTEXT_ARCHS
+    return True

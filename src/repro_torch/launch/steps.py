@@ -4,7 +4,8 @@
 ``make_train_step(cfg)`` is one optimizer step, ``(params, opt_state,
 batch) -> (params, opt_state, loss)``: the fused LM-head cross-entropy
 of ``make_loss_fn``, its gradient by ``torch.func.grad_and_value`` (the
-reference's ``jax.value_and_grad``) and the AdamW update; with
+reference's ``jax.value_and_grad``; autograd's over DTensor params,
+``grad_and_value``) and the AdamW update; with
 ``cfg.grad_accum > 1`` the batch is split into that many microbatches,
 one iteration of the ``"scan"`` region ``"microbatches"`` each, their
 gradients summed in float32 and divided by their number (the reference's
@@ -21,22 +22,29 @@ A config with ``input_embed_stub`` takes ``batch["embeds"]`` [B, S, D]
 (a modality frontend's output) where the others take ``batch["tokens"]``,
 one with ``needs_position_grid`` ``batch["positions"]`` [3, B, S] besides,
 and a tied head reads the embedding table's transpose. The
-mixture-of-experts configs train as the dense ones do. Not ported yet:
-the sharding rules (ROADMAP.md, queue item 7).
+mixture-of-experts configs train as the dense ones do.
+
+``cell_shardings(mesh, cfg, shape)`` assembles a launch cell's layout:
+the axis rules (``make_rules``) and the spec trees of its params,
+optimizer state, batch, cache and decode token, over those meta-device
+stand-ins (``parallel.sharding``; ``placements`` turns a spec into
+DTensor placements on a live mesh).
 """
 
 from __future__ import annotations
 
-from typing import Callable
+import dataclasses
+from typing import Any, Callable
 
 import torch
 
 from repro_torch._device import torch_dtype
-from repro_torch._tree import tree_map
+from repro_torch._tree import leaves_with_path, tree_map
 from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.core import estimator
 from repro_torch.models import attention, layers, transformer
 from repro_torch.optim import make_optimizer
+from repro_torch.parallel import sharding
 
 
 def token_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -103,6 +111,24 @@ def _microbatches(batch: dict, accum: int) -> dict:
     return {k: split(k, v) for k, v in batch.items()}
 
 
+def grad_and_value(loss_fn: Callable, params, batch):
+    """(the gradient tree of ``loss_fn`` at ``params``, the loss):
+    ``torch.func.grad_and_value``, or autograd's over DTensor params. A
+    DTensor's layout changes (``sharding.constrain`` / ``unshard``) are
+    autograd Functions that ``torch.func`` does not transform, and the
+    written-out VJPs lay out what they read; under autograd each sees
+    the DTensors themselves. The same ops, so the same values."""
+    if not sharding.is_distributed(params):
+        return torch.func.grad_and_value(loss_fn)(params, batch)
+    leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
+    with torch.enable_grad():
+        loss = loss_fn(leaves, batch)
+    flat = [p for _, p in leaves_with_path(leaves)]
+    got = iter(torch.autograd.grad(loss, flat))
+    grads = tree_map(lambda _: next(got), leaves)
+    return grads, loss.detach()
+
+
 def make_train_step(cfg: ArchConfig, *, optimizer_name: str = "adamw",
                     lr: float = 3e-4) -> Callable:
     """(params, opt_state, batch) -> (params, opt_state, loss): one step
@@ -117,7 +143,7 @@ def make_train_step(cfg: ArchConfig, *, optimizer_name: str = "adamw",
 
     def train_step(params, opt_state, batch):
         if accum == 1:
-            grads, loss = torch.func.grad_and_value(loss_fn)(params, batch)
+            grads, loss = grad_and_value(loss_fn, params, batch)
         else:
             n = batch["labels"].shape[0]
             assert n % accum == 0, (
@@ -130,7 +156,7 @@ def make_train_step(cfg: ArchConfig, *, optimizer_name: str = "adamw",
             for i in range(accum):
                 with estimator.region("scan", "microbatches"):
                     mb = {k: v[i] for k, v in micro.items()}
-                    g, l = torch.func.grad_and_value(loss_fn)(params, mb)
+                    g, l = grad_and_value(loss_fn, params, mb)
                     g_acc = tree_map(lambda a, b: a + b.float(), g_acc, g)
                     loss = loss + l
                     del g          # not alive beside the next one's
@@ -232,3 +258,80 @@ def abstract_opt_state(cfg: ArchConfig, params_shapes,
     opt = make_optimizer(optimizer_name, lr=1e-3,
                          state_dtype=cfg.opt_state_dtype)
     return opt.init(params_shapes)
+
+
+# ---------------------------------------------------------------------------
+# sharding assembly for a dry-run / launch cell
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class CellShardings:
+    """A cell's layout: its rules and a spec tree (``sharding.Spec``
+    leaves) for each input the cell's step takes."""
+
+    rules: sharding.AxisRules
+    params: Any
+    opt_state: Any | None
+    batch: Any | None
+    cache: Any | None
+    token: Any | None = None
+
+
+def batch_specs(cfg: ArchConfig, rules: sharding.AxisRules) -> dict:
+    bspec = rules.rules.get("batch")
+    specs = {"labels": sharding.Spec(bspec, None)}
+    if cfg.input_embed_stub:
+        specs["embeds"] = sharding.Spec(bspec, None, None)
+    else:
+        specs["tokens"] = sharding.Spec(bspec, None)
+    if cfg.needs_position_grid:
+        specs["positions"] = sharding.Spec(None, bspec, None)
+    return specs
+
+
+def make_rules(mesh, cfg: ArchConfig,
+               shape: ShapeSpec) -> sharding.AxisRules:
+    multi = "pod" in sharding.mesh_axes(mesh)
+    if shape.name == "long_500k":
+        return sharding.long_context_rules(mesh, multi_pod=multi)
+    maker = (sharding.multi_pod_rules if multi
+             else sharding.single_pod_rules)
+    return maker(mesh, fsdp=cfg.fsdp)
+
+
+def cell_shardings(mesh, cfg: ArchConfig, shape: ShapeSpec,
+                   *, optimizer_name: str = "adamw") -> CellShardings:
+    rules = make_rules(mesh, cfg, shape)
+    p_shapes = abstract_params(cfg)
+    p_specs = sharding.param_specs(p_shapes, rules)
+    if shape.kind == "train":
+        o_shapes = abstract_opt_state(cfg, p_shapes, optimizer_name)
+        return CellShardings(rules=rules, params=p_specs,
+                             opt_state=_opt_specs_like(o_shapes, p_specs),
+                             batch=batch_specs(cfg, rules), cache=None)
+    if shape.kind == "prefill":
+        return CellShardings(rules=rules, params=p_specs, opt_state=None,
+                             batch=batch_specs(cfg, rules), cache=None)
+    # decode
+    c_specs = sharding.cache_specs(abstract_cache(cfg, shape), rules)
+    return CellShardings(rules=rules, params=p_specs, opt_state=None,
+                         batch=None, cache=c_specs,
+                         token=sharding.Spec(rules.rules.get("batch")))
+
+
+def _opt_specs_like(o_shapes: dict, p_specs) -> dict:
+    """Give optimizer moment trees the same specs as their params; the
+    step counter, and a moment stored as a subtree (an int8 ``{q,
+    scale}`` below a param's position), replicated (``Spec()``)."""
+    is_spec = lambda x: isinstance(x, sharding.Spec)     # noqa: E731
+    out = {}
+    for key, sub in o_shapes.items():
+        if key == "step":
+            out[key] = sharding.Spec()
+        else:
+            out[key] = tree_map(
+                lambda spec, shp: spec if isinstance(shp, torch.Tensor)
+                and len(spec) <= shp.dim() else sharding.Spec(),
+                p_specs, sub, is_leaf=is_spec)
+    return out

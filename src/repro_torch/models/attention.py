@@ -53,6 +53,7 @@ from repro_torch.kernels.flash_attention import (
     paged_decode_attention_grouped, paged_decode_attention_grouped_q,
     paged_decode_op, paged_decode_q_op)
 from repro_torch.models import layers
+from repro_torch.parallel import sharding
 
 NEG_INF = ref.NEG_INF
 
@@ -140,7 +141,15 @@ def _project_qkv(x, p, cfg: ArchConfig, positions):
                           style=cfg.rope_style, sections=cfg.mrope_sections)
     k = layers.apply_rope(k, positions, theta=cfg.rope_theta,
                           style=cfg.rope_style, sections=cfg.mrope_sections)
-    return q, k, v
+    return constrain_qkv(q, k, v)
+
+
+def constrain_qkv(q, k, v):
+    """The heads of q, k, v [B, S, heads, hd] on the model axis (the
+    reference's constraints at the end of ``_project_qkv``)."""
+    return (sharding.constrain(q, ("batch", None, "heads", None)),
+            sharding.constrain(k, ("batch", None, "kv_heads", None)),
+            sharding.constrain(v, ("batch", None, "kv_heads", None)))
 
 
 def site_positions(cfg: ArchConfig, pos: torch.Tensor) -> torch.Tensor:
@@ -170,6 +179,9 @@ def grouped_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     b, s, h, d = q.shape
     g = k.shape[2]
     r = h // g
+    # the views merge (b, g) and (s, r): g and r are parts of dim 2
+    q = sharding.mergeable(q, (0, 2), (1, 2))
+    k = sharding.mergeable(k, (0, 2))
     out = torch.bmm(k.permute(0, 2, 1, 3).reshape(b * g, s, d),
                     q.reshape(b, s, g, r, d).permute(0, 2, 4, 1, 3)
                     .reshape(b * g, d, s * r))
@@ -189,6 +201,8 @@ def grouped_values(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     [B·G, D, S_k] by probs [B·G, S_k, R·S_q]."""
     b, g, r, s, _ = probs.shape
     d = v.shape[-1]
+    v = sharding.mergeable(v, (0, 2))
+    probs = sharding.mergeable(probs, (0, 1), (2, 3))
     out = torch.bmm(v.permute(0, 2, 3, 1).reshape(b * g, d, s),
                     probs.permute(0, 1, 4, 2, 3).reshape(b * g, s, r * s))
     return out.view(b, g, d, r, s).permute(0, 4, 1, 3, 2).reshape(
@@ -278,8 +292,9 @@ def _repeat_chunk(kc: torch.Tensor, n_rep: int) -> torch.Tensor:
     if n_rep == 1:
         return kc
     b, c, g, d = kc.shape
-    return kc[:, :, :, None, :].expand(b, c, g, n_rep, d).reshape(
+    rep = kc[:, :, :, None, :].expand(b, c, g, n_rep, d).reshape(
         b, c, g * n_rep, d)
+    return sharding.constrain(rep, ("batch", None, "heads", None))
 
 
 def _mask_penalty(qi, ki, iota_q, iota_k) -> torch.Tensor:
@@ -424,6 +439,7 @@ def _flash_fwd_impl(q, k, v, q_chunk: int, kv_chunk: int,
     scale = 1.0 / math.sqrt(d)
     qc, kc = min(q_chunk, s), min(kv_chunk, s)
     nq, nk = _n_chunks(s, qc), _n_chunks(s, kc)
+    q = sharding.constrain(q, ("batch", None, "heads", None))
     iota_q = torch.arange(qc, device=q.device)
     iota_k = torch.arange(kc, device=q.device)
     kr = k.reshape(b, nk, kc, g, d).movedim(1, 0)
@@ -471,6 +487,8 @@ def _flash_bwd_impl(q, k, v, out, lse, dout, q_chunk: int, kv_chunk: int):
     scale = 1.0 / math.sqrt(d)
     qc, kc = min(q_chunk, s), min(kv_chunk, s)
     nq, nk = _n_chunks(s, qc), _n_chunks(s, kc)
+    q = sharding.constrain(q, ("batch", None, "heads", None))
+    dout = sharding.constrain(dout, ("batch", None, "heads", None))
     iota_q = torch.arange(qc, device=q.device)
     iota_k = torch.arange(kc, device=q.device)
     delta = _delta(dout, out)
@@ -526,6 +544,7 @@ def _flash_fwd_pair_impl(q, k, v, chunk: int, with_lse: bool = True):
     scale = 1.0 / math.sqrt(d)
     c = min(chunk, s)
     n = _n_chunks(s, c)
+    q = sharding.constrain(q, ("batch", None, "heads", None))
     diag = torch.where(causal_mask(c, q.device), 0.0, NEG_INF)
     acc = torch.zeros((n, b, h, c, d), dtype=torch.float32, device=q.device)
     m = torch.full((n, b, h, c), NEG_INF, dtype=torch.float32,
@@ -571,6 +590,8 @@ def _flash_bwd_pair_impl(q, k, v, out, lse, dout, chunk: int):
     scale = 1.0 / math.sqrt(d)
     c = min(chunk, s)
     n = _n_chunks(s, c)
+    q = sharding.constrain(q, ("batch", None, "heads", None))
+    dout = sharding.constrain(dout, ("batch", None, "heads", None))
     diag = torch.where(causal_mask(c, q.device), 0.0, NEG_INF)
     delta = _delta(dout, out)
     dq = torch.zeros(q.shape, dtype=q.dtype, device=q.device)

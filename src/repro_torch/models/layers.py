@@ -4,8 +4,9 @@ Port of ``repro.models.layers``. The apply functions are plain tensor
 functions with the reference's arithmetic (norm statistics in float32,
 matmuls in the compute dtype); small ``nn.Module``s hold the weights in
 the reference's layout (``x @ w``, weights ``[in, out]``), so the
-checkpoint bridge copies leaves across without transposing. Sharding
-constraints are dropped: the port runs on one device.
+checkpoint bridge copies leaves across without transposing. The MLP's
+hidden activation and the head's logits carry the reference's layout
+hints (``parallel.sharding.constrain``: a no-op without rules and a mesh).
 
 The functions are spelled as the reference's jaxpr has them, so that the
 mapper traces the same priced ops (``repro_torch.core.estimator``): the
@@ -26,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core import estimator
+from repro_torch.parallel import sharding
 
 
 def dense_init_(w: torch.Tensor, generator: torch.Generator,
@@ -77,7 +79,8 @@ def rms_norm_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
     gs = g32 * s32
     dot = (gs * x32).sum(-1, keepdim=True)
     dx = r * gs - r.pow(3) * x32 * (dot / n)
-    dscale = (g32 * x32 * r).reshape(-1, n).sum(0)
+    rows = tuple(range(x.dim() - 1))
+    dscale = sharding.mergeable(g32 * x32 * r, rows).reshape(-1, n).sum(0)
     return dx.to(x.dtype), dscale.to(scale.dtype)
 
 
@@ -206,7 +209,14 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, *, theta: float,
 
 def mlp(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
         w_down: torch.Tensor) -> torch.Tensor:
-    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+    return _constrain_hidden(F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+def _constrain_hidden(h: torch.Tensor) -> torch.Tensor:
+    """The MLP's hidden activation on the model axis, rank-agnostic:
+    [B, S, F] in blocks, [T, F] in the MoE shared expert."""
+    return sharding.constrain(
+        h, ("batch",) + (None,) * (h.dim() - 2) + ("mlp",))
 
 
 def mlp_parts(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor
@@ -216,13 +226,15 @@ def mlp_parts(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor
     gate = x @ w_gate
     up = x @ w_up
     sg = F.silu(gate)
-    return dict(gate=gate, up=up, sg=sg, hm=sg * up)
+    return dict(gate=gate, up=up, sg=sg, hm=_constrain_hidden(sg * up))
 
 
 def weight_grad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """The cotangent of ``w`` in ``x @ w``: ``xᵀg`` over the flattened
     rows, [in, out] (the reference's ``dot_general(g, x)`` transposed;
     ``estimator.mm_transposed``)."""
+    rows = tuple(range(x.dim() - 1))
+    x, g = sharding.mergeable(x, rows), sharding.mergeable(g, rows)
     return x.reshape(-1, x.shape[-1]).t() @ g.reshape(-1, g.shape[-1])
 
 
@@ -297,7 +309,7 @@ def fork(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def lm_head(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    return x @ w
+    return sharding.constrain(x @ w, ("batch", None, "vocab"))
 
 
 class Embedding(nn.Module):
@@ -368,15 +380,20 @@ class _FusedXentHead(torch.autograd.Function):
     @staticmethod
     def forward(x, w, labels, n_chunks):
         b, s, _ = x.shape
-        xr, lr = _xent_chunks(x, labels, n_chunks)
+        # a DTensor x split along the sequence gathered whole first (the
+        # chunks' views split it); again in the backward, from the input
+        xr, lr = _xent_chunks(sharding.unshard(x, 1), labels, n_chunks)
         total = torch.zeros((), dtype=torch.float32, device=x.device)
         lses = []
         for c in range(n_chunks):
             with estimator.region("scan", "xent"):
                 logits = _chunk_logits(xr[c], w)
                 lse = logsumexp(logits)
+                # the gather reads whole vocab rows: DTensor's rule for
+                # a gather along a sharded dim fails on the [..., 0]
                 gold = torch.take_along_dim(
-                    logits, lr[c][..., None].long(), -1)[..., 0]
+                    sharding.unshard(logits, -1), lr[c][..., None].long(),
+                    -1)[..., 0]
                 total = total + (lse - gold).sum()
                 lses.append(lse)
         return total / (b * s), torch.stack(lses)
@@ -391,6 +408,7 @@ class _FusedXentHead(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g, _):
         x, w, labels, lses = ctx.saved_tensors
+        x = sharding.unshard(x, 1)
         b, s, d = x.shape
         n_tok = b * s
         xr, lr = _xent_chunks(x, labels, ctx.n_chunks)

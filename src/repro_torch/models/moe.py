@@ -41,6 +41,7 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import estimator
 from repro_torch.models import attention, layers
+from repro_torch.parallel import sharding
 
 
 def experts_init_(w: torch.Tensor, generator: torch.Generator
@@ -133,7 +134,7 @@ def route(x: torch.Tensor, router: torch.Tensor, cfg: ArchConfig, *,
     c = capacity(tl, e, k, cfg.capacity_factor)
     dev = x.device
 
-    xg = x.reshape(grp, tl, d)
+    xg = sharding.constrain(x.reshape(grp, tl, d), ("batch", None, None))
     logits = (xg @ router).float()                          # [G,TL,E]
     ex = torch.exp(logits - logits.amax(-1, keepdim=True))
     ssum = ex.sum(-1, keepdim=True)
@@ -226,14 +227,17 @@ def moe_forward(x: torch.Tensor, params: dict, cfg: ArchConfig, *,
         tok, valid = r["slot_token"], r["slot_valid"][..., None]
         buf = torch.take_along_dim(xg, tok[..., None].long(), dim=1)
         buf = torch.where(valid, buf, 0)
-    buf = buf.reshape(grp, e, c, d)
+    buf = sharding.constrain(buf.reshape(grp, e, c, d),
+                             ("batch", "expert", None, None))
 
     # expert FFN (SwiGLU), batched over experts
     g_ = _experts(buf, params["w_gate"])
     u_ = _experts(buf, params["w_up"])
     sg = F.silu(g_)
-    h = sg * u_
-    out_buf = _experts(h, params["w_down"]).reshape(grp, e * c, d)
+    h = sharding.constrain(sg * u_, ("batch", "expert", None, None))
+    out_buf = sharding.constrain(_experts(h, params["w_down"]),
+                                 ("batch", "expert", None, None))
+    out_buf = out_buf.reshape(grp, e * c, d)
 
     # combine: gather back by (expert, position), weight, sum over k
     comb_idx = r["flat_e"] * c + r["pos_c"]                 # [G,TL*k]
@@ -251,7 +255,9 @@ def moe_forward(x: torch.Tensor, params: dict, cfg: ArchConfig, *,
     r.update(w=r["gate_w"], keep=kept, comb=comb, gathered=gathered,
              valid=valid, tok=tok, buf=buf, g=g_, sg=sg, u=u_, h=h)
     if full:
-        r["out"] = (gathered * r["gate_w"][..., None].to(x.dtype)).sum(2)
+        r["out"] = sharding.constrain(
+            (gathered * r["gate_w"][..., None].to(x.dtype)).sum(2),
+            ("batch", None, None))
 
     if "shared_expert" in params:
         se = params["shared_expert"]

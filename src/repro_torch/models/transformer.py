@@ -92,6 +92,7 @@ from repro_torch._tree import leaves_with_path, tree_map
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import estimator
 from repro_torch.models import attention, layers, lin, moe, ssm
+from repro_torch.parallel import sharding
 
 # the reference's per-block leaves of a dense block (``layers/block<i>/
 # <name>``, stacked over the units on a leading axis) and the port's block
@@ -447,6 +448,7 @@ def _forward_recurrent(cfg: ArchConfig, params: dict, x: torch.Tensor,
                 up, = _slices((params["layers"],), u)
                 x = ssm.mlstm_seq_chunked(x, _flat(up["mlstm"]), cfg.n_heads)
                 x = ssm.slstm_seq(x, _flat(up["slstm"]), cfg.n_heads)
+                x = sharding.constrain(x, ("batch", None, None))
         return x
     kw = dict(ssm_state=cfg.ssm_state, headdim=cfg.mamba_headdim)
     eps = cfg.norm_eps
@@ -458,6 +460,7 @@ def _forward_recurrent(cfg: ArchConfig, params: dict, x: torch.Tensor,
                 with estimator.region("scan", "mamba"):
                     lp, = _slices((gp,), j)
                     x = ssm.mamba2_seq_chunked(x, _flat(lp["mamba"]), **kw)
+                    x = sharding.constrain(x, ("batch", None, None))
             h = layers.rms_norm(x, params["shared_norm1"]["scale"], eps)
             x = x + attention.attention_block(h, params["shared_attn"], cfg,
                                               positions, chunked=chunked)
@@ -774,7 +777,9 @@ def _unit_forward(x, w: dict, cfg: ArchConfig, positions, mask,
     eps, hd = cfg.norm_eps, cfg.resolved_head_dim
     b, s, _ = x.shape
     lin = residuals and not infer
-    h1 = layers.rms_norm_fwd(x, w["norm1/scale"], eps)
+    # the sequence whole before the products: a DTensor carry split along
+    # it is all-gathered (Megatron SP's gather; attention reads every row)
+    h1 = sharding.unshard(layers.rms_norm_fwd(x, w["norm1/scale"], eps), 1)
     q = h1 @ w["attn/wq"]
     k = h1 @ w["attn/wk"]
     v = h1 @ w["attn/wv"]
@@ -803,6 +808,7 @@ def _unit_forward(x, w: dict, cfg: ArchConfig, positions, mask,
     qr = layers.rotate_partial(q, *tq) if rope else q
     tk = table(1)
     kr = layers.rotate_partial(k, *tk) if rope else k
+    qr, kr, v = attention.constrain_qkv(qr, kr, v)
     if chunked:
         if infer:
             o, lse = attention.chunked_causal_attention(qr, kr, v), None
@@ -827,9 +833,9 @@ def _unit_forward(x, w: dict, cfg: ArchConfig, positions, mask,
                    .contiguous())
     o = att["o"]
     xm = x + o @ w["attn/wo"]
-    h2 = layers.rms_norm_fwd(xm, w["norm2/scale"], eps)
+    h2 = sharding.unshard(layers.rms_norm_fwd(xm, w["norm2/scale"], eps), 1)
     if infer:
-        return dict(out=xm + _ffn(cfg, h2, w))
+        return dict(out=_carry(xm + _ffn(cfg, h2, w)))
     r = dict(x=x, h1=h1, **norms, tq=tq, tk=tk, qr=qr, kr=kr, v=v, **att,
              xm=xm, h2=h2)
     if "moe/router" in w:
@@ -842,8 +848,15 @@ def _unit_forward(x, w: dict, cfg: ArchConfig, positions, mask,
         r.update(layers.mlp_parts(h2, w["mlp/w_gate"], w["mlp/w_up"]))
         out = r["hm"] @ w["mlp/w_down"] if full else None
     if full:
-        r["out"] = xm + out
+        r["out"] = _carry(xm + out)
     return r
+
+
+def _carry(x: torch.Tensor) -> torch.Tensor:
+    """A block's output, the residual carry, split along the sequence
+    over the model axis (Megatron SP: the remat carry chain is the
+    dominant train-time buffer; the reference's layout hint)."""
+    return sharding.constrain(x, ("batch", "seq_act", None))
 
 
 def _head_norm_bwd(ct: torch.Tensor, r: dict, prefix: str,
@@ -899,6 +912,7 @@ def _unit_backward(ct: torch.Tensor, r: dict, w: dict,
     eps = cfg.norm_eps
     b, s, _ = ct.shape
     add = estimator.add_any
+    ct = sharding.unshard(ct, 1)          # as ``_unit_forward``'s h1, h2
     # the FFN: out = xm + mlp(h2), or + the MoE's (moe.moe_block_bwd)
     if "moe/router" in w:
         dh2, g = moe.moe_block_bwd(ct, {**_group(r, "moe/"), "x": r["h2"]},
@@ -960,8 +974,12 @@ def _full_backward(do: torch.Tensor, r: dict, cfg: ArchConfig):
     g, rep = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
     b, s, _ = do.shape
     add = estimator.add_any
-    do = do.reshape(b, s, g, rep, hd)
-    v, p = r["v"], r["p"]
+    # the views merge (b, g) and (rep, s) of do, (b, g) and (s, rep) of
+    # qr, (b, g) of v and kr: g and rep are parts of the heads' dim
+    do = sharding.mergeable(do, (0, 2), (2, 1)).reshape(b, s, g, rep, hd)
+    v, p = sharding.mergeable(r["v"], (0, 2)), r["p"]
+    qr = sharding.mergeable(r["qr"], (0, 2), (1, 2))
+    kr = sharding.mergeable(r["kr"], (0, 2))
     ct_p = torch.bmm(
         do.permute(0, 2, 3, 1, 4).reshape(b * g, rep * s, hd),
         v.permute(0, 2, 3, 1).reshape(b * g, hd, s)).view(b, g, rep, s, s)
@@ -979,10 +997,10 @@ def _full_backward(do: torch.Tensor, r: dict, cfg: ArchConfig):
     mask, zero = r["select"]
     ct_s = torch.where(mask, ct_e, zero).to(do.dtype) / math.sqrt(hd)
     dq = torch.bmm(ct_s.permute(0, 1, 3, 2, 4).reshape(b * g, s * rep, s),
-                   r["kr"].permute(0, 2, 1, 3).reshape(b * g, s, hd)
+                   kr.permute(0, 2, 1, 3).reshape(b * g, s, hd)
                    ).view(b, g, s, rep, hd)
     dk = torch.bmm(ct_s.permute(0, 1, 4, 3, 2).reshape(b * g, s, s * rep),
-                   r["qr"].reshape(b, s, g, rep, hd).permute(0, 2, 1, 3, 4)
+                   qr.reshape(b, s, g, rep, hd).permute(0, 2, 1, 3, 4)
                    .reshape(b * g, s * rep, hd)).view(b, g, s, hd)
     return (dq.permute(0, 2, 1, 3, 4).reshape(b, s, g * rep, hd),
             dk.permute(0, 2, 1, 3), dv)
@@ -1162,6 +1180,7 @@ def hidden_states(cfg: ArchConfig, params: dict,
         x = embeds.to(torch_dtype(cfg.dtype))
     b, s, _ = x.shape
     chunked = s > CHUNKED_ATTN_THRESHOLD
+    x = sharding.constrain(x, ("batch", "seq", None))
     if positions is None:
         pos = attention.site_positions(cfg, torch.arange(
             s, dtype=torch.int32, device=x.device)[None].expand(b, s))

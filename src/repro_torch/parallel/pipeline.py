@@ -1,9 +1,20 @@
-"""GPipe over PIM partition stage programs: the port of the partition half
-of ``repro.parallel.pipeline``.
+"""GPipe pipelines: the port of ``repro.parallel.pipeline``.
 
 The GPipe schedule is classic fill-drain over M microbatches and P stages
 — T = M + P - 1 ticks; at tick t, stage s processes microbatch (t - s)
-when 0 <= t - s < M; bubble fraction = (P-1)/(M+P-1). The stages are the
+when 0 <= t - s < M; bubble fraction = (P-1)/(M+P-1). Two substrates
+share it:
+
+  * **mesh pipelining** (:func:`pipeline_forward` /
+    :func:`make_pipelined_fn`): the ranks of a mesh axis (``"pod"``)
+    carry the stages, each holding a contiguous slice of the layer stack
+    (params stacked per stage, [P, layers_per_stage, ...]); each tick a
+    stage hands its output to the next by a point-to-point send and
+    receive, and the last stage's outputs reach every rank of the axis by
+    a SUM all-reduce of the masked value. A forward (inference) pipeline:
+    nothing is differentiated through the transfers.
+
+The other substrate runs the stages on one device: the stages are the
 per-partition programs of
 ``repro_torch.mapper.compile.compile_partitioned``: weight blocks stay
 resident on their tiles and activation sets stream through the explicit
@@ -39,8 +50,6 @@ the asynchronous driver's on ``pipeline:stage{s}``) when a tracer is
 enabled, synced inside so that they cover the device work: enable tracing
 to attribute time, disable it to measure overlap.
 
-Not ported yet: ``pipeline_forward`` / ``make_pipelined_fn``, the mesh
-collectives (ROADMAP.md, queue item 7).
 """
 
 from __future__ import annotations
@@ -50,8 +59,80 @@ import importlib
 from typing import Any, Sequence
 
 import torch
+import torch.distributed as dist
 
-from repro_torch import obs
+from repro_torch import _tree, obs
+
+
+def pipeline_forward(x: torch.Tensor, stage_params, stage_fn, *, group,
+                     n_stages: int, n_micro: int) -> torch.Tensor:
+    """Run this rank's stage of the GPipe grid. x: [n_micro, mb, ...], the
+    same on every rank of ``group`` (the pipe axis, its ranks in stage
+    order); stage_params: this rank's stage slice. Returns the last
+    stage's outputs [n_micro, mb, ...] on every rank of the group.
+
+    stage_fn(stage_params, x_mb) -> y_mb applies this stage's layers
+    (outputs shaped and typed as its inputs)."""
+    stage = dist.get_rank(group)
+    peer = lambda s: dist.get_global_rank(group, s)     # noqa: E731
+    mb_shape = x.shape[1:]
+    inflight = torch.zeros(mb_shape, dtype=x.dtype, device=x.device)
+    outputs = torch.zeros((n_micro,) + mb_shape, dtype=x.dtype,
+                          device=x.device)
+    for t in range(n_micro + n_stages - 1):
+        # stage 0 injects microbatch t; the others take the handed-on one
+        cur_in = x[min(max(t, 0), n_micro - 1)] if stage == 0 else inflight
+        if 0 <= t - stage < n_micro:
+            out = stage_fn(stage_params, cur_in)
+        else:                      # outside the grid: a masked zero
+            out = torch.zeros_like(cur_in)
+        # pass activations downstream (stage s -> s+1)
+        ops = []
+        if stage + 1 < n_stages:
+            ops.append(dist.P2POp(dist.isend, out.contiguous(),
+                                  peer(stage + 1), group))
+        if stage > 0:
+            inflight = torch.empty_like(inflight)
+            ops.append(dist.P2POp(dist.irecv, inflight, peer(stage - 1),
+                                  group))
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        # the last stage records its finished microbatch
+        if stage == n_stages - 1 and 0 <= t - stage < n_micro:
+            outputs[t - stage] = out
+    # every stage gets the last stage's outputs: a SUM of the masked
+    # value is a broadcast (the reference's psum; a send cannot fan out)
+    outputs = outputs * float(stage == n_stages - 1)
+    dist.all_reduce(outputs, op=dist.ReduceOp.SUM, group=group)
+    return outputs
+
+
+def make_pipelined_fn(stage_fn, mesh, *, axis: str = "pod",
+                      n_micro: int = 4):
+    """Wrap ``stage_fn`` into a pipelined callable over ``mesh``'s
+    ``axis`` (a ``DeviceMesh``; the other axes hold independent
+    replicas of the pipeline).
+
+    Inputs: x [n_micro, mb, ...] and the stacked stage params [P, ...]
+    (a tree), whole on every rank, or DTensors sharded on their leading
+    dim over ``axis``; each rank runs the stage at its coordinate."""
+    from torch.distributed.tensor import DTensor
+
+    n_stages = mesh.size(mesh.mesh_dim_names.index(axis))
+    group = mesh.get_group(axis)
+
+    def stage_slice(a):
+        if isinstance(a, DTensor):
+            return a.to_local()[0]
+        return a[dist.get_rank(group)]
+
+    def fn(x, params):
+        stage_params = _tree.tree_map(stage_slice, params)
+        return pipeline_forward(x, stage_params, stage_fn, group=group,
+                                n_stages=n_stages, n_micro=n_micro)
+
+    return fn
 
 
 def gpipe_grid(n_stages: int, n_micro: int):

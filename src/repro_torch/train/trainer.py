@@ -32,6 +32,7 @@ from repro_torch import obs
 from repro_torch._device import resolve_device
 from repro_torch._tree import leaves_with_path, tree_map
 from repro_torch.checkpoint import CheckpointManager
+from repro_torch.parallel.sharding import full
 from repro_torch.train.monitor import HeartbeatMonitor, StragglerPolicy
 
 
@@ -245,7 +246,9 @@ class Trainer:
                 batch = self._batch(step)
                 self.params, self.opt_state, loss = self._step_fn(
                     self.params, self.opt_state, batch)
-                loss = float(loss)    # device sync: dt is true step time
+                # the whole loss (a sharded step's is a DTensor); a
+                # device sync: dt is true step time
+                loss = float(full(loss))
             dt = time.monotonic() - t0
             m.histogram("train.step_wall_s").observe(dt)
             if first_step:
